@@ -1,0 +1,253 @@
+"""The torch package's CLI (``python -m tinydiffusionmodels_torch.shakespeare``)
+on the CPU (``TDM_PLATFORM=cpu``), on checkpoints the JAX package wrote.
+
+Also proves the port imports nothing of jax, which the GPU machine lacks: a
+subprocess with ``sys.modules["jax"] = None`` imports every module of the
+package and runs the CLI.
+"""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+from tinydiffusionmodels_tpu.data.tokenizer import CharTokenizer  # noqa: E402
+from tinydiffusionmodels_tpu.io import save_checkpoint  # noqa: E402
+from tinydiffusionmodels_tpu.models import (  # noqa: E402
+    init_learned_embedding,
+    init_learned_rounding,
+    init_tiny_transformer,
+)
+from tinydiffusionmodels_tpu.models.transformer import (  # noqa: E402
+    TransformerConfig as JaxConfig,
+)
+import tinydiffusionmodels_torch  # noqa: E402
+from tinydiffusionmodels_torch import shakespeare as port_cli  # noqa: E402
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+CORPUS = "To be, or not to be, that is the question.\n" * 4
+
+
+@pytest.fixture()
+def workdir(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("TDM_PLATFORM", "cpu")
+    monkeypatch.delenv("AIP_MODEL_DIR", raising=False)
+    (tmp_path / "data").mkdir()
+    (tmp_path / "data" / "tiny_shakespeare.txt").write_text(CORPUS)
+    return tmp_path
+
+
+def _write_jax_checkpoint(path, *, dim=32, pos_emb="none", self_cond=False,
+                          **meta):
+    """A checkpoint in train/text_train._checkpoint_dict's layout, written
+    by the JAX package's save_checkpoint."""
+    from tinydiffusionmodels_tpu.train import text_train
+
+    tok = CharTokenizer(CORPUS)
+    cfg = JaxConfig(dim=dim, n_heads=4, depth=2, ffn_dim=64,
+                    pos_emb=pos_emb, self_cond=self_cond)
+    joint = {
+        "diffusion_model": init_tiny_transformer(jax.random.PRNGKey(0), cfg),
+        "rounding_fn": init_learned_rounding(jax.random.PRNGKey(1), dim,
+                                             tok.vocab_size),
+        "embedding_fn": init_learned_embedding(jax.random.PRNGKey(2),
+                                               tok.vocab_size, dim),
+    }
+    save_checkpoint(
+        text_train._checkpoint_dict(
+            joint, epoch=1, use_learned_embeddings=True,
+            tokenizer_state=tok.state(), self_cond=self_cond,
+            pos_emb=pos_emb, **meta,
+        ),
+        str(path),
+    )
+
+
+SAMPLE = ["--sample", "--model_id", "char", "--data_root", "data",
+          "--n", "2", "--seq_len", "8"]
+
+
+@pytest.mark.parametrize("sampler", [
+    ["--sampler", "ddim", "--steps", "4"],
+    ["--sampler", "dpm++", "--steps", "3", "--clamp"],
+])
+def test_samples_jax_checkpoint(workdir, sampler):
+    _write_jax_checkpoint(workdir / "ckpt.pth")
+    z = port_cli.main([*SAMPLE, "--ckpt", "ckpt.pth", *sampler])
+    assert tuple(z.shape) == (2, 8, 32)
+    assert torch.isfinite(z).all()
+    for i in range(2):
+        assert (workdir / "samples" / f"sample_{i}.txt").exists()
+
+
+def test_checkpoint_self_configuration(workdir, capsys):
+    _write_jax_checkpoint(
+        workdir / "ckpt.pth", dim=48, pos_emb="rope", self_cond=True,
+        parameterization="x0", embed_norm="zscore", noise_schedule="sqrt",
+    )
+    z = port_cli.main([*SAMPLE, "--ckpt", "ckpt.pth", "--sampler", "ddim",
+                       "--steps", "3"])
+    out = capsys.readouterr().out
+    assert "[ckpt] embed_dim=48 (from checkpoint)" in out
+    assert "[ckpt] pos_emb=rope (from checkpoint)" in out
+    assert "[ckpt] self_cond=True (from checkpoint)" in out
+    assert "[ckpt] parameterization=x0 (from checkpoint)" in out
+    assert "[ckpt] noise_schedule=sqrt (from checkpoint)" in out
+    assert tuple(z.shape) == (2, 8, 48)
+
+
+def test_legacy_bare_checkpoint(workdir, capsys):
+    from tinydiffusionmodels_tpu.io.checkpoint import transformer_to_state_dict
+
+    cfg = JaxConfig(dim=32, n_heads=4, depth=3, ffn_dim=64)
+    save_checkpoint(
+        transformer_to_state_dict(
+            init_tiny_transformer(jax.random.PRNGKey(0), cfg)),
+        "legacy.pth",
+    )
+    port_cli.main([*SAMPLE, "--ckpt", "legacy.pth", "--embed_dim", "32",
+                   "--sampler", "ddim", "--steps", "3"])
+    assert "old checkpoint format" in capsys.readouterr().out.lower()
+    assert (workdir / "samples" / "sample_1.txt").exists()
+
+
+def test_jax_cli_reads_port_checkpoint(workdir):
+    """A checkpoint the port writes (text_checkpoint_dict) samples through
+    the JAX CLI, and its weights come back unchanged."""
+    from tinydiffusionmodels_tpu import shakespeare as jax_cli
+    from tinydiffusionmodels_tpu.io import load_checkpoint
+    from tinydiffusionmodels_torch.io import text_checkpoint_dict
+    from tinydiffusionmodels_torch.models import (
+        LearnedEmbedding,
+        LearnedRounding,
+        TinyTransformer,
+        TransformerConfig,
+    )
+
+    tok = CharTokenizer(CORPUS)
+    gen = torch.Generator().manual_seed(0)
+    model = TinyTransformer(
+        TransformerConfig(dim=32, depth=2, ffn_dim=64, pos_emb="abs",
+                          max_len=16), generator=gen)
+    ckpt = text_checkpoint_dict(
+        model, LearnedRounding(32, tok.vocab_size, generator=gen),
+        LearnedEmbedding(tok.vocab_size, 32, generator=gen),
+        tokenizer_state=tok.state(),
+    )
+    assert ckpt["pos_emb"] == "abs"
+    save_checkpoint(ckpt, "port.pth")
+    back = load_checkpoint("port.pth")
+    for key, val in model.state_dict().items():
+        np.testing.assert_array_equal(back["diffusion_model"][key],
+                                      val.numpy())
+    jax_cli.main([*SAMPLE, "--ckpt", "port.pth", "--use_learned_embeddings",
+                  "--sampler", "ddim", "--steps", "2"])
+    assert (workdir / "samples" / "sample_0.txt").exists()
+
+
+def test_port_rope_checkpoint_round_trip(workdir, capsys):
+    """A rope, self-conditioned model saved by the port keeps its positions
+    through the checkpoint (rope has no weights, only the 'pos_emb' key):
+    the CLI's samples equal those of the model it saved."""
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.io import text_checkpoint_dict
+    from tinydiffusionmodels_torch.models import (
+        LearnedEmbedding,
+        LearnedRounding,
+        TinyTransformer,
+        TransformerConfig,
+    )
+    from tinydiffusionmodels_torch.sample.text import (
+        sample_diffusion_embeddings,
+    )
+
+    tok = CharTokenizer(CORPUS)
+    gen = torch.Generator().manual_seed(0)
+    model = TinyTransformer(
+        TransformerConfig(dim=32, depth=2, ffn_dim=64, pos_emb="rope",
+                          self_cond=True), generator=gen).eval()
+    with torch.no_grad():  # a nonzero projection, so self_cond counts
+        model.selfcond_proj.weight.normal_(0.0, 0.1, generator=gen)
+    save_checkpoint(
+        text_checkpoint_dict(
+            model, LearnedRounding(32, tok.vocab_size, generator=gen),
+            LearnedEmbedding(tok.vocab_size, 32, generator=gen),
+            tokenizer_state=tok.state(),
+        ),
+        "port.pth",
+    )
+    z = port_cli.main([*SAMPLE, "--ckpt", "port.pth", "--sampler", "ddim",
+                       "--steps", "3", "--seed", "3"])
+    out = capsys.readouterr().out
+    assert "[ckpt] pos_emb=rope (from checkpoint)" in out
+    assert "[ckpt] self_cond=True (from checkpoint)" in out
+    want = sample_diffusion_embeddings(
+        model, make_schedule(), n=2, seq_len=8, embed_dim=32, method="ddim",
+        num_steps=3, generator=torch.Generator().manual_seed(3),
+    )
+    torch.testing.assert_close(z, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("flag", ["--train", "--guided_sample"])
+def test_unported_modes_exit_nonzero(workdir, flag):
+    with pytest.raises(SystemExit, match="not yet ported to the torch package"):
+        port_cli.main([flag, "--ckpt", "ckpt.pth"])
+
+
+def test_no_cuda_without_cpu_opt_in_fails(workdir, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU, so cuda is a valid default")
+    monkeypatch.delenv("TDM_PLATFORM")
+    _write_jax_checkpoint(workdir / "ckpt.pth")
+    with pytest.raises(RuntimeError, match="TDM_PLATFORM=cpu"):
+        port_cli.main([*SAMPLE, "--ckpt", "ckpt.pth"])
+
+
+def test_port_never_imports_jax(workdir):
+    """Every module of the package imports, and the CLI samples, in a
+    process where ``import jax`` fails."""
+    _write_jax_checkpoint(workdir / "ckpt.pth")
+    modules = sorted(
+        m.name for m in pkgutil.walk_packages(
+            tinydiffusionmodels_torch.__path__, "tinydiffusionmodels_torch.")
+    )
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from tinydiffusionmodels_torch.shakespeare import main\n"
+        f"z = main({[*SAMPLE, '--ckpt', 'ckpt.pth', '--sampler', 'ddim', '--steps', '2']!r})\n"
+        "assert tuple(z.shape) == (2, 8, 32)\n"
+        "loaded = [m for m, v in sys.modules.items()\n"
+        "          if v is not None and (m == 'jax' or m.startswith(('jax.', 'jaxlib')))]\n"
+        "assert not loaded, loaded\n"
+        "print('NO_JAX_OK')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "TDM_PLATFORM": "cpu",
+           "PYTHONPATH": str(REPO), "HOME": str(workdir)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=workdir,
+                          capture_output=True, text=True, timeout=180,
+                          env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NO_JAX_OK" in proc.stdout
+    assert (workdir / "samples" / "sample_0.txt").exists()
+
+
+def test_sources_name_no_jax():
+    pkg = REPO / "tinydiffusionmodels_torch"
+    for path in pkg.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            stripped = line.strip()
+            assert not stripped.startswith(("import jax", "from jax")), (
+                f"{path}: {line}"
+            )

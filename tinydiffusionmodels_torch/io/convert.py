@@ -1,0 +1,143 @@
+"""Weight bridge between the JAX package and the port (counterpart of the
+text maps in ``io/checkpoint.py``, which imports jax and so is not imported).
+
+- ``*_state_from_jax``: the JAX package's parameter trees (leaves as numpy
+  arrays, or anything ``np.asarray`` takes) -> the port's state dicts, with
+  the same transposes as ``io/checkpoint.py`` (linear weights (in, out) ->
+  (out, in); fused qkv (d, 3d) -> (3d, d)).
+- ``text_checkpoint_dict``: the dict layout ``train/text_train.py`` writes,
+  built from the port's modules, so the JAX CLI reads what the port saves.
+- ``state_from_checkpoint`` / ``config_from_state_dict``: a loaded
+  checkpoint's numpy state dict -> tensors, and the model shape it implies.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Any
+
+import numpy as np
+import torch
+
+from tinydiffusionmodels_torch.models.transformer import (
+    TinyTransformer,
+    TransformerConfig,
+)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _lin(p: dict, name: str, sd: dict) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(p["w"]).T)
+    sd[f"{name}.bias"] = _t(p["b"])
+
+
+def transformer_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX TinyTransformer params -> TinyTransformer state dict."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _lin(params["time_emb"], "time_emb", sd)
+    if "pos_emb" in params:
+        sd["pos_emb.weight"] = _t(params["pos_emb"])
+    if "selfcond_proj" in params:
+        _lin(params["selfcond_proj"], "selfcond_proj", sd)
+    for i, layer in enumerate(params["layers"]):
+        pre = f"encoder.layers.{i}"
+        attn = layer["self_attn"]
+        sd[f"{pre}.self_attn.in_proj_weight"] = _t(np.asarray(attn["in_proj"]["w"]).T)
+        sd[f"{pre}.self_attn.in_proj_bias"] = _t(attn["in_proj"]["b"])
+        _lin(attn["out_proj"], f"{pre}.self_attn.out_proj", sd)
+        _lin(layer["linear1"], f"{pre}.linear1", sd)
+        _lin(layer["linear2"], f"{pre}.linear2", sd)
+        for norm in ("norm1", "norm2"):
+            sd[f"{pre}.{norm}.weight"] = _t(layer[norm]["scale"])
+            sd[f"{pre}.{norm}.bias"] = _t(layer[norm]["bias"])
+    return sd
+
+
+def rounding_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX rounding params {'decoder': {'w', 'b'}} -> LearnedRounding."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _lin(params["decoder"], "decoder", sd)
+    return sd
+
+
+def embedding_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX embedding params {'weight'} -> LearnedEmbedding."""
+    return OrderedDict([("embeddings.weight", _t(params["weight"]))])
+
+
+def state_from_checkpoint(sd: dict) -> "OrderedDict[str, torch.Tensor]":
+    """A loaded checkpoint's state dict (numpy leaves) -> float32 tensors."""
+    return OrderedDict((k, _t(v)) for k, v in sd.items())
+
+
+def config_from_state_dict(
+    sd: dict, cfg: TransformerConfig
+) -> TransformerConfig:
+    """``cfg`` with every field the state dict determines taken from it:
+    width, depth, FFN width, self-conditioning and the absolute-position
+    table (present or not, and its length). The JAX package reads the same
+    facts off the loaded parameters; rope has no weights, so it stays as
+    ``cfg`` (and the checkpoint's 'pos_emb' key) says."""
+    depth = 0
+    while f"encoder.layers.{depth}.self_attn.in_proj_weight" in sd:
+        depth += 1
+    if depth == 0:
+        raise ValueError("no encoder layers found in state_dict")
+    if "pos_emb.weight" in sd:
+        pos_emb, max_len = "abs", int(np.shape(sd["pos_emb.weight"])[0])
+    else:
+        pos_emb = "none" if cfg.pos_kind == "abs" else cfg.pos_kind
+        max_len = cfg.max_len
+    return dataclasses.replace(
+        cfg,
+        dim=int(np.shape(sd["time_emb.weight"])[0]),
+        depth=depth,
+        ffn_dim=int(np.shape(sd["encoder.layers.0.linear1.weight"])[0]),
+        self_cond="selfcond_proj.weight" in sd,
+        pos_emb=pos_emb,
+        max_len=max_len,
+    )
+
+
+def _numpy_state(module: torch.nn.Module) -> "OrderedDict[str, np.ndarray]":
+    return OrderedDict(
+        (k, v.detach().to("cpu", torch.float32).numpy())
+        for k, v in module.state_dict().items()
+    )
+
+
+def text_checkpoint_dict(
+    diffusion_model: TinyTransformer,
+    rounding: torch.nn.Module,
+    embedding: torch.nn.Module | None = None,
+    *,
+    epoch: int = 0,
+    tokenizer_state: dict | None = None,
+    parameterization: str = "eps",
+    noise_schedule: str = "linear",
+    embed_norm: str = "none",
+) -> dict[str, Any]:
+    """The checkpoint dict of ``train/text_train._checkpoint_dict``, with
+    numpy leaves for ``save_checkpoint``. Positions and self-conditioning
+    are the model's own (``diffusion_model.cfg``): rope has no weights, so
+    the 'pos_emb' key is its only record."""
+    cfg = diffusion_model.cfg
+    ckpt: dict[str, Any] = {
+        "diffusion_model": _numpy_state(diffusion_model),
+        "rounding_fn": _numpy_state(rounding),
+        "epoch": epoch,
+        "parameterization": parameterization,
+        "self_cond": cfg.self_cond,
+        "noise_schedule": noise_schedule,
+        "embed_norm": embed_norm,
+        "pos_emb": cfg.pos_kind,
+    }
+    if embedding is not None:
+        ckpt["embedding_fn"] = _numpy_state(embedding)
+    if tokenizer_state:
+        ckpt["tokenizer"] = tokenizer_state
+    return ckpt
