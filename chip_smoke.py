@@ -3,30 +3,51 @@
 
     python3 chip_smoke.py
 
-Runs from the root of a checkout, imports nothing of jax and only the
-``tinydiffusionmodels_torch`` package of the repo, and fails (exit code != 0,
+Runs from the root of a checkout, imports nothing of jax and nothing of the
+JAX package (only ``tinydiffusionmodels_torch``), and fails (exit code != 0,
 no result line) on any error; no phase catches its own failure.
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch,
    CUDA and nvcc versions. Fails when CUDA is not available.
-2. Build: compiles the CUDA kernels from ``tinydiffusionmodels_torch/csrc``.
-3. Kernel vs plain: the flash-attention kernel against its plain PyTorch
-   version on the card, TF32 off, on O and lse: f32 atol = rtol = 1e-4;
-   bf16 atol = rtol = 2e-2 on O and 1e-2 on lse. Times both at the text
-   sampler's shape with CUDA events.
-4. Main path: writes a full-width random checkpoint (dim 256, 4 heads,
-   depth 3, FFN 2048, learned embeddings and rounding, char vocabulary of
-   the built-in corpus) and runs
-   ``tinydiffusionmodels_torch.shakespeare.main(["--sample", ...])``: 1000
-   ancestral steps, n 8, seq 64. Asserts the kernel ran 1000 x 3 times,
-   the embeddings are finite and 8 sample files were written. Then runs
-   the sampler RATE_RUNS more times and prints steps/s as all their steps
-   over all their time, with every run's time.
-5. Device vs CPU: one denoiser forward at full width on the card (kernel)
-   and on the CPU (plain version), same weights and inputs, within 1e-3.
-6. Profile: ``torch.profiler`` over a short window of the same sampler;
-   device time and kernels per step, the device's busy share, and the
-   kernels by device time.
+2. Build: compiles every CUDA source in ``tinydiffusionmodels_torch/csrc``
+   (one nvcc per source, all started together) and prints ptxas' registers
+   and spills of every kernel instance.
+3. Forward kernel vs plain: the flash-attention forward against its plain
+   PyTorch version, TF32 off, on O and lse: f32 atol = rtol = 1e-4; bf16
+   atol = rtol = 2e-2 on O and 1e-2 on lse.
+4. Training kernels vs plain: the forward with attention-weight dropout and
+   the recompute backward (dq; dk and dv; with an lse cotangent) against
+   autograd of the plain version, same seed, same tolerances on O and lse.
+   Gradients: f32 atol = rtol = 2e-4, bf16 2e-2. The gradients are looser
+   than O because ds = p (dp - D) subtracts two sums of Dv products that
+   nearly cancel, so their rounding (summed in another order by the kernel
+   than by cuBLAS) is amplified; in bf16, D is formed from the bf16-rounded
+   O. Then v = I and dO = I probes read the mask the forward and the dkv
+   kernel realise, and hold it against ``reference.dropout_scale``.
+5. Main path, training: ``shakespeare.main(["--train", ...])`` at the JAX
+   bench's headline width (dim 256, 4 heads, depth 3, FFN 2048, dropout
+   0.1, batch 8, seq 64, f32, eps, learned embeddings and rounding, AdamW
+   with cosine warmup), one epoch of the built-in corpus cut to
+   TRAIN_CHARS characters. Asserts forward launches = (training + validation
+   batches) x depth, dq and dkv launches = training steps x depth, finite
+   losses, a lower mean loss over the last 50 steps than over the first 50,
+   and the checkpoints written. Prints training steps/s.
+6. Main path, sampling: ``shakespeare.main(["--sample", ...])`` from the
+   trained checkpoint: 1000 ancestral steps, n 8, seq 64. Asserts 3000
+   forward launches and no backward launch, finite embeddings and 8 sample
+   files. Then RATE_RUNS more sampler runs give steps/s.
+7. Device vs CPU: one full-width denoiser forward on the card (kernel) and
+   on the CPU (plain version), same weights and inputs, within 1e-3.
+8. Timing at the training shape (B 8, L 64, H 4, Dh 64, f32, the model's
+   strided views of one QKV projection): CUDA-event device times of the
+   forward with dropout, the dq kernel and the dkv kernel, each beside its
+   plain version and a PyTorch yardstick the port never calls
+   (``scaled_dot_product_attention`` forward, and forward plus backward, at
+   dropout 0), and beside its bound (bytes over 3.35 TB/s or FLOPs over
+   67 TFLOP/s FP32, the larger).
+9. Profiles: ``torch.profiler`` over a window of the sampler and over
+   PROFILE_TRAIN_STEPS training steps: device time and kernels per step, the
+   device's busy share, the kernels by device time.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -46,8 +67,29 @@ WORK = REPO / "build" / "chip_smoke"
 
 DIM, HEADS, DEPTH, FFN = 256, 4, 3, 2048
 N, SEQ, STEPS = 8, 64, 1000
-RATE_RUNS = 3       # timed 1000-step sampler runs after the CLI's
-PROFILE_STEPS = 100  # the profiled window
+BATCH, DROPOUT = 8, 0.1
+TRAIN_CHARS = 160_000   # ~280 training steps and ~30 validation batches
+RATE_RUNS = 3           # timed 1000-step sampler runs after the CLI's
+PROFILE_STEPS = 100     # the profiled sampler window
+PROFILE_TRAIN_STEPS = 20
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, FP32 FLOP/s
+# outside the tensor cores (the kernels run plain FP32 FMA).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+_CSRC = "tinydiffusionmodels_torch/csrc/"
+_PALLAS = "tinydiffusionmodels_tpu/ops/pallas_kernels.py"
+# name: (source of the kernel body, the TPU kernel it replaces)
+KERNELS = {
+    "flash_attention_fwd": (_CSRC + "flash_attention_fwd.cu",
+                            _PALLAS + ":295"),
+    "flash_attention_bwd_dq": (_CSRC + "flash_attention_bwd.cuh",
+                               _PALLAS + ":431"),
+    "flash_attention_bwd_dkv": (_CSRC + "flash_attention_bwd.cuh",
+                                _PALLAS + ":484"),
+}
+DROPOUT_HASH = (_CSRC + "dropout_hash.cuh", _PALLAS + ":266")
 
 
 def phase(name: str) -> None:
@@ -92,8 +134,8 @@ def build():
     print(f"built {fa.library_path().name} in {time.perf_counter() - t0:.2f}"
           f" s (nvcc {fa.build_seconds:.2f} s)")
     for line in fa.build_log.splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill",
-                                   "error")):
+        if any(w in line for w in ("---", "entry function", "registers",
+                                   "spill", "error")):
             print("  " + line.strip())
 
 
@@ -128,13 +170,17 @@ def _device_ms(fn, iters=200):
     return start.elapsed_time(end) / iters
 
 
+def _max_err(a, b) -> float:
+    return float((a.detach().float() - b.detach().float()).abs().max())
+
+
 def kernel_vs_plain():
     import torch
 
     from tinydiffusionmodels_torch.ops import flash_attention as fa
     from tinydiffusionmodels_torch.ops import reference
 
-    phase("kernel vs plain (TF32 off)")
+    phase("forward kernel vs plain (TF32 off)")
     f32, bf16 = torch.float32, torch.bfloat16
     # name: (B, H, Lq, Lk, Dh, Dv, dtype, causal, layout, k_offset)
     cases = {
@@ -166,91 +212,275 @@ def kernel_vs_plain():
         tol_l = 1e-2 if dtype == bf16 else 1e-4
         torch.testing.assert_close(out, ref_out, atol=tol_o, rtol=tol_o)
         torch.testing.assert_close(lse, ref_lse, atol=tol_l, rtol=tol_l)
-        err_o = float((out.float() - ref_out.float()).abs().max())
-        err_l = float((lse - ref_lse).abs().max())
-        errors[name] = err_o
-        print(f"{name:20s} max|dO| {err_o:.3e} (tol {tol_o:g})  "
-              f"max|dlse| {err_l:.3e} (tol {tol_l:g})")
-
-    q, k, v = _qkv(8, 4, 64, 64, 64, 64, f32, "blhd", 99)
-    kernel = lambda: fa.flash_attention(q, k, v, layout="blhd")  # noqa: E731
-    plain = lambda: reference.attention(q, k, v, layout="blhd")  # noqa: E731
-    # In turns (plain, kernel, kernel, plain) within this one call.
-    plain_ms = [_device_ms(plain)]
-    kernel_ms = [_device_ms(kernel), _device_ms(kernel)]
-    plain_ms.append(_device_ms(plain))
-    ms, p_ms = sum(kernel_ms) / 2, sum(plain_ms) / 2
-    print(f"slice shape (8, 64, 4, 64) f32 blhd, device time per call: "
-          f"kernel {kernel_ms} ms, plain {plain_ms} ms")
-    return errors["slice_f32"], ms, p_ms
+        errors[name] = _max_err(out, ref_out)
+        print(f"{name:20s} max|dO| {errors[name]:.3e} (tol {tol_o:g})  "
+              f"max|dlse| {_max_err(lse, ref_lse):.3e} (tol {tol_l:g})")
+    return errors
 
 
-def _full_width_modules():
+def _seed(value: int):
     import torch
 
-    from tinydiffusionmodels_torch.data import CharTokenizer, load_text_corpus
-    from tinydiffusionmodels_torch.models import (
-        LearnedEmbedding,
-        LearnedRounding,
-        TinyTransformer,
-        TransformerConfig,
+    return torch.tensor([value], dtype=torch.int32, device="cuda")
+
+
+def training_kernels():
+    """Forward with dropout and both backward kernels against autograd of
+    the plain version; then the realised masks against dropout_scale.
+    Returns the largest O, dq and dk/dv errors of the f32 slice cases, and
+    the number of mask decisions that differ (0)."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import reference
+
+    phase("training kernels vs plain: forward with dropout, dq, dk, dv "
+          "(TF32 off)")
+    f32, bf16 = torch.float32, torch.bfloat16
+    # name: (B, H, Lq, Lk, Dh, Dv, dtype, causal, layout, k_offset, rate)
+    cases = {
+        "slice_f32_p0": (8, 4, 64, 64, 64, 64, f32, False, "blhd", 0, 0.0),
+        "slice_f32_p0.1": (8, 4, 64, 64, 64, 64, f32, False, "blhd", 0,
+                           DROPOUT),
+        "slice_bf16_p0": (8, 4, 64, 64, 64, 64, bf16, False, "blhd", 0, 0.0),
+        "slice_bf16_p0.1": (8, 4, 64, 64, 64, 64, bf16, False, "blhd", 0,
+                            DROPOUT),
+        "blhd_strided_p0.1": (8, 4, 64, 64, 64, 64, f32, False, "qkv", 0,
+                              DROPOUT),
+        "ragged_causal_L100": (8, 4, 100, 100, 64, 64, f32, True, "bhld", 0,
+                               DROPOUT),
+        "fully_masked_rows": (8, 4, 100, 100, 64, 64, f32, True, "bhld", 40,
+                              DROPOUT),
+        "dh32_dv64": (8, 4, 64, 64, 32, 64, f32, False, "bhld", 0, DROPOUT),
+        "dh128_L200": (2, 4, 200, 200, 128, 128, f32, False, "bhld", 0,
+                       DROPOUT),
+    }
+    seed = _seed(-1_234_567_890)  # negative: the same 32 bits as uint32
+    worst = {"out": 0.0, "dq": 0.0, "dkv": 0.0}
+    for i, (name, (b, h, lq, lk, dh, dv, dtype, causal, layout, k_off,
+                   rate)) in enumerate(cases.items()):
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        if layout == "qkv":
+            # The model's operands: views of one (B, L, 3, H, Dh) tensor,
+            # whose gradient the three views' gradients fill.
+            qkv = torch.randn(b, lq, 3, h, dh, generator=g, device="cuda")
+            leaves = (qkv.to(dtype).requires_grad_(),)
+            views = lambda t: (t[:, :, 0], t[:, :, 1], t[:, :, 2])  # noqa: E731
+            layout = "blhd"
+        else:
+            leaves = tuple(x.requires_grad_() for x in _qkv(
+                b, h, lq, lk, dh, dv, dtype, layout, 100 + i))
+            views = lambda q, k, v: (q, k, v)  # noqa: E731
+        dv_dim = views(*leaves)[2].shape[-1]
+        out_shape = (b, h, lq, dv_dim) if layout == "bhld" else (
+            b, lq, h, dv_dim)
+        g_out = torch.randn(out_shape, generator=g, device="cuda").to(dtype)
+        g_lse = torch.randn(b, h, lq, generator=g, device="cuda")
+        kw = dict(causal=causal, layout=layout, k_offset=k_off,
+                  dropout_rate=rate, dropout_seed=seed if rate else None)
+        results = []
+        for fn in (fa.flash_attention_with_lse, reference.attention):
+            out, lse = fn(*views(*leaves), **kw)
+            grads = torch.autograd.grad((out, lse), leaves, (g_out, g_lse))
+            results.append((out, lse, grads))
+        torch.cuda.synchronize()
+        (out, lse, grads), (r_out, r_lse, r_grads) = results
+        bf = dtype == bf16
+        tol_o, tol_l, tol_g = (2e-2, 1e-2, 2e-2) if bf else (1e-4, 1e-4, 2e-4)
+        torch.testing.assert_close(out, r_out, atol=tol_o, rtol=tol_o)
+        torch.testing.assert_close(lse, r_lse, atol=tol_l, rtol=tol_l)
+        if len(leaves) == 1:
+            grads, r_grads = grads[0].unbind(2), r_grads[0].unbind(2)
+        for x, r in zip(grads, r_grads):
+            torch.testing.assert_close(x, r, atol=tol_g, rtol=tol_g)
+        errs = [_max_err(x, r) for x, r in zip(grads, r_grads)]
+        e_out = _max_err(out, r_out)
+        print(f"{name:20s} max|dO| {e_out:.3e} max|dlse| "
+              f"{_max_err(lse, r_lse):.3e} (tol {tol_o:g}/{tol_l:g})  "
+              f"max|ddq| {errs[0]:.3e} max|ddk| {errs[1]:.3e} "
+              f"max|ddv| {errs[2]:.3e} (tol {tol_g:g})")
+        if name.startswith("slice_f32"):
+            worst["out"] = max(worst["out"], e_out)
+            worst["dq"] = max(worst["dq"], errs[0])
+            worst["dkv"] = max(worst["dkv"], errs[1], errs[2])
+    mismatches = _mask_probes(seed)
+    return worst, mismatches
+
+
+def _mask_probes(seed) -> int:
+    """The realised dropout masks of the forward (v = I: O = mask * P) and
+    of the dkv kernel (dO = I: dV^T = mask * P), against dropout_scale.
+    Returns the number of weights whose keep/drop differs (asserted 0)."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import reference
+
+    b, h, l = 2, 4, 64
+    g = torch.Generator(device="cuda").manual_seed(7)
+    # Small scores keep every P near 1/64, far from 0, so the ratio is exact
+    # to rounding.
+    q = 0.3 * torch.randn(b, h, l, 64, generator=g, device="cuda")
+    k = 0.3 * torch.randn(b, h, l, 64, generator=g, device="cuda")
+    eye = torch.eye(l, device="cuda").expand(b, h, l, l).contiguous()
+    p = torch.softmax(q @ k.transpose(-1, -2) / 8.0, dim=-1)
+    keep_scale = 1.0 / (1.0 - DROPOUT)
+    want = reference.dropout_scale(
+        seed, torch.arange(b * h, device="cuda").reshape(b, h, 1, 1),
+        torch.arange(l, device="cuda")[:, None],
+        torch.arange(l, device="cuda")[None, :], DROPOUT) > 0
+
+    fwd = fa.flash_attention(q, k, eye, dropout_rate=DROPOUT,
+                             dropout_seed=seed) / p
+    v = eye.clone().requires_grad_()
+    out = fa.flash_attention(q, k, v, dropout_rate=DROPOUT, dropout_seed=seed)
+    (dv,) = torch.autograd.grad(out, v, eye)
+    bwd = dv.transpose(-1, -2) / p
+    bad = 0
+    for what, ratio in (("forward", fwd), ("dkv", bwd)):
+        got = ratio > keep_scale / 2
+        torch.testing.assert_close(ratio, got * keep_scale, atol=1e-4,
+                                   rtol=1e-4)
+        n_bad = int((got != want).sum())
+        bad += n_bad
+        print(f"mask probe ({what}): {n_bad} of {want.numel()} keep/drop "
+              f"decisions differ from dropout_scale; kept share "
+              f"{float(got.float().mean()):.4f} (expect {1 - DROPOUT})")
+    if bad:
+        raise AssertionError(f"{bad} dropout decisions differ")
+    return bad
+
+
+def _reset_counts():
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+
+
+def _counts() -> dict:
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+
+    return {"flash_attention_fwd": fa.launches,
+            "flash_attention_bwd_dq": fa.dq_launches,
+            "flash_attention_bwd_dkv": fa.dkv_launches}
+
+
+def _prepare_workdir():
+    WORK.mkdir(parents=True, exist_ok=True)
+    os.chdir(WORK)
+    os.environ["TDM_PLATFORM"] = "cuda"
+    os.environ["TDM_DATA_LIMIT"] = str(TRAIN_CHARS)
+    os.environ["TDM_PROGRESS_EVERY"] = "100"
+    for var in ("AIP_MODEL_DIR", "TDM_METRICS_PATH"):
+        os.environ.pop(var, None)
+
+
+def main_path_train(card: str):
+    import numpy as np
+    import torch
+
+    from tinydiffusionmodels_torch import shakespeare
+    from tinydiffusionmodels_torch.data import (
+        CharTokenizer,
+        load_text_corpus,
+        num_batches,
+        tokenize_corpus,
     )
 
+    phase("main path: shakespeare --train (full width, one epoch)")
+    _prepare_workdir()
+    ckpt = WORK / "train_ckpt.pth"
+    best = WORK / "train_ckpt_best.pth"
+    for old in (ckpt, best):
+        old.unlink(missing_ok=True)
+    # The work the run must do, counted independently of the trainer.
     corpus, source = load_text_corpus(WORK / "data")
-    tok = CharTokenizer(corpus)
-    print(f"corpus: {source}, {len(corpus)} chars, vocab {tok.vocab_size}")
-    gen = torch.Generator().manual_seed(0)
-    cfg = TransformerConfig(dim=DIM, n_heads=HEADS, depth=DEPTH, ffn_dim=FFN,
-                            max_len=max(512, SEQ))
-    model = TinyTransformer(cfg, generator=gen).eval()
-    rounding = LearnedRounding(DIM, tok.vocab_size, generator=gen).eval()
-    embedding = LearnedEmbedding(tok.vocab_size, DIM, generator=gen)
-    return tok, model, rounding, embedding
+    corpus = corpus[:TRAIN_CHARS]
+    train_chunks, val_chunks = tokenize_corpus(corpus, CharTokenizer(corpus),
+                                               SEQ, 0.1)
+    steps = num_batches(len(train_chunks), BATCH)
+    val_batches = num_batches(len(val_chunks), BATCH)
+    print(f"corpus: {source}, {len(corpus)} chars -> {steps} training steps "
+          f"and {val_batches} validation batches of {BATCH}")
+
+    argv = ["--train", "--ckpt", str(ckpt), "--epochs", "1",
+            "--batch_size", str(BATCH), "--seq_len", str(SEQ),
+            "--embed_dim", str(DIM), "--depth", str(DEPTH),
+            "--dropout", str(DROPOUT), "--model_id", "char",
+            "--use_learned_embeddings", "--data_root", str(WORK / "data")]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = shakespeare.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = _counts()
+
+    expect = {"flash_attention_fwd": (steps + val_batches) * DEPTH,
+              "flash_attention_bwd_dq": steps * DEPTH,
+              "flash_attention_bwd_dkv": steps * DEPTH}
+    if counts != expect:
+        raise AssertionError(f"launches {counts} on the training path, "
+                             f"expected {expect}")
+    losses = result.step_losses
+    if losses.shape != (steps, 3) or result.steps != steps:
+        raise AssertionError(f"{losses.shape} step losses, {result.steps} "
+                             f"steps; expected {steps}")
+    record = result.epochs[0]
+    val = [record[k] for k in ("val_diff", "val_round", "val_total")]
+    if not (np.isfinite(losses).all() and np.isfinite(val).all()):
+        raise AssertionError("a training or validation loss is not finite")
+    first, last = losses[:50, 2].mean(), losses[-50:, 2].mean()
+    if not last < first:
+        raise AssertionError(f"mean loss of the last 50 steps {last} is not "
+                             f"below that of the first 50 ({first})")
+    for path in (ckpt, best):
+        if not path.is_file():
+            raise AssertionError(f"{path.name} was not written")
+    rate = result.steps / result.seconds
+    print(f"training path: launches {counts}; losses finite; mean total "
+          f"loss first 50 steps {first}, last 50 {last}; val total "
+          f"{val[2]}; {ckpt.name} and {best.name} written; CLI call "
+          f"{cli_s:.3f} s (includes corpus, model setup, validation and "
+          f"checkpoints)")
+    print(f"training: {rate} steps/s ({result.steps} steps over "
+          f"{result.seconds} s of step loop), bs={BATCH} seq={SEQ} dim={DIM} "
+          f"depth={DEPTH} dropout={DROPOUT} f32, on {card}")
+    return result, ckpt, counts, rate
 
 
-def main_path(card: str):
+def main_path_sample(card: str, ckpt: Path, model):
     import torch
 
     from tinydiffusionmodels_torch import shakespeare
     from tinydiffusionmodels_torch.core import make_schedule
-    from tinydiffusionmodels_torch.io import save_checkpoint, text_checkpoint_dict
-    from tinydiffusionmodels_torch.ops import flash_attention as fa
     from tinydiffusionmodels_torch.sample.text import (
         sample_diffusion_embeddings,
     )
 
-    phase("main path: shakespeare --sample (1000 ancestral steps)")
-    WORK.mkdir(parents=True, exist_ok=True)
-    os.chdir(WORK)
-    os.environ["TDM_PLATFORM"] = "cuda"
-    os.environ.pop("AIP_MODEL_DIR", None)
+    phase("main path: shakespeare --sample from the trained checkpoint "
+          "(1000 ancestral steps)")
+    _prepare_workdir()
     for old in (WORK / "samples").glob("sample_*.txt"):
         old.unlink()
-    tok, model, rounding, embedding = _full_width_modules()
-    ckpt = WORK / "smoke_ckpt.pth"
-    save_checkpoint(
-        text_checkpoint_dict(model, rounding, embedding,
-                             tokenizer_state=tok.state()),
-        str(ckpt),
-    )
-
     # --model_id char: the checkpoint carries its own char tokenizer, and the
     # default Hugging Face id would only make the CLI probe for a local cache.
     argv = ["--sample", "--ckpt", str(ckpt), "--n", str(N),
             "--seq_len", str(SEQ), "--model_id", "char",
             "--data_root", str(WORK / "data")]
     torch.cuda.synchronize()
-    fa.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     z = shakespeare.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = fa.launches
+    counts = _counts()
 
-    expect = STEPS * DEPTH
-    if launches != expect:
-        raise AssertionError(f"flash kernel launched {launches} times on the "
-                             f"main path, expected {expect}")
+    expect = {"flash_attention_fwd": STEPS * DEPTH,
+              "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+    if counts != expect:
+        raise AssertionError(f"launches {counts} on the sampling path, "
+                             f"expected {expect}")
     if tuple(z.shape) != (N, SEQ, DIM) or z.device.type != "cuda":
         raise AssertionError(f"embeddings {tuple(z.shape)} on {z.device}")
     if not bool(torch.isfinite(z).all()):
@@ -258,12 +488,11 @@ def main_path(card: str):
     written = sorted((WORK / "samples").glob("sample_*.txt"))
     if len(written) != N:
         raise AssertionError(f"{len(written)} sample files, expected {N}")
-    print(f"main path: {launches} kernel launches, embeddings finite, "
-          f"{len(written)} samples, CLI call {cli_s:.3f} s "
-          f"(includes corpus, checkpoint load and model setup)")
+    print(f"sampling path: launches {counts}, embeddings finite, "
+          f"{len(written)} samples, CLI call {cli_s:.3f} s (includes corpus, "
+          f"checkpoint load and model setup)")
 
     # Steady-state sampler rate: the same loop again, model already built.
-    model = model.to("cuda")
     sched = make_schedule(device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     times = []
@@ -278,55 +507,7 @@ def main_path(card: str):
     print(f"sampler: {rate} steps/s ({STEPS * len(times)} steps over "
           f"{sum(times)} s; runs of {STEPS} steps took {times} s), "
           f"n={N} seq={SEQ} dim={DIM} depth={DEPTH}, on {card}")
-    return launches, model, sum(times) / (STEPS * len(times))
-
-
-def profile_sampler(model, wall_s_per_step: float, card: str) -> None:
-    """torch.profiler over a PROFILE_STEPS-step window of the same ancestral
-    loop (a PROFILE_STEPS-step schedule: the per-step work is the same):
-    device time and kernels per step, the device's busy share of the
-    unprofiled step, and the kernels by device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from tinydiffusionmodels_torch.core import make_schedule
-    from tinydiffusionmodels_torch.sample.text import (
-        sample_diffusion_embeddings,
-    )
-
-    phase(f"profile: {PROFILE_STEPS} ancestral steps under torch.profiler")
-    sched = make_schedule(PROFILE_STEPS, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    sample_diffusion_embeddings(model, sched, n=N, seq_len=SEQ, embed_dim=DIM,
-                                generator=gen)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sample_diffusion_embeddings(model, sched, n=N, seq_len=SEQ,
-                                    embed_dim=DIM, generator=gen)
-        torch.cuda.synchronize()
-        profiled_s = time.perf_counter() - t0
-    kernels = sorted(
-        (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-        key=lambda e: e.self_device_time_total, reverse=True,
-    )
-    device_us = sum(e.self_device_time_total for e in kernels)
-    if device_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    per_step_us = device_us / PROFILE_STEPS
-    print(f"on {card}: profiled wall {profiled_s / PROFILE_STEPS * 1e6} us "
-          f"per step; unprofiled wall {wall_s_per_step * 1e6} us per step "
-          f"(sampler runs above); device {per_step_us} us per step; "
-          f"{sum(e.count for e in kernels) / PROFILE_STEPS} kernels per step; "
-          f"device busy {per_step_us / (wall_s_per_step * 1e6)} of the "
-          f"unprofiled step")
-    print("device us/step  share  calls/step  kernel")
-    for e in kernels[:12]:
-        print(f"{e.self_device_time_total / PROFILE_STEPS:14.3f}  "
-              f"{e.self_device_time_total / device_us:5.3f}  "
-              f"{e.count / PROFILE_STEPS:10.2f}  {e.key[:90]}")
+    return counts, sum(times) / (STEPS * len(times))
 
 
 def device_vs_cpu(model_gpu):
@@ -348,28 +529,237 @@ def device_vs_cpu(model_gpu):
         raise AssertionError(f"device and CPU forwards differ by {err}")
 
 
+def _bound(nbytes: int, flops: int) -> tuple[float, str]:
+    """(least time in ms, what bounds it) for work that moves ``nbytes`` and
+    does ``flops`` FP32 operations on one H100."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_timing(card: str) -> dict:
+    """CUDA-event device times at the training shape, on the model's
+    operands (strided views of one QKV projection), in turns within this
+    call: plain, kernel, kernel, plain. Returns per kernel ms, plain_ms,
+    library_ms, bound_ms and bound_by."""
+    import torch
+    import torch.nn.functional as F
+
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import reference
+
+    phase("timing at the training shape (B 8, L 64, H 4, Dh 64, f32, blhd "
+          "views of one QKV projection)")
+    b, l, h, d = BATCH, SEQ, HEADS, DIM // HEADS
+    g = torch.Generator(device="cuda").manual_seed(11)
+    qkv = torch.randn(b, l, 3, h, d, generator=g, device="cuda")
+    q, k, v = (qkv[:, :, i].requires_grad_() for i in range(3))
+    g_out = torch.randn(b, l, h, d, generator=g, device="cuda")
+    seed = _seed(12345)
+    kw = dict(layout="blhd", dropout_rate=DROPOUT, dropout_seed=seed)
+    params = dict(causal=False, layout="blhd", q_offset=0, k_offset=0,
+                  dropout_rate=DROPOUT, dropout_seed=seed)
+
+    with torch.no_grad():
+        out, lse = fa.forward(q, k, v, **params)
+        delta = fa.backward_delta(out, g_out, None, "blhd")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    plain_out = reference.attention(q, k, v, **kw)[0]
+
+    def plain_dq():
+        torch.autograd.grad(plain_out, q, g_out, retain_graph=True)
+
+    def plain_dkv():
+        torch.autograd.grad(plain_out, (k, v), g_out, retain_graph=True)
+
+    # The yardstick: PyTorch's fused attention on the same (bhld-strided)
+    # views, at dropout 0 (its dropout draws another stream).
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    g_t = g_out.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt)
+        torch.autograd.grad(o, (qt, kt, vt), g_t)
+
+    def plain_fwd():
+        with torch.no_grad():
+            reference.attention(q, k, v, **kw)
+
+    # name: (kernel, plain version, library yardstick); the SDPA forward
+    # runs with grad enabled, so it also keeps its logsumexp, as the kernel
+    # does.
+    runs = {
+        "flash_attention_fwd": (
+            lambda: fa.forward(q, k, v, **params), plain_fwd,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+        "flash_attention_bwd_dq": (
+            lambda: fa.backward_dq(q, k, v, g_out, lse, delta, dq, **params),
+            plain_dq, sdpa_fwd_bwd),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.backward_dkv(q, k, v, g_out, lse, delta, dk, dv,
+                                    **params),
+            plain_dkv, sdpa_fwd_bwd),
+    }
+
+    f32 = 4
+    n_qkv = b * l * h * d          # elements of each of q, k, v, O, dO
+    n_row = b * h * l              # lse and D
+    pairs = b * h * l * l          # (query, key) pairs
+    work = {  # (bytes read once and written once, FP32 FLOPs of the matmuls)
+        "flash_attention_fwd": ((4 * n_qkv + n_row) * f32 + 4,
+                                2 * pairs * (d + d)),
+        "flash_attention_bwd_dq": ((5 * n_qkv + 2 * n_row) * f32 + 4,
+                                   2 * pairs * (d + d + d)),
+        "flash_attention_bwd_dkv": ((6 * n_qkv + 2 * n_row) * f32 + 4,
+                                    2 * pairs * (d + d + d + d)),
+    }
+    timings = {}
+    for name, (kernel, plain, library) in runs.items():
+        p_ms = [_device_ms(plain)]
+        k_ms = [_device_ms(kernel), _device_ms(kernel)]
+        p_ms.append(_device_ms(plain))
+        lib_ms = _device_ms(library)
+        bound_ms, bound_by = _bound(*work[name])
+        timings[name] = dict(ms=sum(k_ms) / 2, plain_ms=sum(p_ms) / 2,
+                             library_ms=lib_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+        lib_name = ("SDPA forward" if library is not sdpa_fwd_bwd
+                    else "SDPA forward+backward")
+        print(f"{name}: kernel {k_ms} ms, plain {p_ms} ms, library "
+              f"({lib_name}, dropout 0) {lib_ms} ms; bound {bound_ms} ms by "
+              f"{bound_by} ({work[name][0]} B, {work[name][1]} FLOP); on "
+              f"{card}")
+    return timings
+
+
+def _profile_table(prof, steps: int, wall_s_per_step: float, card: str,
+                   what: str) -> None:
+    from torch.autograd import DeviceType
+
+    # Device-side spans of host annotations (Optimizer.step#...) are not
+    # kernels: they cover the host's launch time and would double count.
+    kernels = sorted(
+        (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)),
+        key=lambda e: e.self_device_time_total, reverse=True,
+    )
+    device_us = sum(e.self_device_time_total for e in kernels)
+    if device_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    per_step_us = device_us / steps
+    print(f"{what} on {card}: unprofiled wall {wall_s_per_step * 1e6} us per "
+          f"step; device {per_step_us} us per step; "
+          f"{sum(e.count for e in kernels) / steps} kernels per step; "
+          f"device busy {per_step_us / (wall_s_per_step * 1e6)} of the "
+          f"unprofiled step")
+    print("device us/step  share  calls/step  kernel")
+    for e in kernels[:14]:
+        print(f"{e.self_device_time_total / steps:14.3f}  "
+              f"{e.self_device_time_total / device_us:5.3f}  "
+              f"{e.count / steps:10.2f}  {e.key[:90]}")
+
+
+def profile_sampler(model, wall_s_per_step: float, card: str) -> None:
+    """torch.profiler over a PROFILE_STEPS-step window of the same ancestral
+    loop (a PROFILE_STEPS-step schedule: the per-step work is the same)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.sample.text import (
+        sample_diffusion_embeddings,
+    )
+
+    phase(f"profile: {PROFILE_STEPS} ancestral steps under torch.profiler")
+    sched = make_schedule(PROFILE_STEPS, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sample_diffusion_embeddings(model, sched, n=N, seq_len=SEQ, embed_dim=DIM,
+                                generator=gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sample_diffusion_embeddings(model, sched, n=N, seq_len=SEQ,
+                                    embed_dim=DIM, generator=gen)
+        torch.cuda.synchronize()
+    _profile_table(prof, PROFILE_STEPS, wall_s_per_step, card, "sampler")
+
+
+def profile_training(joint, card: str) -> None:
+    """torch.profiler over PROFILE_TRAIN_STEPS optimizer steps of the
+    training path's own step function, after an unprofiled window of the
+    same length that gives the wall time per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.train import text_train
+    from tinydiffusionmodels_torch.train.optim import adamw
+
+    phase(f"profile: {PROFILE_TRAIN_STEPS} training steps under "
+          "torch.profiler")
+    optimizer = adamw(joint.parameters(), 1e-4, weight_decay=1e-4)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    vocab = joint["embedding_fn"].embeddings.weight.shape[0]
+    tokens = torch.randint(0, vocab, (BATCH, SEQ), generator=gen,
+                           device="cuda")
+    kw = dict(sched=make_schedule(device="cuda"), use_learned_embeddings=True,
+              pretrained_matrix=None)
+
+    def steps(n):
+        for _ in range(n):
+            text_train.train_step(joint, optimizer, tokens, 1.0, gen, **kw)
+        torch.cuda.synchronize()
+
+    steps(5)
+    t0 = time.perf_counter()
+    steps(PROFILE_TRAIN_STEPS)
+    wall = (time.perf_counter() - t0) / PROFILE_TRAIN_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps(PROFILE_TRAIN_STEPS)
+    _profile_table(prof, PROFILE_TRAIN_STEPS, wall, card, "training")
+
+
 def main() -> None:
     card = environment()
     build()
-    err, ms, plain_ms = kernel_vs_plain()
-    launches, model, wall_s_per_step = main_path(card)
+    fwd_errors = kernel_vs_plain()
+    train_errors, mask_mismatches = training_kernels()
+    result, ckpt, train_counts, _ = main_path_train(card)
+    model = result.joint["diffusion_model"].eval()
+    sample_counts, wall_s_per_step = main_path_sample(card, ckpt, model)
     device_vs_cpu(model)
+    timings = kernel_timing(card)
     profile_sampler(model, wall_s_per_step, card)
+    profile_training(result.joint, card)
     import torch
 
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("jax was imported")
+    imported = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib",
+                                             "tinydiffusionmodels_tpu"))
+    if imported:
+        raise AssertionError(f"the port imported {imported[:5]}")
+    errors = {"flash_attention_fwd": max(fwd_errors["slice_f32"],
+                                         train_errors["out"]),
+              "flash_attention_bwd_dq": train_errors["dq"],
+              "flash_attention_bwd_dkv": train_errors["dkv"]}
+    record = []
+    for name, (source, replaces) in KERNELS.items():
+        record.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": train_counts[name] + sample_counts[name],
+            "max_abs_err": errors[name],
+            **timings[name],
+            "dropout_hash": {"source": DROPOUT_HASH[0],
+                             "replaces": DROPOUT_HASH[1],
+                             "mask_mismatches": mask_mismatches},
+        })
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "tinydiffusionmodels_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "tinydiffusionmodels_tpu/ops/pallas_kernels.py:295",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

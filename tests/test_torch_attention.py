@@ -116,11 +116,14 @@ def test_no_fallback_for_other_devices():
         fa.flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize("kwargs, match", [
-    (dict(dropout_rate=0.1), "training port"),
-    (dict(seq_axis="seq"), "not yet ported"),
+@pytest.mark.parametrize("kwargs, error, match", [
+    # Training-port dropout needs the seed its mask is hashed from.
+    pytest.param(dict(dropout_rate=0.1), ValueError, "requires dropout_seed",
+                 id="kwargs0-training port"),
+    pytest.param(dict(seq_axis="seq"), NotImplementedError, "not yet ported",
+                 id="kwargs1-not yet ported"),
 ])
-def test_ops_attention_rejects_unported(kwargs, match):
+def test_ops_attention_rejects_unported(kwargs, error, match):
     q = torch.zeros(1, 1, 4, 32)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         ops.attention(q, q, q, **kwargs)

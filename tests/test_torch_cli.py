@@ -197,10 +197,56 @@ def test_port_rope_checkpoint_round_trip(workdir, capsys):
     torch.testing.assert_close(z, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("flag", ["--train", "--guided_sample"])
-def test_unported_modes_exit_nonzero(workdir, flag):
+@pytest.mark.parametrize("argv", [
+    # --train itself is ported; its resume state (optax's pytree) is not.
+    pytest.param(["--train", "--resume"], id="--train"),
+    pytest.param(["--guided_sample"], id="--guided_sample"),
+    pytest.param(["--train", "--dtype", "bf16"], id="--dtype bf16"),
+    pytest.param(["--train", "--seq_parallel"], id="--seq_parallel"),
+    pytest.param(["--sample", "--profile_dir", "prof"], id="--profile_dir"),
+])
+def test_unported_modes_exit_nonzero(workdir, argv):
     with pytest.raises(SystemExit, match="not yet ported to the torch package"):
-        port_cli.main([flag, "--ckpt", "ckpt.pth"])
+        port_cli.main([*argv, "--ckpt", "ckpt.pth"])
+
+
+def test_train_writes_checkpoints_both_clis_sample(workdir, monkeypatch):
+    """``--train`` on the built-in corpus cut by TDM_DATA_LIMIT writes the
+    best and final checkpoints and the metrics JSONL; the port's and the
+    JAX package's ``--sample`` both read the final checkpoint."""
+    import json
+
+    from tinydiffusionmodels_tpu import shakespeare as jax_cli
+    from tinydiffusionmodels_tpu.io import load_checkpoint
+
+    monkeypatch.setenv("TDM_DATA_LIMIT", "4000")
+    (workdir / "empty").mkdir()
+    common = ["--model_id", "char", "--data_root", "empty", "--seq_len", "16",
+              "--ckpt", "t.pth"]
+    result = port_cli.main([
+        "--train", *common, "--epochs", "1", "--batch_size", "4",
+        "--embed_dim", "32", "--depth", "1", "--warmup_steps", "5",
+        "--metrics_path", "m.jsonl",
+    ])
+    # 4000 chars -> 250 chunks of 16 -> 225 training (56 steps of 4) and 25
+    # validation chunks.
+    assert result.steps == 56 and result.step_losses.shape == (56, 3)
+    assert np.isfinite(result.step_losses).all()
+    for path in ("t.pth", "t_best.pth"):
+        ckpt = load_checkpoint(path)
+        assert set(ckpt) >= {"diffusion_model", "rounding_fn", "embedding_fn",
+                             "tokenizer", "epoch", "parameterization"}
+    assert load_checkpoint("t.pth")["final_training"] is True
+    record = json.loads((workdir / "m.jsonl").read_text().splitlines()[0])
+    assert record["steps"] == 56 and np.isfinite(record["val_total"])
+
+    sample = ["--sample", *common, "--n", "2", "--sampler", "ddim",
+              "--steps", "3"]
+    z = port_cli.main(sample)
+    assert tuple(z.shape) == (2, 16, 32) and torch.isfinite(z).all()
+    (workdir / "samples" / "sample_0.txt").unlink()
+    jax_cli.main(sample)
+    assert (workdir / "samples" / "sample_0.txt").exists()
 
 
 def test_no_cuda_without_cpu_opt_in_fails(workdir, monkeypatch):

@@ -1,4 +1,4 @@
-"""The CUDA flash-attention kernel and its wrapper, on an NVIDIA GPU.
+"""The CUDA flash-attention kernels and their wrapper, on an NVIDIA GPU.
 
 Every test here needs a card and ``nvcc``, carries the ``cuda`` marker and
 skips on a machine without a GPU. The file imports nothing of jax, so it runs
@@ -7,7 +7,9 @@ there:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances are ``chip_smoke.py``'s: f32 ``atol = rtol = 1e-4`` on O and lse.
+Tolerances are ``chip_smoke.py``'s: f32 ``atol = rtol = 1e-4`` on O and lse,
+``2e-4`` on the gradients (the cancellation in ds = p (dp - D) amplifies the
+rounding of the two sums, which the kernel and cuBLAS add in other orders).
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from tinydiffusionmodels_torch.ops import reference
 pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 @pytest.fixture()
@@ -83,3 +86,80 @@ def test_wrapper_rejects_before_launch(cuda, make, match):
     with pytest.raises((TypeError, ValueError), match=match):
         fa.flash_attention(q, k, v)
     assert fa.launches == before
+
+
+def _seed(device, value=-123456789):
+    return torch.tensor([value], dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_backward_matches_plain_autograd(cuda, name, rate):
+    """dq, dk and dv of the kernels (with an lse cotangent) against autograd
+    of the plain version, the same dropout seed on both."""
+    b, h, lq, lk, dh, dv, causal, q_off, k_off = CASES[name]
+    inputs = tuple(x.requires_grad_() for x in _qkv(b, h, lq, lk, dh, dv, cuda))
+    rng = np.random.default_rng(1)
+    g_out = torch.from_numpy(
+        rng.standard_normal((b, h, lq, dv), dtype=np.float32)).to(cuda)
+    g_lse = torch.from_numpy(
+        rng.standard_normal((b, h, lq), dtype=np.float32)).to(cuda)
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off,
+              dropout_rate=rate, dropout_seed=_seed(cuda) if rate else None)
+    grads = []
+    for fn in (fa.flash_attention_with_lse, reference.attention):
+        out, lse = fn(*inputs, **kw)
+        grads.append(torch.autograd.grad((out, lse), inputs, (g_out, g_lse)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, **GRAD_TOL)
+
+
+def test_bf16_backward_matches_plain_autograd(cuda):
+    """bf16 operands: the kernels accumulate in f32 and round dq, dk, dv to
+    bf16; D comes from the bf16-rounded O. Tolerance 2e-2."""
+    inputs = tuple(x.requires_grad_() for x in _qkv(
+        2, 4, 64, 64, 64, 64, cuda, torch.bfloat16))
+    g_out = torch.randn(2, 4, 64, 64, device=cuda).to(torch.bfloat16)
+    grads = []
+    for fn in (fa.flash_attention, lambda *a, **k: reference.attention(
+            *a, **k)[0]):
+        out = fn(*inputs, dropout_rate=0.1, dropout_seed=_seed(cuda))
+        grads.append(torch.autograd.grad(out, inputs, g_out))
+    for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+def test_backward_launches_each_kernel_once(cuda):
+    q, k, v = (x.requires_grad_() for x in _qkv(1, 2, 40, 40, 32, 32, cuda))
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    out = fa.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=_seed(cuda))
+    out.sum().backward()
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        n + 1 for n in before)
+    assert q.grad.shape == q.shape and v.grad.shape == v.shape
+
+
+def test_strided_views_get_gradients(cuda):
+    """The model's operands: (B, L, H, Dh) views of one fused QKV tensor;
+    their gradients fill that tensor's gradient as the plain version's do."""
+    rng = np.random.default_rng(2)
+    base = torch.from_numpy(
+        rng.standard_normal((2, 48, 3, 4, 64), dtype=np.float32)).to(cuda)
+    g_out = torch.from_numpy(
+        rng.standard_normal((2, 48, 4, 64), dtype=np.float32)).to(cuda)
+    grads = []
+    for fn in (fa.flash_attention, lambda *a, **k: reference.attention(
+            *a, **k)[0]):
+        qkv = base.clone().requires_grad_()
+        out = fn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], layout="blhd",
+                 dropout_rate=0.1, dropout_seed=_seed(cuda))
+        (grad,) = torch.autograd.grad(out, qkv, g_out)
+        grads.append(grad)
+    torch.testing.assert_close(grads[0], grads[1], **GRAD_TOL)
+
+
+def test_dropout_seed_must_be_a_device_int32(cuda):
+    q, k, v = _qkv(1, 1, 8, 8, 32, 32, cuda)
+    with pytest.raises(ValueError, match="one-element int32 tensor"):
+        fa.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=3)

@@ -9,7 +9,14 @@
 // whose last tile is ragged get the same lse. Key slots past Lk in the last
 // tile get probability 0 after the exp, so a row with no visible key
 // averages V over Lk as the plain version does (the TPU kernel pads them and
-// divides by the padded length there). Dropout is not in this kernel.
+// divides by the padded length there).
+//
+// Attention-weight dropout (training) follows torch and the TPU kernel: the
+// weights are dropped after the softmax, so the normalizer l and the lse sum
+// the undropped weights and only the P*V accumulation sees the mask. The mask
+// is the coordinate hash of dropout_hash.cuh (seed, batch*head, global q,
+// global k), which the backward kernels regenerate; the seed is read from a
+// device int32, so a launch needs no host value of it.
 //
 // Design. One CTA of 256 threads per (batch*head, 64-row query tile); four
 // threads share one query row. The CTA walks the keys and values in 64-row
@@ -36,13 +43,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dropout_hash.cuh"
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kLanesPerRow = 4;
-constexpr int kThreads = kBlockQ * kLanesPerRow;
-constexpr unsigned kFullMask = 0xffffffffu;
+using flash::kBlockK;
+using flash::kBlockQ;
+using flash::kFullMask;
+using flash::kLanesPerRow;
+using flash::kThreads;
+using flash::load_f32;
+using flash::store_f32;
 
 struct Params {
   const void* q;
@@ -59,16 +71,12 @@ struct Params {
   int q_off, k_off;
   int causal;
   float scale;
+  // Dropout: off when seed is null; else keep where hash >= drop_thresh and
+  // scale kept weights by drop_scale.
+  const int* seed;
+  uint32_t drop_thresh;
+  float drop_scale;
 };
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int DH, int DV>
 constexpr size_t smem_bytes() {
@@ -111,6 +119,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   }
 
   const int q_pos = p.q_off + q0 + row;
+  const bool dropout = p.seed != nullptr;
+  const uint32_t drop_row =
+      dropout ? dropout_row_base(uint32_t(*p.seed), uint32_t(bh), q_pos) : 0u;
   float m = -FLT_MAX;
   float l = 0.f;
   float acc[kOut];
@@ -168,6 +179,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
     row_sum += __shfl_xor_sync(kFullMask, row_sum, 1);
     row_sum += __shfl_xor_sync(kFullMask, row_sum, 2);
     l = correction * l + row_sum;
+    if (dropout) {  // after l: only P*V sees the mask
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        s[j] *= dropout_factor(drop_row, p.k_off + k0 + j * kLanesPerRow + sub,
+                               p.drop_thresh, p.drop_scale);
+      }
+    }
 
     // acc = correction * acc + P V. Lane t of the row holds the
     // probabilities of keys j*4 + t; each thread owns output columns
@@ -233,9 +251,9 @@ cudaError_t launch_dh(const Params& p, int dh, int dv, dim3 grid,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// launch's cudaError_t (0 on success); the kernel runs on `stream` and
-// allocates nothing.
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. `seed` is a
+// device int32 (null: no dropout). Returns the launch's cudaError_t (0 on
+// success); the kernel runs on `stream` and allocates nothing.
 extern "C" int tdm_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int batch, int heads, int lq, int lk, int dh, int dv,
@@ -243,7 +261,8 @@ extern "C" int tdm_flash_attention_fwd(
     long long k_sb, long long k_sh, long long k_sl,
     long long v_sb, long long v_sh, long long v_sl,
     long long o_sb, long long o_sh, long long o_sl,
-    float scale, int causal, int q_off, int k_off, void* stream) {
+    float scale, int causal, int q_off, int k_off,
+    const void* seed, unsigned drop_thresh, float drop_scale, void* stream) {
   if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0) {
     return int(cudaErrorInvalidValue);
   }
@@ -264,6 +283,9 @@ extern "C" int tdm_flash_attention_fwd(
   p.k_off = k_off;
   p.causal = causal;
   p.scale = scale;
+  p.seed = static_cast<const int*>(seed);
+  p.drop_thresh = drop_thresh;
+  p.drop_scale = drop_scale;
   const dim3 grid(unsigned(batch) * unsigned(heads),
                   unsigned((lq + kBlockQ - 1) / kBlockQ));
   cudaStream_t s = static_cast<cudaStream_t>(stream);

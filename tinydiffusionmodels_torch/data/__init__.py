@@ -1,0 +1,34 @@
+"""Corpus, tokenizers and batching of the port.
+
+The port's own copies of the JAX package's jax-free data modules
+(``tinydiffusionmodels_tpu/data/{shakespeare,tokenizer,loader}.py``), with
+the same names, so that both packages read the same corpus, tokenize it the
+same way and batch it in the same order, while the port imports nothing of
+the JAX package.
+"""
+
+from tinydiffusionmodels_torch.data.loader import (
+    batch_iterator,
+    num_batches,
+    tokenize_corpus,
+)
+from tinydiffusionmodels_torch.data.shakespeare import load_text_corpus
+from tinydiffusionmodels_torch.data.tokenizer import (
+    BPETokenizer,
+    CharTokenizer,
+    HFTokenizerAdapter,
+    parse_bpe_spec,
+    tokenizer_from_state,
+)
+
+__all__ = [
+    "BPETokenizer",
+    "CharTokenizer",
+    "HFTokenizerAdapter",
+    "batch_iterator",
+    "load_text_corpus",
+    "num_batches",
+    "parse_bpe_spec",
+    "tokenize_corpus",
+    "tokenizer_from_state",
+]

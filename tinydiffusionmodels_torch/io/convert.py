@@ -120,11 +120,15 @@ def text_checkpoint_dict(
     parameterization: str = "eps",
     noise_schedule: str = "linear",
     embed_norm: str = "none",
+    anchor_ce: float = 0.0,
+    extra: dict[str, Any] | None = None,
 ) -> dict[str, Any]:
     """The checkpoint dict of ``train/text_train._checkpoint_dict``, with
     numpy leaves for ``save_checkpoint``. Positions and self-conditioning
     are the model's own (``diffusion_model.cfg``): rope has no weights, so
-    the 'pos_emb' key is its only record."""
+    the 'pos_emb' key is its only record. ``anchor_ce`` is recorded only
+    when nonzero, and ``extra`` keys ('val_loss', 'final_training') go on
+    top, as in the JAX package."""
     cfg = diffusion_model.cfg
     ckpt: dict[str, Any] = {
         "diffusion_model": _numpy_state(diffusion_model),
@@ -136,8 +140,12 @@ def text_checkpoint_dict(
         "embed_norm": embed_norm,
         "pos_emb": cfg.pos_kind,
     }
+    if anchor_ce:
+        ckpt["anchor_ce"] = anchor_ce
     if embedding is not None:
         ckpt["embedding_fn"] = _numpy_state(embedding)
     if tokenizer_state:
         ckpt["tokenizer"] = tokenizer_state
+    if extra:
+        ckpt.update(extra)
     return ckpt

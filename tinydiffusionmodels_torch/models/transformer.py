@@ -11,8 +11,11 @@ names are the reference state dict's (``encoder.layers.N.self_attn.
 in_proj_weight`` ...), so a checkpoint the JAX CLI wrote loads with
 ``load_state_dict(strict=True)``.
 
-Only the deterministic forward (sampling) is ported; dropout in training
-mode raises until the training port lands.
+Training mode (``deterministic=False``) applies dropout at the JAX
+package's sites: the input, the attention weights (inside the flash kernels,
+seeded per layer), and ``dropout1``, ``dropout_ffn`` and ``dropout2`` of
+every layer. Every mask and seed is drawn from the ``torch.Generator`` the
+caller passes, on the model's device, so a training step needs no host sync.
 """
 
 from __future__ import annotations
@@ -65,6 +68,18 @@ def _linear(in_dim: int, out_dim: int) -> nn.Linear:
     return nn.utils.skip_init(nn.Linear, in_dim, out_dim)
 
 
+def dropout(
+    x: torch.Tensor, rate: float, generator: torch.Generator | None
+) -> torch.Tensor:
+    """Inverted dropout with torch nn.Dropout semantics (JAX:
+    ``torch_init.dropout``), its mask drawn from ``generator``; no generator
+    (eval mode) or rate 0 returns ``x``."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)
+
+
 def _rope(x: torch.Tensor, base: float = 10000.0, *, l_axis: int = 2):
     """Rotary position embedding over axis ``l_axis`` (2 for (B, H, L, Dh),
     1 for (B, L, H, Dh)); same float32 formulas as the JAX package."""
@@ -96,7 +111,10 @@ class SelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d))
         self.out_proj = _linear(d, d)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        """``generator`` (training) seeds the attention-weight dropout."""
         cfg = self.cfg
         b, l, d = x.shape
         dh = d // cfg.n_heads
@@ -106,7 +124,15 @@ class SelfAttention(nn.Module):
         )
         if cfg.pos_kind == "rope":
             q, k = _rope(q, l_axis=1), _rope(k, l_axis=1)
-        out = ops.attention(q, k, v, layout="blhd", seq_axis=cfg.seq_axis)
+        rate, seed = 0.0, None
+        if generator is not None and cfg.dropout > 0.0:
+            # One int32 seed per call, drawn on the device: the kernels read
+            # it there, as the TPU kernel reads its SMEM scalar.
+            rate = cfg.dropout
+            seed = torch.randint(-2**31, 2**31, (1,), generator=generator,
+                                 device=x.device, dtype=torch.int32)
+        out = ops.attention(q, k, v, layout="blhd", dropout_rate=rate,
+                            dropout_seed=seed, seq_axis=cfg.seq_axis)
         return self.out_proj(out.reshape(b, l, d))
 
 
@@ -120,10 +146,20 @@ class EncoderLayer(nn.Module):
         self.linear2 = _linear(cfg.ffn_dim, cfg.dim)
         self.norm1 = nn.LayerNorm(cfg.dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(cfg.dim, eps=1e-5)
+        self.rate = cfg.dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x))
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        """``generator`` (training) draws the dropout masks: dropout1 on the
+        attention output, dropout_ffn after the ReLU, dropout2 after
+        linear2."""
+        g, rate = generator, self.rate
+        sa = dropout(self.self_attn(x, g), rate, g)
+        x = self.norm1(x + sa)
+        ff = dropout(F.relu(self.linear1(x)), rate, g)
+        ff = dropout(self.linear2(ff), rate, g)
+        return self.norm2(x + ff)
 
 
 class Encoder(nn.Module):
@@ -189,16 +225,17 @@ class TinyTransformer(nn.Module):
         *,
         x0_prev: torch.Tensor | None = None,
         deterministic: bool = True,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         """Additive time bias (and positions, and the self-conditioning
-        input), then the encoder stack. ``x0_prev`` is the previous clean
-        estimate when ``cfg.self_cond``; None means no estimate."""
+        input), input dropout, then the encoder stack. ``x0_prev`` is the
+        previous clean estimate when ``cfg.self_cond``; None means no
+        estimate. ``deterministic=False`` (training) needs ``generator``, on
+        the device of ``x``, for every dropout mask and seed."""
         cfg = self.cfg
-        if not deterministic and cfg.dropout > 0.0:
-            raise NotImplementedError(
-                "training-mode dropout lands with the training port; the "
-                "torch package samples (deterministic=True)"
-            )
+        if not deterministic and generator is None:
+            raise ValueError("training mode requires a torch.Generator")
+        g = None if deterministic else generator
         t_scaled = (t.to(x.dtype) / cfg.timesteps)[:, None]      # (B, 1)
         x = x + self.time_emb(t_scaled)[:, None, :]
         if self.pos_emb is not None:
@@ -216,6 +253,7 @@ class TinyTransformer(nn.Module):
                 x = x + self.selfcond_proj(x0_prev.to(x.dtype))
         elif x0_prev is not None:
             raise ValueError("x0_prev passed but cfg.self_cond is False")
+        x = dropout(x, cfg.dropout, g)
         for layer in self.encoder.layers:
-            x = layer(x)
+            x = layer(x, g)
         return x

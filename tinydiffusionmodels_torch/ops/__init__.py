@@ -1,9 +1,11 @@
 """Hot ops of the port (counterpart of ``ops/registry.py``).
 
 Dispatch is on the tensor's device alone, inside each kernel's wrapper: a
-CUDA tensor runs the hand-written kernel, a CPU tensor its plain PyTorch
-version. There is no environment knob and no size threshold; the JAX
-package's routing rules were TPU measurements and do not carry over.
+CUDA tensor runs the hand-written kernels (forward, and in training the
+recompute backward), a CPU tensor their plain PyTorch version. There is no
+environment knob and no size threshold; the JAX package's routing rules
+(score-footprint thresholds between XLA and flash) were TPU measurements
+and do not carry over.
 """
 
 from __future__ import annotations
@@ -19,23 +21,23 @@ def attention(
     causal: bool = False,
     layout: str = "bhld",
     dropout_rate: float = 0.0,
+    dropout_seed=None,
     seq_axis: str | None = None,
 ):
     """Attention over (B, H, L, Dh) or, with ``layout='blhd'``,
-    (B, L, H, Dh) tensors; returns the output in the same layout."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention-weight dropout lands with the training port (the "
-            "flash backward kernels and the dropout hash); sampling runs at "
-            "dropout 0"
-        )
+    (B, L, H, Dh) tensors; returns the output in the same layout.
+
+    ``dropout_rate`` > 0 (training) drops attention weights with the flash
+    kernels' coordinate-hash mask, seeded by ``dropout_seed`` (a one-element
+    int32 tensor on the operands' device)."""
     if seq_axis is not None:
         raise NotImplementedError(
             "sequence-parallel (ring) attention is not yet ported to the "
             "torch package"
         )
     return flash_attention.flash_attention(
-        q, k, v, causal=causal, layout=layout
+        q, k, v, causal=causal, layout=layout, dropout_rate=dropout_rate,
+        dropout_seed=dropout_seed,
     )
 
 

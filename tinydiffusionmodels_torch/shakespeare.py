@@ -1,42 +1,222 @@
-"""Shakespeare text-diffusion CLI on PyTorch (port of the ``--sample`` path
-of ``tinydiffusionmodels_tpu.shakespeare``).
+"""Shakespeare text-diffusion CLI on PyTorch (port of
+``tinydiffusionmodels_tpu.shakespeare``).
 
+    python -m tinydiffusionmodels_torch.shakespeare --train --ckpt X.pth
     python -m tinydiffusionmodels_torch.shakespeare --sample --ckpt X.pth
 
-The parser is the JAX CLI's own (``build_parser``), so every flag keeps its
-name and meaning. ``--sample`` reads a checkpoint the JAX CLI (or
-``io.convert.text_checkpoint_dict``) wrote and configures itself from it:
-parameterization, noise schedule, positions, embedding norm,
-self-conditioning, width, depth and tokenizer, plus the legacy bare-state-
-dict branch that decodes by cosine similarity. It runs on the GPU unless
-``TDM_PLATFORM=cpu``; attention runs through the CUDA flash kernel there.
-``--train`` and ``--guided_sample`` are not yet ported and exit non-zero.
+The parser is the port's own copy of the JAX CLI's (``build_parser``), so
+every flag keeps its name, default and meaning. ``--train`` trains the
+denoiser, rounding head and learned embeddings from modules initialized from
+``--seed`` (``train/text_train.py``) and writes best and final checkpoints
+in the JAX CLI's dict format; ``--train --sample`` then samples from the
+trained weights. ``--sample`` alone reads a checkpoint the JAX CLI or the
+port wrote and configures itself from it: parameterization, noise schedule,
+positions, embedding norm, self-conditioning, width, depth and tokenizer,
+plus the legacy bare-state-dict branch that decodes by cosine similarity.
+It runs on the GPU unless ``TDM_PLATFORM=cpu``; attention runs through the
+CUDA flash kernels there, forward and backward. ``--guided_sample``,
+``--seq_parallel``, ``--profile_dir``, ``--resume`` and ``--dtype bf16`` are
+not yet ported and exit non-zero.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 
 import numpy as np
 import torch
 
-from tinydiffusionmodels_tpu.shakespeare import _load_hf, build_parser
-
 _NOT_PORTED = "is not yet ported to the torch package; use python -m " \
     "tinydiffusionmodels_tpu.shakespeare"
 
 
-def main(argv=None) -> torch.Tensor | None:
-    """Run the CLI; returns the sampled (n, seq_len, dim) embeddings."""
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__)
+    # Reference surface (src/shakespeare.py:474-497).
+    parser.add_argument("--train", action="store_true")
+    parser.add_argument("--sample", action="store_true",
+                        help="plain diffusion sample")
+    parser.add_argument("--guided_sample", action="store_true",
+                        help="AR + diffusion guidance")
+    parser.add_argument("--epochs", type=int, default=1)
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--seq_len", type=int, default=64)
+    parser.add_argument(
+        "--ckpt", type=str,
+        default="gs://text-diffusion/diffusion/outputs/model/text-model.pth"
+        if "AIP_MODEL_DIR" in os.environ
+        else "text_ckpt.pth",
+    )
+    parser.add_argument("--model_id", type=str, default="google/gemma-2b-it")
+    parser.add_argument("--n", type=int, default=10)
+    parser.add_argument("--alpha", type=float, default=0.3)
+    parser.add_argument("--rounding_weight", type=float, default=1.0,
+                        help="Weight for learned rounding loss")
+    parser.add_argument("--use_cosine_fallback", action="store_true",
+                        help="Use cosine similarity instead of learned rounding")
+    parser.add_argument("--use_learned_embeddings", action="store_true",
+                        help="Use custom learned embedding space")
+    parser.add_argument("--embed_dim", type=int, default=None,
+                        help="Custom embedding dimension")
+    parser.add_argument("--init_from_pretrained", action="store_true",
+                        help="Initialize learned embeddings from pre-trained weights")
+    parser.add_argument("--dropout", type=float, default=0.1)
+    parser.add_argument("--weight_decay", type=float, default=1e-4)
+    parser.add_argument("--patience", type=int, default=5)
+    parser.add_argument("--use_lr_scheduling", action="store_true", default=True)
+    parser.add_argument("--warmup_steps", type=int, default=100)
+    parser.add_argument("--val_split", type=float, default=0.1)
+    parser.add_argument("--lr", type=float, default=1e-4)
+    # Framework extensions.
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--data_root", type=str, default="./data")
+    parser.add_argument("--sampler", type=str, default="ancestral",
+                        choices=["ancestral", "ddim", "dpm++"])
+    parser.add_argument("--steps", type=int, default=None,
+                        help="sampler steps (ddim)")
+    parser.add_argument("--base_lm", type=str, default="auto",
+                        choices=["auto", "hf", "tinygpt"],
+                        help="base LM for guided sampling")
+    parser.add_argument("--lm_epochs", type=int, default=3,
+                        help="TinyGPT base-LM training epochs (guided fallback)")
+    parser.add_argument("--lm_ckpt", type=str, default="lm_ckpt.pth")
+    parser.add_argument("--resume", action="store_true",
+                        help="checkpoint full train state each epoch and "
+                             "resume if present")
+    parser.add_argument("--resume_every", type=int, default=1,
+                        help="epochs between resume-state checkpoints")
+    parser.add_argument("--clamp", action="store_true",
+                        help="Diffusion-LM clamping trick: snap x0 to the "
+                             "nearest embedding at every reverse step")
+    parser.add_argument("--temperature", type=float, default=1.0,
+                        help="guided-sampling logit temperature (the "
+                             "reference hardcodes 1.0)")
+    parser.add_argument("--parameterization", choices=["eps", "x0"],
+                        default="eps",
+                        help="denoiser output: eps (reference) or x0 "
+                             "(original Diffusion-LM; samplers auto-detect "
+                             "from the checkpoint)")
+    parser.add_argument("--noise_schedule", choices=["linear", "cosine",
+                        "sqrt"], default="linear",
+                        help="beta schedule: linear (reference), cosine, or "
+                             "sqrt (Diffusion-LM's text schedule; sampling "
+                             "auto-detects from the checkpoint)")
+    parser.add_argument("--embed_norm",
+                        choices=["none", "rms", "zscore"],
+                        default="none",
+                        help="pin embedding rows to the unit-RMS noise "
+                             "sphere during training/decoding (fixes the "
+                             "Diffusion-LM embedding-scale collapse; "
+                             "sampling auto-detects from the checkpoint)")
+    parser.add_argument("--pos_emb", nargs="?", const="abs",
+                        default="none", choices=["none", "abs", "rope"],
+                        help="positional encoding in the denoiser (the "
+                             "reference transformer has none and is "
+                             "permutation-equivariant, "
+                             "src/shakespeare.py:105-120): 'abs' = learned "
+                             "absolute table (Diffusion-LM), 'rope' = "
+                             "rotary relative (parameter-free; language "
+                             "structure is translation-invariant); "
+                             "sampling auto-detects from the checkpoint)")
+    parser.add_argument("--freeze_embeddings", action="store_true",
+                        help="train around a FIXED embedding table "
+                             "(stop-gradient; Analog Bits/CDCD-style fixed "
+                             "encodings — with --embed_norm zscore the "
+                             "random init is near-orthogonal and immune to "
+                             "scale collapse)")
+    parser.add_argument("--self_cond", action="store_true",
+                        help="self-conditioning: feed the previous x0 "
+                             "estimate back into the denoiser (Analog Bits "
+                             "style; samplers auto-detect from the "
+                             "checkpoint)")
+    parser.add_argument("--clamp_train", action="store_true",
+                        help="clamp-aware training: add a straight-through "
+                             "loss term against the nearest-embedding "
+                             "clamped prediction the sampler uses "
+                             "(requires --parameterization x0)")
+    parser.add_argument("--anchor_ce", type=float, default=0.0,
+                        help="weight of Diffusion-LM's anchor term: the "
+                             "rounding head's CE on the PREDICTED x0, "
+                             "gradient flowing into the denoiser so its "
+                             "outputs are decodable (0 = off; designed "
+                             "for --parameterization x0)")
+    parser.add_argument("--depth", type=int, default=3,
+                        help="denoiser encoder layers (reference hardcodes "
+                             "3, src/shakespeare.py:106; sampling infers "
+                             "depth from the checkpoint)")
+    parser.add_argument("--ema_decay", type=float, default=None,
+                        help="EMA of the joint weights (e.g. 0.999); "
+                             "val/best/final checkpoints use the EMA "
+                             "(framework extension)")
+    parser.add_argument("--seq_parallel", nargs="?", const=-1, type=int,
+                        default=None, metavar="RING",
+                        help="sequence-parallel training: shard the token "
+                             "sequence and route attention through the ring "
+                             "(parallel/ring_attention). No value = ring "
+                             "over ALL devices; an integer RING builds a "
+                             "combined {'data': n/RING, 'seq': RING} mesh "
+                             "(batch sharded AND ring attention)")
+    parser.add_argument("--guidance_norm", action="store_true",
+                        help="mix log-probabilities instead of raw logits in "
+                             "guided sampling (framework extension; default "
+                             "is exact reference mixing — see "
+                             "sample.guided.mix_logits)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="capture a profiler trace to this directory "
+                             "(not yet ported to the torch package)")
+    parser.add_argument("--metrics_path", type=str, default=None,
+                        help="write per-epoch JSONL metrics here "
+                             "(or set TDM_METRICS_PATH)")
+    parser.add_argument("--dtype", type=str,
+                        default=os.environ.get("TDM_DTYPE", "f32"),
+                        choices=["f32", "bf16"],
+                        help="compute dtype for the train step "
+                             "(master params stay f32)")
+    return parser
+
+
+def _load_hf(model_id: str):
+    """Try to load the HF tokenizer + embedding matrix (+ torch LM).
+
+    Returns (tokenizer_adapter, pretrained_matrix, torch_lm) or
+    (None, None, None) when unavailable. The reference always loads the full
+    2B LM just for its embedding matrix (src/shakespeare.py:509-510); we do
+    the same only when HF is actually reachable.
+    """
+    try:
+        # Hermetic-first: only hit the network when explicitly allowed;
+        # otherwise restrict to the local HF cache (fails fast offline).
+        local_only = os.environ.get("TDM_ALLOW_DOWNLOADS") != "1"
+        from transformers import AutoModelForCausalLM, AutoTokenizer  # type: ignore
+
+        from tinydiffusionmodels_torch.data.tokenizer import HFTokenizerAdapter
+
+        tok = AutoTokenizer.from_pretrained(model_id, local_files_only=local_only)
+        lm = AutoModelForCausalLM.from_pretrained(
+            model_id, local_files_only=local_only
+        )
+        matrix = lm.get_input_embeddings().weight.detach().cpu().numpy()
+        return HFTokenizerAdapter(tok), matrix, lm
+    except Exception as e:  # pragma: no cover - network/path dependent
+        print(f"[hf] {model_id} unavailable ({type(e).__name__}); "
+              "falling back to char tokenizer / TinyGPT base LM")
+        return None, None, None
+
+
+def main(argv=None):
+    """Run the CLI. Returns the sampled (n, seq_len, dim) embeddings when
+    sampling, else the ``text_train.TrainResult`` of ``--train``."""
     args = build_parser().parse_args(argv)
     if not (args.train or args.sample or args.guided_sample):
         print("Nothing to do. Try --train or --guided_sample.")
         return None
-    for flag, given in (("--train", args.train),
-                        ("--guided_sample", args.guided_sample),
+    for flag, given in (("--guided_sample", args.guided_sample),
                         ("--seq_parallel", args.seq_parallel),
-                        ("--profile_dir", args.profile_dir)):
+                        ("--profile_dir", args.profile_dir),
+                        ("--resume", args.resume),
+                        ("--dtype bf16", args.dtype == "bf16")):
         if given:
             raise SystemExit(f"{flag} {_NOT_PORTED}")
 
@@ -47,6 +227,7 @@ def main(argv=None) -> torch.Tensor | None:
         CharTokenizer,
         load_text_corpus,
         parse_bpe_spec,
+        tokenize_corpus,
         tokenizer_from_state,
     )
     from tinydiffusionmodels_torch.io import (
@@ -66,7 +247,7 @@ def main(argv=None) -> torch.Tensor | None:
 
     dev = device()
     # Parameters are drawn on the CPU so a seed gives the same weights on
-    # every device; sampling noise is drawn on the device.
+    # every device; noise, masks and dropout seeds are drawn on the device.
     init_gen = torch.Generator().manual_seed(args.seed)
 
     # --- tokenizer / pretrained-matrix resolution -------------------------
@@ -88,6 +269,10 @@ def main(argv=None) -> torch.Tensor | None:
         print(f"[tok] trained corpus BPE (vocab={tokenizer.vocab_size})")
     else:
         tokenizer = CharTokenizer(corpus)
+    tokenizer_state = (
+        tokenizer.state()
+        if isinstance(tokenizer, (CharTokenizer, BPETokenizer)) else None
+    )
     vocab_size = tokenizer.vocab_size
 
     use_learned_embeddings = args.use_learned_embeddings
@@ -122,83 +307,132 @@ def main(argv=None) -> torch.Tensor | None:
         pos_emb=args.pos_emb, max_len=max(512, args.seq_len),
     )
 
-    # --- checkpoint loading -----------------------------------------------
+    # --- train ------------------------------------------------------------
+    result = None
     use_cosine_fallback = args.use_cosine_fallback
-    checkpoint = load_checkpoint(args.ckpt)
-    is_dict = isinstance(checkpoint, dict)
-    if is_dict and "parameterization" in checkpoint:
-        if checkpoint["parameterization"] != args.parameterization:
-            print(f"[ckpt] parameterization="
-                  f"{checkpoint['parameterization']} (from checkpoint)")
-        args.parameterization = checkpoint["parameterization"]
-    if is_dict and "noise_schedule" in checkpoint:
-        if checkpoint["noise_schedule"] != args.noise_schedule:
-            print(f"[ckpt] noise_schedule="
-                  f"{checkpoint['noise_schedule']} (from checkpoint)")
-            args.noise_schedule = checkpoint["noise_schedule"]
-    if is_dict and "pos_emb" in checkpoint:
-        if checkpoint["pos_emb"] != args.pos_emb:
-            print(f"[ckpt] pos_emb={checkpoint['pos_emb']} "
-                  "(from checkpoint)")
-        args.pos_emb = checkpoint["pos_emb"]
-        cfg = dataclasses.replace(cfg, pos_emb=args.pos_emb)
-    if is_dict and "embed_norm" in checkpoint:
-        if checkpoint["embed_norm"] != args.embed_norm:
-            print(f"[ckpt] embed_norm={checkpoint['embed_norm']} "
-                  "(from checkpoint)")
-        args.embed_norm = checkpoint["embed_norm"]
-    if is_dict:
-        ckpt_sc = bool(checkpoint.get("self_cond")) or (
-            isinstance(checkpoint.get("diffusion_model"), dict)
-            and "selfcond_proj.weight" in checkpoint["diffusion_model"]
-        )
-        if ckpt_sc != cfg.self_cond:
-            print(f"[ckpt] self_cond={ckpt_sc} (from checkpoint)")
-            cfg = dataclasses.replace(cfg, self_cond=ckpt_sc)
-    if is_dict and "rounding_fn" in checkpoint:
-        ckpt_dim = int(
-            np.asarray(checkpoint["rounding_fn"]["decoder.weight"]).shape[1]
-        )
-        if ckpt_dim != embed_dim:
-            print(f"[ckpt] embed_dim={ckpt_dim} (from checkpoint)")
-            embed_dim = ckpt_dim
-            cfg = dataclasses.replace(cfg, dim=ckpt_dim)
+    if args.train:
+        from tinydiffusionmodels_torch.train import text_train
 
-    if is_dict and "diffusion_model" in checkpoint:
-        diff_sd = checkpoint["diffusion_model"]
-        rounding_sd = checkpoint["rounding_fn"]
-        v_ckpt, d_ckpt = np.shape(rounding_sd["decoder.weight"])
-        rounding = LearnedRounding(int(d_ckpt), int(v_ckpt))
-        rounding.load_state_dict(state_from_checkpoint(rounding_sd))
-        if use_learned_embeddings and "embedding_fn" in checkpoint:
-            emb_sd = checkpoint["embedding_fn"]
-            embedding = LearnedEmbedding(
-                *np.shape(emb_sd["embeddings.weight"])
+        joint = torch.nn.ModuleDict({
+            "diffusion_model": TinyTransformer(cfg, generator=init_gen),
+            "rounding_fn": LearnedRounding(embed_dim, vocab_size,
+                                           generator=init_gen),
+        })
+        if use_learned_embeddings:
+            joint["embedding_fn"] = embedding
+        joint.to(dev)
+        train_chunks, val_chunks = tokenize_corpus(
+            corpus, tokenizer, args.seq_len, args.val_split
+        )
+        print(f"Training on {len(train_chunks)} chunks, "
+              f"validating on {len(val_chunks)} chunks")
+        result = text_train.train(
+            joint, train_chunks, val_chunks,
+            sched=make_schedule(kind=args.noise_schedule, device=dev),
+            ckpt_path=args.ckpt, epochs=args.epochs,
+            batch_size=args.batch_size, lr=args.lr,
+            weight_decay=args.weight_decay,
+            rounding_weight=args.rounding_weight,
+            use_learned_embeddings=use_learned_embeddings,
+            pretrained_matrix=pretrained_matrix,
+            patience=args.patience,
+            use_lr_scheduling=args.use_lr_scheduling,
+            warmup_steps=args.warmup_steps,
+            seed=args.seed,
+            tokenizer_state=tokenizer_state,
+            metrics_path=args.metrics_path,
+            ema_decay=args.ema_decay,
+            parameterization=args.parameterization,
+            clamp_train=args.clamp_train,
+            noise_schedule=args.noise_schedule,
+            embed_norm=args.embed_norm,
+            freeze_embeddings=args.freeze_embeddings,
+            anchor_ce=args.anchor_ce,
+        )
+        model = result.joint["diffusion_model"]
+        rounding = result.joint["rounding_fn"]
+        if use_learned_embeddings:
+            embedding = result.joint["embedding_fn"]
+    if not args.sample:
+        return result
+
+    # --- checkpoint loading (--sample without --train) ---------------------
+    if not args.train:
+        checkpoint = load_checkpoint(args.ckpt)
+        is_dict = isinstance(checkpoint, dict)
+        if is_dict and "parameterization" in checkpoint:
+            if checkpoint["parameterization"] != args.parameterization:
+                print(f"[ckpt] parameterization="
+                      f"{checkpoint['parameterization']} (from checkpoint)")
+            args.parameterization = checkpoint["parameterization"]
+        if is_dict and "noise_schedule" in checkpoint:
+            if checkpoint["noise_schedule"] != args.noise_schedule:
+                print(f"[ckpt] noise_schedule="
+                      f"{checkpoint['noise_schedule']} (from checkpoint)")
+                args.noise_schedule = checkpoint["noise_schedule"]
+        if is_dict and "pos_emb" in checkpoint:
+            if checkpoint["pos_emb"] != args.pos_emb:
+                print(f"[ckpt] pos_emb={checkpoint['pos_emb']} "
+                      "(from checkpoint)")
+            args.pos_emb = checkpoint["pos_emb"]
+            cfg = dataclasses.replace(cfg, pos_emb=args.pos_emb)
+        if is_dict and "embed_norm" in checkpoint:
+            if checkpoint["embed_norm"] != args.embed_norm:
+                print(f"[ckpt] embed_norm={checkpoint['embed_norm']} "
+                      "(from checkpoint)")
+            args.embed_norm = checkpoint["embed_norm"]
+        if is_dict:
+            ckpt_sc = bool(checkpoint.get("self_cond")) or (
+                isinstance(checkpoint.get("diffusion_model"), dict)
+                and "selfcond_proj.weight" in checkpoint["diffusion_model"]
             )
-            embedding.load_state_dict(state_from_checkpoint(emb_sd))
-        elif use_learned_embeddings:
-            print("Warning: Learned embeddings requested but not found in "
-                  "checkpoint. Using pre-trained fallback.")
-            use_learned_embeddings = False
-        if "tokenizer" in checkpoint and hf_tok is None:
-            tokenizer = tokenizer_from_state(checkpoint["tokenizer"])
-            if tokenizer.vocab_size != vocab_size:
-                print(f"[ckpt] vocab_size={tokenizer.vocab_size} "
-                      "(from checkpoint tokenizer)")
-                vocab_size = tokenizer.vocab_size
-    else:
-        # Old single-model checkpoint (reference src/shakespeare.py:556-562).
-        diff_sd = checkpoint
-        rounding = None
-        print("Warning: Using old checkpoint format. Falling back to "
-              "pre-trained embeddings and cosine similarity.")
-        use_cosine_fallback = True
-        use_learned_embeddings = False
+            if ckpt_sc != cfg.self_cond:
+                print(f"[ckpt] self_cond={ckpt_sc} (from checkpoint)")
+                cfg = dataclasses.replace(cfg, self_cond=ckpt_sc)
+        if is_dict and "rounding_fn" in checkpoint:
+            ckpt_dim = int(
+                np.asarray(checkpoint["rounding_fn"]["decoder.weight"]).shape[1]
+            )
+            if ckpt_dim != embed_dim:
+                print(f"[ckpt] embed_dim={ckpt_dim} (from checkpoint)")
+                embed_dim = ckpt_dim
+                cfg = dataclasses.replace(cfg, dim=ckpt_dim)
 
-    cfg = config_from_state_dict(diff_sd, cfg)
+        if is_dict and "diffusion_model" in checkpoint:
+            diff_sd = checkpoint["diffusion_model"]
+            rounding_sd = checkpoint["rounding_fn"]
+            v_ckpt, d_ckpt = np.shape(rounding_sd["decoder.weight"])
+            rounding = LearnedRounding(int(d_ckpt), int(v_ckpt))
+            rounding.load_state_dict(state_from_checkpoint(rounding_sd))
+            if use_learned_embeddings and "embedding_fn" in checkpoint:
+                emb_sd = checkpoint["embedding_fn"]
+                embedding = LearnedEmbedding(
+                    *np.shape(emb_sd["embeddings.weight"])
+                )
+                embedding.load_state_dict(state_from_checkpoint(emb_sd))
+            elif use_learned_embeddings:
+                print("Warning: Learned embeddings requested but not found in "
+                      "checkpoint. Using pre-trained fallback.")
+                use_learned_embeddings = False
+            if "tokenizer" in checkpoint and hf_tok is None:
+                tokenizer = tokenizer_from_state(checkpoint["tokenizer"])
+                if tokenizer.vocab_size != vocab_size:
+                    print(f"[ckpt] vocab_size={tokenizer.vocab_size} "
+                          "(from checkpoint tokenizer)")
+                    vocab_size = tokenizer.vocab_size
+        else:
+            # Old single-model checkpoint (reference src/shakespeare.py:556-562).
+            diff_sd = checkpoint
+            rounding = None
+            print("Warning: Using old checkpoint format. Falling back to "
+                  "pre-trained embeddings and cosine similarity.")
+            use_cosine_fallback = True
+            use_learned_embeddings = False
+
+        cfg = config_from_state_dict(diff_sd, cfg)
+        model = TinyTransformer(cfg)
+        model.load_state_dict(state_from_checkpoint(diff_sd), strict=True)
     embed_dim = cfg.dim
-    model = TinyTransformer(cfg)
-    model.load_state_dict(state_from_checkpoint(diff_sd), strict=True)
     model.to(dev).eval()
     if rounding is not None:
         rounding.to(dev).eval()
