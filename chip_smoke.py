@@ -36,16 +36,40 @@ no result line) on any error; no phase catches its own failure.
    trained checkpoint: 1000 ancestral steps, n 8, seq 64. Asserts 3000
    forward launches and no backward launch, finite embeddings and 8 sample
    files. Then RATE_RUNS more sampler runs give steps/s.
-7. Device vs CPU: one full-width denoiser forward on the card (kernel) and
+7. Guided-decode kernel vs plain: the persistent kernel
+   (``csrc/guided_decode.cu``) against its plain version on the same bf16
+   weights and N(0, 1) logits: B in {1, 8, 13, 256}, V in {97, 4096}, depth
+   2 and 4, raw and normalized mixing, temperature != 1. Every row's first
+   divergence from the plain tokens, and every position of the kernel's
+   decode scored by the plain version teacher-forced on the kernel's
+   tokens, must be a near-tie (DECODE_TIE_RTOL of the best score); each
+   case's mean first divergence must be past L/2.
+8. Main path, guided CLI: ``shakespeare.main(["--guided_sample",
+   "--base_lm", "tinygpt", ...])`` from the trained checkpoint, n 8, seq
+   64: trains TinyGPT (dim 256, depth 4) for LM_EPOCHS and writes
+   lm_ckpt.pth and 8 guided samples; asserts forward = 1000 x 3 (sampler)
+   + 64 x 4 (decode steps) + steps x 4, dq = dkv = steps x 4, no decode
+   launch. A second call reuses lm_ckpt.pth: no training launch.
+9. Main path, exact guided decode: ``guided_generate_verified(draft=
+   "fused")`` on that TinyGPT and the trained rounding head's logits of
+   phase 6's embeddings: one decode-kernel launch, forward = Jacobi rounds
+   x 4, the output equal to its own fixpoint, >= 95 % agreement with the
+   plain f32 scan.
+10. Device vs CPU: one full-width denoiser forward on the card (kernel) and
    on the CPU (plain version), same weights and inputs, within 1e-3.
-8. Timing at the training shape (B 8, L 64, H 4, Dh 64, f32, the model's
+11. Timing at the training shape (B 8, L 64, H 4, Dh 64, f32, the model's
    strided views of one QKV projection): CUDA-event device times of the
    forward with dropout, the dq kernel and the dkv kernel, each beside its
    plain version and a PyTorch yardstick the port never calls
    (``scaled_dot_product_attention`` forward, and forward plus backward, at
    dropout 0), and beside its bound (bytes over 3.35 TB/s or FLOPs over
    67 TFLOP/s FP32, the larger).
-9. Profiles: ``torch.profiler`` over a window of the sampler and over
+12. Timing of the guided decode at the bench shape (V 4096, D 256, depth 4,
+   L 64, alpha 0.3) at bs 8 and 256: the kernel's CUDA-event time beside its
+   plain version and its bound (no single PyTorch call computes it), the
+   cost of its grid barriers alone at its grid, and tokens/s of the exact
+   decode with the fused draft against the plain f32 scan.
+13. Profiles: ``torch.profiler`` over a window of the sampler and over
    PROFILE_TRAIN_STEPS training steps: device time and kernels per step, the
    device's busy share, the kernels by device time.
 
@@ -72,6 +96,16 @@ TRAIN_CHARS = 160_000   # ~280 training steps and ~30 validation batches
 RATE_RUNS = 3           # timed 1000-step sampler runs after the CLI's
 PROFILE_STEPS = 100     # the profiled sampler window
 PROFILE_TRAIN_STEPS = 20
+LM_DEPTH, LM_EPOCHS, LM_BATCH = 4, 1, 64   # the guided CLI's TinyGPT
+ALPHA = 0.3
+DECODE_BATCHES = (8, 256)
+# Near-tie tolerance of the decode kernel against its plain version: the
+# plain version's score gap between its best token and the kernel's, over
+# the best score's magnitude. Both round the same activations to bf16, so
+# they differ only where an f32 sum taken in another order flips a bf16
+# rounding (a relative 2^-8 step of one activation), which moves the scores
+# by a fraction of a bf16 step.
+DECODE_TIE_RTOL = 1e-2
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, FP32 FLOP/s
 # outside the tensor cores (the kernels run plain FP32 FMA).
@@ -90,6 +124,8 @@ KERNELS = {
                                 _PALLAS + ":484"),
 }
 DROPOUT_HASH = (_CSRC + "dropout_hash.cuh", _PALLAS + ":266")
+KERNELS["guided_decode"] = (_CSRC + "guided_decode.cu",
+                            "tinydiffusionmodels_tpu/ops/decode_kernel.py:67")
 
 
 def phase(name: str) -> None:
@@ -112,9 +148,9 @@ def environment():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import _build
 
-    nvcc = subprocess.run([fa._nvcc(), "--version"], capture_output=True,
+    nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"torch CUDA {torch.version.cuda}, "
@@ -126,14 +162,14 @@ def environment():
 
 
 def build():
-    from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import _build
 
     phase("build")
     t0 = time.perf_counter()
-    fa.library()
-    print(f"built {fa.library_path().name} in {time.perf_counter() - t0:.2f}"
-          f" s (nvcc {fa.build_seconds:.2f} s)")
-    for line in fa.build_log.splitlines():
+    _build.library()
+    print(f"built {_build.library_path().name} in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
+    for line in _build.build_log.splitlines():
         if any(w in line for w in ("---", "entry function", "registers",
                                    "spill", "error")):
             print("  " + line.strip())
@@ -151,12 +187,12 @@ def _qkv(b, h, lq, lk, dh, dv, dtype, layout, seed):
     )
 
 
-def _device_ms(fn, iters=200):
+def _device_ms(fn, iters=200, warmup=10):
     """Mean device time of ``fn`` over a burst queued behind a sleep
     kernel, so the host's enqueue cost stays out of the reading."""
     import torch
 
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -351,18 +387,130 @@ def _mask_probes(seed) -> int:
     return bad
 
 
+def _tiny_gpt(vocab: int, depth: int, seed: int):
+    """A TinyGPT at the bench's width on the card, random weights from seed."""
+    import torch
+
+    from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
+
+    cfg = TinyGPTConfig(vocab_size=vocab, dim=DIM, n_heads=HEADS, depth=depth,
+                        max_len=SEQ + 1)
+    return TinyGPT(cfg, generator=torch.Generator().manual_seed(seed)).to(
+        "cuda").eval()
+
+
+def _decode_agreement(tokens, w, diff, kw):
+    """The kernel's tokens against the plain version's on the same inputs.
+    First divergence: per row, the first position where the tokens differ
+    (L where they never do); both runs share the prefix up to there, so the
+    plain version's scores of its own and the kernel's token there must be
+    a near-tie. Teacher-forced: the plain version fed the kernel's tokens
+    scores every position of the kernel's decode; each chosen token must be
+    within the tolerance of that position's best. Gaps are relative to the
+    best score's magnitude. Returns (first divergences, worst first-
+    divergence gap, worst forced gap, worst forced absolute gap, positions
+    off, positions)."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import reference
+
+    ref_tokens, ref_scores = reference.fused_guided_decode(
+        w, diff, 0, return_scores=True, **kw)
+    _, forced = reference.fused_guided_decode(
+        w, diff, 0, return_scores=True, forced_tokens=tokens, **kw)
+    b, seq_len = tokens.shape
+    differ = tokens != ref_tokens
+    first = torch.where(differ.any(1), differ.int().argmax(1),
+                        torch.full((b,), seq_len, device=tokens.device))
+    rows = torch.arange(b, device=tokens.device)
+    at = first.clamp(max=seq_len - 1)
+    s = ref_scores[rows, at]
+    best = s.gather(1, ref_tokens[rows, at].long()[:, None])[:, 0]
+    mine = s.gather(1, tokens[rows, at].long()[:, None])[:, 0]
+    gap_first = torch.where(first < seq_len, (best - mine) / best.abs(), 0.0)
+    top = forced.max(-1).values
+    off = top - forced.gather(-1, tokens.long()[..., None])[..., 0]
+    return (first.tolist(), float(gap_first.max()),
+            float((off / top.abs()).max()), float(off.max()),
+            int((off > 0).sum()), off.numel())
+
+
+def decode_kernel_vs_plain():
+    """The guided-decode kernel against its plain version on the card, same
+    bf16 weights and N(0, 1) logits. Criteria: every first divergence of a
+    row is a near-tie of the plain version's scores, and every position of
+    the kernel's decode, scored by the plain version teacher-forced on the
+    kernel's tokens, picks a token within DECODE_TIE_RTOL of the best
+    (relative gaps); and the mean first divergence of each case is past L/2
+    (tests/test_fused_decode.py's rule). The batch-1 case is four launches
+    of one row each (four seeds), so its mean is over four rows. Returns
+    the worst absolute forced gap and the per-case stats."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import decode_kernel as dk
+
+    phase("guided-decode kernel vs plain (TF32 off)")
+    # name: (B, V, depth, normalize, temperature, launches)
+    cases = {
+        "b1_v97_d2": (1, 97, 2, False, 1.0, 4),
+        "b8_v4096_d4": (8, 4096, 4, False, 1.0, 1),
+        "b8_v4096_d4_norm": (8, 4096, 4, True, 1.0, 1),
+        "b13_v97_d4_norm_t0.7": (13, 97, 4, True, 0.7, 1),
+        "b13_v4096_d2_t1.5": (13, 4096, 2, False, 1.5, 1),
+        "b256_v4096_d4": (256, 4096, 4, False, 1.0, 1),
+        "b256_v97_d2_norm": (256, 97, 2, True, 1.0, 1),
+    }
+    worst_abs, stats = 0.0, {}
+    for i, (name, (b, v, depth, norm, temp, n)) in enumerate(cases.items()):
+        firsts, gap_first, gap_forced, off, positions = [], 0.0, 0.0, 0, 0
+        for j in range(n):
+            seed = 20 + 10 * i + j
+            w = dk.pack_weights(_tiny_gpt(v, depth, seed=seed))
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            diff = torch.randn(b, SEQ, v, generator=g, device="cuda")
+            kw = dict(alpha=ALPHA, temperature=temp, normalize=norm)
+            tokens = dk.decode(w, diff, 0, **kw)
+            f, g1, g2, g_abs, o, p = _decode_agreement(tokens, w, diff, kw)
+            torch.cuda.synchronize()
+            firsts += f
+            gap_first, gap_forced = max(gap_first, g1), max(gap_forced, g2)
+            worst_abs, off, positions = max(worst_abs, g_abs), off + o, \
+                positions + p
+        equal = sum(x == SEQ for x in firsts)
+        mean_first = sum(firsts) / len(firsts)
+        print(f"{name:22s} rows equal {equal}/{len(firsts)}; worst gap at a "
+              f"first divergence {gap_first:.3e}; teacher-forced: {off} of "
+              f"{positions} positions off the best, worst gap {gap_forced:.3e}"
+              f" (relative tol {DECODE_TIE_RTOL:g}); mean first divergence "
+              f"{mean_first:.2f} of L={SEQ}; grid {dk.last_grid} CTAs")
+        if max(gap_first, gap_forced) > DECODE_TIE_RTOL or \
+                not mean_first > SEQ / 2:
+            raise AssertionError(f"{name}: the kernel leaves the plain "
+                                 "version beyond a near-tie")
+        stats[name] = {"rows_equal": equal, "rows": len(firsts),
+                       "worst_first_divergence_gap": gap_first,
+                       "worst_forced_gap": gap_forced,
+                       "positions_off": off, "positions": positions,
+                       "mean_first_divergence": mean_first}
+    return worst_abs, stats
+
+
 def _reset_counts():
+    from tinydiffusionmodels_torch.ops import decode_kernel as dk
     from tinydiffusionmodels_torch.ops import flash_attention as fa
 
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    dk.launches = 0
 
 
 def _counts() -> dict:
+    from tinydiffusionmodels_torch.ops import decode_kernel as dk
     from tinydiffusionmodels_torch.ops import flash_attention as fa
 
     return {"flash_attention_fwd": fa.launches,
             "flash_attention_bwd_dq": fa.dq_launches,
-            "flash_attention_bwd_dkv": fa.dkv_launches}
+            "flash_attention_bwd_dkv": fa.dkv_launches,
+            "guided_decode": dk.launches}
 
 
 def _prepare_workdir():
@@ -418,7 +566,7 @@ def main_path_train(card: str):
 
     expect = {"flash_attention_fwd": (steps + val_batches) * DEPTH,
               "flash_attention_bwd_dq": steps * DEPTH,
-              "flash_attention_bwd_dkv": steps * DEPTH}
+              "flash_attention_bwd_dkv": steps * DEPTH, "guided_decode": 0}
     if counts != expect:
         raise AssertionError(f"launches {counts} on the training path, "
                              f"expected {expect}")
@@ -477,7 +625,8 @@ def main_path_sample(card: str, ckpt: Path, model):
     counts = _counts()
 
     expect = {"flash_attention_fwd": STEPS * DEPTH,
-              "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+              "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+              "guided_decode": 0}
     if counts != expect:
         raise AssertionError(f"launches {counts} on the sampling path, "
                              f"expected {expect}")
@@ -507,7 +656,228 @@ def main_path_sample(card: str, ckpt: Path, model):
     print(f"sampler: {rate} steps/s ({STEPS * len(times)} steps over "
           f"{sum(times)} s; runs of {STEPS} steps took {times} s), "
           f"n={N} seq={SEQ} dim={DIM} depth={DEPTH}, on {card}")
-    return counts, sum(times) / (STEPS * len(times))
+    return counts, sum(times) / (STEPS * len(times)), z
+
+
+def main_path_guided(card: str, ckpt: Path):
+    """``shakespeare.main(["--guided_sample", "--base_lm", "tinygpt", ...])``
+    from the trained checkpoint: trains TinyGPT for LM_EPOCHS, writes
+    lm_ckpt.pth and the guided samples; then a second call reuses
+    lm_ckpt.pth and trains nothing. Returns the first call's launches."""
+    import torch
+
+    from tinydiffusionmodels_torch import shakespeare
+    from tinydiffusionmodels_torch.data import (
+        CharTokenizer,
+        load_text_corpus,
+        num_batches,
+        tokenize_corpus,
+    )
+
+    phase("main path: shakespeare --guided_sample --base_lm tinygpt from the "
+          "trained checkpoint (TinyGPT trained, then reused)")
+    _prepare_workdir()
+    lm_ckpt = WORK / "lm_ckpt.pth"
+    lm_ckpt.unlink(missing_ok=True)
+    for old in (WORK / "samples").glob("guided_sample_*.txt"):
+        old.unlink()
+    corpus, _ = load_text_corpus(WORK / "data")
+    corpus = corpus[:TRAIN_CHARS]
+    lm_chunks, _ = tokenize_corpus(corpus, CharTokenizer(corpus), SEQ + 1, 0.0)
+    lm_steps = num_batches(len(lm_chunks), LM_BATCH) * LM_EPOCHS
+    argv = ["--guided_sample", "--base_lm", "tinygpt", "--ckpt", str(ckpt),
+            "--n", str(N), "--seq_len", str(SEQ), "--model_id", "char",
+            "--lm_epochs", str(LM_EPOCHS), "--lm_ckpt", str(lm_ckpt),
+            "--alpha", str(ALPHA), "--data_root", str(WORK / "data")]
+    runs = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        tokens = shakespeare.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = _counts()
+        steps = lm_steps if i == 0 else 0
+        expect = {"flash_attention_fwd": STEPS * DEPTH + SEQ * LM_DEPTH
+                  + steps * LM_DEPTH,
+                  "flash_attention_bwd_dq": steps * LM_DEPTH,
+                  "flash_attention_bwd_dkv": steps * LM_DEPTH,
+                  "guided_decode": 0}
+        if counts != expect:
+            raise AssertionError(f"launches {counts} on the guided CLI path "
+                                 f"(call {i + 1}), expected {expect}")
+        if tuple(tokens.shape) != (N, SEQ) or tokens.device.type != "cuda":
+            raise AssertionError(f"guided tokens {tuple(tokens.shape)} on "
+                                 f"{tokens.device}")
+        written = sorted((WORK / "samples").glob("guided_sample_*.txt"))
+        if len(written) != N or not lm_ckpt.is_file():
+            raise AssertionError(f"{len(written)} guided samples, lm_ckpt "
+                                 f"written: {lm_ckpt.is_file()}")
+        print(f"guided CLI call {i + 1} ({'trains' if steps else 'reuses'} "
+              f"TinyGPT, {steps} steps): launches {counts}, {len(written)} "
+              f"guided samples, {lm_ckpt.name} present, CLI call {cli_s:.3f} s "
+              f"(includes the 1000-step sampler), on {card}")
+        runs.append(counts)
+    return runs[0], lm_ckpt
+
+
+def _fixpoint(lm, tokens, diff, bos: int):
+    """verify(tokens): the mixed greedy tokens of the f32 full-context
+    forward with ``tokens`` as context (_assert_verified_contract)."""
+    import torch
+
+    from tinydiffusionmodels_torch.sample.guided import mix_logits
+
+    ids = torch.cat([torch.full((tokens.shape[0], 1), bos, device="cuda",
+                                dtype=torch.long), tokens[:, :-1].long()], 1)
+    with torch.inference_mode():
+        mixed = mix_logits(lm(ids), diff, ALPHA)
+    return torch.argmax(mixed, -1).to(torch.int32)
+
+
+def guided_exact(card: str, lm_ckpt: Path, ckpt: Path, z, rounding):
+    """Path (B), the exact guided decode: ``guided_generate_verified`` with
+    the fused draft on the TinyGPT the CLI phase trained and the diffusion
+    logits of the trained text checkpoint (its rounding head on the --sample
+    phase's embeddings), n 8, L 64. Asserts one decode-kernel launch, the
+    output equal to its own fixpoint and >= 95 % agreement with the plain
+    f32 scan. Returns (launches, rounds, agreement)."""
+    import torch
+
+    from tinydiffusionmodels_torch.data import tokenizer_from_state
+    from tinydiffusionmodels_torch.io import (
+        load_checkpoint,
+        tiny_gpt_state_from_jax,
+    )
+    from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
+    from tinydiffusionmodels_torch.sample.guided import (
+        guided_generate_verified,
+    )
+
+    phase("main path: exact guided decode (fused kernel draft + Jacobi "
+          "verify) on the trained TinyGPT")
+    params = load_checkpoint(lm_ckpt)["params"]
+    v, _ = params["tok_emb"].shape
+    lm = TinyGPT(TinyGPTConfig(vocab_size=int(v), dim=DIM, n_heads=HEADS,
+                               depth=LM_DEPTH,
+                               max_len=int(params["pos_emb"].shape[0])))
+    lm.load_state_dict(tiny_gpt_state_from_jax(params))
+    lm.to("cuda").eval()
+    tok = tokenizer_from_state(load_checkpoint(ckpt)["tokenizer"])
+    bos = tok.bos_token_id or tok.eos_token_id or 0
+    with torch.inference_mode():
+        diff = rounding(z)
+    torch.cuda.synchronize()
+    _reset_counts()
+    tokens, rounds = guided_generate_verified(lm, diff, bos, alpha=ALPHA,
+                                              draft="fused",
+                                              return_rounds=True)
+    torch.cuda.synchronize()
+    counts = _counts()
+    expect = {"flash_attention_fwd": rounds * LM_DEPTH,
+              "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+              "guided_decode": 1}
+    if counts != expect:
+        raise AssertionError(f"launches {counts} on the exact guided path, "
+                             f"expected {expect}")
+    if not torch.equal(tokens, _fixpoint(lm, tokens, diff, bos)):
+        raise AssertionError("the verified decode is not its own fixpoint")
+    plain = guided_generate_verified(lm, diff, bos, alpha=ALPHA, draft="plain")
+    agree = float((tokens == plain).float().mean())
+    if not agree >= 0.95:
+        raise AssertionError(f"fused+verify agrees with the plain scan on "
+                             f"{agree} of tokens (must be >= 0.95)")
+    print(f"exact guided decode: launches {counts}; {rounds} Jacobi rounds "
+          f"(verify forwards); output equals its fixpoint; agreement with "
+          f"the plain f32 scan {agree}; on {card}")
+    return counts, rounds, agree
+
+
+def _decode_bound(b: int, seq_len: int, vocab: int, depth: int):
+    """(bytes, FP32 FLOPs) of one guided decode at the bench width: every
+    bf16 weight once, the token-table rows gathered, the bf16 diffusion
+    logits once, the int32 tokens written; the matmuls, attention over
+    slots <= pos, at 2 FLOPs per multiply-add."""
+    d, f = DIM, 4 * DIM
+    layer = 3 * d * d + d * d + 2 * d * f
+    weights = depth * (layer + 3 * d + d + f + d + 4 * d) + d * vocab + 2 * d
+    weights += (seq_len + 1) * d + min(b * seq_len, vocab) * d
+    nbytes = 2 * weights + 2 * b * seq_len * vocab + 4 * b * seq_len
+    attn = 2 * 2 * d * depth * sum(p + 1 for p in range(seq_len))
+    flops = b * (seq_len * 2 * (depth * layer + d * vocab) + attn)
+    return nbytes, flops
+
+
+def decode_timing(card: str) -> dict:
+    """The decode kernel at the bench shape (TinyGPT V 4096, D 256, depth
+    4, max_len 65, L 64, alpha 0.3, random weights and N(0, 1) logits), at
+    batch 8 and 256: CUDA-event device time of one launch beside the plain
+    version (plain, kernel, kernel, plain), the bound, the grid barrier's
+    cost at the launch's grid, and host-clock tokens/s of the exact decode
+    with the fused draft against the plain f32 scan."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import decode_kernel as dk
+    from tinydiffusionmodels_torch.ops import reference
+    from tinydiffusionmodels_torch.sample.guided import (
+        guided_generate_verified,
+    )
+
+    phase("timing: guided decode at the bench shape (V 4096, D 256, depth 4, "
+          "L 64, alpha 0.3)")
+    vocab, depth = 4096, 4
+    model = _tiny_gpt(vocab, depth, seed=0)
+    w = dk.pack_weights(model)
+    out = {}
+    for b in DECODE_BATCHES:
+        g = torch.Generator(device="cuda").manual_seed(1)
+        diff = torch.randn(b, SEQ, vocab, generator=g, device="cuda")
+        kw = dict(alpha=ALPHA, temperature=1.0, normalize=False)
+
+        def kernel():
+            dk.decode(w, diff, 0, **kw)
+
+        def plain():
+            reference.fused_guided_decode(w, diff, 0, **kw)
+
+        p_ms = [_device_ms(plain, iters=2, warmup=1)]
+        k_ms = [_device_ms(kernel, iters=10, warmup=2),
+                _device_ms(kernel, iters=10, warmup=2)]
+        p_ms.append(_device_ms(plain, iters=2, warmup=1))
+        grid = dk.last_grid
+        syncs = SEQ * (5 * depth + 2) + 1
+        sync_ms = _device_ms(lambda: dk.grid_sync_probe(syncs, grid),
+                             iters=10, warmup=2)
+        nbytes, flops = _decode_bound(b, SEQ, vocab, depth)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        rates = {}
+        for draft in ("fused", "plain"):
+            guided_generate_verified(model, diff, 0, alpha=ALPHA, draft=draft)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(RATE_RUNS):
+                _, rounds = guided_generate_verified(
+                    model, diff, 0, alpha=ALPHA, draft=draft,
+                    return_rounds=True)
+            torch.cuda.synchronize()
+            rates[draft] = (b * SEQ * RATE_RUNS / (time.perf_counter() - t0),
+                            rounds)
+        k_mean = sum(k_ms) / 2
+        out[b] = dict(ms=k_mean, plain_ms=sum(p_ms) / 2, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=None, grid=grid,
+                      barrier_ms=sync_ms, barrier_share=sync_ms / k_mean,
+                      fused_verify_tokens_s=rates["fused"][0],
+                      jacobi_rounds=rates["fused"][1],
+                      plain_scan_tokens_s=rates["plain"][0])
+        print(f"bs {b}: kernel {k_ms} ms, plain {p_ms} ms; bound {bound_ms} "
+              f"ms by {bound_by} ({nbytes} B, {flops} FLOP); grid {grid} "
+              f"CTAs, {syncs} barriers alone {sync_ms} ms = "
+              f"{sync_ms / k_mean:.3f} of the kernel; exact decode tokens/s: "
+              f"fused+verify {rates['fused'][0]} ({rates['fused'][1]} Jacobi "
+              f"rounds), plain f32 scan {rates['plain'][0]}; no single "
+              f"PyTorch call computes this (library —); on {card}")
+    return out
 
 
 def device_vs_cpu(model_gpu):
@@ -728,9 +1098,14 @@ def main() -> None:
     train_errors, mask_mismatches = training_kernels()
     result, ckpt, train_counts, _ = main_path_train(card)
     model = result.joint["diffusion_model"].eval()
-    sample_counts, wall_s_per_step = main_path_sample(card, ckpt, model)
+    sample_counts, wall_s_per_step, z = main_path_sample(card, ckpt, model)
+    decode_worst_gap, decode_stats = decode_kernel_vs_plain()
+    guided_counts, lm_ckpt = main_path_guided(card, ckpt)
+    exact_counts, rounds, agree = guided_exact(
+        card, lm_ckpt, ckpt, z, result.joint["rounding_fn"].eval())
     device_vs_cpu(model)
     timings = kernel_timing(card)
+    decode_times = decode_timing(card)
     profile_sampler(model, wall_s_per_step, card)
     profile_training(result.joint, card)
     import torch
@@ -743,21 +1118,34 @@ def main() -> None:
     errors = {"flash_attention_fwd": max(fwd_errors["slice_f32"],
                                          train_errors["out"]),
               "flash_attention_bwd_dq": train_errors["dq"],
-              "flash_attention_bwd_dkv": train_errors["dkv"]}
+              "flash_attention_bwd_dkv": train_errors["dkv"],
+              "guided_decode": decode_worst_gap}
+    bs8, bs256 = (decode_times[b] for b in DECODE_BATCHES)
+    timings["guided_decode"] = {
+        **{k: bs8[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+        "at": "bs 8", "bs256": bs256,
+        "barrier_share_bs8": bs8["barrier_share"],
+        "jacobi_rounds_main_path": rounds, "agreement_with_plain": agree,
+        "vs_plain": decode_stats,
+    }
+    paths = (train_counts, sample_counts, guided_counts, exact_counts)
     record = []
     for name, (source, replaces) in KERNELS.items():
-        record.append({
+        entry = {
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": train_counts[name] + sample_counts[name],
+            "launches": sum(c[name] for c in paths),
             "max_abs_err": errors[name],
             **timings[name],
-            "dropout_hash": {"source": DROPOUT_HASH[0],
-                             "replaces": DROPOUT_HASH[1],
-                             "mask_mismatches": mask_mismatches},
-        })
+        }
+        if name.startswith("flash"):
+            entry["dropout_hash"] = {"source": DROPOUT_HASH[0],
+                                     "replaces": DROPOUT_HASH[1],
+                                     "mask_mismatches": mask_mismatches}
+        record.append(entry)
     print(card)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

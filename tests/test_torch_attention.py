@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 
 from tinydiffusionmodels_tpu.ops import pallas_kernels  # noqa: E402
 from tinydiffusionmodels_torch import ops  # noqa: E402
+from tinydiffusionmodels_torch.ops import _build  # noqa: E402
 from tinydiffusionmodels_torch.ops import flash_attention as fa  # noqa: E402
 
 torch.set_num_threads(1)
@@ -89,18 +90,20 @@ def test_cpu_call_builds_and_counts_nothing():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 1, 8, 8, 32, 32))
     fa.flash_attention(q, k, v)
     assert fa.launches == before
-    assert fa._lib is None
+    assert _build._lib is None
 
 
 def test_import_builds_nothing():
-    """Importing the wrapper compiles and loads nothing (the CPU tests
+    """Importing the wrappers compiles and loads nothing (the CPU tests
     import every module; the card machine builds at first launch)."""
     code = (
         "import sys\n"
         "import tinydiffusionmodels_torch.ops.flash_attention as fa\n"
-        "assert fa._lib is None and fa.launches == 0\n"
+        "import tinydiffusionmodels_torch.ops.decode_kernel as dk\n"
+        "from tinydiffusionmodels_torch.ops import _build\n"
+        "assert _build._lib is None and fa.launches == dk.launches == 0\n"
         "assert 'triton' not in sys.modules\n"
-        "print(fa.library_path().name)\n"
+        "print(_build.library_path().name)\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,

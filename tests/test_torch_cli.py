@@ -200,7 +200,8 @@ def test_port_rope_checkpoint_round_trip(workdir, capsys):
 @pytest.mark.parametrize("argv", [
     # --train itself is ported; its resume state (optax's pytree) is not.
     pytest.param(["--train", "--resume"], id="--train"),
-    pytest.param(["--guided_sample"], id="--guided_sample"),
+    # --guided_sample is ported with TinyGPT; the Hugging Face base LM is not.
+    pytest.param(["--guided_sample", "--base_lm", "hf"], id="--guided_sample"),
     pytest.param(["--train", "--dtype", "bf16"], id="--dtype bf16"),
     pytest.param(["--train", "--seq_parallel"], id="--seq_parallel"),
     pytest.param(["--sample", "--profile_dir", "prof"], id="--profile_dir"),
@@ -297,3 +298,102 @@ def test_sources_name_no_jax():
             assert not stripped.startswith(("import jax", "from jax")), (
                 f"{path}: {line}"
             )
+
+
+GUIDED = ["--guided_sample", "--base_lm", "tinygpt", "--lm_epochs", "1",
+          "--model_id", "char", "--n", "2", "--sampler", "ddim", "--steps",
+          "3"]
+
+
+def test_train_then_guided_sample(workdir, capsys):
+    """``--train`` then ``--guided_sample --base_lm tinygpt`` on the CPU:
+    the first call trains TinyGPT and writes lm_ckpt.pth and the guided
+    samples; the second loads lm_ckpt.pth and decodes the same tokens;
+    ``--sample --guided_sample`` returns both results, the guided decode
+    the same as alone (its draw depends on --seed only)."""
+    common = ["--data_root", "data", "--seq_len", "16", "--ckpt", "t.pth"]
+    port_cli.main(["--train", "--model_id", "char", "--epochs", "1",
+                   "--batch_size", "4", "--embed_dim", "32", "--depth", "1",
+                   "--warmup_steps", "2", *common])
+    capsys.readouterr()
+    tokens = port_cli.main([*GUIDED, *common])
+    out = capsys.readouterr().out
+    assert "[lm] training TinyGPT base LM for 1 epochs" in out
+    assert tokens.dtype == torch.int32 and tuple(tokens.shape) == (2, 16)
+    assert (workdir / "lm_ckpt.pth").exists()
+    for i in range(2):
+        assert (workdir / "samples" / f"guided_sample_{i}.txt").exists()
+    again = port_cli.main([*GUIDED, *common])
+    out = capsys.readouterr().out
+    assert "[lm] loaded TinyGPT from lm_ckpt.pth" in out
+    assert "[lm] training" not in out
+    torch.testing.assert_close(again, tokens, rtol=0, atol=0)
+    z, both = port_cli.main(["--sample", *GUIDED, *common])
+    assert tuple(z.shape) == (2, 16, 32)
+    torch.testing.assert_close(both, tokens, rtol=0, atol=0)
+
+
+def test_lm_ckpt_crosses_packages(workdir, capsys):
+    """An lm_ckpt.pth the JAX package wrote loads in the port's CLI, and
+    one the port wrote loads in the JAX CLI; the weights carry over
+    (logits within 1e-5)."""
+    from tinydiffusionmodels_tpu import shakespeare as jax_cli
+    from tinydiffusionmodels_tpu.io import load_checkpoint
+    from tinydiffusionmodels_tpu.io.checkpoint import tree_to_numpy
+    from tinydiffusionmodels_tpu.models import init_tiny_gpt, tiny_gpt_apply
+    from tinydiffusionmodels_tpu.models.ar_lm import (
+        TinyGPTConfig as JaxGPTConfig,
+    )
+    from tinydiffusionmodels_torch.io import tiny_gpt_params_dict
+    from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
+
+    _write_jax_checkpoint(workdir / "ckpt.pth")
+    vocab = CharTokenizer(CORPUS).vocab_size
+    kw = dict(vocab_size=vocab, dim=256, n_heads=4, depth=4, max_len=64)
+    save_checkpoint({"params": tree_to_numpy(
+        init_tiny_gpt(jax.random.PRNGKey(3), JaxGPTConfig(**kw)))},
+        "jax_lm.pth")
+    common = ["--data_root", "data", "--seq_len", "8", "--ckpt", "ckpt.pth",
+              "--use_learned_embeddings"]
+    port_cli.main([*GUIDED, *common, "--lm_ckpt", "jax_lm.pth"])
+    out = capsys.readouterr().out
+    assert "[lm] loaded TinyGPT from jax_lm.pth" in out
+
+    model = TinyGPT(TinyGPTConfig(**kw),
+                    generator=torch.Generator().manual_seed(4))
+    save_checkpoint({"params": tiny_gpt_params_dict(model)}, "port_lm.pth")
+    jax_cli.main([*GUIDED, *common, "--lm_ckpt", "port_lm.pth"])
+    out = capsys.readouterr().out
+    assert "[lm] loaded TinyGPT from port_lm.pth" in out
+    assert (workdir / "samples" / "guided_sample_1.txt").exists()
+    ids = np.random.default_rng(0).integers(0, vocab, (2, 8))
+    want = tiny_gpt_apply(load_checkpoint("port_lm.pth")["params"],
+                          jax.numpy.asarray(ids), JaxGPTConfig(**kw))
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+def test_guided_sample_stale_lm_ckpt_retrains(workdir, monkeypatch, capsys):
+    """A cached base LM trained under another tokenizer (char vs bpe:96) is
+    rejected and retrained, not fed to the mix (the JAX CLI's round-4
+    regression, tests/test_cli.py)."""
+    monkeypatch.setenv("TDM_DATA_LIMIT", "4000")
+    (workdir / "empty").mkdir()
+    common = ["--seq_len", "16", "--embed_dim", "32", "--batch_size", "8",
+              "--depth", "1", "--data_root", "empty"]
+    train = ["--train", "--epochs", "1", "--warmup_steps", "2", *common]
+    port_cli.main([*train, "--model_id", "char", "--ckpt", "char_ckpt.pth"])
+    port_cli.main([*GUIDED, *common, "--ckpt", "char_ckpt.pth"])
+    assert (workdir / "lm_ckpt.pth").exists()
+    port_cli.main([*train, "--model_id", "bpe:96", "--ckpt", "bpe_ckpt.pth"])
+    capsys.readouterr()
+    # --model_id char: the CLI starts from the char tokenizer, re-syncs to
+    # the checkpoint's BPE-96 one, and must reject the char-vocab LM.
+    port_cli.main([*GUIDED, *common, "--ckpt", "bpe_ckpt.pth"])
+    out = capsys.readouterr().out
+    assert "[ckpt] vocab_size=96" in out
+    assert "could not load lm_ckpt.pth" in out
+    assert "[lm] training TinyGPT" in out
+    assert (workdir / "samples" / "guided_sample_0.txt").exists()

@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernels and their wrapper, on an NVIDIA GPU.
+"""The CUDA kernels and their wrappers, on an NVIDIA GPU: flash attention
+and the persistent guided-decode kernel.
 
 Every test here needs a card and ``nvcc``, carries the ``cuda`` marker and
 skips on a machine without a GPU. The file imports nothing of jax, so it runs
@@ -10,14 +11,21 @@ there:
 Tolerances are ``chip_smoke.py``'s: f32 ``atol = rtol = 1e-4`` on O and lse,
 ``2e-4`` on the gradients (the cancellation in ds = p (dp - D) amplifies the
 rounding of the two sums, which the kernel and cuBLAS add in other orders).
+The decode kernel is a bf16 draft: scored by its plain version teacher-forced
+on the kernel's tokens, every position's token is within ``DECODE_RTOL`` of
+the best score (relative), and rows agree until a first divergence past L/2
+on average.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
+from tinydiffusionmodels_torch.ops import decode_kernel as dk
 from tinydiffusionmodels_torch.ops import flash_attention as fa
 from tinydiffusionmodels_torch.ops import reference
+from tinydiffusionmodels_torch.sample.guided import guided_generate_verified
 
 pytestmark = pytest.mark.cuda
 
@@ -163,3 +171,60 @@ def test_dropout_seed_must_be_a_device_int32(cuda):
     q, k, v = _qkv(1, 1, 8, 8, 32, 32, cuda)
     with pytest.raises(ValueError, match="one-element int32 tensor"):
         fa.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=3)
+
+
+DECODE_RTOL = 1e-2
+# name: (B, V, dim, depth, L, normalize, temperature)
+DECODE_CASES = {
+    "b8_v97_d64": (8, 97, 64, 2, 16, False, 1.0),
+    "b13_v500_d256_norm": (13, 500, 256, 2, 32, True, 1.0),
+    "b3_v4096_d256_t0.7": (3, 4096, 256, 1, 24, False, 0.7),
+}
+
+
+def _gpt(vocab, dim, depth, max_len, seed, device):
+    cfg = TinyGPTConfig(vocab_size=vocab, dim=dim, n_heads=4, depth=depth,
+                        max_len=max_len)
+    return TinyGPT(cfg, generator=torch.Generator().manual_seed(seed)).to(
+        device).eval()
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+def test_decode_kernel_matches_plain(cuda, name):
+    b, v, dim, depth, seq_len, norm, temp = DECODE_CASES[name]
+    w = dk.pack_weights(_gpt(v, dim, depth, seq_len + 1, 0, cuda))
+    rng = np.random.default_rng(1)
+    diff = torch.from_numpy(
+        rng.standard_normal((b, seq_len, v), dtype=np.float32)).to(cuda)
+    kw = dict(alpha=0.3, temperature=temp, normalize=norm)
+    tokens = dk.decode(w, diff, 0, **kw)
+    ref = reference.fused_guided_decode(w, diff, 0, **kw)
+    _, forced = reference.fused_guided_decode(
+        w, diff, 0, return_scores=True, forced_tokens=tokens, **kw)
+    top = forced.max(-1).values
+    gap = top - forced.gather(-1, tokens.long()[..., None])[..., 0]
+    assert float((gap / top.abs()).max()) <= DECODE_RTOL
+    differ = (tokens != ref).cpu().numpy()
+    firsts = [row.argmax() if row.any() else seq_len for row in differ]
+    assert np.mean(firsts) > seq_len / 2
+
+
+def test_decode_launches_once_per_call(cuda):
+    # dim 128: the verify forward's flash kernels take Dh 32 and up.
+    model = _gpt(97, 128, 2, 17, 0, cuda)
+    diff = torch.randn(4, 16, 97, device=cuda)
+    before = dk.launches
+    dk.fused_guided_decode(model, diff, 0, alpha=0.3)
+    guided_generate_verified(model, diff, 0, alpha=0.3, draft="fused")
+    assert dk.launches == before + 2 and dk.last_grid >= 1
+
+
+def test_decode_rejects_before_launch(cuda):
+    w = dk.pack_weights(_gpt(97, 64, 2, 17, 0, cuda))
+    before = dk.launches
+    with pytest.raises(ValueError, match="outside 1..max_len=17"):
+        dk.decode(w, torch.randn(2, 18, 97, device=cuda), 0)
+    with pytest.raises(ValueError, match="weights on cpu"):
+        dk.decode(dk.pack_weights(_gpt(97, 64, 2, 17, 0, "cpu")),
+                  torch.randn(2, 4, 97, device=cuda), 0)
+    assert dk.launches == before

@@ -12,6 +12,8 @@ from tinydiffusionmodels_torch.io.convert import (
     rounding_state_from_jax,
     state_from_checkpoint,
     text_checkpoint_dict,
+    tiny_gpt_params_dict,
+    tiny_gpt_state_from_jax,
     transformer_state_from_jax,
 )
 from tinydiffusionmodels_torch.io.storage import (
@@ -33,5 +35,7 @@ __all__ = [
     "save_samples",
     "state_from_checkpoint",
     "text_checkpoint_dict",
+    "tiny_gpt_params_dict",
+    "tiny_gpt_state_from_jax",
     "transformer_state_from_jax",
 ]

@@ -7,6 +7,9 @@ text maps in ``io/checkpoint.py``, which imports jax and so is not imported).
   (out, in); fused qkv (d, 3d) -> (3d, d)).
 - ``text_checkpoint_dict``: the dict layout ``train/text_train.py`` writes,
   built from the port's modules, so the JAX CLI reads what the port saves.
+- ``tiny_gpt_state_from_jax`` / ``tiny_gpt_params_dict``: the guided
+  sampler's base LM both ways, so each CLI loads the other's
+  ``lm_ckpt.pth`` (``{"params": <JAX tree>}``).
 - ``state_from_checkpoint`` / ``config_from_state_dict``: a loaded
   checkpoint's numpy state dict -> tensors, and the model shape it implies.
 """
@@ -67,6 +70,57 @@ def rounding_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]":
 def embedding_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]":
     """JAX embedding params {'weight'} -> LearnedEmbedding."""
     return OrderedDict([("embeddings.weight", _t(params["weight"]))])
+
+
+_GPT_LINEARS = (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc"),
+                ("mlp", "proj"))
+
+
+def tiny_gpt_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX TinyGPT params (``init_tiny_gpt``'s tree, or the 'params' of an
+    ``lm_ckpt.pth``; ``blocks`` a tuple or list) -> TinyGPT state dict."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    sd["tok_emb.weight"] = _t(params["tok_emb"])
+    sd["pos_emb.weight"] = _t(params["pos_emb"])
+    for i, blk in enumerate(params["blocks"]):
+        pre = f"blocks.{i}"
+        for norm in ("ln1", "ln2"):
+            sd[f"{pre}.{norm}.weight"] = _t(blk[norm]["scale"])
+            sd[f"{pre}.{norm}.bias"] = _t(blk[norm]["bias"])
+        for group, name in _GPT_LINEARS:
+            _lin(blk[group][name], f"{pre}.{group}.{name}", sd)
+    sd["ln_f.weight"] = _t(params["ln_f"]["scale"])
+    sd["ln_f.bias"] = _t(params["ln_f"]["bias"])
+    sd["lm_head.weight"] = _t(np.asarray(params["lm_head"]["w"]).T)
+    return sd
+
+
+def tiny_gpt_params_dict(module: torch.nn.Module) -> dict[str, Any]:
+    """The inverse of ``tiny_gpt_state_from_jax``: a TinyGPT -> the JAX
+    parameter tree with float32 numpy leaves (``blocks`` a list), the
+    'params' the JAX CLI saves in ``lm_ckpt.pth``."""
+    sd = _numpy_state(module)
+    blocks = []
+    for i in range(len(module.blocks)):
+        pre = f"blocks.{i}"
+        blk: dict[str, Any] = {
+            norm: {"scale": sd[f"{pre}.{norm}.weight"],
+                   "bias": sd[f"{pre}.{norm}.bias"]}
+            for norm in ("ln1", "ln2")
+        }
+        for group, name in _GPT_LINEARS:
+            blk.setdefault(group, {})[name] = {
+                "w": np.ascontiguousarray(sd[f"{pre}.{group}.{name}.weight"].T),
+                "b": sd[f"{pre}.{group}.{name}.bias"],
+            }
+        blocks.append(blk)
+    return {
+        "tok_emb": sd["tok_emb.weight"],
+        "pos_emb": sd["pos_emb.weight"],
+        "blocks": blocks,
+        "ln_f": {"scale": sd["ln_f.weight"], "bias": sd["ln_f.bias"]},
+        "lm_head": {"w": np.ascontiguousarray(sd["lm_head.weight"].T)},
+    }
 
 
 def state_from_checkpoint(sd: dict) -> "OrderedDict[str, torch.Tensor]":

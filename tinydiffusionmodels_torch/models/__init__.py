@@ -1,5 +1,7 @@
-"""Models of the port: the text denoiser and the embedding/rounding heads."""
+"""Models of the port: the text denoiser, the embedding/rounding heads and
+the guided sampler's base LM (TinyGPT)."""
 
+from tinydiffusionmodels_torch.models.ar_lm import TinyGPT, TinyGPTConfig
 from tinydiffusionmodels_torch.models.embedding import (
     LearnedEmbedding,
     LearnedRounding,
@@ -15,6 +17,8 @@ from tinydiffusionmodels_torch.models.transformer import (
 __all__ = [
     "LearnedEmbedding",
     "LearnedRounding",
+    "TinyGPT",
+    "TinyGPTConfig",
     "TinyTransformer",
     "TransformerConfig",
     "cosine_logits",

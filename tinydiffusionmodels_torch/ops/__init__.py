@@ -1,8 +1,9 @@
 """Hot ops of the port (counterpart of ``ops/registry.py``).
 
 Dispatch is on the tensor's device alone, inside each kernel's wrapper: a
-CUDA tensor runs the hand-written kernels (forward, and in training the
-recompute backward), a CPU tensor their plain PyTorch version. There is no
+CUDA tensor runs the hand-written kernels (the flash-attention forward, in
+training its recompute backward, and the persistent guided-decode kernel of
+``decode_kernel``), a CPU tensor their plain PyTorch version. There is no
 environment knob and no size threshold; the JAX package's routing rules
 (score-footprint thresholds between XLA and flash) were TPU measurements
 and do not carry over.
@@ -10,7 +11,7 @@ and do not carry over.
 
 from __future__ import annotations
 
-from tinydiffusionmodels_torch.ops import flash_attention, reference
+from tinydiffusionmodels_torch.ops import decode_kernel, flash_attention, reference
 
 
 def attention(
@@ -41,4 +42,4 @@ def attention(
     )
 
 
-__all__ = ["attention", "flash_attention", "reference"]
+__all__ = ["attention", "decode_kernel", "flash_attention", "reference"]

@@ -25,25 +25,18 @@ CUDA tensor launches the kernels or raises. There is no fallback from one to
 the other.
 
 The kernels are compiled with ``nvcc`` at first use, from the sources in
-``csrc/`` only, into ``build/kernels/`` beside the package; the library's
-name carries a hash of the sources, so an edited source is rebuilt. Nothing
-is built or imported from CUDA when this module is imported.
+``csrc/`` only, by ``ops/_build.py``, which every wrapper shares. Nothing is
+built or imported from CUDA when this module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-from tinydiffusionmodels_torch.ops import reference
+from tinydiffusionmodels_torch.ops import _build, reference
 
 # Kernel launches made by this process, one counter per kernel: each is
 # incremented once per launch of its kernel and nowhere else; callers reset
@@ -54,94 +47,6 @@ dkv_launches = 0      # backward, dk and dv
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-_PACKAGE = Path(__file__).resolve().parents[1]
-CSRC_DIR = _PACKAGE / "csrc"
-BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
-_LIB_STEM = "libtdm_kernels"
-
-_lib: ctypes.CDLL | None = None
-build_log = ""          # nvcc's output of the last build in this process
-build_seconds = 0.0     # wall time of that build (0.0 when it was cached)
-
-
-def _sources() -> list[Path]:
-    return sorted(p for p in CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
-    found = shutil.which("nvcc")
-    if found:
-        candidates.append(Path(found))
-    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
-    for c in candidates:
-        if c.is_file():
-            return str(c)
-    raise FileNotFoundError(
-        "nvcc not found (looked in $CUDA_HOME/bin, on PATH and in "
-        "/usr/local/cuda/bin); the CUDA kernels are built from source at "
-        "first use"
-    )
-
-
-def library_path() -> Path:
-    """Path of the shared library for the current sources."""
-    digest = hashlib.sha256()
-    for src in _sources():
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    return BUILD_DIR / f"{_LIB_STEM}-{digest.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile ``csrc/*.cu`` for sm_90a unless the library for these exact
-    sources exists; returns its path. Each source compiles in its own
-    ``nvcc``, all started together, then one link."""
-    global build_log, build_seconds
-    out = library_path()
-    if out.is_file():
-        build_seconds = 0.0
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{out.stem}.{os.getpid()}"
-    nvcc = _nvcc()
-    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
-    t0 = time.perf_counter()
-    compiles = []
-    for src in (s for s in _sources() if s.suffix == ".cu"):
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        cmd = [nvcc, *arch, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
-        compiles.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for src, obj, proc in compiles:
-        logs.append(f"--- {src.name}\n{proc.communicate()[0]}")
-        if proc.returncode != 0:
-            failed.append(src.name)
-    objs = [obj for _, obj, _ in compiles]
-    tmp = out.with_name(f"{tag}.tmp.so")
-    if not failed:
-        link = subprocess.run(
-            [nvcc, *arch, "-shared", "-o", str(tmp), *map(str, objs)],
-            capture_output=True, text=True, check=False,
-        )
-        logs.append(f"--- link\n{link.stdout}{link.stderr}")
-        if link.returncode != 0:
-            failed.append("link")
-    for obj in objs:
-        obj.unlink(missing_ok=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = "\n".join(logs)
-    if failed:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
-    os.replace(tmp, out)
-    (out.with_suffix(".log")).write_text(build_log)
-    return out
-
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -155,33 +60,6 @@ _BWD_ARGTYPES = (
     + [ctypes.c_float, _INT, _INT, _INT, _PTR, ctypes.c_uint, ctypes.c_float,
        _PTR]
 )
-
-
-def library() -> ctypes.CDLL:
-    """The kernel library, built and loaded at first call."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in (
-            ("tdm_flash_attention_fwd", _FWD_ARGTYPES),
-            ("tdm_flash_attention_bwd_dq", _BWD_ARGTYPES),
-            ("tdm_flash_attention_bwd_dkv", _BWD_ARGTYPES),
-        ):
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = argtypes
-        lib.tdm_cuda_error_string.restype = ctypes.c_char_p
-        lib.tdm_cuda_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
-    return _lib
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{what} kernel launch failed: "
-            f"{library().tdm_cuda_error_string(err).decode()} (cudaError {err})"
-        )
 
 
 def _bhl_strides(x: torch.Tensor, layout: str) -> tuple[int, int, int]:
@@ -270,7 +148,7 @@ def forward(q, k, v, *, causal, layout, q_offset, k_offset, dropout_rate,
     out_shape = (b, h, lq, dv) if layout == "bhld" else (b, lq, h, dv)
     out = torch.empty(out_shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    err = library().tdm_flash_attention_fwd(
+    err = _build.function("tdm_flash_attention_fwd", _FWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _DTYPE_CODES[q.dtype], b, h, lq, lk, dh, dv,
         *_bhl_strides(q, layout), *_bhl_strides(k, layout),
@@ -279,7 +157,7 @@ def forward(q, k, v, *, causal, layout, q_offset, k_offset, dropout_rate,
         *_dropout_args(dropout_rate, dropout_seed),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(err, "flash attention forward")
+    _build.raise_on(err, "flash attention forward")
     launches += 1
     return out, lse
 
@@ -301,7 +179,7 @@ def _backward_call(name: str, q, k, v, g_out, lse, delta, grads, *, causal,
     strides = []
     for x in (q, k, v, g_out, *grads):
         strides.extend(_bhl_strides(x, layout))
-    err = getattr(library(), name)(
+    err = _build.function(name, _BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(g.data_ptr() for g in grads),
         _DTYPE_CODES[q.dtype], b, h, lq, lk, dh, dv,
@@ -310,7 +188,7 @@ def _backward_call(name: str, q, k, v, g_out, lse, delta, grads, *, causal,
         *_dropout_args(dropout_rate, dropout_seed),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(err, name)
+    _build.raise_on(err, name)
 
 
 def backward_dq(q, k, v, g_out, lse, delta, dq, **kw) -> None:

@@ -1,4 +1,4 @@
-"""Plain PyTorch attention: the semantics contract of the flash kernels.
+"""Plain PyTorch versions of the kernels: their semantics contract.
 
 Port of ``ops/xla_ref.attention`` (the JAX package's plain version), widened
 to what the flash kernels compute: the output and the per-row float32
@@ -7,6 +7,9 @@ width may differ from the keys', and the TPU flash kernel's attention-weight
 dropout with its coordinate-hash mask (``dropout_scale``). The CPU tests and
 the CPU path of the models run this, forward and (by autograd) backward;
 ``chip_smoke.py`` holds the CUDA kernels against it on the card.
+
+``fused_guided_decode`` is the plain version of the guided-decode kernel
+(``ops/decode_kernel.py``, ``csrc/guided_decode.cu``).
 """
 
 from __future__ import annotations
@@ -112,3 +115,94 @@ def attention(
     if layout == "blhd":
         out = out.transpose(1, 2)
     return out, lse
+
+
+def _layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+    """f32 LayerNorm (eps 1e-5) with bf16 scale and bias, as
+    ``decode_kernel._layernorm``."""
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-5) * scale.float() + bias.float()
+
+
+def _bf16_matmul(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
+    """(B, in) f32 activations rounded to bf16, times a bf16 (in, out)
+    weight, summed in f32 (``decode_kernel._matmul``)."""
+    out = x.bfloat16().float() @ w.float()
+    return out if b is None else out + b.float()
+
+
+def fused_guided_decode(w, diff_logits: torch.Tensor, bos: int, *,
+                        alpha: float = 0.5, temperature: float = 1.0,
+                        normalize: bool = False, return_scores: bool = False,
+                        forced_tokens: torch.Tensor | None = None):
+    """Plain version of the guided-decode kernel, step by step in PyTorch.
+
+    ``w`` is an ``ops.decode_kernel.DecodeWeights`` (bf16). Per position:
+    token and position embedding, ``depth`` pre-LN GPT blocks with a bf16
+    KV cache, final LN, the bf16 head, then ``mix_logits`` (raw, or the
+    mixture probability with ``normalize``) of the head's and the bf16
+    diffusion logits, both over ``temperature``, and the greedy argmax
+    (lowest index on ties), which is the next position's token.
+    Activations are rounded to bf16 before each product; LN, softmax, the
+    mix and every sum are f32. Runs on any device (the tests on the CPU,
+    ``chip_smoke.py`` on the card beside the kernel). Returns (B, L) int32
+    tokens, and with ``return_scores`` also the (B, L, V) f32 mixed scores
+    whose argmax each token is. ``forced_tokens`` (B, L) feeds those tokens
+    forward instead of its own argmax (teacher forcing), so the scores are
+    those of another decode's context: ``chip_smoke.py`` scores the
+    kernel's tokens this way at every position.
+    """
+    b, seq_len, _ = diff_logits.shape
+    dev = diff_logits.device
+    depth, d = w.ln.shape[0], w.tok_emb.shape[1]
+    h = w.n_heads
+    dh = d // h
+    inv_t = torch.tensor(1.0 / temperature, dtype=torch.float32, device=dev)
+    diff = diff_logits.to(torch.bfloat16).float()
+    kc = torch.zeros(depth, b, h, seq_len, dh, dtype=torch.bfloat16,
+                     device=dev)
+    vc = torch.zeros_like(kc)
+    tok = torch.full((b,), int(bos), dtype=torch.long, device=dev)
+    tokens = torch.empty((b, seq_len), dtype=torch.int32, device=dev)
+    scores = []
+    for pos in range(seq_len):
+        x = w.tok_emb[tok].float() + w.pos_emb[pos].float()
+        for i in range(depth):
+            ln1w, ln1b, ln2w, ln2b = w.ln[i]
+            qkv = _bf16_matmul(_layernorm(x, ln1w, ln1b), w.qkv_w[i],
+                               w.qkv_b[i])
+            q, k, v = (a.reshape(b, h, dh) for a in qkv.split(d, dim=-1))
+            kc[i, :, :, pos] = k.bfloat16()
+            vc[i, :, :, pos] = v.bfloat16()
+            s = (q[:, :, None, :] * kc[i, :, :, :pos + 1].float()).sum(-1)
+            s = s / math.sqrt(dh)                          # (B, H, pos + 1)
+            p = torch.exp(s - s.max(-1, keepdim=True).values)
+            p = p / p.sum(-1, keepdim=True)
+            attn = (p[..., None] * vc[i, :, :, :pos + 1].float()).sum(-2)
+            x = x + _bf16_matmul(attn.reshape(b, d), w.proj_w[i], w.proj_b[i])
+            hid = _bf16_matmul(_layernorm(x, ln2w, ln2b), w.fc_w[i],
+                               w.fc_b[i])
+            hid = torch.nn.functional.gelu(hid, approximate="tanh")
+            x = x + _bf16_matmul(hid, w.mlp_w[i], w.mlp_b[i])
+        x = _layernorm(x, w.ln_f[0], w.ln_f[1])
+        a = _bf16_matmul(x, w.head) * inv_t
+        dl = diff[:, pos] * inv_t
+        if normalize:
+            ma = a.max(-1, keepdim=True).values
+            md = dl.max(-1, keepdim=True).values
+            za = torch.exp(a - ma).sum(-1, keepdim=True)
+            zd = torch.exp(dl - md).sum(-1, keepdim=True)
+            mixed = ((1.0 - alpha) * torch.exp(a - ma) / za
+                     + alpha * torch.exp(dl - md) / zd)
+        else:
+            mixed = (1.0 - alpha) * a + alpha * dl
+        tok = torch.argmax(mixed, dim=-1)
+        tokens[:, pos] = tok.to(torch.int32)
+        if forced_tokens is not None:
+            tok = forced_tokens[:, pos].long()
+        if return_scores:
+            scores.append(mixed)
+    if return_scores:
+        return tokens, torch.stack(scores, dim=1)
+    return tokens

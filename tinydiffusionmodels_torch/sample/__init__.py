@@ -1,1 +1,2 @@
-"""Samplers of the port: the reverse-diffusion loop and text sampling."""
+"""Samplers of the port: the reverse-diffusion loop, text sampling and
+guided AR + diffusion decoding."""

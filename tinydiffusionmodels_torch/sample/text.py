@@ -1,9 +1,11 @@
-"""Text sampling: diffusion sampling plus decoding (port of the plain path of
-``sample/text.py``; guided generation is not yet ported).
+"""Text sampling: diffusion sampling plus decoding, and guided generation
+(port of ``sample/text.py``).
 
 The reverse loop is ``sample.ancestral.sample_loop``; decoding is the learned
-rounding head's argmax or the cosine fallback. Everything runs on the device
-of the model's parameters under ``torch.inference_mode``.
+rounding head's argmax or the cosine fallback; guided generation mixes a base
+LM's greedy decode with the per-position diffusion logits
+(``sample.guided``). Everything runs on the device of the model's parameters
+under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from tinydiffusionmodels_torch.models.embedding import (
 )
 from tinydiffusionmodels_torch.models.transformer import TinyTransformer
 from tinydiffusionmodels_torch.sample.ancestral import NoiseFn, sample_loop
+from tinydiffusionmodels_torch.sample.guided import guided_generate_scan
 
 
 def make_denoiser(
@@ -217,3 +220,52 @@ def sample_text(
             save_samples(text, sample_path)
             log_fn(f"✔ Wrote {sample_path}")
     return (texts, x) if return_embeddings else texts
+
+
+def guided_sample_text(
+    decode_step,
+    init_cache: dict,
+    z: torch.Tensor,
+    tokenizer,
+    *,
+    rounding: LearnedRounding | None = None,
+    embed_matrix: torch.Tensor | None = None,
+    use_learned_rounding: bool = True,
+    alpha: float = 0.3,
+    temperature: float = 1.0,
+    normalize: bool = False,
+    seg: int | None = None,
+    outdir: str = "samples",
+    save: bool = True,
+    log_fn=print,
+    return_tokens: bool = False,
+):
+    """Guided generation end to end (reference src/shakespeare.py:429-470,
+    590-603): diffusion logits from z, the KV-cached greedy decode
+    (``sample.guided.guided_generate_scan``), decode, and
+    ``guided_sample_{i}.txt`` when ``save``. ``normalize=True`` mixes
+    probabilities instead of logits (``sample.guided.mix_logits``); ``seg``
+    segments the decode, whose ``decode_step`` then takes ``attn_len``.
+    Returns the texts, or (texts, (B, L) int32 tokens) with
+    ``return_tokens``."""
+    diff_logits = diffusion_position_logits(
+        z, rounding=rounding, embed_matrix=embed_matrix,
+        use_learned_rounding=use_learned_rounding,
+    )
+    bos = tokenizer.bos_token_id or tokenizer.eos_token_id or 0
+    tokens = guided_generate_scan(
+        decode_step, init_cache, diff_logits, bos, alpha=alpha,
+        temperature=temperature, normalize=normalize, seg=seg,
+    )
+    texts = tokenizer.batch_decode(tokens.cpu().numpy(),
+                                   skip_special_tokens=True)
+    if save:
+        samples_dir = get_samples_dir(outdir)
+        for i, text in enumerate(texts):
+            if isinstance(samples_dir, str) and samples_dir.startswith("gs://"):
+                sample_path = f"{samples_dir}/guided_sample_{i}.txt"
+            else:
+                sample_path = Path(samples_dir) / f"guided_sample_{i}.txt"
+            save_samples(text, sample_path)
+            log_fn(f"✔ Wrote {sample_path}")
+    return (texts, tokens) if return_tokens else texts

@@ -3,6 +3,8 @@
 
     python -m tinydiffusionmodels_torch.shakespeare --train --ckpt X.pth
     python -m tinydiffusionmodels_torch.shakespeare --sample --ckpt X.pth
+    python -m tinydiffusionmodels_torch.shakespeare --guided_sample \
+        --base_lm tinygpt --ckpt X.pth
 
 The parser is the port's own copy of the JAX CLI's (``build_parser``), so
 every flag keeps its name, default and meaning. ``--train`` trains the
@@ -13,10 +15,16 @@ trained weights. ``--sample`` alone reads a checkpoint the JAX CLI or the
 port wrote and configures itself from it: parameterization, noise schedule,
 positions, embedding norm, self-conditioning, width, depth and tokenizer,
 plus the legacy bare-state-dict branch that decodes by cosine similarity.
-It runs on the GPU unless ``TDM_PLATFORM=cpu``; attention runs through the
-CUDA flash kernels there, forward and backward. ``--guided_sample``,
-``--seq_parallel``, ``--profile_dir``, ``--resume`` and ``--dtype bf16`` are
-not yet ported and exit non-zero.
+``--guided_sample`` mixes a base LM's KV-cached greedy decode with the
+diffusion logits of the sampled embeddings and writes
+``guided_sample_{i}.txt``; its base LM is TinyGPT (``--base_lm tinygpt``,
+or ``auto`` when no Hugging Face LM loads), loaded from ``--lm_ckpt`` (the
+JAX CLI's format) or trained and saved there when that file is missing or
+stale (another vocabulary, too short a position table). It runs on the GPU
+unless ``TDM_PLATFORM=cpu``; attention runs through the CUDA flash kernels
+there, forward and backward. ``--base_lm hf``, ``--seq_parallel``,
+``--profile_dir``, ``--resume`` and ``--dtype bf16`` are not yet ported and
+exit non-zero.
 """
 
 from __future__ import annotations
@@ -206,13 +214,16 @@ def _load_hf(model_id: str):
 
 
 def main(argv=None):
-    """Run the CLI. Returns the sampled (n, seq_len, dim) embeddings when
-    sampling, else the ``text_train.TrainResult`` of ``--train``."""
+    """Run the CLI. Returns the sampled (n, seq_len, dim) embeddings of
+    ``--sample``, the (n, seq_len) int32 guided tokens of
+    ``--guided_sample``, both as a pair when both are asked for, else the
+    ``text_train.TrainResult`` of ``--train``."""
     args = build_parser().parse_args(argv)
     if not (args.train or args.sample or args.guided_sample):
         print("Nothing to do. Try --train or --guided_sample.")
         return None
-    for flag, given in (("--guided_sample", args.guided_sample),
+    for flag, given in (("--guided_sample --base_lm hf",
+                         args.guided_sample and args.base_lm == "hf"),
                         ("--seq_parallel", args.seq_parallel),
                         ("--profile_dir", args.profile_dir),
                         ("--resume", args.resume),
@@ -251,10 +262,10 @@ def main(argv=None):
     init_gen = torch.Generator().manual_seed(args.seed)
 
     # --- tokenizer / pretrained-matrix resolution -------------------------
-    hf_tok, pretrained_matrix = None, None
+    hf_tok, pretrained_matrix, torch_lm = None, None, None
     is_bpe = bool(args.model_id) and args.model_id.split(":")[0] == "bpe"
     if args.model_id and args.model_id != "char" and not is_bpe:
-        hf_tok, pretrained_matrix, _ = _load_hf(args.model_id)
+        hf_tok, pretrained_matrix, torch_lm = _load_hf(args.model_id)
 
     corpus, corpus_source = load_text_corpus(args.data_root)
     if corpus_source == "builtin":
@@ -353,10 +364,10 @@ def main(argv=None):
         rounding = result.joint["rounding_fn"]
         if use_learned_embeddings:
             embedding = result.joint["embedding_fn"]
-    if not args.sample:
+    if not (args.sample or args.guided_sample):
         return result
 
-    # --- checkpoint loading (--sample without --train) ---------------------
+    # --- checkpoint loading (sampling without --train) ---------------------
     if not args.train:
         checkpoint = load_checkpoint(args.ckpt)
         is_dict = isinstance(checkpoint, dict)
@@ -462,17 +473,96 @@ def main(argv=None):
         )
 
     # --- plain sampling ---------------------------------------------------
-    sample_gen = torch.Generator(device=dev).manual_seed(args.seed)
-    _, z = sample_text(
-        model, sched, tokenizer,
-        rounding=rounding, embed_matrix=embed_matrix,
-        n_samples=args.n, seq_len=args.seq_len, embed_dim=embed_dim,
-        use_learned_rounding=not use_cosine_fallback,
-        method=args.sampler, num_steps=args.steps, clamp=args.clamp,
-        parameterization=args.parameterization,
-        generator=sample_gen, return_embeddings=True,
+    z = None
+    if args.sample:
+        sample_gen = torch.Generator(device=dev).manual_seed(args.seed)
+        _, z = sample_text(
+            model, sched, tokenizer,
+            rounding=rounding, embed_matrix=embed_matrix,
+            n_samples=args.n, seq_len=args.seq_len, embed_dim=embed_dim,
+            use_learned_rounding=not use_cosine_fallback,
+            method=args.sampler, num_steps=args.steps, clamp=args.clamp,
+            parameterization=args.parameterization,
+            generator=sample_gen, return_embeddings=True,
+        )
+    if not args.guided_sample:
+        return z
+
+    # --- guided sampling --------------------------------------------------
+    lm_choice = args.base_lm
+    if lm_choice == "auto":
+        lm_choice = "hf" if torch_lm is not None else "tinygpt"
+    if lm_choice == "hf":
+        raise SystemExit(f"--guided_sample --base_lm hf {_NOT_PORTED}")
+    lm = _load_or_train_lm(args, vocab_size, corpus, tokenizer, dev)
+
+    from tinydiffusionmodels_torch.sample.guided import default_seg
+    from tinydiffusionmodels_torch.sample.text import (
+        guided_sample_text,
+        sample_diffusion_embeddings,
     )
-    return z
+
+    # Unclamped, as the JAX CLI's guided draw; from --seed.
+    z_guided = sample_diffusion_embeddings(
+        model, sched, n=args.n, seq_len=args.seq_len, embed_dim=embed_dim,
+        method=args.sampler, num_steps=args.steps,
+        parameterization=args.parameterization,
+        generator=torch.Generator(device=dev).manual_seed(args.seed),
+    )
+    _, tokens = guided_sample_text(
+        lm.decode_step, lm.init_cache(args.n), z_guided, tokenizer,
+        rounding=rounding, embed_matrix=embed_matrix,
+        use_learned_rounding=not use_cosine_fallback,
+        alpha=args.alpha, temperature=args.temperature,
+        normalize=args.guidance_norm, seg=default_seg(args.n),
+        return_tokens=True,
+    )
+    return tokens if z is None else (z, tokens)
+
+
+def _load_or_train_lm(args, vocab_size: int, corpus: str, tokenizer, dev):
+    """The guided sampler's TinyGPT base LM: ``--lm_ckpt`` when it holds an
+    LM for this vocabulary with a long enough position table, else one
+    trained for ``--lm_epochs`` on the corpus and saved there in the JAX
+    CLI's format (``{"params": <JAX tree>}``)."""
+    from tinydiffusionmodels_torch.data import tokenize_corpus
+    from tinydiffusionmodels_torch.io import (
+        load_checkpoint,
+        save_checkpoint,
+        tiny_gpt_params_dict,
+        tiny_gpt_state_from_jax,
+    )
+    from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
+
+    lm_cfg = TinyGPTConfig(vocab_size=vocab_size, dim=256, n_heads=4,
+                           depth=4, max_len=max(args.seq_len + 1, 64))
+    if os.path.exists(args.lm_ckpt):
+        try:
+            params = load_checkpoint(args.lm_ckpt)["params"]
+            # A cached LM trained under another tokenizer (char-54 vs
+            # bpe-96, say) would crash, or silently misguide, in the mix.
+            v_ckpt = int(np.shape(params["tok_emb"])[0])
+            t_ckpt = int(np.shape(params["pos_emb"])[0])
+            if v_ckpt != lm_cfg.vocab_size:
+                raise ValueError(f"cached base-LM vocab {v_ckpt} != "
+                                 f"tokenizer vocab {lm_cfg.vocab_size}")
+            if t_ckpt < lm_cfg.max_len:
+                raise ValueError(f"cached base-LM max_len {t_ckpt} < "
+                                 f"required {lm_cfg.max_len}")
+            lm = TinyGPT(dataclasses.replace(lm_cfg, max_len=t_ckpt))
+            lm.load_state_dict(tiny_gpt_state_from_jax(params), strict=True)
+            print(f"[lm] loaded TinyGPT from {args.lm_ckpt}")
+            return lm.to(dev).eval()
+        except Exception as e:
+            print(f"[lm] could not load {args.lm_ckpt}: {e} — retraining")
+    from tinydiffusionmodels_torch.train.lm_train import train_lm
+
+    print(f"[lm] training TinyGPT base LM for {args.lm_epochs} epochs")
+    train_chunks, _ = tokenize_corpus(corpus, tokenizer, args.seq_len + 1, 0.0)
+    lm = train_lm(train_chunks, lm_cfg, epochs=args.lm_epochs, seed=args.seed,
+                  device=dev)
+    save_checkpoint({"params": tiny_gpt_params_dict(lm)}, args.lm_ckpt)
+    return lm
 
 
 if __name__ == "__main__":

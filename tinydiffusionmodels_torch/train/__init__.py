@@ -1,1 +1,2 @@
-"""Training of the port: the optimizer and schedules, and the text trainer."""
+"""Training of the port: the optimizer and schedules, the text trainer and
+the guided sampler's base-LM (TinyGPT) trainer."""
