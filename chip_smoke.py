@@ -54,7 +54,9 @@ no result line) on any error; no phase catches its own failure.
    "fused")`` on that TinyGPT and the trained rounding head's logits of
    phase 6's embeddings: one decode-kernel launch, forward = Jacobi rounds
    x 4, the output equal to its own fixpoint, >= 95 % agreement with the
-   plain f32 scan.
+   plain f32 scan. Outside the counted run, the kernel's decode of the same
+   TinyGPT and logits is held against its plain version by phase 7's
+   criteria: the main path's own shape and trained weights.
 10. Device vs CPU: one full-width denoiser forward on the card (kernel) and
    on the CPU (plain version), same weights and inputs, within 1e-3.
 11. Timing at the training shape (B 8, L 64, H 4, Dh 64, f32, the model's
@@ -66,7 +68,10 @@ no result line) on any error; no phase catches its own failure.
    67 TFLOP/s FP32, the larger).
 12. Timing of the guided decode at the bench shape (V 4096, D 256, depth 4,
    L 64, alpha 0.3) at bs 8 and 256: the kernel's CUDA-event time beside its
-   plain version and its bound (no single PyTorch call computes it), the
+   plain version and its bound (bytes over 3.35 TB/s or the matmul FLOPs,
+   bf16 products with f32 sums, over the bf16 tensor-core peak of 989
+   TFLOP/s plus the attention's f32 FLOPs over 67 TFLOP/s, the larger; no
+   single PyTorch call computes it), the
    cost of its grid barriers alone at its grid, and tokens/s of the exact
    decode with the fused draft against the plain f32 scan.
 13. Profiles: ``torch.profiler`` over a window of the sampler and over
@@ -107,10 +112,12 @@ DECODE_BATCHES = (8, 256)
 # by a fraction of a bf16 step.
 DECODE_TIE_RTOL = 1e-2
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, FP32 FLOP/s
-# outside the tensor cores (the kernels run plain FP32 FMA).
+# H100 SXM peaks (NVIDIA data sheet, 700 W, dense): HBM3 bytes/s, f32
+# FLOP/s outside the tensor cores (the flash kernels' f32 operands), bf16
+# tensor-core FLOP/s (the decode's bf16 weight products).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 _CSRC = "tinydiffusionmodels_torch/csrc/"
 _PALLAS = "tinydiffusionmodels_tpu/ops/pallas_kernels.py"
@@ -399,7 +406,7 @@ def _tiny_gpt(vocab: int, depth: int, seed: int):
         "cuda").eval()
 
 
-def _decode_agreement(tokens, w, diff, kw):
+def _decode_agreement(tokens, w, diff, kw, bos: int = 0):
     """The kernel's tokens against the plain version's on the same inputs.
     First divergence: per row, the first position where the tokens differ
     (L where they never do); both runs share the prefix up to there, so the
@@ -415,9 +422,9 @@ def _decode_agreement(tokens, w, diff, kw):
     from tinydiffusionmodels_torch.ops import reference
 
     ref_tokens, ref_scores = reference.fused_guided_decode(
-        w, diff, 0, return_scores=True, **kw)
+        w, diff, bos, return_scores=True, **kw)
     _, forced = reference.fused_guided_decode(
-        w, diff, 0, return_scores=True, forced_tokens=tokens, **kw)
+        w, diff, bos, return_scores=True, forced_tokens=tokens, **kw)
     b, seq_len = tokens.shape
     differ = tokens != ref_tokens
     first = torch.where(differ.any(1), differ.int().argmax(1),
@@ -469,7 +476,7 @@ def decode_kernel_vs_plain():
             g = torch.Generator(device="cuda").manual_seed(seed)
             diff = torch.randn(b, SEQ, v, generator=g, device="cuda")
             kw = dict(alpha=ALPHA, temperature=temp, normalize=norm)
-            tokens = dk.decode(w, diff, 0, **kw)
+            tokens, grid = dk._launch(w, diff, 0, **kw)
             f, g1, g2, g_abs, o, p = _decode_agreement(tokens, w, diff, kw)
             torch.cuda.synchronize()
             firsts += f
@@ -482,7 +489,7 @@ def decode_kernel_vs_plain():
               f"first divergence {gap_first:.3e}; teacher-forced: {off} of "
               f"{positions} positions off the best, worst gap {gap_forced:.3e}"
               f" (relative tol {DECODE_TIE_RTOL:g}); mean first divergence "
-              f"{mean_first:.2f} of L={SEQ}; grid {dk.last_grid} CTAs")
+              f"{mean_first:.2f} of L={SEQ}; grid {grid} CTAs")
         if max(gap_first, gap_forced) > DECODE_TIE_RTOL or \
                 not mean_first > SEQ / 2:
             raise AssertionError(f"{name}: the kernel leaves the plain "
@@ -742,7 +749,10 @@ def guided_exact(card: str, lm_ckpt: Path, ckpt: Path, z, rounding):
     logits of the trained text checkpoint (its rounding head on the --sample
     phase's embeddings), n 8, L 64. Asserts one decode-kernel launch, the
     output equal to its own fixpoint and >= 95 % agreement with the plain
-    f32 scan. Returns (launches, rounds, agreement)."""
+    f32 scan. Then, outside the counted run, the kernel's decode of the
+    same TinyGPT and logits against its plain version (phase 7's criteria).
+    Returns (launches, rounds, agreement, worst absolute forced gap,
+    agreement stats)."""
     import torch
 
     from tinydiffusionmodels_torch.data import tokenizer_from_state
@@ -751,6 +761,7 @@ def guided_exact(card: str, lm_ckpt: Path, ckpt: Path, z, rounding):
         tiny_gpt_state_from_jax,
     )
     from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
+    from tinydiffusionmodels_torch.ops import decode_kernel as dk
     from tinydiffusionmodels_torch.sample.guided import (
         guided_generate_verified,
     )
@@ -791,22 +802,48 @@ def guided_exact(card: str, lm_ckpt: Path, ckpt: Path, z, rounding):
     print(f"exact guided decode: launches {counts}; {rounds} Jacobi rounds "
           f"(verify forwards); output equals its fixpoint; agreement with "
           f"the plain f32 scan {agree}; on {card}")
-    return counts, rounds, agree
+
+    # The draft this path launched, held against its plain version at the
+    # path's own shape (B 8, L 64, the char vocab) and trained weights.
+    w = dk.pack_weights(lm)
+    kw = dict(alpha=ALPHA, temperature=1.0, normalize=False)
+    draft = dk.fused_guided_decode(w, diff, bos, **kw)
+    firsts, gap_first, gap_forced, worst_abs, off, positions = \
+        _decode_agreement(draft, w, diff, kw, bos)
+    mean_first = sum(firsts) / len(firsts)
+    equal = sum(x == SEQ for x in firsts)
+    print(f"draft kernel vs plain on this path (B {diff.shape[0]}, V {v}): "
+          f"rows equal {equal}/{len(firsts)}; worst gap at a first "
+          f"divergence {gap_first:.3e}; teacher-forced: {off} of {positions} "
+          f"positions off the best, worst gap {gap_forced:.3e} (relative tol "
+          f"{DECODE_TIE_RTOL:g}), absolute {worst_abs:.3e}; mean first "
+          f"divergence {mean_first:.2f} of L={SEQ}")
+    if max(gap_first, gap_forced) > DECODE_TIE_RTOL or \
+            not mean_first > SEQ / 2:
+        raise AssertionError("the kernel's draft on the exact guided path "
+                             "leaves the plain version beyond a near-tie")
+    stats = {"rows_equal": equal, "rows": len(firsts),
+             "worst_first_divergence_gap": gap_first,
+             "worst_forced_gap": gap_forced, "positions_off": off,
+             "positions": positions, "mean_first_divergence": mean_first}
+    return counts, rounds, agree, worst_abs, stats
 
 
 def _decode_bound(b: int, seq_len: int, vocab: int, depth: int):
-    """(bytes, FP32 FLOPs) of one guided decode at the bench width: every
-    bf16 weight once, the token-table rows gathered, the bf16 diffusion
-    logits once, the int32 tokens written; the matmuls, attention over
-    slots <= pos, at 2 FLOPs per multiply-add."""
+    """(bytes, matmul FLOPs, attention FLOPs) of one guided decode at the
+    bench width: every bf16 weight once, the token-table rows gathered, the
+    bf16 diffusion logits once, the int32 tokens written; the matmuls (bf16
+    weights times bf16-rounded activations, f32 sums: the bf16 tensor-core
+    operation) and the attention over slots <= pos (f32 queries and
+    probabilities against the bf16 cache: f32 operations), at 2 FLOPs per
+    multiply-add."""
     d, f = DIM, 4 * DIM
     layer = 3 * d * d + d * d + 2 * d * f
     weights = depth * (layer + 3 * d + d + f + d + 4 * d) + d * vocab + 2 * d
     weights += (seq_len + 1) * d + min(b * seq_len, vocab) * d
     nbytes = 2 * weights + 2 * b * seq_len * vocab + 4 * b * seq_len
     attn = 2 * 2 * d * depth * sum(p + 1 for p in range(seq_len))
-    flops = b * (seq_len * 2 * (depth * layer + d * vocab) + attn)
-    return nbytes, flops
+    return nbytes, b * seq_len * 2 * (depth * layer + d * vocab), b * attn
 
 
 def decode_timing(card: str) -> dict:
@@ -836,7 +873,7 @@ def decode_timing(card: str) -> dict:
         kw = dict(alpha=ALPHA, temperature=1.0, normalize=False)
 
         def kernel():
-            dk.decode(w, diff, 0, **kw)
+            dk.fused_guided_decode(w, diff, 0, **kw)
 
         def plain():
             reference.fused_guided_decode(w, diff, 0, **kw)
@@ -845,33 +882,41 @@ def decode_timing(card: str) -> dict:
         k_ms = [_device_ms(kernel, iters=10, warmup=2),
                 _device_ms(kernel, iters=10, warmup=2)]
         p_ms.append(_device_ms(plain, iters=2, warmup=1))
-        grid = dk.last_grid
+        grid = dk._launch(w, diff, 0, **kw)[1]
         syncs = SEQ * (5 * depth + 2) + 1
-        sync_ms = _device_ms(lambda: dk.grid_sync_probe(syncs, grid),
+        sync_ms = _device_ms(lambda: dk._grid_sync_probe(syncs, grid),
                              iters=10, warmup=2)
-        nbytes, flops = _decode_bound(b, SEQ, vocab, depth)
-        bound_ms, bound_by = _bound(nbytes, flops)
+        nbytes, mm_flops, attn_flops = _decode_bound(b, SEQ, vocab, depth)
+        bound_ms, bound_by = _bound(nbytes, [(mm_flops, BF16_FLOPS_PER_S),
+                                             (attn_flops, FP32_FLOPS_PER_S)])
+        # The roof of the kernel as written (plain FP32 FMA, no tensor
+        # cores), beside the card's bound; not the bound.
+        fma_roof_ms = (mm_flops + attn_flops) / FP32_FLOPS_PER_S * 1e3
         rates = {}
         for draft in ("fused", "plain"):
-            guided_generate_verified(model, diff, 0, alpha=ALPHA, draft=draft)
+            guided_generate_verified(model, diff, 0, alpha=ALPHA, draft=draft,
+                                     weights=w)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(RATE_RUNS):
                 _, rounds = guided_generate_verified(
-                    model, diff, 0, alpha=ALPHA, draft=draft,
+                    model, diff, 0, alpha=ALPHA, draft=draft, weights=w,
                     return_rounds=True)
             torch.cuda.synchronize()
             rates[draft] = (b * SEQ * RATE_RUNS / (time.perf_counter() - t0),
                             rounds)
         k_mean = sum(k_ms) / 2
         out[b] = dict(ms=k_mean, plain_ms=sum(p_ms) / 2, bound_ms=bound_ms,
-                      bound_by=bound_by, library_ms=None, grid=grid,
+                      bound_by=bound_by, library_ms=None,
+                      fp32_fma_roof_ms=fma_roof_ms, grid=grid,
                       barrier_ms=sync_ms, barrier_share=sync_ms / k_mean,
                       fused_verify_tokens_s=rates["fused"][0],
                       jacobi_rounds=rates["fused"][1],
                       plain_scan_tokens_s=rates["plain"][0])
         print(f"bs {b}: kernel {k_ms} ms, plain {p_ms} ms; bound {bound_ms} "
-              f"ms by {bound_by} ({nbytes} B, {flops} FLOP); grid {grid} "
+              f"ms by {bound_by} ({nbytes} B, {mm_flops} bf16 matmul FLOP, "
+              f"{attn_flops} f32 attention FLOP), {k_mean / bound_ms:.0f}x; "
+              f"FP32-FMA roof {fma_roof_ms} ms; grid {grid} "
               f"CTAs, {syncs} barriers alone {sync_ms} ms = "
               f"{sync_ms / k_mean:.3f} of the kernel; exact decode tokens/s: "
               f"fused+verify {rates['fused'][0]} ({rates['fused'][1]} Jacobi "
@@ -899,11 +944,12 @@ def device_vs_cpu(model_gpu):
         raise AssertionError(f"device and CPU forwards differ by {err}")
 
 
-def _bound(nbytes: int, flops: int) -> tuple[float, str]:
+def _bound(nbytes: int, ops) -> tuple[float, str]:
     """(least time in ms, what bounds it) for work that moves ``nbytes`` and
-    does ``flops`` FP32 operations on one H100."""
+    does, for each (flops, rate) of ``ops``, ``flops`` operations of a type
+    whose peak on one H100 is ``rate``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = sum(flops / rate for flops, rate in ops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -990,7 +1036,8 @@ def kernel_timing(card: str) -> dict:
         k_ms = [_device_ms(kernel), _device_ms(kernel)]
         p_ms.append(_device_ms(plain))
         lib_ms = _device_ms(library)
-        bound_ms, bound_by = _bound(*work[name])
+        nbytes, flops = work[name]
+        bound_ms, bound_by = _bound(nbytes, [(flops, FP32_FLOPS_PER_S)])
         timings[name] = dict(ms=sum(k_ms) / 2, plain_ms=sum(p_ms) / 2,
                              library_ms=lib_ms, bound_ms=bound_ms,
                              bound_by=bound_by)
@@ -1101,7 +1148,7 @@ def main() -> None:
     sample_counts, wall_s_per_step, z = main_path_sample(card, ckpt, model)
     decode_worst_gap, decode_stats = decode_kernel_vs_plain()
     guided_counts, lm_ckpt = main_path_guided(card, ckpt)
-    exact_counts, rounds, agree = guided_exact(
+    exact_counts, rounds, agree, exact_gap, exact_stats = guided_exact(
         card, lm_ckpt, ckpt, z, result.joint["rounding_fn"].eval())
     device_vs_cpu(model)
     timings = kernel_timing(card)
@@ -1119,15 +1166,15 @@ def main() -> None:
                                          train_errors["out"]),
               "flash_attention_bwd_dq": train_errors["dq"],
               "flash_attention_bwd_dkv": train_errors["dkv"],
-              "guided_decode": decode_worst_gap}
+              "guided_decode": max(decode_worst_gap, exact_gap)}
     bs8, bs256 = (decode_times[b] for b in DECODE_BATCHES)
     timings["guided_decode"] = {
         **{k: bs8[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")},
+                               "library_ms", "fp32_fma_roof_ms")},
         "at": "bs 8", "bs256": bs256,
         "barrier_share_bs8": bs8["barrier_share"],
         "jacobi_rounds_main_path": rounds, "agreement_with_plain": agree,
-        "vs_plain": decode_stats,
+        "vs_plain": decode_stats, "vs_plain_main_path": exact_stats,
     }
     paths = (train_counts, sample_counts, guided_counts, exact_counts)
     record = []

@@ -197,16 +197,30 @@ def test_train_lm_learns_and_is_deterministic(capsys):
     chunks = ids[: (len(ids) // 9) * 9].reshape(-1, 9)
     cfg = TinyGPTConfig(vocab_size=7, dim=32, n_heads=2, depth=1, max_len=16)
     a = lm_train.train_lm(chunks, cfg, epochs=3, batch_size=8, lr=3e-3,
-                          log_fn=print)
+                          device="cpu", log_fn=print)
     out = capsys.readouterr().out
     assert out.count("[lm] epoch") == 3
     last = float(out.strip().splitlines()[-1].split("loss=")[1])
     assert last < np.log(7)
     b = lm_train.train_lm(chunks, cfg, epochs=3, batch_size=8, lr=3e-3,
-                          log_fn=lambda s: None)
+                          device="cpu", log_fn=lambda s: None)
     for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
         torch.testing.assert_close(x, y, rtol=0, atol=0, msg=name)
     assert not a.training
+
+
+def test_train_lm_defaults_to_the_runtime_device(monkeypatch):
+    """With no ``device``, ``train_lm`` trains on ``runtime.device()``: the
+    card, or an error where there is none, unless ``TDM_PLATFORM=cpu``."""
+    chunks = np.tile(np.arange(9) % 7, (8, 1))
+    cfg = TinyGPTConfig(vocab_size=7, dim=32, n_heads=2, depth=1, max_len=16)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("TDM_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="TDM_PLATFORM=cpu"):
+        lm_train.train_lm(chunks, cfg, epochs=1, log_fn=lambda s: None)
+    monkeypatch.setenv("TDM_PLATFORM", "cpu")
+    model = lm_train.train_lm(chunks, cfg, epochs=1, log_fn=lambda s: None)
+    assert model.tok_emb.weight.device.type == "cpu"
 
 
 def test_train_lm_rejects_an_empty_corpus():

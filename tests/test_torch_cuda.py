@@ -197,7 +197,7 @@ def test_decode_kernel_matches_plain(cuda, name):
     diff = torch.from_numpy(
         rng.standard_normal((b, seq_len, v), dtype=np.float32)).to(cuda)
     kw = dict(alpha=0.3, temperature=temp, normalize=norm)
-    tokens = dk.decode(w, diff, 0, **kw)
+    tokens = dk.fused_guided_decode(w, diff, 0, **kw)
     ref = reference.fused_guided_decode(w, diff, 0, **kw)
     _, forced = reference.fused_guided_decode(
         w, diff, 0, return_scores=True, forced_tokens=tokens, **kw)
@@ -216,15 +216,17 @@ def test_decode_launches_once_per_call(cuda):
     before = dk.launches
     dk.fused_guided_decode(model, diff, 0, alpha=0.3)
     guided_generate_verified(model, diff, 0, alpha=0.3, draft="fused")
-    assert dk.launches == before + 2 and dk.last_grid >= 1
+    _, grid = dk._launch(dk.pack_weights(model), diff, 0, alpha=0.3,
+                         temperature=1.0, normalize=False)
+    assert dk.launches == before + 3 and grid >= 1
 
 
 def test_decode_rejects_before_launch(cuda):
     w = dk.pack_weights(_gpt(97, 64, 2, 17, 0, cuda))
     before = dk.launches
     with pytest.raises(ValueError, match="outside 1..max_len=17"):
-        dk.decode(w, torch.randn(2, 18, 97, device=cuda), 0)
+        dk.fused_guided_decode(w, torch.randn(2, 18, 97, device=cuda), 0)
     with pytest.raises(ValueError, match="weights on cpu"):
-        dk.decode(dk.pack_weights(_gpt(97, 64, 2, 17, 0, "cpu")),
-                  torch.randn(2, 4, 97, device=cuda), 0)
+        dk.fused_guided_decode(dk.pack_weights(_gpt(97, 64, 2, 17, 0, "cpu")),
+                               torch.randn(2, 4, 97, device=cuda), 0)
     assert dk.launches == before

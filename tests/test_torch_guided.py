@@ -89,9 +89,17 @@ def test_mix_logits_matches_jax(normalize):
                                atol=1e-6)
 
 
-def test_default_seg_matches_jax():
-    for b in (1, 8, 63, 64, 256):
-        assert guided.default_seg(b) == jax_guided.default_seg(b)
+@pytest.mark.parametrize("seg", [1, 5])
+def test_scan_segments_change_no_result(model, seg):
+    """The port's decode step attends to the filled prefix whatever
+    ``attn_len`` says, so segmenting the scan leaves the tokens as they
+    are."""
+    diff = torch.from_numpy(_diff(4))
+    want = guided.guided_generate_scan(model.decode_step, model.init_cache(B),
+                                       diff, BOS, alpha=ALPHA)
+    got = guided.guided_generate_scan(model.decode_step, model.init_cache(B),
+                                      diff, BOS, alpha=ALPHA, seg=seg)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("seg", [None, 8])
@@ -189,6 +197,23 @@ def test_verified_matches_jax(params, model, draft, normalize):
     assert (rounds == 0) if draft == "plain" else (1 <= rounds <= L + 1)
 
 
+def test_packed_weights_decode_as_the_model(model):
+    """``DecodeWeights`` packed once give the tokens the model gives, in the
+    decode and in the verified decode's fused draft."""
+    w = dk.pack_weights(model)
+    diff = torch.from_numpy(_diff(9))
+    torch.testing.assert_close(
+        dk.fused_guided_decode(w, diff, BOS, alpha=ALPHA),
+        dk.fused_guided_decode(model, diff, BOS, alpha=ALPHA), rtol=0, atol=0)
+    got = guided.guided_generate_verified(model, diff, BOS, alpha=ALPHA,
+                                          draft="fused", weights=w,
+                                          return_rounds=True)
+    want = guided.guided_generate_verified(model, diff, BOS, alpha=ALPHA,
+                                           draft="fused", return_rounds=True)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    assert got[1] == want[1]
+
+
 def test_auto_draft_is_the_kernel(model, monkeypatch):
     """No batch rule: ``auto`` drafts with the guided-decode kernel (its
     plain version here) at any batch."""
@@ -212,7 +237,7 @@ def test_auto_draft_is_the_kernel(model, monkeypatch):
 def test_decode_checks_shapes_and_devices(model):
     w = dk.pack_weights(model)
     with pytest.raises(NotImplementedError, match="no path for meta"):
-        dk.decode(w, torch.empty(1, 4, 97, device="meta"), BOS)
+        dk.fused_guided_decode(w, torch.empty(1, 4, 97, device="meta"), BOS)
     # The card-side checks run before any build or launch.
     with pytest.raises(ValueError, match="vocab 50"):
         dk._check(w, torch.zeros(1, 4, 50), BOS)

@@ -27,7 +27,6 @@ from tinydiffusionmodels_torch.ops import _build, reference
 # Launches of the kernel made by this process: incremented once per launch
 # and nowhere else; callers reset it to 0 to count a run.
 launches = 0
-last_grid = 0   # CTAs of the last launch (the occupancy-sized grid)
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -90,31 +89,23 @@ def pack_weights(model) -> DecodeWeights:
         )
 
 
-def fused_guided_decode(model, diff_logits: torch.Tensor, bos: int, *,
+def fused_guided_decode(lm, diff_logits: torch.Tensor, bos: int, *,
                         alpha: float = 0.5, temperature: float = 1.0,
                         normalize: bool = False) -> torch.Tensor:
     """Whole guided decode: (B, L, V) diffusion logits -> (B, L) int32
-    greedy tokens of ``model`` (a TinyGPT) mixed with them
-    (``sample.guided.mix_logits`` semantics), bf16 weights and cache. One
-    kernel launch on the card; the plain version on the CPU."""
-    return decode(pack_weights(model), diff_logits, bos, alpha=alpha,
-                  temperature=temperature, normalize=normalize)
-
-
-def decode(w: DecodeWeights, diff_logits: torch.Tensor, bos: int, *,
-           alpha: float = 0.5, temperature: float = 1.0,
-           normalize: bool = False) -> torch.Tensor:
-    """``fused_guided_decode`` on packed weights."""
+    greedy tokens of ``lm`` mixed with them (``sample.guided.mix_logits``
+    semantics), bf16 weights and cache. ``lm`` is a TinyGPT, packed on each
+    call, or its ``DecodeWeights`` (``pack_weights``), packed once by the
+    caller. One kernel launch on the card; the plain version on the CPU."""
+    w = lm if isinstance(lm, DecodeWeights) else pack_weights(lm)
+    kw = dict(alpha=alpha, temperature=temperature, normalize=normalize)
     if diff_logits.device.type == "cpu":
-        return reference.fused_guided_decode(
-            w, diff_logits, bos, alpha=alpha, temperature=temperature,
-            normalize=normalize)
+        return reference.fused_guided_decode(w, diff_logits, bos, **kw)
     if diff_logits.device.type != "cuda":
         raise NotImplementedError(
             f"the guided decode has no path for {diff_logits.device.type} "
             "tensors")
-    return _launch(w, diff_logits, bos, alpha=alpha, temperature=temperature,
-                   normalize=normalize)
+    return _launch(w, diff_logits, bos, **kw)[0]
 
 
 def _check(w: DecodeWeights, diff: torch.Tensor, bos: int) -> None:
@@ -143,10 +134,12 @@ def _check(w: DecodeWeights, diff: torch.Tensor, bos: int) -> None:
 
 
 def _launch(w: DecodeWeights, diff_logits: torch.Tensor, bos: int, *,
-            alpha: float, temperature: float, normalize: bool) -> torch.Tensor:
+            alpha: float, temperature: float,
+            normalize: bool) -> tuple[torch.Tensor, int]:
     """One launch of the kernel on CUDA tensors; allocates its scratch and
-    output with ``torch.empty`` on the current stream."""
-    global launches, last_grid
+    output with ``torch.empty`` on the current stream. Returns the tokens
+    and the launch's grid (CTAs, sized by the occupancy calculator)."""
+    global launches
     _check(w, diff_logits, bos)
     b, seq_len, vocab = diff_logits.shape
     depth, d = w.ln.shape[0], w.tok_emb.shape[1]
@@ -169,15 +162,14 @@ def _launch(w: DecodeWeights, diff_logits: torch.Tensor, bos: int, *,
     )
     _build.raise_on(err, "guided decode")
     launches += 1
-    last_grid = grid.value
-    return tokens
+    return tokens, grid.value
 
 
-def grid_sync_probe(n_syncs: int, grid: int) -> None:
-    """Measurement only (``chip_smoke.py``): one cooperative launch of
-    ``grid`` CTAs, the decode kernel's block size, that runs ``n_syncs``
-    grid barriers and nothing else, on the current CUDA stream. Not a
-    decode launch; ``launches`` does not count it."""
+def _grid_sync_probe(n_syncs: int, grid: int) -> None:
+    """For ``chip_smoke.py``'s barrier timing only, not part of the decode:
+    one cooperative launch of ``grid`` CTAs, the decode kernel's block size,
+    that runs ``n_syncs`` grid barriers and nothing else, on the current
+    CUDA stream. ``launches`` does not count it."""
     err = _build.function("tdm_grid_sync_probe", [_INT, _INT, _PTR])(
         int(n_syncs), int(grid), torch.cuda.current_stream().cuda_stream)
     _build.raise_on(err, "grid sync probe")

@@ -19,7 +19,10 @@ from typing import Callable
 
 import torch
 
-from tinydiffusionmodels_torch.ops.decode_kernel import fused_guided_decode
+from tinydiffusionmodels_torch.ops.decode_kernel import (
+    DecodeWeights,
+    fused_guided_decode,
+)
 
 # (cache, token (B,)[, attn_len]) -> (logits (B, V), cache)
 CachedDecodeFn = Callable[..., tuple[torch.Tensor, dict]]
@@ -43,14 +46,6 @@ def mix_logits(ar_logits: torch.Tensor, diff_logits: torch.Tensor,
     return (1.0 - alpha) * a + alpha * d
 
 
-def default_seg(batch: int) -> int | None:
-    """The JAX package's segment length for ``guided_generate_scan``: 8 at
-    batch >= 64, else none. In the port a segment only bounds the decode
-    step's position (its attention always reads the filled prefix), so the
-    choice changes no result."""
-    return 8 if batch >= 64 else None
-
-
 def guided_generate_scan(decode_step: CachedDecodeFn, init_cache: dict,
                          diff_logits_all: torch.Tensor, bos_token: int, *,
                          alpha: float = 0.5, temperature: float = 1.0,
@@ -61,8 +56,11 @@ def guided_generate_scan(decode_step: CachedDecodeFn, init_cache: dict,
 
     ``seg``: positions run in segments of ``seg``; within segment s the step
     is called as ``decode_step(cache, token, attn_len=(s+1)*seg)``, the JAX
-    package's growing attention window. Ties take the lowest index
-    (``torch.argmax`` returns the first maximum, as ``jnp.argmax``)."""
+    package's growing attention window. The port's decode step always
+    attends to the filled prefix, so ``seg`` changes no result; it is kept
+    for parity with the JAX signature, and the port's callers leave it
+    None. Ties take the lowest index (``torch.argmax`` returns the first
+    maximum, as ``jnp.argmax``)."""
     b, seq_len, _ = diff_logits_all.shape
     token = torch.full((b,), int(bos_token), dtype=torch.long,
                        device=diff_logits_all.device)
@@ -94,11 +92,9 @@ def _scan_bf16_draft(model16, diff_logits_all: torch.Tensor, bos_token: int,
                        device=diff16.device)
     cache = model16.init_cache(b)
     out = []
-    seg = 8
     with torch.inference_mode():
         for pos in range(seq_len):
-            attn_len = min((pos // seg + 1) * seg, seq_len)
-            logits, cache = model16.decode_step(cache, token, attn_len)
+            logits, cache = model16.decode_step(cache, token)
             mixed = mix_logits(logits.float(), diff16[:, pos, :].float(),
                                alpha, temperature, normalize=normalize)
             token = torch.argmax(mixed, dim=-1)
@@ -110,6 +106,7 @@ def guided_generate_verified(model, diff_logits_all: torch.Tensor,
                              bos_token: int, *, alpha: float = 0.5,
                              temperature: float = 1.0,
                              normalize: bool = False, draft: str = "auto",
+                             weights: DecodeWeights | None = None,
                              return_rounds: bool = False):
     """Exact greedy guided decode of a TinyGPT ``model``.
 
@@ -125,6 +122,10 @@ def guided_generate_verified(model, diff_logits_all: torch.Tensor,
     - ``"auto"``: ``"fused"``. The JAX package's rule (fused while the
       state fits TPU VMEM, else plain) measured a TPU; the port has no
       batch rule until H100 measurements decide one.
+
+    ``weights``: the fused draft's bf16 weights, ``ops.decode_kernel.
+    pack_weights(model)``, for a caller that decodes many batches with one
+    model; packed from ``model`` on each call when None.
 
     Jacobi verification: ``tokens <- verify(tokens)`` until unchanged,
     where ``verify`` is one full-context f32 forward recomputing every
@@ -148,7 +149,7 @@ def guided_generate_verified(model, diff_logits_all: torch.Tensor,
         tokens = guided_generate_scan(
             model.decode_step, model.init_cache(b), diff_logits_all,
             bos_token, alpha=alpha, temperature=temperature,
-            normalize=normalize, seg=default_seg(b))
+            normalize=normalize)
         return (tokens, 0) if return_rounds else tokens
 
     bos = torch.full((b, 1), int(bos_token), dtype=torch.long,
@@ -169,7 +170,8 @@ def guided_generate_verified(model, diff_logits_all: torch.Tensor,
                 normalize=normalize)
         else:
             tokens = fused_guided_decode(
-                model, diff_logits_all, bos_token, alpha=alpha,
+                model if weights is None else weights, diff_logits_all,
+                bos_token, alpha=alpha,
                 temperature=temperature, normalize=normalize)
         exact = verify(tokens)
         rounds = 1

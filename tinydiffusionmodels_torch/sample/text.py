@@ -234,7 +234,6 @@ def guided_sample_text(
     alpha: float = 0.3,
     temperature: float = 1.0,
     normalize: bool = False,
-    seg: int | None = None,
     outdir: str = "samples",
     save: bool = True,
     log_fn=print,
@@ -244,8 +243,7 @@ def guided_sample_text(
     590-603): diffusion logits from z, the KV-cached greedy decode
     (``sample.guided.guided_generate_scan``), decode, and
     ``guided_sample_{i}.txt`` when ``save``. ``normalize=True`` mixes
-    probabilities instead of logits (``sample.guided.mix_logits``); ``seg``
-    segments the decode, whose ``decode_step`` then takes ``attn_len``.
+    probabilities instead of logits (``sample.guided.mix_logits``).
     Returns the texts, or (texts, (B, L) int32 tokens) with
     ``return_tokens``."""
     diff_logits = diffusion_position_logits(
@@ -255,7 +253,7 @@ def guided_sample_text(
     bos = tokenizer.bos_token_id or tokenizer.eos_token_id or 0
     tokens = guided_generate_scan(
         decode_step, init_cache, diff_logits, bos, alpha=alpha,
-        temperature=temperature, normalize=normalize, seg=seg,
+        temperature=temperature, normalize=normalize,
     )
     texts = tokenizer.batch_decode(tokens.cpu().numpy(),
                                    skip_special_tokens=True)

@@ -496,7 +496,6 @@ def main(argv=None):
         raise SystemExit(f"--guided_sample --base_lm hf {_NOT_PORTED}")
     lm = _load_or_train_lm(args, vocab_size, corpus, tokenizer, dev)
 
-    from tinydiffusionmodels_torch.sample.guided import default_seg
     from tinydiffusionmodels_torch.sample.text import (
         guided_sample_text,
         sample_diffusion_embeddings,
@@ -514,8 +513,7 @@ def main(argv=None):
         rounding=rounding, embed_matrix=embed_matrix,
         use_learned_rounding=not use_cosine_fallback,
         alpha=args.alpha, temperature=args.temperature,
-        normalize=args.guidance_norm, seg=default_seg(args.n),
-        return_tokens=True,
+        normalize=args.guidance_norm, return_tokens=True,
     )
     return tokens if z is None else (z, tokens)
 

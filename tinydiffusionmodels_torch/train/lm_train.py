@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tinydiffusionmodels_torch import runtime
 from tinydiffusionmodels_torch.data.loader import batch_iterator
 from tinydiffusionmodels_torch.models.ar_lm import TinyGPT, TinyGPTConfig
 from tinydiffusionmodels_torch.train.optim import adamw
@@ -47,13 +48,16 @@ def train_lm(
     batch_size: int = 64,
     lr: float = 3e-4,
     seed: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
     log_fn=print,
 ) -> TinyGPT:
     """Train a TinyGPT, initialized from ``seed``, on (N, seq_len) token
-    chunks; returns the trained module on ``device``."""
+    chunks; returns the trained module on ``device`` (default
+    ``runtime.device()``: the card unless ``TDM_PLATFORM=cpu``)."""
     if chunks.shape[0] == 0:
         raise ValueError("empty corpus: no chunks to train the base LM on")
+    if device is None:
+        device = runtime.device()
     batch_size = max(1, min(batch_size, chunks.shape[0]))
     model = TinyGPT(cfg, generator=torch.Generator().manual_seed(seed))
     model.to(device).train()
