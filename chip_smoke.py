@@ -77,6 +77,29 @@ no result line) on any error; no phase catches its own failure.
 13. Profiles: ``torch.profiler`` over a window of the sampler and over
    PROFILE_TRAIN_STEPS training steps: device time and kernels per step, the
    device's busy share, the kernels by device time.
+14. Resblock kernel vs plain: the fused UNet residual block
+   (``csrc/fused_resblock.cu``) against its plain version (cuDNN convs, TF32
+   off) at the four block shapes of the UNet, batch 1, 3, 25 and 128, random
+   weights and a nonzero time bias: f32 atol = rtol = 1e-4, the max error
+   per shape printed. One autograd backward per block through the wrapper's
+   Function against autograd of the plain version (1e-4), and one UNet
+   forward on the card against the CPU (1e-4).
+15. Main path, MNIST training: ``mnist.main(["--train", "--epochs", "1",
+   "--batch_size", "128", ...])`` on the synthetic 60 000 digits (the card
+   machine has no MNIST files and no network), with the per-epoch grid of 25
+   samples: asserts resblock launches = 468 x 4 + 1000 x 4, finite losses,
+   a lower mean loss over the last 50 steps than over the first 50, the
+   checkpoint and ``epoch_001.png`` written. Prints steps/s.
+16. Main path, MNIST sampling: ``mnist.main(["--sample", ...])`` from that
+   checkpoint (25 digits, 1000 ancestral steps; 4000 launches,
+   ``samples.png``), then ``--sampler ddim --steps 50`` (200 launches).
+   Prints the wall time of the 1000-step loop and samples/s.
+17. Resblock timing: each block at n 25 and 128, the kernel's CUDA-event
+   time beside the plain version's (cuDNN convs, TF32 off: no single
+   PyTorch call computes the block) and the bound (FLOPs at 67 TFLOP/s
+   against bytes at 3.35 TB/s), and their sums over a UNet forward; then
+   ``torch.profiler`` over PROFILE_STEPS MNIST sampler steps and over
+   PROFILE_TRAIN_STEPS MNIST training steps.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -133,6 +156,13 @@ KERNELS = {
 DROPOUT_HASH = (_CSRC + "dropout_hash.cuh", _PALLAS + ":266")
 KERNELS["guided_decode"] = (_CSRC + "guided_decode.cu",
                             "tinydiffusionmodels_tpu/ops/decode_kernel.py:67")
+KERNELS["fused_resblock"] = (_CSRC + "fused_resblock.cu", _PALLAS + ":809")
+
+# The MNIST paths: the UNet as it is (channel plan of models/unet.py, 28x28,
+# the 1000-step schedule) on the 60 000 synthetic training digits.
+MNIST_BATCH, MNIST_N, MNIST_IMAGES = 128, 25, 60_000
+MNIST_DDIM_STEPS = 50
+RESBLOCK_BATCHES = (1, 3, 25, 128)
 
 
 def phase(name: str) -> None:
@@ -505,19 +535,22 @@ def decode_kernel_vs_plain():
 def _reset_counts():
     from tinydiffusionmodels_torch.ops import decode_kernel as dk
     from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import resblock as rb
 
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
-    dk.launches = 0
+    dk.launches = rb.launches = 0
 
 
 def _counts() -> dict:
     from tinydiffusionmodels_torch.ops import decode_kernel as dk
     from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import resblock as rb
 
     return {"flash_attention_fwd": fa.launches,
             "flash_attention_bwd_dq": fa.dq_launches,
             "flash_attention_bwd_dkv": fa.dkv_launches,
-            "guided_decode": dk.launches}
+            "guided_decode": dk.launches,
+            "fused_resblock": rb.launches}
 
 
 def _prepare_workdir():
@@ -573,7 +606,8 @@ def main_path_train(card: str):
 
     expect = {"flash_attention_fwd": (steps + val_batches) * DEPTH,
               "flash_attention_bwd_dq": steps * DEPTH,
-              "flash_attention_bwd_dkv": steps * DEPTH, "guided_decode": 0}
+              "flash_attention_bwd_dkv": steps * DEPTH, "guided_decode": 0,
+              "fused_resblock": 0}
     if counts != expect:
         raise AssertionError(f"launches {counts} on the training path, "
                              f"expected {expect}")
@@ -633,7 +667,7 @@ def main_path_sample(card: str, ckpt: Path, model):
 
     expect = {"flash_attention_fwd": STEPS * DEPTH,
               "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-              "guided_decode": 0}
+              "guided_decode": 0, "fused_resblock": 0}
     if counts != expect:
         raise AssertionError(f"launches {counts} on the sampling path, "
                              f"expected {expect}")
@@ -710,7 +744,7 @@ def main_path_guided(card: str, ckpt: Path):
                   + steps * LM_DEPTH,
                   "flash_attention_bwd_dq": steps * LM_DEPTH,
                   "flash_attention_bwd_dkv": steps * LM_DEPTH,
-                  "guided_decode": 0}
+                  "guided_decode": 0, "fused_resblock": 0}
         if counts != expect:
             raise AssertionError(f"launches {counts} on the guided CLI path "
                                  f"(call {i + 1}), expected {expect}")
@@ -788,7 +822,7 @@ def guided_exact(card: str, lm_ckpt: Path, ckpt: Path, z, rounding):
     counts = _counts()
     expect = {"flash_attention_fwd": rounds * LM_DEPTH,
               "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-              "guided_decode": 1}
+              "guided_decode": 1, "fused_resblock": 0}
     if counts != expect:
         raise AssertionError(f"launches {counts} on the exact guided path, "
                              f"expected {expect}")
@@ -1138,11 +1172,349 @@ def profile_training(joint, card: str) -> None:
     _profile_table(prof, PROFILE_TRAIN_STEPS, wall, card, "training")
 
 
+def _resblock_args(name: str, b: int, seed: int, grad: bool = False):
+    """Inputs of UNet block ``name`` at batch ``b`` on the card: N(0, 1)
+    activations and time bias, weights at torch's init scale, biases 0.1."""
+    import math
+
+    import torch
+
+    from tinydiffusionmodels_torch.models.unet import BLOCKS
+
+    cin, cout = BLOCKS[name]
+    hw = 28 if name in ("rb1", "rb4") else 14
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        t = scale * torch.randn(*shape, generator=g, device="cuda")
+        return t.requires_grad_(grad)
+
+    args = [r(b, hw, hw, cin), r(cout, cin, 3, 3, scale=1 / math.sqrt(9 * cin)),
+            r(cout, scale=0.1), r(cout, cout, 3, 3,
+                                  scale=1 / math.sqrt(9 * cout)),
+            r(cout, scale=0.1), r(b, 1, 1, cout)]
+    if cin != cout:
+        return args + [r(cout, cin, 1, 1, scale=1 / math.sqrt(cin)),
+                       r(cout, scale=0.1)]
+    return args + [None, None]
+
+
+def _resblock_work(args) -> tuple[int, int]:
+    """(bytes, FP32 FLOPs) of one block: every input read once and the
+    output written once; 2 FLOPs per multiply-add of both 3x3 convs and the
+    1x1 skip."""
+    x, w1 = args[0], args[1]
+    b, h, w, cin = x.shape
+    cout = w1.shape[0]
+    macs = b * h * w * (9 * cin * cout + 9 * cout * cout
+                        + (cin * cout if args[6] is not None else 0))
+    elements = sum(t.numel() for t in args if t is not None) + b * h * w * cout
+    return 4 * elements, 2 * macs
+
+
+def resblock_kernel_vs_plain():
+    """The kernel against its plain version at every block shape and the
+    RESBLOCK_BATCHES; one backward per block through the Function against
+    autograd of the plain version; one UNet forward, card against CPU.
+    Returns the largest forward error."""
+    import copy
+
+    import torch
+
+    from tinydiffusionmodels_torch.models import SimpleUNet
+    from tinydiffusionmodels_torch.models.unet import BLOCKS
+    from tinydiffusionmodels_torch.ops import reference
+    from tinydiffusionmodels_torch.ops import resblock as rb
+
+    phase(f"fused resblock kernel vs plain (TF32 off, tile {rb.TILE})")
+    worst = 0.0
+    for i, name in enumerate(BLOCKS):
+        for b in RESBLOCK_BATCHES:
+            args = _resblock_args(name, b, seed=200 + 10 * i + b)
+            x = args[0]
+            out = rb._launch(*args)
+            ref = reference.fused_resblock(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+            err = _max_err(out, ref)
+            # The border ring alone: where conv2 must see 0, not time_bias.
+            ring = torch.ones(x.shape[1:3], dtype=torch.bool, device="cuda")
+            ring[1:-1, 1:-1] = False
+            worst = max(worst, err)
+            print(f"{name} (Cin {x.shape[-1]}, Cout {out.shape[-1]}, "
+                  f"H {x.shape[1]}) batch {b:3d}: max|d| {err:.3e}, border "
+                  f"ring {_max_err(out[:, ring], ref[:, ring]):.3e} (tol "
+                  f"1e-4)")
+    for i, name in enumerate(BLOCKS):
+        args = _resblock_args(name, 3, seed=300 + i, grad=True)
+        leaves = [t for t in args if t is not None]
+        g = torch.randn(args[0].shape[:3] + (args[1].shape[0],),
+                        device="cuda")
+        grads = [torch.autograd.grad(fn(*args), leaves, g)
+                 for fn in (rb.fused_resblock, reference.fused_resblock)]
+        torch.cuda.synchronize()
+        errs = []
+        for got, want in zip(*grads):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+            errs.append(_max_err(got, want))
+        print(f"{name} backward through the Function vs plain autograd, "
+              f"batch 3: worst of {len(leaves)} gradients {max(errs):.3e} "
+              f"(tol 1e-4)")
+    model = SimpleUNet(generator=torch.Generator().manual_seed(4)).eval()
+    x = torch.randn(2, 28, 28, 1, generator=torch.Generator().manual_seed(5))
+    t = torch.tensor([10, 500])
+    with torch.inference_mode():
+        want = model(x, t)
+        got = copy.deepcopy(model).cuda()(x.cuda(), t.cuda()).cpu()
+    err = _max_err(got, want)
+    print(f"UNet forward, card vs CPU (t = [10, 500]): {err:.3e} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"the UNet on the card leaves the CPU by {err}")
+    return worst
+
+
+def _prepare_mnist_workdir() -> Path:
+    work = WORK / "mnist"
+    work.mkdir(parents=True, exist_ok=True)
+    os.chdir(work)
+    os.environ["TDM_PLATFORM"] = "cuda"
+    os.environ["TDM_PROGRESS_EVERY"] = "100"
+    for var in ("AIP_MODEL_DIR", "TDM_METRICS_PATH", "TDM_DATA_LIMIT",
+                "TDM_MNIST_DIR"):
+        os.environ.pop(var, None)
+    # load_mnist tries a torchvision download before it renders synthetic
+    # digits; this machine has no network, so torchvision must not load.
+    sys.modules["torchvision"] = None
+    return work
+
+
+def main_path_mnist_train(card: str):
+    import numpy as np
+    import torch
+
+    from tinydiffusionmodels_torch import mnist
+    from tinydiffusionmodels_torch.data import load_mnist
+
+    phase("main path: mnist --train (one epoch, batch 128, synthetic 60 000 "
+          "digits, the epoch's 25-sample grid)")
+    work = _prepare_mnist_workdir()
+    ckpt, grid = work / "mnist_ckpt.pth", work / "samples" / "epoch_001.png"
+    for old in (ckpt, grid):
+        old.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    images, _, source = load_mnist(work / "data")
+    print(f"digits: {source}, {len(images)} (rendered or read from the cache "
+          f"in {time.perf_counter() - t0:.2f} s)")
+    if (source, len(images)) != ("synthetic", MNIST_IMAGES):
+        raise AssertionError(f"expected {MNIST_IMAGES} synthetic digits")
+    steps = MNIST_IMAGES // MNIST_BATCH
+    argv = ["--train", "--epochs", "1", "--batch_size", str(MNIST_BATCH),
+            "--ckpt", str(ckpt), "--data_root", str(work / "data")]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = mnist.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = _counts()
+    expect = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+              "flash_attention_bwd_dkv": 0, "guided_decode": 0,
+              "fused_resblock": steps * 4 + STEPS * 4}
+    if counts != expect:
+        raise AssertionError(f"launches {counts} on the MNIST training path, "
+                             f"expected {expect}")
+    losses = result.step_losses
+    if losses.shape != (steps,) or not np.isfinite(losses).all():
+        raise AssertionError(f"{losses.shape} step losses, finite: "
+                             f"{np.isfinite(losses).all()}")
+    first, last = losses[:50].mean(), losses[-50:].mean()
+    if not last < first:
+        raise AssertionError(f"mean loss of the last 50 steps {last} is not "
+                             f"below that of the first 50 ({first})")
+    for path in (ckpt, grid):
+        if not path.is_file():
+            raise AssertionError(f"{path.name} was not written")
+    rate = result.steps / result.seconds
+    print(f"MNIST training path: launches {counts}; losses finite; mean loss "
+          f"first 50 steps {first}, last 50 {last}; {ckpt.name} and "
+          f"{grid.name} written; CLI call {cli_s:.3f} s (includes loading the "
+          f"digits and the 1000-step grid)")
+    print(f"MNIST training: {rate} steps/s ({result.steps} steps over "
+          f"{result.seconds} s of step loop), bs={MNIST_BATCH}, f32, on {card}")
+    return result, ckpt, counts, rate
+
+
+def main_path_mnist_sample(card: str, ckpt: Path):
+    import torch
+
+    from tinydiffusionmodels_torch import mnist
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.train.mnist_train import (
+        load_unet,
+        sample_images,
+    )
+
+    phase("main path: mnist --sample from the trained checkpoint (25 digits, "
+          "1000 ancestral steps), then --sampler ddim --steps 50")
+    work = _prepare_mnist_workdir()
+    png = work / "samples" / "samples.png"
+    runs = []
+    for extra, expect_launches in (([], STEPS * 4),
+                                   (["--sampler", "ddim", "--steps",
+                                     str(MNIST_DDIM_STEPS)],
+                                    MNIST_DDIM_STEPS * 4)):
+        png.unlink(missing_ok=True)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        x = mnist.main(["--sample", "--ckpt", str(ckpt), *extra])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = _counts()
+        expect = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                  "flash_attention_bwd_dkv": 0, "guided_decode": 0,
+                  "fused_resblock": expect_launches}
+        if counts != expect:
+            raise AssertionError(f"launches {counts} on the MNIST sampling "
+                                 f"path {extra}, expected {expect}")
+        if tuple(x.shape) != (MNIST_N, 28, 28, 1) or x.device.type != "cuda":
+            raise AssertionError(f"samples {tuple(x.shape)} on {x.device}")
+        if not bool(torch.isfinite(x).all()) or not png.is_file():
+            raise AssertionError("samples not finite, or samples.png missing")
+        print(f"MNIST --sample {' '.join(extra) or '(ancestral)'}: launches "
+              f"{counts}, {MNIST_N} finite digits in [{float(x.min()):.3f}, "
+              f"{float(x.max()):.3f}], samples.png written, CLI call "
+              f"{cli_s:.3f} s (includes the checkpoint load)")
+        runs.append(counts)
+
+    # Steady state: the 1000-step loop again, model already loaded.
+    model = load_unet(str(ckpt), "cuda")
+    sched = make_schedule(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample_images(model, sched, n_samples=MNIST_N, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    wall = min(times)
+    print(f"MNIST sampler: 1000-step loop {times} s, {MNIST_N / wall} "
+          f"samples/s ({STEPS / wall} steps/s), n={MNIST_N}, on {card}")
+    return runs, wall / STEPS, model
+
+
+def resblock_timing(card: str) -> dict:
+    """CUDA-event device times of each block at n 25 and 128 (plain,
+    kernel, kernel, plain), beside the bound; sums over a UNet forward.
+    Returns, per batch, the sums and the per-block numbers."""
+    import torch
+
+    from tinydiffusionmodels_torch.models.unet import BLOCKS
+    from tinydiffusionmodels_torch.ops import reference
+    from tinydiffusionmodels_torch.ops import resblock as rb
+
+    phase("timing: fused resblock per UNet block at n 25 and 128 (f32, TF32 "
+          "off)")
+    out = {}
+    for b in (MNIST_N, MNIST_BATCH):
+        blocks = {}
+        for i, name in enumerate(BLOCKS):
+            args = _resblock_args(name, b, seed=400 + i)
+
+            def plain():
+                with torch.no_grad():
+                    reference.fused_resblock(*args)
+
+            p_ms = [_device_ms(plain)]
+            k_ms = [_device_ms(lambda: rb._launch(*args)),
+                    _device_ms(lambda: rb._launch(*args))]
+            p_ms.append(_device_ms(plain))
+            nbytes, flops = _resblock_work(args)
+            bound_ms, bound_by = _bound(nbytes, [(flops, FP32_FLOPS_PER_S)])
+            ms = sum(k_ms) / 2
+            blocks[name] = dict(ms=ms, plain_ms=sum(p_ms) / 2,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                bytes=nbytes, flops=flops)
+            print(f"{name} n {b}: kernel {k_ms} ms, plain (cuDNN convs) "
+                  f"{p_ms} ms; bound {bound_ms} ms by {bound_by} ({nbytes} B,"
+                  f" {flops} FLOP), {ms / bound_ms:.1f}x; "
+                  f"{flops / ms / 1e9:.2f} TFLOP/s; on {card}")
+        total = {k: sum(v[k] for v in blocks.values())
+                 for k in ("ms", "plain_ms", "bound_ms")}
+        print(f"UNet forward's four blocks at n {b}: kernel {total['ms']} ms, "
+              f"plain {total['plain_ms']} ms, bound {total['bound_ms']} ms "
+              f"({total['ms'] / total['bound_ms']:.1f}x); on {card}")
+        out[b] = dict(total, blocks=blocks)
+    return out
+
+
+def profile_mnist_sampler(model, wall_s_per_step: float, card: str) -> None:
+    """torch.profiler over PROFILE_STEPS steps of the MNIST ancestral loop
+    at n 25 (a PROFILE_STEPS-step schedule: the per-step work is the
+    same)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.train.mnist_train import sample_images
+
+    phase(f"profile: {PROFILE_STEPS} MNIST ancestral steps (n {MNIST_N}) "
+          "under torch.profiler")
+    sched = make_schedule(PROFILE_STEPS, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sample_images(model, sched, n_samples=MNIST_N, generator=gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sample_images(model, sched, n_samples=MNIST_N, generator=gen)
+        torch.cuda.synchronize()
+    _profile_table(prof, PROFILE_STEPS, wall_s_per_step, card,
+                   "MNIST sampler")
+
+
+def profile_mnist_training(card: str) -> None:
+    """torch.profiler over PROFILE_TRAIN_STEPS MNIST optimizer steps at
+    batch 128 (the training path's own step function), after an unprofiled
+    window of the same length that gives the wall time per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.models import SimpleUNet
+    from tinydiffusionmodels_torch.train import mnist_train
+    from tinydiffusionmodels_torch.train.optim import adamw
+
+    phase(f"profile: {PROFILE_TRAIN_STEPS} MNIST training steps (batch "
+          f"{MNIST_BATCH}) under torch.profiler")
+    model = SimpleUNet(generator=torch.Generator().manual_seed(6)).cuda()
+    optimizer = adamw(model.parameters(), 1e-3, weight_decay=0.01)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = torch.rand(MNIST_BATCH, 28, 28, 1, generator=gen,
+                       device="cuda") * 2 - 1
+    sched = make_schedule(device="cuda")
+
+    def steps(n):
+        for _ in range(n):
+            mnist_train.train_step(model, optimizer, batch, sched, gen)
+        torch.cuda.synchronize()
+
+    steps(5)
+    t0 = time.perf_counter()
+    steps(PROFILE_TRAIN_STEPS)
+    wall = (time.perf_counter() - t0) / PROFILE_TRAIN_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps(PROFILE_TRAIN_STEPS)
+    _profile_table(prof, PROFILE_TRAIN_STEPS, wall, card, "MNIST training")
+
+
 def main() -> None:
     card = environment()
     build()
     fwd_errors = kernel_vs_plain()
     train_errors, mask_mismatches = training_kernels()
+    resblock_error = resblock_kernel_vs_plain()
     result, ckpt, train_counts, _ = main_path_train(card)
     model = result.joint["diffusion_model"].eval()
     sample_counts, wall_s_per_step, z = main_path_sample(card, ckpt, model)
@@ -1150,11 +1522,17 @@ def main() -> None:
     guided_counts, lm_ckpt = main_path_guided(card, ckpt)
     exact_counts, rounds, agree, exact_gap, exact_stats = guided_exact(
         card, lm_ckpt, ckpt, z, result.joint["rounding_fn"].eval())
+    _, mnist_ckpt, mnist_train_counts, _ = main_path_mnist_train(card)
+    mnist_sample_counts, mnist_wall_per_step, unet = main_path_mnist_sample(
+        card, mnist_ckpt)
     device_vs_cpu(model)
     timings = kernel_timing(card)
     decode_times = decode_timing(card)
+    resblock_times = resblock_timing(card)
     profile_sampler(model, wall_s_per_step, card)
     profile_training(result.joint, card)
+    profile_mnist_sampler(unet, mnist_wall_per_step, card)
+    profile_mnist_training(card)
     import torch
 
     imported = sorted(m for m in sys.modules
@@ -1166,7 +1544,8 @@ def main() -> None:
                                          train_errors["out"]),
               "flash_attention_bwd_dq": train_errors["dq"],
               "flash_attention_bwd_dkv": train_errors["dkv"],
-              "guided_decode": max(decode_worst_gap, exact_gap)}
+              "guided_decode": max(decode_worst_gap, exact_gap),
+              "fused_resblock": resblock_error}
     bs8, bs256 = (decode_times[b] for b in DECODE_BATCHES)
     timings["guided_decode"] = {
         **{k: bs8[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1176,7 +1555,21 @@ def main() -> None:
         "jacobi_rounds_main_path": rounds, "agreement_with_plain": agree,
         "vs_plain": decode_stats, "vs_plain_main_path": exact_stats,
     }
-    paths = (train_counts, sample_counts, guided_counts, exact_counts)
+    n25, n128 = (resblock_times[b] for b in (MNIST_N, MNIST_BATCH))
+    timings["fused_resblock"] = {
+        **{k: n25[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "operations", "library_ms": None,
+        "at": "sum of the four blocks of one UNet forward, n 25",
+        "n128": {k: n128[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "blocks_n25": n25["blocks"], "blocks_n128": n128["blocks"],
+        "plain": "cuDNN convs, TF32 off (no single PyTorch call computes "
+                 "the block)",
+    }
+    if any(v["bound_by"] != "operations"
+           for b in (n25, n128) for v in b["blocks"].values()):
+        raise AssertionError("a resblock shape is bound by bytes")
+    paths = (train_counts, sample_counts, guided_counts, exact_counts,
+             mnist_train_counts, *mnist_sample_counts)
     record = []
     for name, (source, replaces) in KERNELS.items():
         entry = {

@@ -397,3 +397,102 @@ def test_guided_sample_stale_lm_ckpt_retrains(workdir, monkeypatch, capsys):
     assert "could not load lm_ckpt.pth" in out
     assert "[lm] training TinyGPT" in out
     assert (workdir / "samples" / "guided_sample_0.txt").exists()
+
+
+def _write_mnist_idx(root, n=96):
+    """Train IDX files of ``n`` synthetic digits under ``root`` (the first
+    place load_mnist looks), so no 60 000-digit render is needed."""
+    import struct
+
+    from tinydiffusionmodels_torch.data.mnist import _synthetic_mnist
+
+    images, labels = _synthetic_mnist(n, seed=0)
+    root.mkdir(parents=True, exist_ok=True)
+    for name, array in (("train-images-idx3-ubyte", images),
+                        ("train-labels-idx1-ubyte", labels)):
+        (root / name).write_bytes(
+            struct.pack(">I", 0x0800 | array.ndim)
+            + struct.pack(f">{array.ndim}I", *array.shape)
+            + array.astype(np.uint8).tobytes())
+
+
+def test_mnist_train_then_sample(workdir, monkeypatch):
+    """``mnist --train`` on a small dataset (TDM_DATA_LIMIT) with an EMA and
+    metrics writes the bare state-dict checkpoint, which the JAX package
+    reads; ``--sample --sampler ddim --steps 5`` from it writes
+    samples.png."""
+    import json
+
+    from tinydiffusionmodels_tpu.io import load_checkpoint
+    from tinydiffusionmodels_tpu.io.checkpoint import unet_from_state_dict
+    from tinydiffusionmodels_torch import mnist as port_mnist
+
+    _write_mnist_idx(workdir / "digits")
+    monkeypatch.setenv("TDM_DATA_LIMIT", "64")
+    result = port_mnist.main([
+        "--train", "--epochs", "1", "--batch_size", "16", "--ckpt", "m.pth",
+        "--data_root", "digits", "--no_epoch_samples", "--ema_decay", "0.9",
+        "--metrics_path", "m.jsonl",
+    ])
+    assert result.steps == 4 and result.step_losses.shape == (4,)
+    assert np.isfinite(result.step_losses).all()
+    record = json.loads((workdir / "m.jsonl").read_text())
+    assert record["workload"] == "mnist" and record["steps"] == 4
+    sd = load_checkpoint("m.pth")
+    assert list(sd)[:2] == ["rb1.conv1.weight", "rb1.conv1.bias"]
+    assert "rb3.skip.weight" not in sd
+    unet_from_state_dict(sd)  # the JAX package's reader takes it
+    for key, value in result.model.state_dict().items():
+        np.testing.assert_array_equal(sd[key], value.numpy())
+    assert not (workdir / "samples").exists()
+
+    x = port_mnist.main(["--sample", "--ckpt", "m.pth", "--sampler", "ddim",
+                         "--steps", "5"])
+    assert tuple(x.shape) == (25, 28, 28, 1) and torch.isfinite(x).all()
+    png = (workdir / "samples" / "samples.png").read_bytes()
+    assert png.startswith(b"\x89PNG")
+
+
+def test_mnist_samples_jax_checkpoint(workdir):
+    """The port's ``--sample`` reads a checkpoint the JAX package wrote and
+    draws the same digits as the UNet loaded from it."""
+    from tinydiffusionmodels_tpu.io.checkpoint import unet_to_state_dict
+    from tinydiffusionmodels_tpu.models import init_unet
+    from tinydiffusionmodels_torch import mnist as port_mnist
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.train import mnist_train
+
+    save_checkpoint(unet_to_state_dict(init_unet(jax.random.PRNGKey(1))),
+                    "jax.pth")
+    x = port_mnist.main(["--sample", "--ckpt", "jax.pth", "--sampler",
+                         "dpm++", "--steps", "2", "--seed", "2"])
+    want = mnist_train.sample_images(
+        mnist_train.load_unet("jax.pth", "cpu"), make_schedule(),
+        method="dpm++", num_steps=2,
+        generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(x, want, rtol=0, atol=0)
+    assert (workdir / "samples" / "samples.png").exists()
+
+
+@pytest.mark.parametrize("argv", [
+    pytest.param(["--train", "--resume"], id="--resume"),
+    pytest.param(["--train", "--dtype", "bf16"], id="--dtype bf16"),
+    pytest.param(["--sample", "--profile_dir", "prof"], id="--profile_dir"),
+])
+def test_mnist_unported_modes_exit_nonzero(workdir, argv):
+    from tinydiffusionmodels_torch import mnist as port_mnist
+
+    with pytest.raises(SystemExit, match="not yet ported to the torch package"):
+        port_mnist.main([*argv, "--ckpt", "m.pth"])
+
+
+def test_mnist_no_cuda_without_cpu_opt_in_fails(workdir, monkeypatch, capsys):
+    from tinydiffusionmodels_torch import mnist as port_mnist
+
+    assert port_mnist.main([]) is None
+    assert "Nothing to do" in capsys.readouterr().out
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU, so cuda is a valid default")
+    monkeypatch.delenv("TDM_PLATFORM")
+    with pytest.raises(RuntimeError, match="TDM_PLATFORM=cpu"):
+        port_mnist.main(["--sample", "--ckpt", "m.pth"])

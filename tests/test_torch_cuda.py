@@ -1,5 +1,5 @@
-"""The CUDA kernels and their wrappers, on an NVIDIA GPU: flash attention
-and the persistent guided-decode kernel.
+"""The CUDA kernels and their wrappers, on an NVIDIA GPU: flash attention,
+the persistent guided-decode kernel and the fused UNet residual block.
 
 Every test here needs a card and ``nvcc``, carries the ``cuda`` marker and
 skips on a machine without a GPU. The file imports nothing of jax, so it runs
@@ -11,7 +11,9 @@ there:
 Tolerances are ``chip_smoke.py``'s: f32 ``atol = rtol = 1e-4`` on O and lse,
 ``2e-4`` on the gradients (the cancellation in ds = p (dp - D) amplifies the
 rounding of the two sums, which the kernel and cuBLAS add in other orders).
-The decode kernel is a bf16 draft: scored by its plain version teacher-forced
+The residual block is held to its plain version at f32
+``atol = rtol = 1e-4`` with cuDNN's TF32 off. The decode kernel is a bf16
+draft: scored by its plain version teacher-forced
 on the kernel's tokens, every position's token is within ``DECODE_RTOL`` of
 the best score (relative), and rows agree until a first divergence past L/2
 on average.
@@ -21,10 +23,12 @@ import numpy as np
 import pytest
 import torch
 
-from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
+from tinydiffusionmodels_torch.models import SimpleUNet, TinyGPT, TinyGPTConfig
+from tinydiffusionmodels_torch.models.unet import BLOCKS
 from tinydiffusionmodels_torch.ops import decode_kernel as dk
 from tinydiffusionmodels_torch.ops import flash_attention as fa
 from tinydiffusionmodels_torch.ops import reference
+from tinydiffusionmodels_torch.ops import resblock as rb
 from tinydiffusionmodels_torch.sample.guided import guided_generate_verified
 
 pytestmark = pytest.mark.cuda
@@ -39,6 +43,7 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU; chip_smoke.py and this file run "
                     "on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -230,3 +235,58 @@ def test_decode_rejects_before_launch(cuda):
         dk.fused_guided_decode(dk.pack_weights(_gpt(97, 64, 2, 17, 0, "cpu")),
                                torch.randn(2, 4, 97, device=cuda), 0)
     assert dk.launches == before
+
+
+def _block_args(name, b, device, seed=0):
+    """Inputs of UNet block ``name`` at batch ``b``: N(0, 1) activations
+    and time bias, weights at torch's init scale."""
+    cin, cout = BLOCKS[name]
+    hw = 28 if name in ("rb1", "rb4") else 14
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy(
+            scale * rng.standard_normal(shape, dtype=np.float32)).to(device)
+
+    args = [r(b, hw, hw, cin), r(cout, cin, 3, 3, scale=(9 * cin) ** -0.5),
+            r(cout, scale=0.1), r(cout, cout, 3, 3, scale=(9 * cout) ** -0.5),
+            r(cout, scale=0.1), r(b, 1, 1, cout)]
+    if cin == cout:
+        return args + [None, None]
+    return args + [r(cout, cin, 1, 1, scale=cin ** -0.5), r(cout, scale=0.1)]
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("name", sorted(BLOCKS))
+def test_resblock_kernel_matches_plain(cuda, name, b):
+    args = _block_args(name, b, cuda)
+    out = rb._launch(*args)
+    torch.testing.assert_close(out, reference.fused_resblock(*args), **TOL)
+
+
+def test_resblock_one_launch_per_call(cuda):
+    args = _block_args("rb3", 2, cuda)
+    before = rb.launches
+    rb.fused_resblock(*args)
+    leaves = [None if a is None else a.requires_grad_() for a in args]
+    rb.fused_resblock(*leaves).sum().backward()  # backward: no launch
+    assert rb.launches == before + 2 and leaves[1].grad is not None
+    model = SimpleUNet().to(cuda)
+    with torch.no_grad():
+        model(torch.zeros(2, 28, 28, 1, device=cuda),
+              torch.tensor([1, 2], device=cuda))
+    assert rb.launches == before + 6
+
+
+@pytest.mark.parametrize("change, error, match", [
+    (lambda a: [a[0].double(), *a[1:]], TypeError, "takes float32"),
+    (lambda a: [a[0], a[1].cpu(), *a[2:]], ValueError, "w1 is on cpu"),
+    (lambda a: [a[0], a[1][:, :, :2], *a[2:]], ValueError, "w1 must be"),
+    (lambda a: [*a[:6], None, None], ValueError, "identity skip"),
+])
+def test_resblock_rejects_before_launch(cuda, change, error, match):
+    args = change(_block_args("rb2", 1, cuda))
+    before = rb.launches
+    with pytest.raises(error, match=match):
+        rb.fused_resblock(*args)
+    assert rb.launches == before

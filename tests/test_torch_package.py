@@ -2,8 +2,8 @@
 
 The port imports nothing of jax and nothing of ``tinydiffusionmodels_tpu``:
 it keeps its own copies of the jax-free modules it needs (the corpus loader
-and tokenizers, batching, checkpoint storage, ``.env`` loading, the CLI's
-argument parser). Here those copies are held against the originals on the
+and tokenizers, the MNIST loader, batching, checkpoint storage, the PNG grid
+writer, ``.env`` loading, the CLIs' argument parsers). Here those copies are held against the originals on the
 same inputs, and a checkpoint written by either package is read by the
 other. Everything is exact: the copies are the same code.
 """
@@ -20,16 +20,22 @@ import pytest
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
+from tinydiffusionmodels_tpu import mnist as jax_mnist_cli  # noqa: E402
 from tinydiffusionmodels_tpu import shakespeare as jax_cli  # noqa: E402
 from tinydiffusionmodels_tpu.data import loader as jax_loader  # noqa: E402
+from tinydiffusionmodels_tpu.data import mnist as jax_mnist  # noqa: E402
 from tinydiffusionmodels_tpu.data import shakespeare as jax_corpus  # noqa: E402
 from tinydiffusionmodels_tpu.data import tokenizer as jax_tok  # noqa: E402
+from tinydiffusionmodels_tpu.io import images as jax_images  # noqa: E402
 from tinydiffusionmodels_tpu.io import storage as jax_storage  # noqa: E402
 import tinydiffusionmodels_torch  # noqa: E402
+from tinydiffusionmodels_torch import mnist as port_mnist_cli  # noqa: E402
 from tinydiffusionmodels_torch import shakespeare as port_cli  # noqa: E402
 from tinydiffusionmodels_torch.data import loader as port_loader  # noqa: E402
+from tinydiffusionmodels_torch.data import mnist as port_mnist  # noqa: E402
 from tinydiffusionmodels_torch.data import shakespeare as port_corpus  # noqa: E402
 from tinydiffusionmodels_torch.data import tokenizer as port_tok  # noqa: E402
+from tinydiffusionmodels_torch.io import images as port_images  # noqa: E402
 from tinydiffusionmodels_torch.io import storage as port_storage  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -218,3 +224,106 @@ def test_storage_paths_are_the_same(tmp_path, monkeypatch):
                 == jax_storage.get_vertex_checkpoint_path("text-model.pth"))
         assert (str(port_storage.get_samples_dir())
                 == str(jax_storage.get_samples_dir()))
+
+
+@pytest.mark.parametrize("n, seed", [(120, 0), (40, 1)])
+def test_synthetic_digits_are_the_same(n, seed):
+    port = port_mnist._synthetic_mnist(n, seed=seed)
+    ref = jax_mnist._synthetic_mnist(n, seed=seed)
+    for a, b in zip(port, ref):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert port_mnist._SYNTH_RENDERER_VERSION == jax_mnist._SYNTH_RENDERER_VERSION
+
+
+def _write_idx(path, array):
+    """An IDX file of uint8 data (magic 0x08, then the dims, big-endian)."""
+    import gzip
+    import struct
+
+    payload = (struct.pack(">I", 0x0800 | array.ndim)
+               + struct.pack(f">{array.ndim}I", *array.shape)
+               + array.astype(np.uint8).tobytes())
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.suffix == ".gz":
+        path.write_bytes(gzip.compress(payload))
+    else:
+        path.write_bytes(payload)
+
+
+@pytest.mark.parametrize("layout", ["raw", "gz", "torchvision_gz"])
+def test_idx_files_are_read_the_same(tmp_path, layout):
+    images, labels = port_mnist._synthetic_mnist(30, seed=4)
+    root = tmp_path / "mnist"
+    sub = root / "MNIST" / "raw" if layout == "torchvision_gz" else root
+    ext = "" if layout == "raw" else ".gz"
+    _write_idx(sub / f"train-images-idx3-ubyte{ext}", images)
+    _write_idx(sub / f"train-labels-idx1-ubyte{ext}", labels)
+    port = port_mnist.load_mnist(root, train=True)
+    ref = jax_mnist.load_mnist(root, train=True)
+    assert port[2] == ref[2] == "idx"
+    for a, b in zip(port[:2], ref[:2]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(port[0], images)
+
+
+def test_synthetic_cache_is_shared(tmp_path):
+    """Both loaders fall through to the synthetic digits and read each
+    other's versioned .npz cache."""
+    port = port_mnist.load_mnist(tmp_path, synthetic_size=24)
+    assert port[2] == "synthetic"
+    assert (tmp_path / "synthetic_mnist_v1_24_0.npz").exists()
+    ref = jax_mnist.load_mnist(tmp_path, synthetic_size=24)
+    for a, b in zip(port, ref):
+        np.testing.assert_array_equal(a, b)
+    test_split = jax_mnist.load_mnist(tmp_path, train=False, synthetic_size=24)
+    again = port_mnist.load_mnist(tmp_path, train=False, synthetic_size=24)
+    np.testing.assert_array_equal(again[0], test_split[0])
+
+
+def test_normalize_mnist_is_the_same():
+    images = np.arange(0, 256 * 4, dtype=np.int64).reshape(4, 16, 16) % 256
+    images = images.astype(np.uint8)
+    port = port_mnist.normalize_mnist(images)
+    ref = jax_mnist.normalize_mnist(images)
+    assert port.shape == (4, 16, 16, 1) and port.dtype == ref.dtype
+    np.testing.assert_array_equal(port, ref)
+
+
+def test_png_grid_bytes_are_the_same():
+    rng = np.random.default_rng(0)
+    images = rng.uniform(-0.2, 1.2, (7, 28, 28)).astype(np.float32)
+    assert port_images.grid_png(images, 3) == jax_images.grid_png(images, 3)
+    np.testing.assert_array_equal(port_images.make_grid(images, 4),
+                                  jax_images.make_grid(images, 4))
+    gray = (rng.uniform(0, 1, (5, 9)) * 255).astype(np.uint8)
+    assert port_images.encode_png_gray(gray) == jax_images.encode_png_gray(gray)
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--train", "--epochs", "1", "--batch_size", "64", "--ema_decay", "0.999",
+     "--no_epoch_samples", "--metrics_path", "m.jsonl", "--dtype", "bf16"],
+    ["--sample", "--sampler", "ddim", "--steps", "50", "--ckpt", "x.pth",
+     "--seed", "3", "--resume", "--resume_every", "2"],
+])
+def test_mnist_cli_parser_is_the_same(argv):
+    port = vars(port_mnist_cli.build_parser().parse_args(argv))
+    ref = vars(jax_mnist_cli.build_parser().parse_args(argv))
+    assert port == ref
+
+
+def test_mnist_cli_parser_flags_are_the_same(monkeypatch):
+    def flags(parser):
+        return {
+            a.dest: (tuple(a.option_strings), a.default, a.choices, a.nargs,
+                     a.const, a.type, a.help)
+            for a in parser._actions if a.dest != "help"
+        }
+
+    assert flags(port_mnist_cli.build_parser()) == flags(
+        jax_mnist_cli.build_parser())
+    monkeypatch.setenv("AIP_MODEL_DIR", "gs://bucket/run")
+    assert (port_mnist_cli.build_parser().parse_args([]).ckpt
+            == jax_mnist_cli.build_parser().parse_args([]).ckpt
+            == "gs://bucket/run/image-model.pth")

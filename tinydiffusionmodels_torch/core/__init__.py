@@ -2,6 +2,7 @@
 
 from tinydiffusionmodels_torch.core.diffusion import (
     ddim_step,
+    ddpm_loss,
     eps_from_x0,
     p_sample,
     p_sample_mean,
@@ -15,6 +16,7 @@ from tinydiffusionmodels_torch.core.schedule import (
 __all__ = [
     "DiffusionSchedule",
     "ddim_step",
+    "ddpm_loss",
     "eps_from_x0",
     "make_schedule",
     "p_sample",

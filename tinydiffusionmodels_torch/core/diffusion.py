@@ -1,5 +1,5 @@
-"""Forward noising and the reverse (ancestral and DDIM) steps (port of
-``core/diffusion.py``).
+"""Forward noising, the reverse (ancestral and DDIM) steps and the DDPM
+loss (port of ``core/diffusion.py``).
 
 Rank-generic as in the JAX package: timesteps are a (B,) integer tensor and
 may differ per batch element. Noise is always an explicit tensor argument, so
@@ -106,3 +106,17 @@ def ddim_step(
             raise ValueError("eta > 0 requires noise")
         x_prev = x_prev + (1.0 - is_final) * sigma * noise
     return x_prev
+
+
+def ddpm_loss(
+    sched: DiffusionSchedule,
+    denoise_fn,
+    x_start: torch.Tensor,
+    t: torch.Tensor,
+    noise: torch.Tensor,
+) -> torch.Tensor:
+    """Epsilon-prediction MSE (reference src/mnist.py:154-158):
+    mean((denoise_fn(q_sample(x_start, t, noise), t) - noise)^2)."""
+    x_noisy = q_sample(sched, x_start, t, noise)
+    eps_pred = denoise_fn(x_noisy, t)
+    return torch.mean((eps_pred - noise) ** 2)

@@ -10,6 +10,10 @@ text maps in ``io/checkpoint.py``, which imports jax and so is not imported).
 - ``tiny_gpt_state_from_jax`` / ``tiny_gpt_params_dict``: the guided
   sampler's base LM both ways, so each CLI loads the other's
   ``lm_ckpt.pth`` (``{"params": <JAX tree>}``).
+- ``unet_state_from_jax`` / ``unet_params_dict``: the MNIST UNet both ways
+  (conv kernels HWIO <-> OIHW, ``time_emb`` (in, out) <-> (out, in), no
+  ``skip`` keys for an identity skip); ``unet_checkpoint_dict`` is the bare
+  state dict both CLIs save as the MNIST ``.pth``.
 - ``state_from_checkpoint`` / ``config_from_state_dict``: a loaded
   checkpoint's numpy state dict -> tensors, and the model shape it implies.
 """
@@ -121,6 +125,62 @@ def tiny_gpt_params_dict(module: torch.nn.Module) -> dict[str, Any]:
         "ln_f": {"scale": sd["ln_f.weight"], "bias": sd["ln_f.bias"]},
         "lm_head": {"w": np.ascontiguousarray(sd["lm_head.weight"].T)},
     }
+
+
+_UNET_BLOCKS = ("rb1", "rb2", "rb3", "rb4")
+
+
+def _conv(p: dict, name: str, sd: dict) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
+    sd[f"{name}.bias"] = _t(p["b"])
+
+
+def unet_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX SimpleUNet params (``init_unet``'s tree) -> SimpleUNet state
+    dict, in ``io/checkpoint.unet_to_state_dict``'s key order."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name in _UNET_BLOCKS:
+        p = params[name]
+        _conv(p["conv1"], f"{name}.conv1", sd)
+        _conv(p["conv2"], f"{name}.conv2", sd)
+        _lin(p["time_emb"], f"{name}.time_emb", sd)
+        if p.get("skip") is not None:
+            _conv(p["skip"], f"{name}.skip", sd)
+    _conv(params["out"], "out", sd)
+    return sd
+
+
+def unet_params_dict(module: torch.nn.Module) -> dict[str, Any]:
+    """The inverse of ``unet_state_from_jax``: a SimpleUNet -> the JAX
+    parameter tree with float32 numpy leaves (HWIO kernels; ``skip`` None
+    for the identity skip)."""
+    sd = _numpy_state(module)
+
+    def conv(name):
+        return {"w": np.ascontiguousarray(
+                    sd[f"{name}.weight"].transpose(2, 3, 1, 0)),
+                "b": sd[f"{name}.bias"]}
+
+    params: dict[str, Any] = {}
+    for name in _UNET_BLOCKS:
+        params[name] = {
+            "conv1": conv(f"{name}.conv1"),
+            "conv2": conv(f"{name}.conv2"),
+            "time_emb": {
+                "w": np.ascontiguousarray(sd[f"{name}.time_emb.weight"].T),
+                "b": sd[f"{name}.time_emb.bias"]},
+            "skip": (conv(f"{name}.skip") if f"{name}.skip.weight" in sd
+                     else None),
+        }
+    params["out"] = conv("out")
+    return params
+
+
+def unet_checkpoint_dict(module: torch.nn.Module) -> "OrderedDict[str, np.ndarray]":
+    """The MNIST checkpoint: the UNet's bare state dict with numpy leaves,
+    the reference's format (src/mnist.py:165) that the JAX CLI writes with
+    ``unet_to_state_dict``."""
+    return _numpy_state(module)
 
 
 def state_from_checkpoint(sd: dict) -> "OrderedDict[str, torch.Tensor]":

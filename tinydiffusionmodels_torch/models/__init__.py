@@ -1,5 +1,5 @@
-"""Models of the port: the text denoiser, the embedding/rounding heads and
-the guided sampler's base LM (TinyGPT)."""
+"""Models of the port: the text denoiser, the embedding/rounding heads, the
+guided sampler's base LM (TinyGPT) and the MNIST UNet."""
 
 from tinydiffusionmodels_torch.models.ar_lm import TinyGPT, TinyGPTConfig
 from tinydiffusionmodels_torch.models.embedding import (
@@ -13,10 +13,12 @@ from tinydiffusionmodels_torch.models.transformer import (
     TinyTransformer,
     TransformerConfig,
 )
+from tinydiffusionmodels_torch.models.unet import SimpleUNet
 
 __all__ = [
     "LearnedEmbedding",
     "LearnedRounding",
+    "SimpleUNet",
     "TinyGPT",
     "TinyGPTConfig",
     "TinyTransformer",

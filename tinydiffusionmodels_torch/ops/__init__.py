@@ -2,16 +2,23 @@
 
 Dispatch is on the tensor's device alone, inside each kernel's wrapper: a
 CUDA tensor runs the hand-written kernels (the flash-attention forward, in
-training its recompute backward, and the persistent guided-decode kernel of
-``decode_kernel``), a CPU tensor their plain PyTorch version. There is no
-environment knob and no size threshold; the JAX package's routing rules
-(score-footprint thresholds between XLA and flash) were TPU measurements
+training its recompute backward, the persistent guided-decode kernel of
+``decode_kernel`` and the UNet residual block of ``resblock``), a CPU tensor
+their plain PyTorch version. There is no environment knob and no size
+threshold; the JAX package's routing rules (score-footprint thresholds
+between XLA and flash, the residual block sent to XLA) were TPU measurements
 and do not carry over.
 """
 
 from __future__ import annotations
 
-from tinydiffusionmodels_torch.ops import decode_kernel, flash_attention, reference
+from tinydiffusionmodels_torch.ops import (
+    decode_kernel,
+    flash_attention,
+    reference,
+    resblock,
+)
+from tinydiffusionmodels_torch.ops.resblock import fused_resblock
 
 
 def attention(
@@ -42,4 +49,5 @@ def attention(
     )
 
 
-__all__ = ["attention", "decode_kernel", "flash_attention", "reference"]
+__all__ = ["attention", "decode_kernel", "flash_attention", "fused_resblock",
+           "reference", "resblock"]

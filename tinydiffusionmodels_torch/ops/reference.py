@@ -9,14 +9,18 @@ the CPU path of the models run this, forward and (by autograd) backward;
 ``chip_smoke.py`` holds the CUDA kernels against it on the card.
 
 ``fused_guided_decode`` is the plain version of the guided-decode kernel
-(``ops/decode_kernel.py``, ``csrc/guided_decode.cu``).
+(``ops/decode_kernel.py``, ``csrc/guided_decode.cu``), and
+``fused_resblock`` that of the UNet residual-block kernel
+(``ops/resblock.py``, ``csrc/fused_resblock.cu``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+import torch.nn.functional as F
 
 LAYOUTS = ("bhld", "blhd")
 
@@ -206,3 +210,38 @@ def fused_guided_decode(w, diff_logits: torch.Tensor, bos: int, *,
     if return_scores:
         return tokens, torch.stack(scores, dim=1)
     return tokens
+
+
+@contextlib.contextmanager
+def full_f32_convs():
+    """cuDNN convolutions in full float32 inside the block: PyTorch's
+    default runs float32 convolutions on the card in TF32, which keeps ~3
+    decimal digits. A no-op on the CPU."""
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+
+
+def fused_resblock(x, w1, b1, w2, b2, time_bias, ws=None, bs=None):
+    """Plain version of the fused residual block (``xla_ref.fused_resblock``,
+    reference src/mnist.py:56-61):
+
+        h = relu(conv3x3(x) + b1) + time_bias
+        out = relu(conv3x3(h) + b2) + skip(x)
+
+    x is (B, H, W, Cin) NHWC and so is the output (B, H, W, Cout); the conv
+    weights are torch's OIHW tensors ((Cout, Cin, 3, 3), (Cout, Cout, 3, 3)
+    and, for a 1x1 skip, (Cout, Cin, 1, 1) with bias ``bs``; ``ws=None`` is
+    the identity skip); ``time_bias`` is (B, 1, 1, Cout). The convolutions
+    are SAME-padded, so conv2 sees 0 outside the image, as the TPU kernel's
+    re-zeroed border gives it. Full float32 on every device."""
+    with full_f32_convs():
+        xc = x.permute(0, 3, 1, 2)
+        h = F.relu(F.conv2d(xc, w1, b1, padding=1))
+        h = h + time_bias.permute(0, 3, 1, 2)
+        h = F.relu(F.conv2d(h, w2, b2, padding=1))
+        skip = xc if ws is None else F.conv2d(xc, ws, bs)
+        return (h + skip).permute(0, 2, 3, 1)
