@@ -1,5 +1,6 @@
 """The CUDA kernels and their wrappers, on an NVIDIA GPU: flash attention,
-the persistent guided-decode kernel and the fused UNet residual block.
+the persistent guided-decode kernel, the fused UNet residual block and the
+single-block attention pair.
 
 Every test here needs a card and ``nvcc``, carries the ``cuda`` marker and
 skips on a machine without a GPU. The file imports nothing of jax, so it runs
@@ -12,9 +13,12 @@ Tolerances are ``chip_smoke.py``'s: f32 ``atol = rtol = 1e-4`` on O and lse,
 ``2e-4`` on the gradients (the cancellation in ds = p (dp - D) amplifies the
 rounding of the two sums, which the kernel and cuBLAS add in other orders).
 The residual block is held to its plain version at f32
-``atol = rtol = 1e-4`` with cuDNN's TF32 off. The decode kernel is a bf16
-draft: scored by its plain version teacher-forced
-on the kernel's tokens, every position's token is within ``DECODE_RTOL`` of
+``atol = rtol = 1e-4`` with cuDNN's TF32 off; the single-block pair at f32
+``1e-4`` (forward) and ``2e-4`` (gradients), bf16 ``2e-2``, and in bf16
+each of its outputs must equal its plain version in more elements than it
+equals plain attention or its autograd (the rounding points). The decode
+kernel is a bf16 draft: scored by its plain version teacher-forced on the
+kernel's tokens, every position's token is within ``DECODE_RTOL`` of
 the best score (relative), and rows agree until a first divergence past L/2
 on average.
 """
@@ -29,6 +33,7 @@ from tinydiffusionmodels_torch.ops import decode_kernel as dk
 from tinydiffusionmodels_torch.ops import flash_attention as fa
 from tinydiffusionmodels_torch.ops import reference
 from tinydiffusionmodels_torch.ops import resblock as rb
+from tinydiffusionmodels_torch.ops import single_block as sb
 from tinydiffusionmodels_torch.sample.guided import guided_generate_verified
 
 pytestmark = pytest.mark.cuda
@@ -290,3 +295,58 @@ def test_resblock_rejects_before_launch(cuda, change, error, match):
     with pytest.raises(error, match=match):
         rb.fused_resblock(*args)
     assert rb.launches == before
+
+
+# name: (B, H, L, Dh)
+SINGLE_BLOCK_CASES = {"sampler": (8, 4, 64, 64),
+                      "ragged_L100": (3, 2, 100, 64),
+                      "L16_dh32": (2, 4, 16, 32),
+                      "dh128_L96": (2, 2, 96, 128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(SINGLE_BLOCK_CASES))
+def test_single_block_matches_plain(cuda, name, dtype):
+    """Both single-block kernels against their plain versions: the forward,
+    and dq, dk, dv through the autograd Function for a cos(arange)
+    cotangent."""
+    b, h, length, dh = SINGLE_BLOCK_CASES[name]
+    q, k, v = (x.requires_grad_() for x in _qkv(
+        b, h, length, length, dh, dh, cuda, dtype))
+    g = torch.cos(torch.arange(q.numel(), device=cuda, dtype=torch.float32)
+                  ).reshape(q.shape).to(dtype)
+    before = (sb.launches, sb.bwd_launches)
+    out = sb.single_block_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert (sb.launches, sb.bwd_launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        want = reference.single_block_attention(q, k, v)
+        want_grads = reference.single_block_attention_bwd(q, k, v, g)
+    tol = 2e-2 if dtype == torch.bfloat16 else None
+    torch.testing.assert_close(out, want, **(dict(rtol=tol, atol=tol) if tol
+                                             else TOL))
+    for got, ref in zip(grads, want_grads):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got, ref, **(dict(rtol=tol, atol=tol)
+                                                if tol else GRAD_TOL))
+    if dtype == torch.bfloat16:
+        # The rounding points: the kernels round p and ds to bf16 where the
+        # TPU kernels do, and plain attention (and its autograd) does not,
+        # so each output equals its plain version in more elements.
+        att = reference.attention(q, k, v)[0]
+        auto = torch.autograd.grad(att, (q, k, v), g)
+        for got, ref, other in zip((out, *grads), (want, *want_grads),
+                                   (att, *auto)):
+            assert int((got != ref).sum()) < int((got != other).sum())
+
+
+@pytest.mark.parametrize("shape, grad, match", [
+    ((1, 1, 129, 64), False, "limit of 128"),
+    ((1, 1, 128, 128), True, "backward kernel's limit of 96"),
+])
+def test_single_block_rejects_before_launch(cuda, shape, grad, match):
+    x = torch.zeros(shape, device=cuda, requires_grad=grad)
+    before = (sb.launches, sb.bwd_launches)
+    with pytest.raises(ValueError, match=match):
+        sb.single_block_attention(x, x, x)
+    assert (sb.launches, sb.bwd_launches) == before

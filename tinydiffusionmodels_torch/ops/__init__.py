@@ -3,11 +3,14 @@
 Dispatch is on the tensor's device alone, inside each kernel's wrapper: a
 CUDA tensor runs the hand-written kernels (the flash-attention forward, in
 training its recompute backward, the persistent guided-decode kernel of
-``decode_kernel`` and the UNet residual block of ``resblock``), a CPU tensor
-their plain PyTorch version. There is no environment knob and no size
-threshold; the JAX package's routing rules (score-footprint thresholds
-between XLA and flash, the residual block sent to XLA) were TPU measurements
-and do not carry over.
+``decode_kernel``, the UNet residual block of ``resblock`` and the
+single-block attention pair of ``single_block``), a CPU tensor their plain
+PyTorch version. There is no environment knob and no size threshold; the
+JAX package's routing rules (score-footprint thresholds between XLA and
+flash, the residual block sent to XLA) were TPU measurements and do not
+carry over. ``attention`` runs the flash kernels on every model path; the
+single-block pair has no route from a model, as in the JAX package, and
+runs from the kernel bench (``kernel_bench.py``).
 """
 
 from __future__ import annotations
@@ -17,8 +20,10 @@ from tinydiffusionmodels_torch.ops import (
     flash_attention,
     reference,
     resblock,
+    single_block,
 )
 from tinydiffusionmodels_torch.ops.resblock import fused_resblock
+from tinydiffusionmodels_torch.ops.single_block import single_block_attention
 
 
 def attention(
@@ -50,4 +55,4 @@ def attention(
 
 
 __all__ = ["attention", "decode_kernel", "flash_attention", "fused_resblock",
-           "reference", "resblock"]
+           "reference", "resblock", "single_block", "single_block_attention"]

@@ -9,9 +9,12 @@ the CPU path of the models run this, forward and (by autograd) backward;
 ``chip_smoke.py`` holds the CUDA kernels against it on the card.
 
 ``fused_guided_decode`` is the plain version of the guided-decode kernel
-(``ops/decode_kernel.py``, ``csrc/guided_decode.cu``), and
+(``ops/decode_kernel.py``, ``csrc/guided_decode.cu``),
 ``fused_resblock`` that of the UNet residual-block kernel
-(``ops/resblock.py``, ``csrc/fused_resblock.cu``).
+(``ops/resblock.py``, ``csrc/fused_resblock.cu``), and
+``single_block_attention`` and ``single_block_attention_bwd`` those of the
+single-block attention pair (``ops/single_block.py``,
+``csrc/attention_single_block.cu``).
 """
 
 from __future__ import annotations
@@ -119,6 +122,54 @@ def attention(
     if layout == "blhd":
         out = out.transpose(1, 2)
     return out, lse
+
+
+def _single_block_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(Dh)) in float32, as the TPU kernels form it:
+    float32 scores times the scale, max-subtracted exp, normalised."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s * (1.0 / math.sqrt(q.shape[-1]))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to ``dtype`` and widened back to float32."""
+    return x.to(dtype).float()
+
+
+def single_block_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor) -> torch.Tensor:
+    """Plain version of the single-block attention kernel
+    (``pallas_kernels._attention_kernel``): softmax(q k^T / sqrt(Dh)) v over
+    (B, H, L, Dh) tensors, no mask, no dropout. The normalised weights are
+    rounded to v's dtype before P V, which sums in float32; the output takes
+    q's dtype. In bfloat16 this differs from ``attention``, whose P V
+    multiplies float32 weights."""
+    p = _single_block_probs(q, k)
+    return torch.matmul(_rounded(p, v.dtype), v.float()).to(q.dtype)
+
+
+def single_block_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, g: torch.Tensor):
+    """Plain version of the single-block recompute backward
+    (``pallas_kernels._attention_bwd_kernel``): (dq, dk, dv) for the output
+    cotangent ``g``, in q's dtype. It recomputes p and a float32 O from
+    q, k and v alone, takes D = rowsum(g O) from that O (not from the
+    forward's stored output), and rounds ds to k's and q's dtype and p to
+    g's dtype before the three products, as the TPU kernel does. Written
+    out, not autograd of the forward, because autograd would not round
+    ds."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = _single_block_probs(q, k)
+    o = torch.matmul(_rounded(p, v.dtype), v.float())
+    d = (g.float() * o).sum(-1, keepdim=True)
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - d)
+    dq = torch.matmul(_rounded(ds, k.dtype), k.float()) * scale
+    dk = torch.matmul(_rounded(ds, q.dtype).transpose(-1, -2), q.float())
+    dv = torch.matmul(_rounded(p, g.dtype).transpose(-1, -2), g.float())
+    return dq.to(q.dtype), (dk * scale).to(q.dtype), dv.to(q.dtype)
 
 
 def _layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
