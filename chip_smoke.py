@@ -16,7 +16,10 @@ no result line) on any error; no phase catches its own failure.
    PyTorch version, TF32 off, on O and lse: f32 atol = rtol = 1e-4; bf16
    atol = rtol = 2e-2 on O and 1e-2 on lse. The cases include every flash
    shape of the kernel bench (phase 19) as it feeds them, one tensor as q,
-   k and v: f32 at L 64, 512 and 2048, bf16 at its four shapes.
+   k and v: f32 at L 64, 512 and 2048, bf16 at its four shapes; and head
+   widths WIDTHS (8, 12, 16, 24, 96) in f32 and bf16 on strided views of
+   one QKV tensor (bf16 Dh 12 rows on 8 bytes; a bf16 Dh 9 case on 2
+   bytes), and Dh 12 with Dv 24, causal.
 4. Training kernels vs plain: the forward with attention-weight dropout and
    the recompute backward (dq; dk and dv; with an lse cotangent) against
    autograd of the plain version, same seed, same tolerances on O and lse.
@@ -29,9 +32,10 @@ no result line) on any error; no phase catches its own failure.
    equal; dq, dk and dv are held apart, because in bf16 their sum, the
    bench's gradient, cancels and its rounding error scales with the parts.
    Their bf16 gradients are held to BF16_LONG_GRAD_TOL (4e-2, the reason
-   beside it), and each has an f32 twin with dropout at 2e-4. Then v = I and dO = I probes read the mask the forward
-   and the dkv kernel realise, and hold it against
-   ``reference.dropout_scale``.
+   beside it), and each has an f32 twin with dropout at 2e-4. The width
+   cases of phase 3 run here too, with dropout, through the QKV tensor's
+   gradient. Then v = I and dO = I probes read the mask the forward and the
+   dkv kernel realise, and hold it against ``reference.dropout_scale``.
 5. Main path, training: ``shakespeare.main(["--train", ...])`` at the JAX
    bench's headline width (dim 256, 4 heads, depth 3, FFN 2048, dropout
    0.1, batch 8, seq 64, f32, eps, learned embeddings and rounding, AdamW
@@ -43,7 +47,11 @@ no result line) on any error; no phase catches its own failure.
 6. Main path, sampling: ``shakespeare.main(["--sample", ...])`` from the
    trained checkpoint: 1000 ancestral steps, n 8, seq 64. Asserts 3000
    forward launches and no backward launch, finite embeddings and 8 sample
-   files. Then RATE_RUNS more sampler runs give steps/s.
+   files. Then RATE_RUNS more sampler runs give steps/s. Then the narrow
+   text path, head width 12: ``--train --embed_dim 48`` on NARROW_CHARS
+   characters (launches as phase 5, a falling loss), and ``--sample
+   --sampler ddim --steps 50`` from it (150 forward launches, finite
+   embeddings of width 48, 8 samples).
 7. Guided-decode kernel vs plain: the persistent kernel
    (``csrc/guided_decode.cu``) against its plain version on the same bf16
    weights and N(0, 1) logits: B in {1, 8, 13, 256}, V in {97, 4096}, depth
@@ -68,12 +76,15 @@ no result line) on any error; no phase catches its own failure.
 10. Device vs CPU: one full-width denoiser forward on the card (kernel) and
    on the CPU (plain version), same weights and inputs, within 1e-3.
 11. Timing at the training shape (B 8, L 64, H 4, Dh 64, f32, the model's
-   strided views of one QKV projection): CUDA-event device times of the
-   forward with dropout, the dq kernel and the dkv kernel, each beside its
-   plain version and a PyTorch yardstick the port never calls
-   (``scaled_dot_product_attention`` forward, and forward plus backward, at
-   dropout 0), and beside its bound (bytes over 3.35 TB/s or FLOPs over
-   67 TFLOP/s FP32, the larger).
+   strided views of one QKV projection) and at the kernel bench's L 512
+   (B 8) and L 2048 (B 2): CUDA-event device times of the forward with
+   dropout, the dq kernel and the dkv kernel, each beside its plain version,
+   the device time of a PyTorch call the port never calls
+   (``scaled_dot_product_attention`` at dropout 0, its own kernels' self
+   device time from torch.profiler: the forward, and the backward for dq
+   and dk/dv), and the bound (bytes over 3.35 TB/s or the products as
+   3xTF32, three TF32 products at 495 TFLOP/s each, the larger), with the
+   FP32-FMA roof (the FLOPs at 67 TFLOP/s) printed beside it.
 12. Timing of the guided decode at the bench shape (V 4096, D 256, depth 4,
    L 64, alpha 0.3) at bs 8 and 256: the kernel's CUDA-event time beside its
    plain version and its bound (bytes over 3.35 TB/s or the matmul FLOPs,
@@ -172,6 +183,17 @@ DECODE_TIE_RTOL = 1e-2
 # tolerance on its TPU is 4e-2 (tests/test_ops.py, _grad_tol); each such
 # case has an f32 twin held to 2e-4, and the count beyond 2e-2 is printed.
 BF16_LONG_GRAD_TOL = 4e-2
+# Head widths checked beside the model's 64: one in each padded instance
+# (16, 32, 64, 128) and the text CLI's at --embed_dim 32, 48, 64, 96, 384.
+WIDTHS = (8, 12, 16, 24, 96)
+# The narrow text path: --embed_dim 48 (head width 12) trained on
+# NARROW_CHARS characters at lr 1e-3 with 10 warmup steps (so that ~70 steps
+# move the loss), then sampled by DDIM in NARROW_SAMPLE_STEPS steps.
+NARROW_DIM, NARROW_CHARS, NARROW_SAMPLE_STEPS = 48, 40_000, 50
+NARROW_TRAIN_ARGS = ("--lr", "1e-3", "--warmup_steps", "10")
+# (B, L) of the flash kernels' timing (H 4, Dh 64): the training shape, and
+# the kernel bench's L 512 and 2048.
+TIMING_SHAPES = ((BATCH, SEQ), (8, 512), (2, 2048))
 
 _CSRC = "tinydiffusionmodels_torch/csrc/"
 _PALLAS = "tinydiffusionmodels_tpu/ops/pallas_kernels.py"
@@ -181,7 +203,7 @@ KERNELS = {
                             _PALLAS + ":295"),
     "flash_attention_bwd_dq": (_CSRC + "flash_attention_bwd.cuh",
                                _PALLAS + ":431"),
-    "flash_attention_bwd_dkv": (_CSRC + "flash_attention_bwd.cuh",
+    "flash_attention_bwd_dkv": (_CSRC + "flash_attention_bwd_dkv.cu",
                                 _PALLAS + ":484"),
 }
 DROPOUT_HASH = (_CSRC + "dropout_hash.cuh", _PALLAS + ":266")
@@ -289,6 +311,17 @@ def kernel_vs_plain():
         "blhd_strided": (8, 4, 64, 64, 64, 64, f32, False, "blhd", 0),
         "dh128_L200": (2, 4, 200, 200, 128, 128, f32, False, "bhld", 0),
     }
+    # Every width class of the kernels, on the model's strided views of one
+    # fused QKV projection (bf16 Dh 12 rows start on 8 bytes, Dh 9 on 2),
+    # and Dv != Dh.
+    for d in WIDTHS:
+        for dtype in (f32, bf16):
+            cases[f"dh{d}_{str(dtype)[6:]}_qkv"] = (
+                8, 4, 64, 64, d, d, dtype, False, "blhd", 0)
+    cases["dh9_bfloat16_qkv"] = (8, 4, 64, 64, 9, 9, bf16, False, "blhd", 0)
+    for dtype in (f32, bf16):
+        cases[f"dh12_dv24_{str(dtype)[6:]}_causal"] = (
+            2, 4, 100, 100, 12, 24, dtype, True, "bhld", 0)
     cases.update({name: case[:-1] for name, case in
                   _bench_attention_cases(kb, (0.0,)).items()})
     errors = {}
@@ -378,6 +411,17 @@ def training_kernels():
         "dh128_L200": (2, 4, 200, 200, 128, 128, f32, False, "bhld", 0,
                        DROPOUT),
     }
+    # Every width class on the model's views of one QKV tensor (bf16 Dh 12
+    # rows start on 8 bytes, Dh 9 on 2), and Dv != Dh, with dropout.
+    for d in WIDTHS:
+        for dtype in (f32, bf16):
+            cases[f"dh{d}_{str(dtype)[6:]}_qkv_p0.1"] = (
+                8, 4, 64, 64, d, d, dtype, False, "qkv", 0, DROPOUT)
+    cases["dh9_bfloat16_qkv_p0.1"] = (8, 4, 64, 64, 9, 9, bf16, False, "qkv",
+                                      0, DROPOUT)
+    for dtype in (f32, bf16):
+        cases[f"dh12_dv24_{str(dtype)[6:]}_causal_p0.1"] = (
+            2, 4, 100, 100, 12, 24, dtype, True, "bhld", 0, DROPOUT)
     # The kernel bench's grad mode (f32, no dropout) and bf16 training; and
     # the f32 twin of each bf16 training case, which holds the arithmetic
     # (dropout included) at those shapes to f32's tolerance.
@@ -635,17 +679,23 @@ def _counts() -> dict:
             "attention_single_block_bwd": sb.bwd_launches}
 
 
-def _prepare_workdir():
+def _prepare_workdir(chars: int = TRAIN_CHARS):
     WORK.mkdir(parents=True, exist_ok=True)
     os.chdir(WORK)
     os.environ["TDM_PLATFORM"] = "cuda"
-    os.environ["TDM_DATA_LIMIT"] = str(TRAIN_CHARS)
+    os.environ["TDM_DATA_LIMIT"] = str(chars)
     os.environ["TDM_PROGRESS_EVERY"] = "100"
     for var in ("AIP_MODEL_DIR", "TDM_METRICS_PATH"):
         os.environ.pop(var, None)
 
 
-def main_path_train(card: str):
+def main_path_train(card: str, dim: int = DIM, chars: int = TRAIN_CHARS,
+                    extra: tuple = (), name: str = "train_ckpt"):
+    """``shakespeare.main(["--train", ...])`` at width ``dim`` (4 heads) on
+    ``chars`` characters of the built-in corpus, with ``extra`` arguments;
+    the checkpoint is ``name``.pth. Asserts the launches, finite losses
+    falling from the first to the last quarter of the steps (at most 50
+    each) and the checkpoints written."""
     import numpy as np
     import torch
 
@@ -657,15 +707,16 @@ def main_path_train(card: str):
         tokenize_corpus,
     )
 
-    phase("main path: shakespeare --train (full width, one epoch)")
-    _prepare_workdir()
-    ckpt = WORK / "train_ckpt.pth"
-    best = WORK / "train_ckpt_best.pth"
+    phase(f"main path: shakespeare --train (dim {dim}, head width "
+          f"{dim // HEADS}, one epoch of {chars} characters)")
+    _prepare_workdir(chars)
+    ckpt = WORK / f"{name}.pth"
+    best = WORK / f"{name}_best.pth"
     for old in (ckpt, best):
         old.unlink(missing_ok=True)
     # The work the run must do, counted independently of the trainer.
     corpus, source = load_text_corpus(WORK / "data")
-    corpus = corpus[:TRAIN_CHARS]
+    corpus = corpus[:chars]
     train_chunks, val_chunks = tokenize_corpus(corpus, CharTokenizer(corpus),
                                                SEQ, 0.1)
     steps = num_batches(len(train_chunks), BATCH)
@@ -675,9 +726,10 @@ def main_path_train(card: str):
 
     argv = ["--train", "--ckpt", str(ckpt), "--epochs", "1",
             "--batch_size", str(BATCH), "--seq_len", str(SEQ),
-            "--embed_dim", str(DIM), "--depth", str(DEPTH),
+            "--embed_dim", str(dim), "--depth", str(DEPTH),
             "--dropout", str(DROPOUT), "--model_id", "char",
-            "--use_learned_embeddings", "--data_root", str(WORK / "data")]
+            "--use_learned_embeddings", "--data_root", str(WORK / "data"),
+            *extra]
     torch.cuda.synchronize()
     _reset_counts()
     t0 = time.perf_counter()
@@ -701,21 +753,23 @@ def main_path_train(card: str):
     val = [record[k] for k in ("val_diff", "val_round", "val_total")]
     if not (np.isfinite(losses).all() and np.isfinite(val).all()):
         raise AssertionError("a training or validation loss is not finite")
-    first, last = losses[:50, 2].mean(), losses[-50:, 2].mean()
+    window = min(50, steps // 4)
+    first, last = losses[:window, 2].mean(), losses[-window:, 2].mean()
     if not last < first:
-        raise AssertionError(f"mean loss of the last 50 steps {last} is not "
-                             f"below that of the first 50 ({first})")
+        raise AssertionError(f"mean loss of the last {window} steps {last} "
+                             f"is not below that of the first {window} "
+                             f"({first})")
     for path in (ckpt, best):
         if not path.is_file():
             raise AssertionError(f"{path.name} was not written")
     rate = result.steps / result.seconds
     print(f"training path: launches {counts}; losses finite; mean total "
-          f"loss first 50 steps {first}, last 50 {last}; val total "
+          f"loss first {window} steps {first}, last {window} {last}; val total "
           f"{val[2]}; {ckpt.name} and {best.name} written; CLI call "
           f"{cli_s:.3f} s (includes corpus, model setup, validation and "
           f"checkpoints)")
     print(f"training: {rate} steps/s ({result.steps} steps over "
-          f"{result.seconds} s of step loop), bs={BATCH} seq={SEQ} dim={DIM} "
+          f"{result.seconds} s of step loop), bs={BATCH} seq={SEQ} dim={dim} "
           f"depth={DEPTH} dropout={DROPOUT} f32, on {card}")
     return result, ckpt, counts, rate
 
@@ -781,6 +835,45 @@ def main_path_sample(card: str, ckpt: Path, model):
           f"{sum(times)} s; runs of {STEPS} steps took {times} s), "
           f"n={N} seq={SEQ} dim={DIM} depth={DEPTH}, on {card}")
     return counts, sum(times) / (STEPS * len(times)), z
+
+
+def main_path_sample_narrow(card: str, ckpt: Path, dim: int):
+    """``shakespeare.main(["--sample", "--sampler", "ddim", "--steps",
+    NARROW_SAMPLE_STEPS, ...])`` from the checkpoint of width ``dim``:
+    asserts NARROW_SAMPLE_STEPS x depth forward launches and no other,
+    finite embeddings of width ``dim`` and N sample files."""
+    import torch
+
+    from tinydiffusionmodels_torch import shakespeare
+
+    phase(f"main path: shakespeare --sample --sampler ddim --steps "
+          f"{NARROW_SAMPLE_STEPS} (dim {dim}, head width {dim // HEADS})")
+    _prepare_workdir(NARROW_CHARS)
+    for old in (WORK / "samples").glob("sample_*.txt"):
+        old.unlink()
+    argv = ["--sample", "--ckpt", str(ckpt), "--n", str(N), "--seq_len",
+            str(SEQ), "--model_id", "char", "--sampler", "ddim", "--steps",
+            str(NARROW_SAMPLE_STEPS), "--data_root", str(WORK / "data")]
+    torch.cuda.synchronize()
+    _reset_counts()
+    z = shakespeare.main(argv)
+    torch.cuda.synchronize()
+    counts = _counts()
+    expect = {"flash_attention_fwd": NARROW_SAMPLE_STEPS * DEPTH,
+              "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+              "guided_decode": 0, "fused_resblock": 0, **_SINGLE_BLOCK_IDLE}
+    if counts != expect:
+        raise AssertionError(f"launches {counts} on the dim-{dim} sampling "
+                             f"path, expected {expect}")
+    if tuple(z.shape) != (N, SEQ, dim) or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"embeddings {tuple(z.shape)}, finite: "
+                             f"{bool(torch.isfinite(z).all())}")
+    written = sorted((WORK / "samples").glob("sample_*.txt"))
+    if len(written) != N:
+        raise AssertionError(f"{len(written)} sample files, expected {N}")
+    print(f"dim-{dim} sampling path: launches {counts}, embeddings finite, "
+          f"{len(written)} samples, on {card}")
+    return counts
 
 
 def main_path_guided(card: str, ckpt: Path):
@@ -1066,111 +1159,164 @@ def device_vs_cpu(model_gpu):
         raise AssertionError(f"device and CPU forwards differ by {err}")
 
 
+def _profiled_device_ms(fn, calls: int = 20) -> float:
+    """Device time in ms of one call of ``fn``, read from torch.profiler:
+    the self device time of every CUDA kernel launched in ``calls`` calls
+    (host annotations dropped), over ``calls``. For PyTorch's own fused
+    attention, whose CUDA-event time is bound by its host enqueue at small
+    shapes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
+    if us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return us / calls / 1e3
+
+
 def kernel_timing(card: str) -> dict:
-    """CUDA-event device times at the training shape, on the model's
-    operands (strided views of one QKV projection), in turns within this
-    call: plain, kernel, kernel, plain. Returns per kernel ms, plain_ms,
-    library_ms, bound_ms and bound_by."""
+    """The three flash kernels at TIMING_SHAPES on the model's operands
+    (strided views of one QKV projection, f32, dropout 0.1): CUDA-event
+    device times in turns within this call (plain, kernel, kernel, plain),
+    beside the device time of PyTorch's fused attention
+    (``scaled_dot_product_attention`` at dropout 0, its kernels' self device
+    time from torch.profiler: the forward for the forward kernel, the
+    backward for dq and dk/dv, which together compute what that backward
+    does) and the bound (3xTF32 products, or bytes). Returns per kernel the
+    training shape's ms, plain_ms, library_ms, bound_ms, bound_by and
+    fp32_fma_roof_ms, and each shape's under "shapes"."""
     import torch
     import torch.nn.functional as F
 
+    from tinydiffusionmodels_torch import perf
     from tinydiffusionmodels_torch.ops import flash_attention as fa
     from tinydiffusionmodels_torch.ops import reference
 
-    phase("timing at the training shape (B 8, L 64, H 4, Dh 64, f32, blhd "
-          "views of one QKV projection)")
-    b, l, h, d = BATCH, SEQ, HEADS, DIM // HEADS
-    g = torch.Generator(device="cuda").manual_seed(11)
-    qkv = torch.randn(b, l, 3, h, d, generator=g, device="cuda")
-    q, k, v = (qkv[:, :, i].requires_grad_() for i in range(3))
-    g_out = torch.randn(b, l, h, d, generator=g, device="cuda")
+    phase("timing: the flash kernels at the training shape and the kernel "
+          "bench's L 512 and 2048 (H 4, Dh 64, f32, blhd views of one QKV "
+          "projection)")
+    h, d = HEADS, DIM // HEADS
     seed = _seed(12345)
-    kw = dict(layout="blhd", dropout_rate=DROPOUT, dropout_seed=seed)
-    params = dict(causal=False, layout="blhd", q_offset=0, k_offset=0,
-                  dropout_rate=DROPOUT, dropout_seed=seed)
-
-    with torch.no_grad():
-        out, lse = fa.forward(q, k, v, **params)
-        delta = fa.backward_delta(out, g_out, None, "blhd")
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    plain_out = reference.attention(q, k, v, **kw)[0]
-
-    def plain_dq():
-        torch.autograd.grad(plain_out, q, g_out, retain_graph=True)
-
-    def plain_dkv():
-        torch.autograd.grad(plain_out, (k, v), g_out, retain_graph=True)
-
-    # The yardstick: PyTorch's fused attention on the same (bhld-strided)
-    # views, at dropout 0 (its dropout draws another stream).
-    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
-                  for x in (q, k, v))
-    g_t = g_out.transpose(1, 2)
-
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qt, kt, vt)
-        torch.autograd.grad(o, (qt, kt, vt), g_t)
-
-    def plain_fwd():
+    out = {}
+    for b, l in TIMING_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(11)
+        qkv = torch.randn(b, l, 3, h, d, generator=g, device="cuda")
+        q, k, v = (qkv[:, :, i].requires_grad_() for i in range(3))
+        g_out = torch.randn(b, l, h, d, generator=g, device="cuda")
+        kw = dict(layout="blhd", dropout_rate=DROPOUT, dropout_seed=seed)
+        params = dict(kw, causal=False, q_offset=0, k_offset=0)
         with torch.no_grad():
-            reference.attention(q, k, v, **kw)
+            o, lse = fa.forward(q, k, v, **params)
+            delta = fa.backward_delta(o, g_out, None, "blhd")
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        plain_out = reference.attention(q, k, v, **kw)[0]
+        # PyTorch's fused attention on the same (bhld-strided) views, at
+        # dropout 0 (its dropout draws another stream).
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        g_t = g_out.transpose(1, 2)
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
 
-    # name: (kernel, plain version, library yardstick, its label); the SDPA
-    # forward runs with grad enabled, so it also keeps its logsumexp, as the
-    # kernel does.
-    runs = {
-        "flash_attention_fwd": (
-            lambda: fa.forward(q, k, v, **params), plain_fwd,
-            lambda: F.scaled_dot_product_attention(qt, kt, vt),
-            "SDPA forward"),
-        "flash_attention_bwd_dq": (
-            lambda: fa.backward_dq(q, k, v, g_out, lse, delta, dq, **params),
-            plain_dq, sdpa_fwd_bwd, "SDPA forward+backward"),
-        "flash_attention_bwd_dkv": (
-            lambda: fa.backward_dkv(q, k, v, g_out, lse, delta, dk, dv,
-                                    **params),
-            plain_dkv, sdpa_fwd_bwd, "SDPA forward+backward"),
-    }
+        def plain_fwd():
+            with torch.no_grad():
+                reference.attention(q, k, v, **kw)
 
-    f32 = 4
-    n_qkv = b * l * h * d          # elements of each of q, k, v, O, dO
-    n_row = b * h * l              # lse and D
-    pairs = b * h * l * l          # (query, key) pairs
-    work = {  # (bytes read once and written once, FP32 FLOPs of the matmuls)
-        "flash_attention_fwd": ((4 * n_qkv + n_row) * f32 + 4,
-                                2 * pairs * (d + d)),
-        "flash_attention_bwd_dq": ((5 * n_qkv + 2 * n_row) * f32 + 4,
-                                   2 * pairs * (d + d + d)),
-        "flash_attention_bwd_dkv": ((6 * n_qkv + 2 * n_row) * f32 + 4,
-                                    2 * pairs * (d + d + d + d)),
-    }
-    return _time_against_plain(runs, work, card, "dropout 0")
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt)
+
+        def sdpa_bwd():
+            torch.autograd.grad(sdpa_out, (qt, kt, vt), g_t,
+                                retain_graph=True)
+
+        runs = {  # name: (kernel, plain version, library, its label)
+            "flash_attention_fwd": (
+                lambda: fa.forward(q, k, v, **params), plain_fwd, sdpa_fwd,
+                "SDPA forward"),
+            "flash_attention_bwd_dq": (
+                lambda: fa.backward_dq(q, k, v, g_out, lse, delta, dq,
+                                       **params),
+                lambda: torch.autograd.grad(plain_out, q, g_out,
+                                            retain_graph=True),
+                sdpa_bwd, "SDPA backward"),
+            "flash_attention_bwd_dkv": (
+                lambda: fa.backward_dkv(q, k, v, g_out, lse, delta, dk, dv,
+                                        **params),
+                lambda: torch.autograd.grad(plain_out, (k, v), g_out,
+                                            retain_graph=True),
+                sdpa_bwd, "SDPA backward"),
+        }
+        f32 = 4
+        n_qkv = b * l * h * d          # elements of each of q, k, v, O, dO
+        n_row = b * h * l              # lse and D
+        pairs = b * h * l * l          # (query, key) pairs
+        work = {  # (bytes read once and written once, f32 product FLOPs)
+            "flash_attention_fwd": ((4 * n_qkv + n_row) * f32 + 4,
+                                    2 * pairs * (d + d)),
+            "flash_attention_bwd_dq": ((5 * n_qkv + 2 * n_row) * f32 + 4,
+                                       2 * pairs * (d + d + d)),
+            "flash_attention_bwd_dkv": ((6 * n_qkv + 2 * n_row) * f32 + 4,
+                                        2 * pairs * (d + d + d + d)),
+        }
+        iters = 200 if l <= SEQ else 20
+        at = f"B {b}, H {h}, L {l}, Dh {d}, f32, dropout {DROPOUT}"
+        print(f"-- {at}")
+        out[(b, l)] = _time_against_plain(
+            runs, work, card, "dropout 0, profiler self device time", at=at,
+            iters=iters, library_timer=_profiled_device_ms)
+        del plain_out, sdpa_out
+    timings = {name: dict(row, shapes={f"B{b} L{l}": out[(b, l)][name]
+                                       for b, l in TIMING_SHAPES[1:]})
+               for name, row in out[TIMING_SHAPES[0]].items()}
+    return timings
 
 
 def _time_against_plain(runs: dict, work: dict, card: str, library_note: str,
-                        **extra) -> dict:
+                        iters: int = 200, library_timer=None,
+                        tensor_cores: bool = True, **extra) -> dict:
     """For each name: (kernel, plain version, library yardstick, its label)
-    of ``runs``, CUDA-event device times in turns within this call (plain,
-    kernel, kernel, plain, then the library), and the bound of ``work[name]``
-    = (bytes read once and written once, FP32 FLOPs). Returns per name ms,
-    plain_ms, library_ms, bound_ms, bound_by and ``extra``."""
+    of ``runs``, device times in turns within this call (plain, kernel,
+    kernel, plain: CUDA events over ``iters`` calls), then the library's
+    (``library_timer``, CUDA events by default), and the bound of
+    ``work[name]`` = (bytes read once and written once, f32 product FLOPs):
+    the FLOPs as 3xTF32 on the tensor cores with ``tensor_cores``, else at
+    the FP32-FMA rate. Returns per name ms, plain_ms, library_ms, bound_ms,
+    bound_by, fp32_fma_roof_ms (the FLOPs at the FP32-FMA rate) and
+    ``extra``."""
     from tinydiffusionmodels_torch import perf
 
+    library_timer = library_timer or perf.device_ms
     timings = {}
     for name, (kernel, plain, library, lib_name) in runs.items():
-        p_ms = [perf.device_ms(plain)]
-        k_ms = [perf.device_ms(kernel), perf.device_ms(kernel)]
-        p_ms.append(perf.device_ms(plain))
-        lib_ms = perf.device_ms(library)
+        p_ms = [perf.device_ms(plain, iters)]
+        k_ms = [perf.device_ms(kernel, iters), perf.device_ms(kernel, iters)]
+        p_ms.append(perf.device_ms(plain, iters))
+        lib_ms = library_timer(library)
         nbytes, flops = work[name]
-        bound_ms, bound_by = perf.bound_ms(nbytes, [(flops, "f32")])
+        ops = (perf.f32_tensor_core_ops(flops) if tensor_cores
+               else [(flops, "f32")])
+        bound_ms, bound_by = perf.bound_ms(nbytes, ops)
+        roof_ms = perf.bound_ms(0, [(flops, "f32")])[0]
         timings[name] = dict(ms=sum(k_ms) / 2, plain_ms=sum(p_ms) / 2,
                              library_ms=lib_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, **extra)
+                             bound_by=bound_by, fp32_fma_roof_ms=roof_ms,
+                             **extra)
         print(f"{name}: kernel {k_ms} ms, plain {p_ms} ms, library "
               f"({lib_name}, {library_note}) {lib_ms} ms; bound {bound_ms} ms "
-              f"by {bound_by} ({nbytes} B, {flops} FLOP), "
-              f"{timings[name]['ms'] / bound_ms:.0f}x; on {card}")
+              f"by {bound_by} ({nbytes} B, {flops} FLOP as "
+              f"{'3xTF32' if tensor_cores else 'FP32'}), "
+              f"{timings[name]['ms'] / bound_ms:.1f}x; FP32-FMA roof "
+              f"{roof_ms} ms; on {card}")
     return timings
 
 
@@ -1817,6 +1963,7 @@ def single_block_timing(card: str) -> dict:
         "attention_single_block_bwd": (7 * n * 4, 2 * pairs * 5 * d),
     }
     return _time_against_plain(runs, work, card, "distinct q, k, v",
+                               tensor_cores=False,
                                at="B 8, H 4, L 64, Dh 64, f32")
 
 
@@ -1831,6 +1978,10 @@ def main() -> None:
     result, ckpt, train_counts, _ = main_path_train(card)
     model = result.joint["diffusion_model"].eval()
     sample_counts, wall_s_per_step, z = main_path_sample(card, ckpt, model)
+    _, narrow_ckpt, narrow_train_counts, _ = main_path_train(
+        card, NARROW_DIM, NARROW_CHARS, NARROW_TRAIN_ARGS, "narrow_ckpt")
+    narrow_sample_counts = main_path_sample_narrow(card, narrow_ckpt,
+                                                   NARROW_DIM)
     decode_worst_gap, decode_stats = decode_kernel_vs_plain()
     guided_counts, lm_ckpt = main_path_guided(card, ckpt)
     exact_counts, rounds, agree, exact_gap, exact_stats = guided_exact(
@@ -1885,7 +2036,8 @@ def main() -> None:
     if any(v["bound_by"] != "operations"
            for b in (n25, n128) for v in b["blocks"].values()):
         raise AssertionError("a resblock shape is bound by bytes")
-    paths = (train_counts, sample_counts, guided_counts, exact_counts,
+    paths = (train_counts, sample_counts, narrow_train_counts,
+             narrow_sample_counts, guided_counts, exact_counts,
              mnist_train_counts, *mnist_sample_counts, bench_counts)
     record = []
     for name, (source, replaces) in KERNELS.items():

@@ -37,6 +37,14 @@ CASES = {
     "causal_offsets": (1, 2, 48, 80, 32, 32, True, "bhld", 40, 0),
     "dv_ne_dh": (2, 2, 64, 64, 32, 64, False, "bhld", 0, 0),
     "blhd": (2, 4, 64, 64, 64, 64, False, "blhd", 0, 0),
+    # The head widths of the text CLI at --embed_dim 32, 48, 64, 96, 384
+    # (4 heads), one in each padded width of the CUDA kernels, and Dv != Dh.
+    "dh8": (2, 2, 70, 70, 8, 8, False, "blhd", 0, 0),
+    "dh12": (2, 2, 70, 70, 12, 12, True, "blhd", 0, 0),
+    "dh16": (2, 2, 70, 70, 16, 16, False, "bhld", 0, 0),
+    "dh24": (2, 2, 70, 70, 24, 24, True, "bhld", 0, 0),
+    "dh96": (1, 2, 70, 70, 96, 96, False, "blhd", 0, 0),
+    "dh12_dv24": (2, 2, 70, 70, 12, 24, True, "bhld", 0, 0),
 }
 
 
@@ -111,6 +119,26 @@ def test_import_builds_nothing():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("libtdm_kernels-")
+
+
+def test_vector_bytes_follow_address_and_strides():
+    """The widest copy the kernels may make of a row: views of one fused
+    (B, L, 3, H, Dh) projection, as the model passes them."""
+    def heads(dh, dtype):
+        qkv = torch.zeros(2, 8, 3, 4, dh, dtype=dtype)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+    assert fa.vector_bytes(torch.zeros(2, 4, 8, 64)) == 16
+    assert fa.vector_bytes(*heads(64, torch.bfloat16)) == 16
+    assert fa.vector_bytes(*heads(12, torch.float32)) == 16
+    # bf16 Dh 12: a head starts every 24 bytes.
+    assert fa.vector_bytes(*heads(12, torch.bfloat16)) == 8
+    assert fa.vector_bytes(*heads(6, torch.bfloat16)) == 4
+    assert fa.vector_bytes(*heads(9, torch.bfloat16)) == 2
+    assert fa.vector_bytes(*heads(9, torch.float32)) == 4
+    # A dim of length 1 constrains nothing; an offset view does.
+    assert fa.vector_bytes(torch.zeros(1, 1, 8, 10)[:, :, :, :8]) == 8
+    assert fa.vector_bytes(torch.zeros(2, 1, 8, 64)[..., 1:]) == 4
 
 
 def test_no_fallback_for_other_devices():

@@ -77,6 +77,15 @@ CASES = {
                  True),
     "no_dropout": (2, 2, 130, 130, 32, 32, False, "bhld", 0, 0, 0.0, 0,
                    True),
+    # The text CLI's head widths (one in each padded width of the CUDA
+    # kernels) and Dv != Dh.
+    "dh8": (1, 2, 70, 70, 8, 8, False, "blhd", 0, 0, 0.1, 8, True),
+    "dh12": (1, 2, 70, 70, 12, 12, True, "blhd", 0, 0, 0.1, -12, True),
+    "dh16": (1, 2, 70, 70, 16, 16, False, "bhld", 0, 0, 0.1, 16, False),
+    "dh24": (1, 2, 70, 70, 24, 24, True, "bhld", 0, 0, 0.1, 24, True),
+    "dh96": (1, 2, 70, 70, 96, 96, False, "blhd", 0, 0, 0.1, 96, True),
+    "dh12_dv24": (1, 2, 70, 70, 12, 24, True, "bhld", 0, 0, 0.1, 1224,
+                  True),
 }
 
 

@@ -250,6 +250,34 @@ def test_train_writes_checkpoints_both_clis_sample(workdir, monkeypatch):
     assert (workdir / "samples" / "sample_0.txt").exists()
 
 
+def test_train_sample_at_embed_dim_48(workdir, monkeypatch):
+    """``--train --sample --embed_dim 48``: four heads of width 12, a width
+    the JAX package's CLI tests also train at (tests/test_cli.py). The port
+    trains, then samples from what it trained, in one call; the JAX CLI
+    samples the same checkpoint."""
+    from tinydiffusionmodels_tpu import shakespeare as jax_cli
+    from tinydiffusionmodels_tpu.io import load_checkpoint
+
+    monkeypatch.setenv("TDM_DATA_LIMIT", "3000")
+    (workdir / "empty").mkdir()
+    common = ["--model_id", "char", "--data_root", "empty", "--seq_len", "16",
+              "--ckpt", "w.pth", "--embed_dim", "48"]
+    z = port_cli.main([
+        "--train", "--sample", *common, "--epochs", "1", "--batch_size", "8",
+        "--depth", "1", "--warmup_steps", "5", "--n", "2", "--sampler",
+        "ddim", "--steps", "3",
+    ])
+    assert tuple(z.shape) == (2, 16, 48) and torch.isfinite(z).all()
+    emb = load_checkpoint("w.pth")["embedding_fn"]["embeddings.weight"]
+    assert np.asarray(emb).shape[-1] == 48
+    sample = ["--sample", "--model_id", "char", "--data_root", "empty",
+              "--seq_len", "16", "--ckpt", "w.pth", "--n", "2", "--sampler",
+              "ddim", "--steps", "3"]
+    (workdir / "samples" / "sample_0.txt").unlink()
+    jax_cli.main(sample)
+    assert (workdir / "samples" / "sample_0.txt").exists()
+
+
 def test_no_cuda_without_cpu_opt_in_fails(workdir, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU, so cuda is a valid default")

@@ -69,7 +69,14 @@ CASES = {
     # versions average V over the Lk keys there.
     "fully_masked_rows": (2, 4, 100, 100, 64, 64, True, 0, 40),
     "lq_ne_lk": (2, 2, 48, 130, 32, 128, False, 0, 0),
+    # The grid the kernels split: one 16-row warp per CTA at L 64 and
+    # B * H 32 (128 CTAs), four at L 2048.
+    "long_L2048": (2, 4, 2048, 2048, 64, 64, False, 0, 0),
+    # Widths other than 32, 64, 128: one in each padded instance, and
+    # Dv != Dh.
+    "dh12_dv24_causal": (2, 4, 100, 100, 12, 24, True, 0, 0),
 }
+WIDTHS = (8, 12, 16, 24, 96)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -93,7 +100,8 @@ def test_one_launch_counted_per_call(cuda):
 
 
 @pytest.mark.parametrize("make, match", [
-    (lambda d: _qkv(1, 1, 8, 8, 48, 48, d), "Dh=48"),
+    (lambda d: _qkv(1, 1, 8, 8, 160, 160, d), "Dh=160"),
+    (lambda d: _qkv(1, 1, 8, 8, 64, 129, d), "Dv=129"),
     (lambda d: _qkv(1, 1, 8, 8, 32, 32, d, torch.float16), "float32 or bfloat16"),
     (lambda d: tuple(x.transpose(-1, -2) for x in _qkv(1, 1, 32, 32, 32, 32, d)),
      "contiguous in its last dim"),
@@ -104,6 +112,32 @@ def test_wrapper_rejects_before_launch(cuda, make, match):
     with pytest.raises((TypeError, ValueError), match=match):
         fa.flash_attention(q, k, v)
     assert fa.launches == before
+
+
+def _views(b, length, h, d, device, dtype, seed=3):
+    """q, k, v as the model passes them: (B, L, H, Dh) views of one fused
+    (B, L, 3, H, Dh) projection, never copied."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (b, length, 3, h, d), dtype=np.float32)).to(device, dtype)
+    return qkv, (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", WIDTHS)
+def test_kernel_matches_plain_at_every_width(cuda, dh, dtype):
+    """Forward on the model's strided views at head widths the kernels
+    once refused; bf16 Dh 12 rows start on 8 bytes."""
+    _, (q, k, v) = _views(8, 64, 4, dh, cuda, dtype)
+    before = fa.launches
+    out, lse = fa.flash_attention_with_lse(q, k, v, layout="blhd")
+    assert fa.launches == before + 1
+    ref_out, ref_lse = reference.attention(q, k, v, layout="blhd")
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else TOL
+    torch.testing.assert_close(out, ref_out, **tol)
+    torch.testing.assert_close(
+        lse, ref_lse, **(dict(rtol=1e-2, atol=1e-2)
+                         if dtype == torch.bfloat16 else TOL))
 
 
 def _seed(device, value=-123456789):
@@ -177,6 +211,39 @@ def test_strided_views_get_gradients(cuda):
     torch.testing.assert_close(grads[0], grads[1], **GRAD_TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", WIDTHS)
+def test_backward_matches_plain_autograd_at_every_width(cuda, dh, dtype):
+    """dq, dk and dv through the fused QKV tensor's gradient, with dropout,
+    at the widths the kernels once refused (bf16 Dh 12: 8-byte rows)."""
+    base, _ = _views(8, 64, 4, dh, cuda, dtype)
+    rng = np.random.default_rng(4)
+    g_out = torch.from_numpy(rng.standard_normal(
+        (8, 64, 4, dh), dtype=np.float32)).to(cuda, dtype)
+    grads = []
+    for fn in (fa.flash_attention, lambda *a, **k: reference.attention(
+            *a, **k)[0]):
+        qkv = base.clone().requires_grad_()
+        out = fn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], layout="blhd",
+                 dropout_rate=0.1, dropout_seed=_seed(cuda))
+        (grad,) = torch.autograd.grad(out, qkv, g_out)
+        grads.append(grad)
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+           else GRAD_TOL)
+    torch.testing.assert_close(grads[0], grads[1], **tol)
+
+
+def test_unaligned_bf16_views_launch_copy_free(cuda):
+    """bf16 heads of width 9 start on 2-byte boundaries: the kernels load
+    them without cp.async and give what the plain version gives."""
+    base, (q, k, v) = _views(2, 40, 4, 9, cuda, torch.bfloat16)
+    assert fa.vector_bytes(q, k, v) == 2
+    out = fa.flash_attention(q, k, v, layout="blhd")
+    torch.testing.assert_close(
+        out, reference.attention(q, k, v, layout="blhd")[0], rtol=2e-2,
+        atol=2e-2)
+
+
 def test_dropout_seed_must_be_a_device_int32(cuda):
     q, k, v = _qkv(1, 1, 8, 8, 32, 32, cuda)
     with pytest.raises(ValueError, match="one-element int32 tensor"):
@@ -220,7 +287,6 @@ def test_decode_kernel_matches_plain(cuda, name):
 
 
 def test_decode_launches_once_per_call(cuda):
-    # dim 128: the verify forward's flash kernels take Dh 32 and up.
     model = _gpt(97, 128, 2, 17, 0, cuda)
     diff = torch.randn(4, 16, 97, device=cuda)
     before = dk.launches

@@ -31,6 +31,7 @@ def test_h100_peaks(card):
     assert perf.device_peak_flops(dtype="bf16") == 989e12
     assert perf.device_peak_flops("cuda", dtype="f32") == 67e12
     assert perf.device_peak_flops(torch.device("cuda", 0), "f32") == 67e12
+    assert perf.device_peak_flops(dtype="tf32") == 495e12
     assert perf.device_hbm_bandwidth() == 3.35e12
 
 
@@ -89,6 +90,25 @@ def test_bound_ms_is_the_old_chip_smoke_bound(card):
     assert by == "bytes" and math.isclose(ms, 2105348 / 3.35e12 * 1e3)
     assert round(ms, 5) == 0.00063
     assert perf.bound_ms(0, [(67e9, "f32")]) == (1.0, "operations")
+
+
+def test_tf32_peak_and_the_3xtf32_bound(card):
+    """The flash kernels' f32 products run as 3xTF32 on the tensor cores:
+    three TF32 products per f32 product, at the data sheet's dense TF32
+    peak; that bound is below the FP32-FMA roof of the same FLOPs."""
+    card(H100)
+    assert perf.device_peak_flops(dtype="tf32") == 495e12
+    flops = 2 * 8 * 4 * 64 * 64 * (64 + 64)   # the forward at (8, 4, 64, 64)
+    assert perf.f32_tensor_core_ops(flops) == [(3 * flops, "tf32")]
+    ms, by = perf.bound_ms(0, perf.f32_tensor_core_ops(flops))
+    assert by == "operations"
+    assert math.isclose(ms, 3 * flops / 495e12 * 1e3)
+    fma_roof = perf.bound_ms(0, [(flops, "f32")])[0]
+    assert math.isclose(ms / fma_roof, 3 * 67 / 495)
+    # At the training shape the bytes still bound the forward.
+    nbytes = (4 * 8 * 64 * 4 * 64 + 8 * 4 * 64) * 4 + 4
+    assert perf.bound_ms(nbytes, perf.f32_tensor_core_ops(flops)) == (
+        nbytes / 3.35e12 * 1e3, "bytes")
 
 
 def test_bound_ms_is_none_without_the_cards_peaks(card):

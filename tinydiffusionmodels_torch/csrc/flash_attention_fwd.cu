@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), f32 and bf16, f32 accumulation.
+// Flash-attention forward for Hopper (sm_90a), f32 and bf16, f32 accumulation
+// on the tensor cores.
 //
 // Replaces the TPU kernel `_flash_kernel` in
 // tinydiffusionmodels_tpu/ops/pallas_kernels.py (driven by
@@ -16,26 +17,46 @@
 // the undropped weights and only the P*V accumulation sees the mask. The mask
 // is the coordinate hash of dropout_hash.cuh (seed, batch*head, global q,
 // global k), which the backward kernels regenerate; the seed is read from a
-// device int32, so a launch needs no host value of it.
+// device int32, so a launch needs no host value of it. In bf16, the dropped
+// weights are rounded to bf16 before P*V, where the TPU kernel rounds them
+// (`pv.astype(v.dtype)`).
 //
-// Design. One CTA of 256 threads per (batch*head, 64-row query tile); four
-// threads share one query row. The CTA walks the keys and values in 64-row
-// tiles with a loop inside the block (the TPU kernel's grid runs in order on
-// one core and unrolls that walk statically instead). Each tile is staged in
-// shared memory as float, rows padded by one word so that the four threads of
-// a row hit four banks. The running max, normalizer and the thread's quarter
-// of the output row stay in registers; the row's reductions and the exchange
-// of probabilities for P*V are warp shuffles within the four lanes. The
-// ragged edge of both Lq and Lk is masked here, not padded by the host. Q, K,
-// V and O are addressed through element strides over (batch, head, row), so
-// the (B, L, H, Dh) view of a fused QKV projection goes in without a copy.
+// Head widths. Any Dh and Dv from 1 to 128. The kernel is instantiated at
+// D = 16, 32, 64 and 128, D the padded max(Dh, Dv); it takes the true widths
+// at run time, loads columns at or past them as zeros (zero columns of q and
+// k change no score), skips whole k steps and output blocks past them, and
+// stores no padded column. The scale is 1/sqrt(Dh) of the true width.
 //
-// What bounds it. The products run as plain FP32 FMA (no TF32, no tensor
-// cores), matching PyTorch's "highest" float32 matmul default. At the text
-// sampler's shape (B=8, H=4, L=64, Dh=64) the grid is 32 CTAs on 132 SMs and
-// each CTA does 0.5 M FMAs: the kernel is bound by launch latency and by the
-// latency of its one tile walk, not by FLOPs or bytes. Filling the card
-// (more, smaller CTAs or a persistent grid), wgmma and TMA are later work.
+// Design. Each 16-row query group is one warp's, or, at short sequences,
+// four warps' that split every key tile among them (16 keys each) and merge
+// their softmax states (m, l, O) through shared memory at the end. A CTA
+// takes one to four groups of one (batch, head): the host picks the most
+// groups that still give at least 128 CTAs, and the key split where even
+// one group per CTA does not give more (the training shape, B 8, H 4, L 64:
+// 128 CTAs of four warps; four groups of one warp, 64 rows, at long
+// sequences). The CTA walks the keys in 64-row tiles with a loop inside the
+// block; K and V tiles arrive by cp.async into a double-buffered ring in
+// shared memory, so the next tile's copy overlaps this tile's products. The
+// widest copy (16, 8 or 4 bytes; bf16 rows aligned to 2 bytes only take
+// plain loads) is chosen by the host from the operands' addresses and
+// strides, so strided views of a fused QKV projection go in without a copy.
+// Both products run on the tensor cores with mma.sync and f32 accumulation:
+// bf16 on m16n8k16 with ldmatrix fragments, f32 as 3xTF32 on m16n8k8 (each
+// operand split into a TF32 big and small part, big*big + big*small +
+// small*big), which keeps float32's accuracy; each tile's P V sums apart
+// before it joins the output (flash_mma.cuh). S = Q K^T stays in registers;
+// its C fragments are the A fragments of P V, so P never touches shared
+// memory. The running max, normalizer and the output rows stay in
+// registers.
+//
+// What bounds it. At the training shape the work is 4.2 MFLOP per (b, h) and
+// 1 MB in all: launch latency and the latency of one tile's chain of
+// dependent steps (copy, products, softmax, merge) bound it, not FLOPs (3
+// TF32 products per f32 product, at 495 TFLOP/s) or bytes. At long
+// sequences the f32 path is bound by its three mma.sync per product, the
+// splits of each operand, and the softmax's exp between them; mma.sync
+// reaches only part of the tensor cores' rate on Hopper. wgmma with TMA for
+// bf16 at L >= 512 is the next step (ROADMAP).
 
 #include <cfloat>
 #include <cstdint>
@@ -44,17 +65,13 @@
 #include <cuda_runtime.h>
 
 #include "dropout_hash.cuh"
-#include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-using flash::kBlockK;
-using flash::kBlockQ;
-using flash::kFullMask;
-using flash::kLanesPerRow;
-using flash::kThreads;
-using flash::load_f32;
-using flash::store_f32;
+constexpr int kBlockK = 64;     // key rows per tile
+constexpr int kKeyBlocks = kBlockK / 8;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 struct Params {
   const void* q;
@@ -67,7 +84,8 @@ struct Params {
   int64_t k_sb, k_sh, k_sl;
   int64_t v_sb, v_sh, v_sl;
   int64_t o_sb, o_sh, o_sl;
-  int heads, lq, lk;
+  int heads, lq, lk, dh, dv;
+  int vec;  // bytes per copy of q, k and v into shared memory
   int q_off, k_off;
   int causal;
   float scale;
@@ -78,192 +96,281 @@ struct Params {
   float drop_scale;
 };
 
-template <int DH, int DV>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (size_t(kBlockQ) * (DH + 1) + size_t(kBlockK) * (DH + 1) +
-          size_t(kBlockK) * DV);
+template <typename T, int D>
+constexpr size_t smem_bytes(int rows) {
+  // Q of `rows` rows, and two stages of K and V tiles.
+  return sizeof(T) * fmma::stride<T, D>() * (size_t(rows) + 4 * size_t(kBlockK));
 }
 
-template <typename T, int DH, int DV>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  extern __shared__ float smem[];
-  constexpr int kQStride = DH + 1;
-  constexpr int kKStride = DH + 1;
-  constexpr int kCols = kBlockK / kLanesPerRow;  // scores per thread per tile
-  constexpr int kOut = DV / kLanesPerRow;        // output columns per thread
-  float* sq = smem;
-  float* sk = sq + kBlockQ * kQStride;
-  float* sv = sk + kBlockK * kKStride;
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// KW warps share each 16-row query group and split every key tile among
+// them (KW = 1, or 4 at short sequences: kBlockK / KW keys per warp); their
+// softmax states are merged at the end.
+template <typename T, int D, int KW>
+__global__ void __launch_bounds__(32 * fmma::kMaxWarps)
+    flash_fwd_kernel(const Params p) {
+  constexpr int S = fmma::stride<T, D>();
+  constexpr int kOutBlocks = D / 8;
+  constexpr int kWarpBlocks = kKeyBlocks / KW;  // key blocks of 8 per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = blockDim.x / (2 * KW);  // 16 per query group
+  T* sq = reinterpret_cast<T*>(smem_raw);
+  T* sk = sq + rows * S;               // two stages of kBlockK x S
+  T* sv = sk + 2 * kBlockK * S;
 
   const int bh = blockIdx.x;
   const int b = bh / p.heads;
   const int h = bh % p.heads;
-  const int q0 = blockIdx.y * kBlockQ;
+  const int q0 = blockIdx.y * rows;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  const int tid = threadIdx.x;
-  const int row = tid / kLanesPerRow;
-  const int sub = tid % kLanesPerRow;
+  const int warp = threadIdx.x / 32;
+  const int group = warp / KW;         // the warp's 16 query rows
+  const int slice = warp % KW;         // its part of each key tile
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n_tiles = (p.lk + kBlockK - 1) / kBlockK;
 
-  // Q tile, pre-scaled as the TPU kernel does (q * scale before the dot).
-  // Rows past Lq load zeros; their results are never stored.
-  for (int e = tid; e < kBlockQ * DH; e += kThreads) {
-    const int r = e / DH, c = e % DH;
-    const int qr = q0 + r;
-    sq[r * kQStride + c] =
-        qr < p.lq ? load_f32(q + qr * p.q_sl + c) * p.scale : 0.f;
+  fmma::load_tile<T, D>(sq, q, p.q_sl, q0, rows, p.lq, p.dh, p.vec);
+  fmma::load_tile<T, D>(sk, k, p.k_sl, 0, kBlockK, p.lk, p.dh, p.vec);
+  fmma::load_tile<T, D>(sv, v, p.v_sl, 0, kBlockK, p.lk, p.dv, p.vec);
+  fmma::cp_async_commit();
+
+  // This thread's two query rows, g and g + 8 of the group's 16.
+  int q_pos[2];
+  uint32_t drop_row[2] = {0u, 0u};
+  const bool dropout = p.seed != nullptr;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    q_pos[r] = p.q_off + q0 + group * 16 + g + 8 * r;
+    if (dropout) {
+      drop_row[r] = dropout_row_base(uint32_t(*p.seed), uint32_t(bh), q_pos[r]);
+    }
+  }
+  float m[2] = {-FLT_MAX, -FLT_MAX};
+  float l[2] = {0.f, 0.f};
+  float acc[kOutBlocks][4];
+#pragma unroll
+  for (int n = 0; n < kOutBlocks; ++n) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
   }
 
-  const int q_pos = p.q_off + q0 + row;
-  const bool dropout = p.seed != nullptr;
-  const uint32_t drop_row =
-      dropout ? dropout_row_base(uint32_t(*p.seed), uint32_t(bh), q_pos) : 0u;
-  float m = -FLT_MAX;
-  float l = 0.f;
-  float acc[kOut];
-#pragma unroll
-  for (int c = 0; c < kOut; ++c) acc[c] = 0.f;
-
-  for (int k0 = 0; k0 < p.lk; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed (and Q is stored)
-    for (int e = tid; e < kBlockK * DH; e += kThreads) {
-      const int r = e / DH, c = e % DH;
-      const int kr = k0 + r;
-      sk[r * kKStride + c] = kr < p.lk ? load_f32(k + kr * p.k_sl + c) : 0.f;
-    }
-    for (int e = tid; e < kBlockK * DV; e += kThreads) {
-      const int r = e / DV, c = e % DV;
-      const int kr = k0 + r;
-      sv[r * DV + c] = kr < p.lk ? load_f32(v + kr * p.v_sl + c) : 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
+      const int stage = (it + 1) % 2;
+      const int k0 = (it + 1) * kBlockK;
+      fmma::load_tile<T, D>(sk + stage * kBlockK * S, k, p.k_sl, k0, kBlockK,
+                            p.lk, p.dh, p.vec);
+      fmma::load_tile<T, D>(sv + stage * kBlockK * S, v, p.v_sl, k0, kBlockK,
+                            p.lk, p.dv, p.vec);
+      fmma::cp_async_commit();
+      fmma::cp_async_wait<1>();
+    } else {
+      fmma::cp_async_wait<0>();
     }
     __syncthreads();
+    // This warp's keys of the tile: kw0 .. kw0 + 8 kWarpBlocks.
+    const int kw0 = it * kBlockK + slice * 8 * kWarpBlocks;
+    const int stage_off = (it % 2) * kBlockK * S + (slice * 8 * kWarpBlocks) * S;
+    // Key blocks of 8 that hold a key below Lk (none: <= 0).
+    const int k_blocks = min(kWarpBlocks, (p.lk - kw0 + 7) / 8);
 
-    // Scores of this thread's keys: key j*4 + sub of the tile.
-    float s[kCols];
+    float s[kWarpBlocks][4];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) s[j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      const float qd = sq[row * kQStride + d];
+    for (int j = 0; j < kWarpBlocks; ++j) {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        s[j] = fmaf(qd, sk[(j * kLanesPerRow + sub) * kKStride + d], s[j]);
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+    }
+    if (k_blocks > 0) {
+      fmma::mma_abt<kWarpBlocks, D>(s, sq + group * 16 * S, sk + stage_off,
+                                    p.dh);
+    }
+
+    // Scale, mask and the tile's row maxima. Element c of block j is row
+    // g + 8 (c / 2), key kw0 + 8 j + 2 t + c % 2.
+    float tile_max[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+    for (int j = 0; j < kWarpBlocks; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kj = kw0 + 8 * j + 2 * t + c % 2;
+        const bool valid =
+            kj < p.lk && (!p.causal || q_pos[c / 2] >= p.k_off + kj);
+        s[j][c] = valid ? s[j][c] * p.scale : -FLT_MAX;
+        tile_max[c / 2] = fmaxf(tile_max[c / 2], s[j][c]);
       }
     }
-
-    float tile_max = -FLT_MAX;
+    float correction[2], row_sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int kj = k0 + j * kLanesPerRow + sub;
-      const bool valid = kj < p.lk && (!p.causal || q_pos >= p.k_off + kj);
-      s[j] = valid ? s[j] : -FLT_MAX;
-      tile_max = fmaxf(tile_max, s[j]);
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(kFullMask, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(kFullMask, tile_max[r], 2));
+      const float m_new = fmaxf(m[r], tile_max[r]);
+      correction[r] = expf(m[r] - m_new);
+      m[r] = m_new;
     }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(kFullMask, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(kFullMask, tile_max, 2));
-    const float m_new = fmaxf(m, tile_max);
-    const float correction = expf(m - m_new);
-
-    // Slots past Lk weigh nothing, even in a row with no visible key (their
-    // V rows are zeros in shared memory, so only l needs this).
-    float row_sum = 0.f;
+    // Slots past Lk weigh nothing, even in a row with no visible key.
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      s[j] = k0 + j * kLanesPerRow + sub < p.lk ? expf(s[j] - m_new) : 0.f;
-      row_sum += s[j];
+    for (int j = 0; j < kWarpBlocks; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kj = kw0 + 8 * j + 2 * t + c % 2;
+        s[j][c] = kj < p.lk ? expf(s[j][c] - m[c / 2]) : 0.f;
+        row_sum[c / 2] += s[j][c];
+      }
     }
-    row_sum += __shfl_xor_sync(kFullMask, row_sum, 1);
-    row_sum += __shfl_xor_sync(kFullMask, row_sum, 2);
-    l = correction * l + row_sum;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row_sum[r] += __shfl_xor_sync(kFullMask, row_sum[r], 1);
+      row_sum[r] += __shfl_xor_sync(kFullMask, row_sum[r], 2);
+      l[r] = correction[r] * l[r] + row_sum[r];
+    }
     if (dropout) {  // after l: only P*V sees the mask
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        s[j] *= dropout_factor(drop_row, p.k_off + k0 + j * kLanesPerRow + sub,
-                               p.drop_thresh, p.drop_scale);
-      }
-    }
-
-    // acc = correction * acc + P V. Lane t of the row holds the
-    // probabilities of keys j*4 + t; each thread owns output columns
-    // c*4 + sub.
+      for (int j = 0; j < kWarpBlocks; ++j) {
 #pragma unroll
-    for (int c = 0; c < kOut; ++c) acc[c] *= correction;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-#pragma unroll
-      for (int t = 0; t < kLanesPerRow; ++t) {
-        const float pt = __shfl_sync(kFullMask, s[j], t, kLanesPerRow);
-        const float* vrow = sv + (j * kLanesPerRow + t) * DV;
-#pragma unroll
-        for (int c = 0; c < kOut; ++c) {
-          acc[c] = fmaf(pt, vrow[c * kLanesPerRow + sub], acc[c]);
+        for (int c = 0; c < 4; ++c) {
+          s[j][c] *= dropout_factor(drop_row[c / 2],
+                                    p.k_off + kw0 + 8 * j + 2 * t + c % 2,
+                                    p.drop_thresh, p.drop_scale);
         }
       }
     }
-    m = m_new;
+#pragma unroll
+    for (int n = 0; n < kOutBlocks; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] *= correction[c / 2];
+    }
+    fmma::mma_cx<kWarpBlocks, D>(acc, s, sv + stage_off, p.dv, k_blocks);
+    __syncthreads();  // this stage is consumed before it is refilled
   }
 
-  const int qr = q0 + row;
-  if (qr < p.lq) {
+  if constexpr (KW > 1) {
+    // Merge the group's KW softmax states into its first warp, through the
+    // K/V stages, free now: per warp the acc fragments, then m and l.
+    constexpr int kStash = (4 * kOutBlocks + 4) * 32;
+    float* mine = reinterpret_cast<float*>(sk) + warp * kStash;
+    fmma::stash(mine, acc);
 #pragma unroll
-    for (int c = 0; c < kOut; ++c) {
-      store_f32(o + qr * p.o_sl + c * kLanesPerRow + sub, acc[c] / l);
+    for (int r = 0; r < 2; ++r) {
+      mine[(4 * kOutBlocks + r) * 32 + lane] = m[r];
+      mine[(4 * kOutBlocks + 2 + r) * 32 + lane] = l[r];
     }
-    if (sub == 0) p.lse[int64_t(bh) * p.lq + qr] = m + logf(l);
+    __syncthreads();
+    if (slice != 0) return;
+    float weight[KW][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mw[KW], lw[KW], m_all = -FLT_MAX;
+#pragma unroll
+      for (int w = 0; w < KW; ++w) {
+        const float* theirs = mine + w * kStash;
+        mw[w] = theirs[(4 * kOutBlocks + r) * 32 + lane];
+        lw[w] = theirs[(4 * kOutBlocks + 2 + r) * 32 + lane];
+        m_all = fmaxf(m_all, mw[w]);
+      }
+      l[r] = 0.f;
+#pragma unroll
+      for (int w = 0; w < KW; ++w) {
+        weight[w][r] = expf(mw[w] - m_all);
+        l[r] += weight[w][r] * lw[w];
+      }
+      m[r] = m_all;
+    }
+#pragma unroll
+    for (int n = 0; n < kOutBlocks; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < KW; ++w) {
+          sum += weight[w][c / 2] * fmma::stashed(mine + w * kStash, n, c);
+        }
+        acc[n][c] = sum;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qr = q0 + group * 16 + g + 8 * r;
+    if (qr >= p.lq) continue;
+    T* orow = o + qr * p.o_sl;
+#pragma unroll
+    for (int n = 0; n < kOutBlocks; ++n) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * n + 2 * t + c;
+        if (col < p.dv) store(orow + col, acc[n][2 * r + c] / l[r]);
+      }
+    }
+    if (t == 0) p.lse[int64_t(bh) * p.lq + qr] = m[r] + logf(l[r]);
   }
 }
 
-template <typename T, int DH, int DV>
-cudaError_t launch(const Params& p, dim3 grid, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DH, DV>();
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DH, DV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+template <typename T, int D, int KW>
+cudaError_t launch_split(const Params& p, int bh, int groups,
+                         cudaStream_t stream) {
+  // Once per instance: the most shared memory any launch of it asks for.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, D, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem_bytes<T, D>(16 * fmma::kMaxWarps / KW)));
   if (attr != cudaSuccess) return attr;
-  flash_fwd_kernel<T, DH, DV><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid(unsigned(bh), unsigned((p.lq + 16 * groups - 1) / (16 * groups)));
+  flash_fwd_kernel<T, D, KW><<<grid, 32 * KW * groups,
+                               smem_bytes<T, D>(16 * groups), stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
-cudaError_t launch_dv(const Params& p, int dv, dim3 grid, cudaStream_t s) {
-  switch (dv) {
-    case 32: return launch<T, DH, 32>(p, grid, s);
-    case 64: return launch<T, DH, 64>(p, grid, s);
-    case 128: return launch<T, DH, 128>(p, grid, s);
-    default: return cudaErrorInvalidValue;
-  }
+// One 16-row query group per warp, as many groups per CTA (up to 4) as keep
+// 128 CTAs; where even one group per CTA gives no more CTAs than that
+// (short sequences), four warps split each key tile of the one group.
+template <typename T, int D>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  const int bh = batch * p.heads;
+  const int groups = fmma::pick_warps(bh, p.lq);
+  if (groups == 1) return launch_split<T, D, fmma::kMaxWarps>(p, bh, 1, stream);
+  return launch_split<T, D, 1>(p, bh, groups, stream);
 }
 
 template <typename T>
-cudaError_t launch_dh(const Params& p, int dh, int dv, dim3 grid,
-                      cudaStream_t s) {
-  switch (dh) {
-    case 32: return launch_dv<T, 32>(p, dv, grid, s);
-    case 64: return launch_dv<T, 64>(p, dv, grid, s);
-    case 128: return launch_dv<T, 128>(p, dv, grid, s);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch_width(const Params& p, int batch, cudaStream_t s) {
+  const int d = p.dh > p.dv ? p.dh : p.dv;
+  if (d <= 16) return launch<T, 16>(p, batch, s);
+  if (d <= 32) return launch<T, 32>(p, batch, s);
+  if (d <= 64) return launch<T, 64>(p, batch, s);
+  if (d <= 128) return launch<T, 128>(p, batch, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. `seed` is a
-// device int32 (null: no dropout). Returns the launch's cudaError_t (0 on
-// success); the kernel runs on `stream` and allocates nothing.
+// dtype: 0 = float32, 1 = bfloat16. dh, dv: 1 to 128. vec: bytes per copy
+// of q, k and v into shared memory (16, 8, 4; 2 for bf16 only), which their
+// addresses and (batch, head, row) strides must be multiples of. Strides are
+// in elements. `seed` is a device int32 (null: no dropout). Returns the
+// launch's cudaError_t (0 on success); the kernel runs on `stream` and
+// allocates nothing.
 extern "C" int tdm_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
-    int dtype, int batch, int heads, int lq, int lk, int dh, int dv,
+    int dtype, int batch, int heads, int lq, int lk, int dh, int dv, int vec,
     long long q_sb, long long q_sh, long long q_sl,
     long long k_sb, long long k_sh, long long k_sl,
     long long v_sb, long long v_sh, long long v_sl,
     long long o_sb, long long o_sh, long long o_sl,
     float scale, int causal, int q_off, int k_off,
     const void* seed, unsigned drop_thresh, float drop_scale, void* stream) {
-  if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0) {
+  const int min_vec = dtype == 1 ? 2 : 4;
+  if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || dh <= 0 || dv <= 0 ||
+      vec < min_vec || vec > 16 || (vec & (vec - 1)) != 0) {
     return int(cudaErrorInvalidValue);
   }
   Params p;
@@ -279,6 +386,9 @@ extern "C" int tdm_flash_attention_fwd(
   p.heads = heads;
   p.lq = lq;
   p.lk = lk;
+  p.dh = dh;
+  p.dv = dv;
+  p.vec = vec;
   p.q_off = q_off;
   p.k_off = k_off;
   p.causal = causal;
@@ -286,13 +396,11 @@ extern "C" int tdm_flash_attention_fwd(
   p.seed = static_cast<const int*>(seed);
   p.drop_thresh = drop_thresh;
   p.drop_scale = drop_scale;
-  const dim3 grid(unsigned(batch) * unsigned(heads),
-                  unsigned((lq + kBlockQ - 1) / kBlockQ));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = launch_dh<float>(p, dh, dv, grid, s); break;
-    case 1: err = launch_dh<__nv_bfloat16>(p, dh, dv, grid, s); break;
+    case 0: err = launch_width<float>(p, batch, s); break;
+    case 1: err = launch_width<__nv_bfloat16>(p, batch, s); break;
     default: err = cudaErrorInvalidValue; break;
   }
   return int(err);

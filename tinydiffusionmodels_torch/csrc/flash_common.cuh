@@ -1,5 +1,6 @@
-// Tiling constants and element access shared by the flash-attention forward
-// (flash_attention_fwd.cu) and backward (flash_attention_bwd.cu) kernels.
+// Tiling constants and element access of the FP32-FMA attention kernels: the
+// flash dq kernel (flash_attention_bwd.cuh) and the single-block pair
+// (attention_single_block.cu).
 
 #pragma once
 

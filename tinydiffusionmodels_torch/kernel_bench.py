@@ -32,8 +32,11 @@ input need not change between calls. Each line gives the time of one call,
 its FLOP rate (the JAX tool's FLOP counts) and, on the card, the share of
 the card's bound that the time reaches (``perf.bound_ms``: the input read
 once and the output written once over the HBM rate, against the FLOPs over
-the peak of the operand type, 67 TFLOP/s f32 or 989 TFLOP/s bf16, the
-larger). Each mode also returns its lines as ``Row``s.
+the peak of the operand type, the larger: bf16 at 989 TFLOP/s; f32
+attention as 3xTF32 on the tensor cores, three TF32 products at 495 TFLOP/s
+for each (``perf.f32_tensor_core_ops``), as the flash kernels run it; the
+f32 residual block at the 67 TFLOP/s FP32 rate). Each mode also returns its
+lines as ``Row``s.
 
 It runs on ``runtime.device()``: the card unless ``TDM_PLATFORM=cpu``. On
 the CPU the times are the host clock's and no bound share is given (nor on
@@ -84,12 +87,14 @@ class Row:
     bound_share: float | None
 
 
-def _time(mode, shape, impl, fn, *, label, nbytes, flops, dtype, device,
+def _time(mode, shape, impl, fn, *, label, nbytes, flops, peak, device,
           iters, warmup, suffix="") -> Row:
+    """One line; ``peak`` is the rate the bound takes the FLOPs at: 'f32',
+    'bf16', or '3xtf32' (three TF32 products per f32 product)."""
     us = perf.device_ms(fn, iters, warmup, device) * 1e3
-    bound = perf.bound_ms(
-        nbytes, [(flops, "bf16" if dtype == torch.bfloat16 else "f32")],
-        device)
+    ops = (perf.f32_tensor_core_ops(flops) if peak == "3xtf32"
+           else [(flops, peak)])
+    bound = perf.bound_ms(nbytes, ops, device)
     share = None if bound is None else bound[0] * 1e3 / us
     row = Row(mode, tuple(shape), impl, us, flops / us / 1e6, share)
     tail = (f"{share:.4f} of bound" if share is not None
@@ -135,7 +140,7 @@ def bench_resblock(shapes=RESBLOCK_SHAPES, *, device=None, iters=ITERS,
                 rows.append(_time(
                     "resblock", (b, h, w, cin, cout), impl,
                     lambda fn=fn: fn(*args), label=label, nbytes=nbytes,
-                    flops=flops, dtype=torch.float32, device=device,
+                    flops=flops, peak="f32", device=device,
                     iters=iters, warmup=warmup))
     return rows
 
@@ -172,9 +177,8 @@ def _bench_attention(shapes, *, device, iters, warmup,
             with torch.set_grad_enabled(with_grad):
                 rows.append(_time(
                     mode, (b, h, length, dh), impl, fn, label=label,
-                    nbytes=2 * x.numel() * 4, flops=flops,
-                    dtype=torch.float32, device=device, iters=iters,
-                    warmup=warmup))
+                    nbytes=2 * x.numel() * 4, flops=flops, peak="3xtf32",
+                    device=device, iters=iters, warmup=warmup))
     return rows
 
 
@@ -205,9 +209,8 @@ def bench_attention_bf16(shapes=BF16_SHAPES, *, device=None, iters=ITERS,
         flops = 4 * b * h * length * length * dh
         mb = b * h * length * length * 4 / 2**20
         label = f"attn-bf16 B{b} H{h} L{length:5d} ({mb:5.0f}MB f32-scores)"
-        common = dict(label=label, nbytes=2 * x.numel() * 2,
-                      dtype=torch.bfloat16, device=device, iters=iters,
-                      warmup=warmup)
+        common = dict(label=label, nbytes=2 * x.numel() * 2, peak="bf16",
+                      device=device, iters=iters, warmup=warmup)
         for impl, attn in _attention_impls(False):
             with torch.no_grad():
                 rows.append(_time("bf16", (b, h, length, dh), impl,

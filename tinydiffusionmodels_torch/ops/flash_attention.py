@@ -6,15 +6,20 @@ pallas_kernels.py`` to hand-written CUDA C++ for Hopper, built from
 
 - ``_flash_kernel`` (forward, with attention-weight dropout) ->
   ``csrc/flash_attention_fwd.cu``;
-- ``_flash_dq_kernel`` and ``_flash_dkv_kernel`` (recompute backward) ->
-  ``csrc/flash_attention_bwd.cuh``, built from ``flash_attention_bwd_dq.cu``
-  and ``flash_attention_bwd_dkv.cu``;
+- ``_flash_dq_kernel`` (recompute backward, dq) ->
+  ``csrc/flash_attention_bwd.cuh``, built from ``flash_attention_bwd_dq.cu``;
+- ``_flash_dkv_kernel`` (recompute backward, dk and dv) ->
+  ``csrc/flash_attention_bwd_dkv.cu``;
 - ``_dropout_scale`` (the coordinate-hash mask all three share) ->
   ``csrc/dropout_hash.cuh``.
 
-The sources' headers say what bounds each kernel on the card and what its
-design does about that. The custom VJPs ``_flash_attention_diffable`` and
-``_flash_attention_lse_diffable`` become the ``torch.autograd.Function``s
+The forward and dk/dv kernels run their products on the tensor cores
+(``csrc/flash_mma.cuh``). All three take any head width from 1 to
+``MAX_HEAD_DIM``; the host passes the widest copy the operands' addresses
+and strides allow (``vector_bytes``). The sources' headers say what bounds
+each kernel on the card and what its design does about that. The custom
+VJPs ``_flash_attention_diffable`` and ``_flash_attention_lse_diffable``
+become the ``torch.autograd.Function``s
 ``_FlashAttention`` (out; ``flash_attention``) and ``_FlashAttentionLse``
 ((out, lse); ``flash_attention_with_lse``, whose lse gradient folds into
 the backward's D term). Both backwards launch the dq and dkv kernels.
@@ -45,18 +50,19 @@ launches = 0          # forward
 dq_launches = 0       # backward, dq
 dkv_launches = 0      # backward, dk and dv
 
-HEAD_DIMS = (32, 64, 128)
+# The widest Dh and Dv the kernels take; every width from 1 up to it runs.
+MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FWD_ARGTYPES = (
-    [_PTR] * 5 + [_INT] * 7 + [ctypes.c_longlong] * 12
+    [_PTR] * 5 + [_INT] * 8 + [ctypes.c_longlong] * 12
     + [ctypes.c_float, _INT, _INT, _INT, _PTR, ctypes.c_uint, ctypes.c_float,
        _PTR]
 )
 _BWD_ARGTYPES = (
-    [_PTR] * 9 + [_INT] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    [_PTR] * 9 + [_INT] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
     + [ctypes.c_float, _INT, _INT, _INT, _PTR, ctypes.c_uint, ctypes.c_float,
        _PTR]
 )
@@ -66,6 +72,24 @@ def _bhl_strides(x: torch.Tensor, layout: str) -> tuple[int, int, int]:
     """Element strides over (batch, head, row) of a 4-D attention operand."""
     s = x.stride()
     return (s[0], s[1], s[2]) if layout == "bhld" else (s[0], s[2], s[1])
+
+
+def vector_bytes(*operands: torch.Tensor) -> int:
+    """The widest copy, in bytes (16, 8, 4 or 2), that every operand's
+    rows allow: the largest power of two up to 16 that divides each data
+    pointer and each byte stride of a dim longer than 1, the last (the
+    contiguous row) aside. The kernels copy rows into shared memory in
+    pieces of this size, starting at each row's first element, so a
+    strided view (a head of a fused QKV projection) needs no copy of its
+    own. bf16 rows on 2-byte boundaries give 2, which
+    the kernels load without cp.async."""
+    vec = 16
+    for x in operands:
+        size = x.element_size()
+        for value in (x.data_ptr(), *(st * size for st, n in zip(
+                x.stride()[:-1], x.shape[:-1]) if n > 1)):
+            vec = math.gcd(vec, value)
+    return vec
 
 
 def _dims(q, k, v, layout: str) -> tuple[int, int, int, int, int, int]:
@@ -115,10 +139,10 @@ def _check_cuda_operands(q, k, v, layout: str) -> None:
     if k.shape[-1] != q.shape[-1]:
         raise ValueError("q and k must have the same head dim")
     for name, d in (("Dh", q.shape[-1]), ("Dv", v.shape[-1])):
-        if d not in HEAD_DIMS:
+        if not 1 <= d <= MAX_HEAD_DIM:
             raise ValueError(
-                f"{name}={d} is not a width the kernel is built for "
-                f"{HEAD_DIMS}"
+                f"{name}={d} is outside the kernels' widths 1 to "
+                f"{MAX_HEAD_DIM}"
             )
     if min(q.shape[ldim], k.shape[ldim], b, h) == 0:
         raise ValueError("flash attention needs non-empty operands")
@@ -151,7 +175,7 @@ def forward(q, k, v, *, causal, layout, q_offset, k_offset, dropout_rate,
     err = _build.function("tdm_flash_attention_fwd", _FWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _DTYPE_CODES[q.dtype], b, h, lq, lk, dh, dv,
-        *_bhl_strides(q, layout), *_bhl_strides(k, layout),
+        vector_bytes(q, k, v), *_bhl_strides(q, layout), *_bhl_strides(k, layout),
         *_bhl_strides(v, layout), *_bhl_strides(out, layout),
         1.0 / math.sqrt(dh), int(causal), int(q_offset), int(k_offset),
         *_dropout_args(dropout_rate, dropout_seed),
@@ -183,6 +207,7 @@ def _backward_call(name: str, q, k, v, g_out, lse, delta, grads, *, causal,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(g.data_ptr() for g in grads),
         _DTYPE_CODES[q.dtype], b, h, lq, lk, dh, dv,
+        vector_bytes(q, k, v, g_out),
         (ctypes.c_longlong * len(strides))(*strides),
         1.0 / math.sqrt(dh), int(causal), int(q_offset), int(k_offset),
         *_dropout_args(dropout_rate, dropout_seed),
@@ -303,8 +328,8 @@ def flash_attention_with_lse(
 
     Returns ``out`` in the layout and dtype of q (width Dv) and ``lse`` as
     (B, H, Lq) float32. CPU tensors run the plain version; CUDA tensors run
-    the kernels, which take float32 or bfloat16, Dh and Dv in {32, 64, 128},
-    and any strides whose last dim is contiguous. ``dropout_rate`` > 0
+    the kernels, which take float32 or bfloat16, any Dh and Dv from 1 to
+    ``MAX_HEAD_DIM`` (128), and any strides whose last dim is contiguous. ``dropout_rate`` > 0
     needs ``dropout_seed``: on the card a one-element int32 tensor on the
     same device, which the kernels read there (no host sync); on the CPU
     also an int.

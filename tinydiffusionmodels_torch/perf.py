@@ -27,11 +27,13 @@ import time
 import torch
 
 # Peaks by device-name prefix: H100 SXM (NVIDIA data sheet, 700 W, dense),
-# HBM3 bytes/s, f32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s.
+# HBM3 bytes/s, f32 FLOP/s outside the tensor cores, bf16 and TF32
+# tensor-core FLOP/s.
 # Only the card the port is measured on is listed: the H100 PCIe and NVL
 # parts have other rates, so they get None. Everything reads them through
 # ``device_peak_flops`` and ``device_hbm_bandwidth``.
-_PEAK_FLOPS = (("NVIDIA H100 80GB HBM3", {"bf16": 989e12, "f32": 67e12}),)
+_PEAK_FLOPS = (("NVIDIA H100 80GB HBM3",
+                {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}),)
 _HBM_BW = (("NVIDIA H100 80GB HBM3", 3.35e12),)
 
 
@@ -65,8 +67,9 @@ def card_label() -> str:
 
 def device_peak_flops(device=None, dtype: str = "bf16") -> float | None:
     """Peak dense FLOP/s of ``device`` (default: the current CUDA device)
-    for ``dtype``: 'bf16' (tensor cores) or 'f32' (outside the tensor
-    cores). None on the CPU and on a card the table does not list."""
+    for ``dtype``: 'bf16' or 'tf32' (tensor cores) or 'f32' (outside the
+    tensor cores). None on the CPU and on a card the table does not
+    list."""
     name = _device_name(device)
     peaks = _lookup(_PEAK_FLOPS, name) if name else None
     return None if peaks is None else peaks[dtype]
@@ -108,8 +111,8 @@ def mfu(flops_per_unit: float | None, units_per_sec: float,
 def bound_ms(nbytes: int, ops, device=None) -> tuple[float, str] | None:
     """(least time in ms, what bounds it) on ``device`` (default: the
     current CUDA device) for work that moves ``nbytes`` and does, for each
-    (flops, dtype) of ``ops``, ``flops`` operations of ``dtype`` ('f32' or
-    'bf16', as ``device_peak_flops``): bytes over the HBM rate or the summed
+    (flops, dtype) of ``ops``, ``flops`` operations of ``dtype`` ('f32',
+    'tf32' or 'bf16', as ``device_peak_flops``): bytes over the HBM rate or the summed
     operation times at the dtypes' peaks, the larger ("bytes" or
     "operations"). None where the peaks are unknown (the CPU, an unlisted
     card)."""
@@ -120,6 +123,16 @@ def bound_ms(nbytes: int, ops, device=None) -> tuple[float, str] | None:
     t_bytes = nbytes / bandwidth * 1e3
     t_ops = sum(flops / peak for (flops, _), peak in zip(ops, peaks)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def f32_tensor_core_ops(flops: float) -> list[tuple[float, str]]:
+    """The ``ops`` of ``bound_ms`` for ``flops`` float32 product FLOPs run
+    on the tensor cores as 3xTF32 (big*big + big*small + small*big, which
+    keeps float32's accuracy): three TF32 products each. This is the least
+    time for an f32 product on the card, below its FP32-FMA roof of
+    ``flops`` at the 'f32' peak (495 / 3 = 165 against 67 TFLOP/s on the
+    H100); the flash kernels' f32 path runs so."""
+    return [(3 * flops, "tf32")]
 
 
 def device_ms(fn, iters: int = 200, warmup: int = 10, device=None) -> float:
