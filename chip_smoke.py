@@ -11,15 +11,17 @@ no result line) on any error; no phase catches its own failure.
    CUDA and nvcc versions. Fails when CUDA is not available.
 2. Build: compiles every CUDA source in ``tinydiffusionmodels_torch/csrc``
    (one nvcc per source, all started together) and prints ptxas' registers
-   and spills of every kernel instance.
+   and spills of every kernel instance, the flash kernels' D 256 ones
+   included.
 3. Forward kernel vs plain: the flash-attention forward against its plain
    PyTorch version, TF32 off, on O and lse: f32 atol = rtol = 1e-4; bf16
    atol = rtol = 2e-2 on O and 1e-2 on lse. The cases include every flash
    shape of the kernel bench (phase 19) as it feeds them, one tensor as q,
    k and v: f32 at L 64, 512 and 2048, bf16 at its four shapes; and head
-   widths WIDTHS (8, 12, 16, 24, 96) in f32 and bf16 on strided views of
-   one QKV tensor (bf16 Dh 12 rows on 8 bytes; a bf16 Dh 9 case on 2
-   bytes), and Dh 12 with Dv 24, causal.
+   widths WIDTHS (8, 12, 16, 24, 96, 160, 192, 256) in f32 and bf16 on
+   strided views of one QKV tensor (bf16 Dh 12 rows on 8 bytes; a bf16 Dh
+   9 case on 2 bytes), Dh 12 with Dv 24 and Dh 160 with Dv 256, causal,
+   and Dh 256 with Dv 24.
 4. Training kernels vs plain: the forward with attention-weight dropout and
    the recompute backward (dq; dk and dv; with an lse cotangent) against
    autograd of the plain version, same seed, same tolerances on O and lse.
@@ -51,7 +53,11 @@ no result line) on any error; no phase catches its own failure.
    text path, head width 12: ``--train --embed_dim 48`` on NARROW_CHARS
    characters (launches as phase 5, a falling loss), and ``--sample
    --sampler ddim --steps 50`` from it (150 forward launches, finite
-   embeddings of width 48, 8 samples).
+   embeddings of width 48, 8 samples). Then the wide text path, head width
+   192 (the D 256 instances of all three flash kernels): ``--train
+   --embed_dim 768 --depth 2`` on NARROW_CHARS characters and ``--sample
+   --sampler ddim --steps 50`` from it (100 forward launches), asserted the
+   same way.
 7. Guided-decode kernel vs plain: the persistent kernel
    (``csrc/guided_decode.cu``) against its plain version on the same bf16
    weights and N(0, 1) logits: B in {1, 8, 13, 256}, V in {97, 4096}, depth
@@ -98,8 +104,9 @@ no result line) on any error; no phase catches its own failure.
    device's busy share, the kernels by device time.
 14. Resblock kernel vs plain: the fused UNet residual block
    (``csrc/fused_resblock.cu``) against its plain version (cuDNN convs, TF32
-   off) at the four block shapes of the UNet, batch 1, 3, 25 and 128, random
-   weights and a nonzero time bias: f32 atol = rtol = 1e-4, the max error
+   off) at the four block shapes of the UNet, batch 1, 3, 25 and 128, both
+   tile edges, random weights and a nonzero time bias: f32 atol = rtol =
+   1e-4, bf16 2e-2 (both round h and the output to bf16), the max error
    per shape printed. One autograd backward per block through the wrapper's
    Function against autograd of the plain version (1e-4), and one UNet
    forward on the card against the CPU (1e-4).
@@ -113,10 +120,12 @@ no result line) on any error; no phase catches its own failure.
    checkpoint (25 digits, 1000 ancestral steps; 4000 launches,
    ``samples.png``), then ``--sampler ddim --steps 50`` (200 launches).
    Prints the wall time of the 1000-step loop and samples/s.
-17. Resblock timing: each block at n 25 and 128, the kernel's CUDA-event
-   time beside the plain version's (cuDNN convs, TF32 off: no single
-   PyTorch call computes the block) and the bound (FLOPs at 67 TFLOP/s
-   against bytes at 3.35 TB/s), and their sums over a UNet forward; then
+17. Resblock timing: each block at n 25 and 128, f32 and bf16, the
+   kernel's CUDA-event time beside the plain version's (cuDNN convs, TF32
+   off), its cuDNN kernels' self device time from torch.profiler (no
+   single PyTorch call computes the block) and the bound (the products as
+   3xTF32 in f32 or at the bf16 peak, against bytes at 3.35 TB/s; the
+   FP32-FMA roof printed beside), and their sums over a UNet forward; then
    ``torch.profiler`` over PROFILE_STEPS MNIST sampler steps and over
    PROFILE_TRAIN_STEPS MNIST training steps.
 18. Single-block kernels vs plain (run after phase 14): the forward and
@@ -137,8 +146,9 @@ no result line) on any error; no phase catches its own failure.
 20. Single-block timing (after phase 17): both kernels at the sampler
    shape (B 8, H 4, L 64, Dh 64, f32), CUDA-event times beside the plain
    versions, ``scaled_dot_product_attention`` (forward; forward and
-   backward) and the bound (bytes over 3.35 TB/s or FLOPs over 67 TFLOP/s;
-   the backward's five L x L x Dh products).
+   backward; its kernels' self device time from torch.profiler) and the
+   bound (bytes over 3.35 TB/s or the products as 3xTF32, the backward's
+   five L x L x Dh products; the FP32-FMA roof printed beside).
 
 The peaks, the bound and the timer are ``tinydiffusionmodels_torch.perf``'s.
 The line before the last is the kernels' JSON record; the last line is
@@ -184,13 +194,19 @@ DECODE_TIE_RTOL = 1e-2
 # case has an f32 twin held to 2e-4, and the count beyond 2e-2 is printed.
 BF16_LONG_GRAD_TOL = 4e-2
 # Head widths checked beside the model's 64: one in each padded instance
-# (16, 32, 64, 128) and the text CLI's at --embed_dim 32, 48, 64, 96, 384.
-WIDTHS = (8, 12, 16, 24, 96)
+# (16, 32, 64, 128, 256) and the text CLI's at --embed_dim 32, 48, 64, 96,
+# 384, 640 and 768, and the widest.
+WIDTHS = (8, 12, 16, 24, 96, 160, 192, 256)
 # The narrow text path: --embed_dim 48 (head width 12) trained on
 # NARROW_CHARS characters at lr 1e-3 with 10 warmup steps (so that ~70 steps
 # move the loss), then sampled by DDIM in NARROW_SAMPLE_STEPS steps.
 NARROW_DIM, NARROW_CHARS, NARROW_SAMPLE_STEPS = 48, 40_000, 50
 NARROW_TRAIN_ARGS = ("--lr", "1e-3", "--warmup_steps", "10")
+# The wide text path: --embed_dim 768 (head width 192, the D 256 instances)
+# at depth WIDE_DEPTH, trained on NARROW_CHARS characters at lr 3e-4 with 10
+# warmup steps, then sampled by DDIM in NARROW_SAMPLE_STEPS steps.
+WIDE_DIM, WIDE_DEPTH = 768, 2
+WIDE_TRAIN_ARGS = ("--lr", "3e-4", "--warmup_steps", "10")
 # (B, L) of the flash kernels' timing (H 4, Dh 64): the training shape, and
 # the kernel bench's L 512 and 2048.
 TIMING_SHAPES = ((BATCH, SEQ), (8, 512), (2, 2048))
@@ -201,7 +217,7 @@ _PALLAS = "tinydiffusionmodels_tpu/ops/pallas_kernels.py"
 KERNELS = {
     "flash_attention_fwd": (_CSRC + "flash_attention_fwd.cu",
                             _PALLAS + ":295"),
-    "flash_attention_bwd_dq": (_CSRC + "flash_attention_bwd.cuh",
+    "flash_attention_bwd_dq": (_CSRC + "flash_attention_bwd_dq.cu",
                                _PALLAS + ":431"),
     "flash_attention_bwd_dkv": (_CSRC + "flash_attention_bwd_dkv.cu",
                                 _PALLAS + ":484"),
@@ -322,6 +338,10 @@ def kernel_vs_plain():
     for dtype in (f32, bf16):
         cases[f"dh12_dv24_{str(dtype)[6:]}_causal"] = (
             2, 4, 100, 100, 12, 24, dtype, True, "bhld", 0)
+        cases[f"dh160_dv256_{str(dtype)[6:]}_causal"] = (
+            2, 2, 100, 100, 160, 256, dtype, True, "bhld", 0)
+        cases[f"dh256_dv24_{str(dtype)[6:]}"] = (
+            2, 2, 100, 80, 256, 24, dtype, False, "bhld", 0)
     cases.update({name: case[:-1] for name, case in
                   _bench_attention_cases(kb, (0.0,)).items()})
     errors = {}
@@ -422,6 +442,10 @@ def training_kernels():
     for dtype in (f32, bf16):
         cases[f"dh12_dv24_{str(dtype)[6:]}_causal_p0.1"] = (
             2, 4, 100, 100, 12, 24, dtype, True, "bhld", 0, DROPOUT)
+        cases[f"dh160_dv256_{str(dtype)[6:]}_causal_p0.1"] = (
+            2, 2, 100, 100, 160, 256, dtype, True, "bhld", 0, DROPOUT)
+        cases[f"dh256_dv24_{str(dtype)[6:]}_p0.1"] = (
+            2, 2, 100, 80, 256, 24, dtype, False, "bhld", 0, DROPOUT)
     # The kernel bench's grad mode (f32, no dropout) and bf16 training; and
     # the f32 twin of each bf16 training case, which holds the arithmetic
     # (dropout included) at those shapes to f32's tolerance.
@@ -690,12 +714,13 @@ def _prepare_workdir(chars: int = TRAIN_CHARS):
 
 
 def main_path_train(card: str, dim: int = DIM, chars: int = TRAIN_CHARS,
-                    extra: tuple = (), name: str = "train_ckpt"):
-    """``shakespeare.main(["--train", ...])`` at width ``dim`` (4 heads) on
-    ``chars`` characters of the built-in corpus, with ``extra`` arguments;
-    the checkpoint is ``name``.pth. Asserts the launches, finite losses
-    falling from the first to the last quarter of the steps (at most 50
-    each) and the checkpoints written."""
+                    extra: tuple = (), name: str = "train_ckpt",
+                    depth: int = DEPTH):
+    """``shakespeare.main(["--train", ...])`` at width ``dim`` (4 heads)
+    and ``depth`` on ``chars`` characters of the built-in corpus, with
+    ``extra`` arguments; the checkpoint is ``name``.pth. Asserts the
+    launches, finite losses falling from the first to the last quarter of
+    the steps (at most 50 each) and the checkpoints written."""
     import numpy as np
     import torch
 
@@ -708,7 +733,7 @@ def main_path_train(card: str, dim: int = DIM, chars: int = TRAIN_CHARS,
     )
 
     phase(f"main path: shakespeare --train (dim {dim}, head width "
-          f"{dim // HEADS}, one epoch of {chars} characters)")
+          f"{dim // HEADS}, depth {depth}, one epoch of {chars} characters)")
     _prepare_workdir(chars)
     ckpt = WORK / f"{name}.pth"
     best = WORK / f"{name}_best.pth"
@@ -726,7 +751,7 @@ def main_path_train(card: str, dim: int = DIM, chars: int = TRAIN_CHARS,
 
     argv = ["--train", "--ckpt", str(ckpt), "--epochs", "1",
             "--batch_size", str(BATCH), "--seq_len", str(SEQ),
-            "--embed_dim", str(dim), "--depth", str(DEPTH),
+            "--embed_dim", str(dim), "--depth", str(depth),
             "--dropout", str(DROPOUT), "--model_id", "char",
             "--use_learned_embeddings", "--data_root", str(WORK / "data"),
             *extra]
@@ -738,9 +763,9 @@ def main_path_train(card: str, dim: int = DIM, chars: int = TRAIN_CHARS,
     cli_s = time.perf_counter() - t0
     counts = _counts()
 
-    expect = {"flash_attention_fwd": (steps + val_batches) * DEPTH,
-              "flash_attention_bwd_dq": steps * DEPTH,
-              "flash_attention_bwd_dkv": steps * DEPTH, "guided_decode": 0,
+    expect = {"flash_attention_fwd": (steps + val_batches) * depth,
+              "flash_attention_bwd_dq": steps * depth,
+              "flash_attention_bwd_dkv": steps * depth, "guided_decode": 0,
               "fused_resblock": 0, **_SINGLE_BLOCK_IDLE}
     if counts != expect:
         raise AssertionError(f"launches {counts} on the training path, "
@@ -770,7 +795,7 @@ def main_path_train(card: str, dim: int = DIM, chars: int = TRAIN_CHARS,
           f"checkpoints)")
     print(f"training: {rate} steps/s ({result.steps} steps over "
           f"{result.seconds} s of step loop), bs={BATCH} seq={SEQ} dim={dim} "
-          f"depth={DEPTH} dropout={DROPOUT} f32, on {card}")
+          f"depth={depth} dropout={DROPOUT} f32, on {card}")
     return result, ckpt, counts, rate
 
 
@@ -837,11 +862,12 @@ def main_path_sample(card: str, ckpt: Path, model):
     return counts, sum(times) / (STEPS * len(times)), z
 
 
-def main_path_sample_narrow(card: str, ckpt: Path, dim: int):
+def main_path_sample_ddim(card: str, ckpt: Path, dim: int,
+                         depth: int = DEPTH):
     """``shakespeare.main(["--sample", "--sampler", "ddim", "--steps",
-    NARROW_SAMPLE_STEPS, ...])`` from the checkpoint of width ``dim``:
-    asserts NARROW_SAMPLE_STEPS x depth forward launches and no other,
-    finite embeddings of width ``dim`` and N sample files."""
+    NARROW_SAMPLE_STEPS, ...])`` from the checkpoint of width ``dim`` and
+    ``depth``: asserts NARROW_SAMPLE_STEPS x depth forward launches and no
+    other, finite embeddings of width ``dim`` and N sample files."""
     import torch
 
     from tinydiffusionmodels_torch import shakespeare
@@ -859,7 +885,7 @@ def main_path_sample_narrow(card: str, ckpt: Path, dim: int):
     z = shakespeare.main(argv)
     torch.cuda.synchronize()
     counts = _counts()
-    expect = {"flash_attention_fwd": NARROW_SAMPLE_STEPS * DEPTH,
+    expect = {"flash_attention_fwd": NARROW_SAMPLE_STEPS * depth,
               "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
               "guided_decode": 0, "fused_resblock": 0, **_SINGLE_BLOCK_IDLE}
     if counts != expect:
@@ -1283,14 +1309,14 @@ def kernel_timing(card: str) -> dict:
 
 def _time_against_plain(runs: dict, work: dict, card: str, library_note: str,
                         iters: int = 200, library_timer=None,
-                        tensor_cores: bool = True, **extra) -> dict:
+                        **extra) -> dict:
     """For each name: (kernel, plain version, library yardstick, its label)
     of ``runs``, device times in turns within this call (plain, kernel,
     kernel, plain: CUDA events over ``iters`` calls), then the library's
     (``library_timer``, CUDA events by default), and the bound of
     ``work[name]`` = (bytes read once and written once, f32 product FLOPs):
-    the FLOPs as 3xTF32 on the tensor cores with ``tensor_cores``, else at
-    the FP32-FMA rate. Returns per name ms, plain_ms, library_ms, bound_ms,
+    the FLOPs as 3xTF32 on the tensor cores, the least time for an f32
+    product on the card. Returns per name ms, plain_ms, library_ms, bound_ms,
     bound_by, fp32_fma_roof_ms (the FLOPs at the FP32-FMA rate) and
     ``extra``."""
     from tinydiffusionmodels_torch import perf
@@ -1303,9 +1329,8 @@ def _time_against_plain(runs: dict, work: dict, card: str, library_note: str,
         p_ms.append(perf.device_ms(plain, iters))
         lib_ms = library_timer(library)
         nbytes, flops = work[name]
-        ops = (perf.f32_tensor_core_ops(flops) if tensor_cores
-               else [(flops, "f32")])
-        bound_ms, bound_by = perf.bound_ms(nbytes, ops)
+        bound_ms, bound_by = perf.bound_ms(nbytes,
+                                           perf.f32_tensor_core_ops(flops))
         roof_ms = perf.bound_ms(0, [(flops, "f32")])[0]
         timings[name] = dict(ms=sum(k_ms) / 2, plain_ms=sum(p_ms) / 2,
                              library_ms=lib_ms, bound_ms=bound_ms,
@@ -1313,8 +1338,7 @@ def _time_against_plain(runs: dict, work: dict, card: str, library_note: str,
                              **extra)
         print(f"{name}: kernel {k_ms} ms, plain {p_ms} ms, library "
               f"({lib_name}, {library_note}) {lib_ms} ms; bound {bound_ms} ms "
-              f"by {bound_by} ({nbytes} B, {flops} FLOP as "
-              f"{'3xTF32' if tensor_cores else 'FP32'}), "
+              f"by {bound_by} ({nbytes} B, {flops} FLOP as 3xTF32), "
               f"{timings[name]['ms'] / bound_ms:.1f}x; FP32-FMA roof "
               f"{roof_ms} ms; on {card}")
     return timings
@@ -1436,23 +1460,24 @@ def _resblock_args(name: str, b: int, seed: int, grad: bool = False):
 
 
 def _resblock_work(args) -> tuple[int, int]:
-    """(bytes, FP32 FLOPs) of one block: every input read once and the
-    output written once; 2 FLOPs per multiply-add of both 3x3 convs and the
-    1x1 skip."""
+    """(bytes, FLOPs) of one block: every input read once and the output
+    written once, in the inputs' dtype; 2 FLOPs per multiply-add of both
+    3x3 convs and the 1x1 skip."""
     x, w1 = args[0], args[1]
     b, h, w, cin = x.shape
     cout = w1.shape[0]
     macs = b * h * w * (9 * cin * cout + 9 * cout * cout
                         + (cin * cout if args[6] is not None else 0))
     elements = sum(t.numel() for t in args if t is not None) + b * h * w * cout
-    return 4 * elements, 2 * macs
+    return x.element_size() * elements, 2 * macs
 
 
 def resblock_kernel_vs_plain():
-    """The kernel against its plain version at every block shape and the
-    RESBLOCK_BATCHES; one backward per block through the Function against
-    autograd of the plain version; one UNet forward, card against CPU.
-    Returns the largest forward error."""
+    """The kernel against its plain version at every block shape, the
+    RESBLOCK_BATCHES and both tile edges, in f32 (1e-4) and bf16 (2e-2);
+    one backward per block through the Function against autograd of the
+    plain version; one UNet forward, card against CPU. Returns the largest
+    f32 and bf16 forward errors."""
     import copy
 
     import torch
@@ -1462,25 +1487,36 @@ def resblock_kernel_vs_plain():
     from tinydiffusionmodels_torch.ops import reference
     from tinydiffusionmodels_torch.ops import resblock as rb
 
-    phase(f"fused resblock kernel vs plain (TF32 off, tile {rb.TILE})")
-    worst = 0.0
+    phase(f"fused resblock kernel vs plain (TF32 off; f32 1e-4, bf16 2e-2; "
+          f"tiles {rb.TILES}, the wrapper's rule picks "
+          f"{rb.TILES[1]} from {rb.WIDE_TILE_CTAS} CTAs)")
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for i, name in enumerate(BLOCKS):
         for b in RESBLOCK_BATCHES:
             args = _resblock_args(name, b, seed=200 + 10 * i + b)
             x = args[0]
-            out = rb._launch(*args)
-            ref = reference.fused_resblock(*args)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
-            err = _max_err(out, ref)
-            # The border ring alone: where conv2 must see 0, not time_bias.
-            ring = torch.ones(x.shape[1:3], dtype=torch.bool, device="cuda")
-            ring[1:-1, 1:-1] = False
-            worst = max(worst, err)
-            print(f"{name} (Cin {x.shape[-1]}, Cout {out.shape[-1]}, "
-                  f"H {x.shape[1]}) batch {b:3d}: max|d| {err:.3e}, border "
-                  f"ring {_max_err(out[:, ring], ref[:, ring]):.3e} (tol "
-                  f"1e-4)")
+            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+                typed = [None if t is None else t.to(dtype) for t in args]
+                ref = reference.fused_resblock(*typed)
+                line = []
+                for tile in rb.TILES:
+                    out = rb._launch(*typed, tile=tile)
+                    torch.cuda.synchronize()
+                    if out.dtype != dtype:
+                        raise AssertionError(f"{out.dtype} output of {dtype}")
+                    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+                    err = _max_err(out, ref)
+                    # The border ring alone: where conv2 must see 0, not
+                    # time_bias.
+                    ring = torch.ones(x.shape[1:3], dtype=torch.bool,
+                                      device="cuda")
+                    ring[1:-1, 1:-1] = False
+                    worst[dtype] = max(worst[dtype], err)
+                    line.append(f"tile {tile}: max|d| {err:.3e}, border ring "
+                                f"{_max_err(out[:, ring], ref[:, ring]):.3e}")
+                print(f"{name} (Cin {x.shape[-1]}, Cout {args[1].shape[0]}, "
+                      f"H {x.shape[1]}) {str(dtype)[6:]} batch {b:3d}: "
+                      f"{'; '.join(line)} (tol {tol:g})")
     for i, name in enumerate(BLOCKS):
         args = _resblock_args(name, 3, seed=300 + i, grad=True)
         leaves = [t for t in args if t is not None]
@@ -1506,7 +1542,7 @@ def resblock_kernel_vs_plain():
     print(f"UNet forward, card vs CPU (t = [10, 500]): {err:.3e} (tol 1e-4)")
     if not err <= 1e-4:
         raise AssertionError(f"the UNet on the card leaves the CPU by {err}")
-    return worst
+    return worst[torch.float32], worst[torch.bfloat16]
 
 
 def _prepare_mnist_workdir() -> Path:
@@ -1644,8 +1680,12 @@ def main_path_mnist_sample(card: str, ckpt: Path):
 
 def resblock_timing(card: str) -> dict:
     """CUDA-event device times of each block at n 25 and 128 (plain,
-    kernel, kernel, plain), beside the bound; sums over a UNet forward.
-    Returns, per batch, the sums and the per-block numbers."""
+    kernel, kernel, plain), f32 and bf16, at the wrapper's tile; beside
+    them the plain version's cuDNN kernels' self device time from
+    torch.profiler (no single PyTorch call computes the block) and the
+    bound: bytes, or the products on the tensor cores (f32 as 3xTF32, bf16
+    at its peak), the larger; the FP32-FMA roof printed beside. Returns,
+    per batch, the f32 sums, the bf16 sums and the per-block numbers."""
     import torch
 
     from tinydiffusionmodels_torch import perf
@@ -1654,38 +1694,66 @@ def resblock_timing(card: str) -> dict:
     from tinydiffusionmodels_torch.ops import reference
     from tinydiffusionmodels_torch.ops import resblock as rb
 
-    phase("timing: fused resblock per UNet block at n 25 and 128 (f32, TF32 "
-          "off)")
+    phase("timing: fused resblock per UNet block at n 25 and 128 (f32 and "
+          "bf16, TF32 off)")
     out = {}
     for b in (MNIST_N, MNIST_BATCH):
         blocks = {}
         for i, name in enumerate(BLOCKS):
             args = _resblock_args(name, b, seed=400 + i)
+            row = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                typed = [None if t is None else t.to(dtype) for t in args]
 
-            def plain():
-                with torch.no_grad():
-                    reference.fused_resblock(*args)
+                def plain():
+                    with torch.no_grad():
+                        reference.fused_resblock(*typed)
 
-            p_ms = [perf.device_ms(plain)]
-            k_ms = [perf.device_ms(lambda: rb._launch(*args)),
-                    perf.device_ms(lambda: rb._launch(*args))]
-            p_ms.append(perf.device_ms(plain))
-            nbytes, flops = _resblock_work(args)
-            bound_ms, bound_by = perf.bound_ms(nbytes, [(flops, "f32")])
-            ms = sum(k_ms) / 2
-            blocks[name] = dict(ms=ms, plain_ms=sum(p_ms) / 2,
-                                bound_ms=bound_ms, bound_by=bound_by,
+                def kernel():
+                    rb._launch(*typed)
+
+                p_ms = [perf.device_ms(plain)]
+                k_ms = [perf.device_ms(kernel), perf.device_ms(kernel)]
+                p_ms.append(perf.device_ms(plain))
+                cudnn_ms = _profiled_device_ms(plain)
+                nbytes, flops = _resblock_work(typed)
+                f32 = dtype == torch.float32
+                ops = (perf.f32_tensor_core_ops(flops) if f32
+                       else [(flops, "bf16")])
+                bound_ms, bound_by = perf.bound_ms(nbytes, ops)
+                roof_ms = perf.bound_ms(0, [(flops, "f32")])[0]
+                ms = sum(k_ms) / 2
+                key = "f32" if f32 else "bf16"
+                row[key] = dict(ms=ms, plain_ms=sum(p_ms) / 2,
+                                library_ms=cudnn_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, fp32_fma_roof_ms=roof_ms,
                                 bytes=nbytes, flops=flops)
-            print(f"{name} n {b}: kernel {k_ms} ms, plain (cuDNN convs) "
-                  f"{p_ms} ms; bound {bound_ms} ms by {bound_by} ({nbytes} B,"
-                  f" {flops} FLOP), {ms / bound_ms:.1f}x; "
-                  f"{flops / ms / 1e9:.2f} TFLOP/s; on {card}")
-        total = {k: sum(v[k] for v in blocks.values())
-                 for k in ("ms", "plain_ms", "bound_ms")}
-        print(f"UNet forward's four blocks at n {b}: kernel {total['ms']} ms, "
-              f"plain {total['plain_ms']} ms, bound {total['bound_ms']} ms "
-              f"({total['ms'] / total['bound_ms']:.1f}x); on {card}")
-        out[b] = dict(total, blocks=blocks)
+                x = typed[0]
+                tile = rb.tile_for(*x.shape[:3])
+                print(f"{name} {key} n {b} (tile {tile}): kernel {k_ms} ms, "
+                      f"plain {p_ms} ms, its cuDNN kernels {cudnn_ms} ms "
+                      f"(profiler); bound {bound_ms} ms by {bound_by} "
+                      f"({nbytes} B, {flops} FLOP as "
+                      f"{'3xTF32' if f32 else 'bf16'}), "
+                      f"{ms / bound_ms:.1f}x; FP32-FMA roof {roof_ms} ms; "
+                      f"{flops / ms / 1e9:.2f} TFLOP/s; on {card}")
+            blocks[name] = row
+        sums = {}
+        for key in ("f32", "bf16"):
+            t = {k: sum(v[key][k] for v in blocks.values())
+                 for k in ("ms", "plain_ms", "library_ms", "fp32_fma_roof_ms",
+                           "bytes", "flops")}
+            # The bound of the four blocks as one piece of work.
+            t["bound_ms"], t["bound_by"] = perf.bound_ms(
+                t["bytes"], perf.f32_tensor_core_ops(t["flops"])
+                if key == "f32" else [(t["flops"], "bf16")])
+            sums[key] = t
+            print(f"UNet forward's four blocks at n {b}, {key}: kernel "
+                  f"{t['ms']} ms, plain {t['plain_ms']} ms, cuDNN kernels "
+                  f"{t['library_ms']} ms, bound {t['bound_ms']} ms by "
+                  f"{t['bound_by']} ({t['ms'] / t['bound_ms']:.1f}x), "
+                  f"FP32-FMA roof {t['fp32_fma_roof_ms']} ms; on {card}")
+        out[b] = dict(sums["f32"], bf16=sums["bf16"], blocks=blocks)
     return out
 
 
@@ -1925,7 +1993,8 @@ def single_block_timing(card: str) -> dict:
     turns within this call (plain, kernel, kernel, plain), beside a PyTorch
     yardstick the port never calls (``scaled_dot_product_attention``: the
     forward without grad, as the kernel keeps no logsumexp; forward and
-    backward for the backward kernel) and the bound."""
+    backward for the backward kernel; its kernels' profiler time) and the
+    bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1962,8 +2031,13 @@ def single_block_timing(card: str) -> dict:
         # needed: D = rowsum(dO O) = rowsum(round(p) dp).
         "attention_single_block_bwd": (7 * n * 4, 2 * pairs * 5 * d),
     }
-    return _time_against_plain(runs, work, card, "distinct q, k, v",
-                               tensor_cores=False,
+    # The bound takes the f32 products as 3xTF32, the least time for them
+    # on the card, as the flash rows do (these kernels are FP32 FMA; the
+    # FP32-FMA roof is printed beside); SDPA's own kernels' device time
+    # from the profiler, as its autograd call is bound by its host enqueue.
+    return _time_against_plain(runs, work, card,
+                               "distinct q, k, v, profiler self device time",
+                               library_timer=_profiled_device_ms,
                                at="B 8, H 4, L 64, Dh 64, f32")
 
 
@@ -1973,15 +2047,20 @@ def main() -> None:
     build()
     fwd_errors = kernel_vs_plain()
     train_errors, mask_mismatches = training_kernels()
-    resblock_error = resblock_kernel_vs_plain()
+    resblock_error, resblock_bf16_error = resblock_kernel_vs_plain()
     single_block_errors = single_block_kernel_vs_plain()
     result, ckpt, train_counts, _ = main_path_train(card)
     model = result.joint["diffusion_model"].eval()
     sample_counts, wall_s_per_step, z = main_path_sample(card, ckpt, model)
     _, narrow_ckpt, narrow_train_counts, _ = main_path_train(
         card, NARROW_DIM, NARROW_CHARS, NARROW_TRAIN_ARGS, "narrow_ckpt")
-    narrow_sample_counts = main_path_sample_narrow(card, narrow_ckpt,
-                                                   NARROW_DIM)
+    narrow_sample_counts = main_path_sample_ddim(card, narrow_ckpt,
+                                                 NARROW_DIM)
+    _, wide_ckpt, wide_train_counts, _ = main_path_train(
+        card, WIDE_DIM, NARROW_CHARS, WIDE_TRAIN_ARGS, "wide_ckpt",
+        WIDE_DEPTH)
+    wide_sample_counts = main_path_sample_ddim(card, wide_ckpt, WIDE_DIM,
+                                               WIDE_DEPTH)
     decode_worst_gap, decode_stats = decode_kernel_vs_plain()
     guided_counts, lm_ckpt = main_path_guided(card, ckpt)
     exact_counts, rounds, agree, exact_gap, exact_stats = guided_exact(
@@ -2024,20 +2103,22 @@ def main() -> None:
         "vs_plain": decode_stats, "vs_plain_main_path": exact_stats,
     }
     n25, n128 = (resblock_times[b] for b in (MNIST_N, MNIST_BATCH))
+    sums = ("ms", "plain_ms", "bound_ms", "fp32_fma_roof_ms")
     timings["fused_resblock"] = {
-        **{k: n25[k] for k in ("ms", "plain_ms", "bound_ms")},
-        "bound_by": "operations", "library_ms": None,
-        "at": "sum of the four blocks of one UNet forward, n 25",
-        "n128": {k: n128[k] for k in ("ms", "plain_ms", "bound_ms")},
+        **{k: n25[k] for k in (*sums, "bound_by")}, "library_ms": None,
+        "at": "sum of the four blocks of one UNet forward, n 25, f32",
+        "cudnn_kernels_ms": n25["library_ms"],
+        "n128": {k: n128[k] for k in (*sums, "bound_by", "library_ms")},
+        "bf16_n25": n25["bf16"], "bf16_n128": n128["bf16"],
         "blocks_n25": n25["blocks"], "blocks_n128": n128["blocks"],
-        "plain": "cuDNN convs, TF32 off (no single PyTorch call computes "
-                 "the block)",
+        "plain": "cuDNN convs, TF32 off; no single PyTorch call computes "
+                 "the block, so library_ms is null and cudnn_kernels_ms "
+                 "is the plain version's kernels' profiler time",
+        "max_abs_err_bf16": resblock_bf16_error,
     }
-    if any(v["bound_by"] != "operations"
-           for b in (n25, n128) for v in b["blocks"].values()):
-        raise AssertionError("a resblock shape is bound by bytes")
     paths = (train_counts, sample_counts, narrow_train_counts,
-             narrow_sample_counts, guided_counts, exact_counts,
+             narrow_sample_counts, wide_train_counts, wide_sample_counts,
+             guided_counts, exact_counts,
              mnist_train_counts, *mnist_sample_counts, bench_counts)
     record = []
     for name, (source, replaces) in KERNELS.items():

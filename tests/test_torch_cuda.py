@@ -13,7 +13,9 @@ Tolerances are ``chip_smoke.py``'s: f32 ``atol = rtol = 1e-4`` on O and lse,
 ``2e-4`` on the gradients (the cancellation in ds = p (dp - D) amplifies the
 rounding of the two sums, which the kernel and cuBLAS add in other orders).
 The residual block is held to its plain version at f32
-``atol = rtol = 1e-4`` with cuDNN's TF32 off; the single-block pair at f32
+``atol = rtol = 1e-4`` with cuDNN's TF32 off, and in bf16 at ``2e-2`` (both
+round h and the output to bf16, the kernel after f32 sums taken in another
+order, so a rounding of h may flip by one bf16 step); the single-block pair at f32
 ``1e-4`` (forward) and ``2e-4`` (gradients), bf16 ``2e-2``, and in bf16
 each of its outputs must equal its plain version in more elements than it
 equals plain attention or its autograd (the rounding points). The decode
@@ -73,10 +75,14 @@ CASES = {
     # B * H 32 (128 CTAs), four at L 2048.
     "long_L2048": (2, 4, 2048, 2048, 64, 64, False, 0, 0),
     # Widths other than 32, 64, 128: one in each padded instance, and
-    # Dv != Dh.
+    # Dv != Dh, narrower and wider, on both sides of 128.
     "dh12_dv24_causal": (2, 4, 100, 100, 12, 24, True, 0, 0),
+    "dh160_dv256_causal": (2, 2, 100, 100, 160, 256, True, 0, 0),
+    "dh256_dv24": (2, 2, 100, 80, 256, 24, False, 0, 0),
 }
-WIDTHS = (8, 12, 16, 24, 96)
+# One width in each padded instance (16, 32, 64, 128, 256), the text CLI's at
+# --embed_dim 32, 48, 64, 96, 384, 640 and 768, and the widest.
+WIDTHS = (8, 12, 16, 24, 96, 160, 192, 256)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -100,8 +106,8 @@ def test_one_launch_counted_per_call(cuda):
 
 
 @pytest.mark.parametrize("make, match", [
-    (lambda d: _qkv(1, 1, 8, 8, 160, 160, d), "Dh=160"),
-    (lambda d: _qkv(1, 1, 8, 8, 64, 129, d), "Dv=129"),
+    (lambda d: _qkv(1, 1, 8, 8, 257, 257, d), "Dh=257"),
+    (lambda d: _qkv(1, 1, 8, 8, 64, 257, d), "Dv=257"),
     (lambda d: _qkv(1, 1, 8, 8, 32, 32, d, torch.float16), "float32 or bfloat16"),
     (lambda d: tuple(x.transpose(-1, -2) for x in _qkv(1, 1, 32, 32, 32, 32, d)),
      "contiguous in its last dim"),
@@ -180,6 +186,21 @@ def test_bf16_backward_matches_plain_autograd(cuda):
     for got, want in zip(*grads):
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+def test_dq_matches_plain_autograd_at_L2048(cuda):
+    """The dq kernel alone at the kernel bench's longest shape, f32 with
+    dropout: one launch, within 2e-4 of autograd of the plain version."""
+    q, k, v = _qkv(2, 4, 2048, 2048, 64, 64, cuda, seed=5)
+    q.requires_grad_()
+    g_out = torch.randn(2, 4, 2048, 64, device=cuda)
+    kw = dict(dropout_rate=0.1, dropout_seed=_seed(cuda))
+    before = fa.dq_launches
+    (got,) = torch.autograd.grad(fa.flash_attention(q, k, v, **kw), q, g_out)
+    assert fa.dq_launches == before + 1
+    (want,) = torch.autograd.grad(reference.attention(q, k, v, **kw)[0], q,
+                                  g_out)
+    torch.testing.assert_close(got, want, **GRAD_TOL)
 
 
 def test_backward_launches_each_kernel_once(cuda):
@@ -327,12 +348,26 @@ def _block_args(name, b, device, seed=0):
     return args + [r(cout, cin, 1, 1, scale=cin ** -0.5), r(cout, scale=0.1)]
 
 
+@pytest.mark.parametrize("tile", [7, 14])
 @pytest.mark.parametrize("b", [1, 3])
 @pytest.mark.parametrize("name", sorted(BLOCKS))
-def test_resblock_kernel_matches_plain(cuda, name, b):
+def test_resblock_kernel_matches_plain(cuda, name, b, tile):
     args = _block_args(name, b, cuda)
-    out = rb._launch(*args)
+    out = rb._launch(*args, tile=tile)
     torch.testing.assert_close(out, reference.fused_resblock(*args), **TOL)
+
+
+@pytest.mark.parametrize("name", sorted(BLOCKS))
+def test_resblock_bf16_matches_plain(cuda, name):
+    """bf16 operands: h rounded to bf16 before conv2 and a bf16 output, in
+    the kernel and in its plain version."""
+    args = [None if a is None else a.to(torch.bfloat16)
+            for a in _block_args(name, 2, cuda)]
+    before = rb.launches
+    out = rb.fused_resblock(*args)
+    assert rb.launches == before + 1 and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out, reference.fused_resblock(*args),
+                               rtol=2e-2, atol=2e-2)
 
 
 def test_resblock_one_launch_per_call(cuda):
@@ -350,10 +385,12 @@ def test_resblock_one_launch_per_call(cuda):
 
 
 @pytest.mark.parametrize("change, error, match", [
-    (lambda a: [a[0].double(), *a[1:]], TypeError, "takes float32"),
+    (lambda a: [a[0].double(), *a[1:]], TypeError,
+     "takes float32 or bfloat16"),
     (lambda a: [a[0], a[1].cpu(), *a[2:]], ValueError, "w1 is on cpu"),
     (lambda a: [a[0], a[1][:, :, :2], *a[2:]], ValueError, "w1 must be"),
     (lambda a: [*a[:6], None, None], ValueError, "identity skip"),
+    (lambda a: [a[0].bfloat16(), *a[1:]], TypeError, "one dtype"),
 ])
 def test_resblock_rejects_before_launch(cuda, change, error, match):
     args = change(_block_args("rb2", 1, cuda))

@@ -19,10 +19,14 @@
 // and dS to q's before their products, as the TPU kernel does
 // (`pv.astype(do.dtype)`, `ds.astype(q.dtype)`).
 //
-// Head widths: any Dh and Dv from 1 to 128, on instances at D = 16, 32, 64
-// and 128 (the padded max(Dh, Dv)); columns past the true widths load as
-// zeros, whole k steps and output blocks past them are skipped, and no
-// padded column is stored.
+// Head widths: any Dh and Dv from 1 to 256, on instances at D = 16, 32, 64,
+// 128 and 256 (the padded max(Dh, Dv)); columns past the true widths load
+// as zeros, whole k steps and output blocks past them are skipped, and no
+// padded column is stored. A CTA accumulates at most 128 columns of dk and
+// of dv (registers): at D 256 a second CTA (grid z) takes columns 128-255 of
+// both and recomputes S^T and dP^T. The D 256 instance walks queries in
+// tiles of 32 and takes at most two warps per key group or two groups per
+// CTA (shared memory).
 //
 // Design. Each 16-row key group is one warp's, or, at short sequences,
 // four warps' that split every query tile among them (16 queries each) and
@@ -31,10 +35,10 @@
 // still give at least 128 CTAs, and the query split where even one group
 // per CTA does not give more (the training shape, B 8, H 4, L 64: 128 CTAs
 // of four warps). K and V of the CTA's key rows are loaded once; the CTA
-// then walks the queries in tiles of 64 rows (32 at D = 128 with one warp
-// per group, for registers), with Q, dO, lse and D arriving by cp.async
-// into a double-buffered ring in shared memory, so the next tile's copies
-// overlap this tile's products. All four products run on the tensor cores
+// then walks the queries in tiles of 64 rows (32 at D 128 with one warp per
+// group, for registers, and at D 256), with Q, dO, lse and D arriving by
+// cp.async into a double-buffered ring in shared memory, so the next
+// tile's copies overlap this tile's products. All four products run on the tensor cores
 // with mma.sync and f32 accumulation: bf16 on m16n8k16 with ldmatrix
 // fragments, f32 as 3xTF32 on m16n8k8 (flash_mma.cuh), which keeps
 // float32's accuracy. S^T and dP^T stay in registers, and their C fragments
@@ -68,13 +72,15 @@ using flash_bwd::kDV;
 using flash_bwd::kK;
 using flash_bwd::kQ;
 using flash_bwd::kV;
+using flash_bwd::store;
 
 // Query rows per tile. With one warp per 16 key rows (QW = 1): 64, or 32
-// at D = 128, where dk, dv, S^T and dP^T of 64 queries would not fit in a
+// at D >= 128, where dk, dv, S^T and dP^T of 64 queries would not fit in a
 // thread's registers. With QW = 4 warps splitting each tile: 64, 16 each.
+// At D 256: 32 (shared memory), 16 each for QW = 2.
 template <int D, int QW>
 __host__ __device__ constexpr int query_tile() {
-  return QW > 1 || D <= 64 ? 64 : 32;
+  return D > 128 ? 32 : QW > 1 || D <= 64 ? 64 : 32;
 }
 
 template <typename T, int D, int QW>
@@ -87,21 +93,18 @@ constexpr size_t smem_bytes(int key_rows) {
          sizeof(float) * 4 * kBQ;
 }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 // QW warps share each 16-row key group and split every query tile among
-// them (QW = 1, or 4 at short sequences); their dk and dv are summed at the
-// end.
+// them (QW = 1, or max_warps<D>() at short sequences); their dk and dv are
+// summed at the end. The CTA accumulates the columns [col0, col0 + DO) of
+// dk and dv.
 template <typename T, int D, int QW>
 __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     flash_bwd_dkv_kernel(const BwdParams p) {
   constexpr int S = fmma::stride<T, D>();
+  constexpr int DO = fmma::out_cols<D>();
   constexpr int kBQ = query_tile<D, QW>();
   constexpr int kWarpBlocks = kBQ / 8 / QW;  // query blocks of 8 per warp
-  constexpr int kOutBlocks = D / 8;
+  constexpr int kOutBlocks = DO / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = blockDim.x / (2 * QW);  // 16 key rows per group
   T* sk = reinterpret_cast<T*>(smem_raw);
@@ -115,6 +118,7 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   const int b = bh / p.heads;
   const int h = bh % p.heads;
   const int k0 = blockIdx.y * rows;
+  const int col0 = blockIdx.z * DO;
   const T* q = flash_bwd::operand<T>(p, p.q, kQ, b, h);
   const T* dout = flash_bwd::operand<T>(p, p.dout, kDO, b, h);
   const float* lse = p.lse + int64_t(bh) * p.lq;
@@ -221,8 +225,10 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
       }
 
       // dv += (mask P)^T dO and dk += dS^T Q.
-      fmma::mma_cx<kWarpBlocks, D>(acc_v, st, dot, p.dv_dim, q_blocks);
-      fmma::mma_cx<kWarpBlocks, D>(acc_k, dpt, qt, p.dh, q_blocks);
+      fmma::mma_cx<kWarpBlocks, DO, D>(acc_v, st, dot + col0,
+                                       p.dv_dim - col0, q_blocks);
+      fmma::mma_cx<kWarpBlocks, DO, D>(acc_k, dpt, qt + col0, p.dh - col0,
+                                       q_blocks);
     }
     __syncthreads();  // this stage is consumed before it is refilled
   }
@@ -264,7 +270,7 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     for (int n = 0; n < kOutBlocks; ++n) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int col = 8 * n + 2 * t + c;
+        const int col = col0 + 8 * n + 2 * t + c;
         if (col < p.dh) store(dk_row + col, acc_k[n][2 * r + c] * p.scale);
         if (col < p.dv_dim) store(dv_row + col, acc_v[n][2 * r + c]);
       }
@@ -279,23 +285,28 @@ cudaError_t launch_split(const BwdParams& p, int bh, int groups,
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D, QW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem_bytes<T, D, QW>(16 * fmma::kMaxWarps / QW)));
+      int(smem_bytes<T, D, QW>(16 * fmma::max_warps<D>() / QW)));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(unsigned(bh), unsigned((p.lk + 16 * groups - 1) / (16 * groups)));
+  constexpr int DO = fmma::out_cols<D>();
+  const int cols = p.dh > p.dv_dim ? p.dh : p.dv_dim;
+  const dim3 grid(unsigned(bh), unsigned((p.lk + 16 * groups - 1) / (16 * groups)),
+                  unsigned((cols + DO - 1) / DO));
   flash_bwd_dkv_kernel<T, D, QW><<<grid, 32 * QW * groups,
                                    smem_bytes<T, D, QW>(16 * groups),
                                    stream>>>(p);
   return cudaGetLastError();
 }
 
-// One 16-row key group per warp, as many groups per CTA (up to 4) as keep
-// 128 CTAs; where even one group per CTA gives no more CTAs than that
-// (short sequences), four warps split each query tile of the one group.
+// One 16-row key group per warp, as many groups per CTA (up to
+// max_warps<D>()) as keep 128 CTAs; where even one group per CTA gives no
+// more CTAs than that (short sequences), max_warps<D>() warps split each
+// query tile of the one group.
 template <typename T, int D>
 cudaError_t launch(const BwdParams& p, int batch, cudaStream_t stream) {
+  constexpr int kMost = fmma::max_warps<D>();
   const int bh = batch * p.heads;
-  const int groups = fmma::pick_warps(bh, p.lk);
-  if (groups == 1) return launch_split<T, D, fmma::kMaxWarps>(p, bh, 1, stream);
+  const int groups = fmma::pick_warps(bh, p.lk, kMost);
+  if (groups == 1) return launch_split<T, D, kMost>(p, bh, 1, stream);
   return launch_split<T, D, 1>(p, bh, groups, stream);
 }
 
@@ -306,6 +317,7 @@ cudaError_t launch_width(const BwdParams& p, int batch, cudaStream_t s) {
     case 32: return launch<T, 32>(p, batch, s);
     case 64: return launch<T, 64>(p, batch, s);
     case 128: return launch<T, 128>(p, batch, s);
+    case 256: return launch<T, 256>(p, batch, s);
     default: return cudaErrorInvalidValue;
   }
 }

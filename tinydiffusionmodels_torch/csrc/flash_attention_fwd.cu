@@ -21,11 +21,16 @@
 // weights are rounded to bf16 before P*V, where the TPU kernel rounds them
 // (`pv.astype(v.dtype)`).
 //
-// Head widths. Any Dh and Dv from 1 to 128. The kernel is instantiated at
-// D = 16, 32, 64 and 128, D the padded max(Dh, Dv); it takes the true widths
-// at run time, loads columns at or past them as zeros (zero columns of q and
-// k change no score), skips whole k steps and output blocks past them, and
-// stores no padded column. The scale is 1/sqrt(Dh) of the true width.
+// Head widths. Any Dh and Dv from 1 to 256. The kernel is instantiated at
+// D = 16, 32, 64, 128 and 256, D the padded max(Dh, Dv); it takes the true
+// widths at run time, loads columns at or past them as zeros (zero columns
+// of q and k change no score), skips whole k steps and output blocks past
+// them, and stores no padded column. The scale is 1/sqrt(Dh) of the true
+// width. A CTA accumulates at most 128 output columns (registers): at D 256
+// with Dv > 128 a second CTA (grid z) takes columns 128-255 and forms the
+// same scores and softmax; the first writes the lse. The D 256 instance
+// walks keys in tiles of 32 and takes at most two warps per query group or
+// two groups per CTA (shared memory: its Q and K tiles are 256 wide).
 //
 // Design. Each 16-row query group is one warp's, or, at short sequences,
 // four warps' that split every key tile among them (16 keys each) and merge
@@ -34,9 +39,10 @@
 // groups that still give at least 128 CTAs, and the key split where even
 // one group per CTA does not give more (the training shape, B 8, H 4, L 64:
 // 128 CTAs of four warps; four groups of one warp, 64 rows, at long
-// sequences). The CTA walks the keys in 64-row tiles with a loop inside the
-// block; K and V tiles arrive by cp.async into a double-buffered ring in
-// shared memory, so the next tile's copy overlaps this tile's products. The
+// sequences). The CTA walks the keys in 64-row tiles (32 at D 256) with a
+// loop inside the block; K and V tiles arrive by cp.async into a
+// double-buffered ring in shared memory, so the next tile's copy overlaps
+// this tile's products. The
 // widest copy (16, 8 or 4 bytes; bf16 rows aligned to 2 bytes only take
 // plain loads) is chosen by the host from the operands' addresses and
 // strides, so strided views of a fused QKV projection go in without a copy.
@@ -69,9 +75,13 @@
 
 namespace {
 
-constexpr int kBlockK = 64;     // key rows per tile
-constexpr int kKeyBlocks = kBlockK / 8;
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// Key rows per tile: 64, or 32 at D 256 (shared memory).
+template <int D>
+__host__ __device__ constexpr int key_tile() {
+  return D <= 128 ? 64 : 32;
+}
 
 struct Params {
   const void* q;
@@ -98,8 +108,11 @@ struct Params {
 
 template <typename T, int D>
 constexpr size_t smem_bytes(int rows) {
-  // Q of `rows` rows, and two stages of K and V tiles.
-  return sizeof(T) * fmma::stride<T, D>() * (size_t(rows) + 4 * size_t(kBlockK));
+  // Q of `rows` rows, two stages of K tiles (D wide) and of V tiles (the
+  // CTA's output columns).
+  constexpr int kBK = key_tile<D>();
+  return sizeof(T) * (fmma::stride<T, D>() * (size_t(rows) + 2 * size_t(kBK)) +
+                      fmma::stride<T, fmma::out_cols<D>()>() * 2 * size_t(kBK));
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -108,19 +121,24 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 
 // KW warps share each 16-row query group and split every key tile among
-// them (KW = 1, or 4 at short sequences: kBlockK / KW keys per warp); their
-// softmax states are merged at the end.
+// them (KW = 1, or max_warps<D>() at short sequences: kBlockK / KW keys per
+// warp); their softmax states are merged at the end. The CTA accumulates
+// the output columns [col0, col0 + DO).
 template <typename T, int D, int KW>
 __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     flash_fwd_kernel(const Params p) {
   constexpr int S = fmma::stride<T, D>();
-  constexpr int kOutBlocks = D / 8;
-  constexpr int kWarpBlocks = kKeyBlocks / KW;  // key blocks of 8 per warp
+  constexpr int DO = fmma::out_cols<D>();
+  constexpr int SV = fmma::stride<T, DO>();
+  constexpr int kBlockK = key_tile<D>();
+  constexpr int kOutBlocks = DO / 8;
+  constexpr int kWarpBlocks = kBlockK / 8 / KW;  // key blocks of 8 per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = blockDim.x / (2 * KW);  // 16 per query group
   T* sq = reinterpret_cast<T*>(smem_raw);
   T* sk = sq + rows * S;               // two stages of kBlockK x S
-  T* sv = sk + 2 * kBlockK * S;
+  T* sv = sk + 2 * kBlockK * S;        // two stages of kBlockK x SV
+  const int col0 = blockIdx.z * DO;
 
   const int bh = blockIdx.x;
   const int b = bh / p.heads;
@@ -128,7 +146,7 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   const int q0 = blockIdx.y * rows;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh + col0;
   T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   const int warp = threadIdx.x / 32;
@@ -140,7 +158,7 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
 
   fmma::load_tile<T, D>(sq, q, p.q_sl, q0, rows, p.lq, p.dh, p.vec);
   fmma::load_tile<T, D>(sk, k, p.k_sl, 0, kBlockK, p.lk, p.dh, p.vec);
-  fmma::load_tile<T, D>(sv, v, p.v_sl, 0, kBlockK, p.lk, p.dv, p.vec);
+  fmma::load_tile<T, DO>(sv, v, p.v_sl, 0, kBlockK, p.lk, p.dv - col0, p.vec);
   fmma::cp_async_commit();
 
   // This thread's two query rows, g and g + 8 of the group's 16.
@@ -169,8 +187,8 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
       const int k0 = (it + 1) * kBlockK;
       fmma::load_tile<T, D>(sk + stage * kBlockK * S, k, p.k_sl, k0, kBlockK,
                             p.lk, p.dh, p.vec);
-      fmma::load_tile<T, D>(sv + stage * kBlockK * S, v, p.v_sl, k0, kBlockK,
-                            p.lk, p.dv, p.vec);
+      fmma::load_tile<T, DO>(sv + stage * kBlockK * SV, v, p.v_sl, k0,
+                             kBlockK, p.lk, p.dv - col0, p.vec);
       fmma::cp_async_commit();
       fmma::cp_async_wait<1>();
     } else {
@@ -180,6 +198,8 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     // This warp's keys of the tile: kw0 .. kw0 + 8 kWarpBlocks.
     const int kw0 = it * kBlockK + slice * 8 * kWarpBlocks;
     const int stage_off = (it % 2) * kBlockK * S + (slice * 8 * kWarpBlocks) * S;
+    const int stage_off_v =
+        (it % 2) * kBlockK * SV + (slice * 8 * kWarpBlocks) * SV;
     // Key blocks of 8 that hold a key below Lk (none: <= 0).
     const int k_blocks = min(kWarpBlocks, (p.lk - kw0 + 7) / 8);
 
@@ -249,7 +269,8 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[n][c] *= correction[c / 2];
     }
-    fmma::mma_cx<kWarpBlocks, D>(acc, s, sv + stage_off, p.dv, k_blocks);
+    fmma::mma_cx<kWarpBlocks, DO, DO>(acc, s, sv + stage_off_v, p.dv - col0,
+                                      k_blocks);
     __syncthreads();  // this stage is consumed before it is refilled
   }
 
@@ -308,11 +329,11 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     for (int n = 0; n < kOutBlocks; ++n) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int col = 8 * n + 2 * t + c;
+        const int col = col0 + 8 * n + 2 * t + c;
         if (col < p.dv) store(orow + col, acc[n][2 * r + c] / l[r]);
       }
     }
-    if (t == 0) p.lse[int64_t(bh) * p.lq + qr] = m[r] + logf(l[r]);
+    if (t == 0 && col0 == 0) p.lse[int64_t(bh) * p.lq + qr] = m[r] + logf(l[r]);
   }
 }
 
@@ -322,22 +343,26 @@ cudaError_t launch_split(const Params& p, int bh, int groups,
   // Once per instance: the most shared memory any launch of it asks for.
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem_bytes<T, D>(16 * fmma::kMaxWarps / KW)));
+      int(smem_bytes<T, D>(16 * fmma::max_warps<D>() / KW)));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(unsigned(bh), unsigned((p.lq + 16 * groups - 1) / (16 * groups)));
+  constexpr int DO = fmma::out_cols<D>();
+  const dim3 grid(unsigned(bh), unsigned((p.lq + 16 * groups - 1) / (16 * groups)),
+                  unsigned((p.dv + DO - 1) / DO));
   flash_fwd_kernel<T, D, KW><<<grid, 32 * KW * groups,
                                smem_bytes<T, D>(16 * groups), stream>>>(p);
   return cudaGetLastError();
 }
 
-// One 16-row query group per warp, as many groups per CTA (up to 4) as keep
-// 128 CTAs; where even one group per CTA gives no more CTAs than that
-// (short sequences), four warps split each key tile of the one group.
+// One 16-row query group per warp, as many groups per CTA (up to
+// max_warps<D>()) as keep 128 CTAs; where even one group per CTA gives no
+// more CTAs than that (short sequences), max_warps<D>() warps split each
+// key tile of the one group.
 template <typename T, int D>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  constexpr int kMost = fmma::max_warps<D>();
   const int bh = batch * p.heads;
-  const int groups = fmma::pick_warps(bh, p.lq);
-  if (groups == 1) return launch_split<T, D, fmma::kMaxWarps>(p, bh, 1, stream);
+  const int groups = fmma::pick_warps(bh, p.lq, kMost);
+  if (groups == 1) return launch_split<T, D, kMost>(p, bh, 1, stream);
   return launch_split<T, D, 1>(p, bh, groups, stream);
 }
 
@@ -348,12 +373,13 @@ cudaError_t launch_width(const Params& p, int batch, cudaStream_t s) {
   if (d <= 32) return launch<T, 32>(p, batch, s);
   if (d <= 64) return launch<T, 64>(p, batch, s);
   if (d <= 128) return launch<T, 128>(p, batch, s);
+  if (d <= 256) return launch<T, 256>(p, batch, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. dh, dv: 1 to 128. vec: bytes per copy
+// dtype: 0 = float32, 1 = bfloat16. dh, dv: 1 to 256. vec: bytes per copy
 // of q, k and v into shared memory (16, 8, 4; 2 for bf16 only), which their
 // addresses and (batch, head, row) strides must be multiples of. Strides are
 // in elements. `seed` is a device int32 (null: no dropout). Returns the

@@ -1,6 +1,5 @@
-// Tiling constants and element access of the FP32-FMA attention kernels: the
-// flash dq kernel (flash_attention_bwd.cuh) and the single-block pair
-// (attention_single_block.cu).
+// Tiling constants and element access of the FP32-FMA single-block attention
+// pair (attention_single_block.cu).
 
 #pragma once
 

@@ -1,8 +1,8 @@
-// Warp-level tile helpers shared by the tensor-core flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd_dkv.cu): asynchronous tile
-// copies into shared memory, mma.sync on bf16 and on TF32, the 3xTF32
-// split that keeps float32 accuracy on the TF32 tensor cores, and the
-// fragment loads of both.
+// Warp-level tile helpers shared by the tensor-core kernels (the three
+// flash-attention kernels and the fused resblock): asynchronous tile copies
+// into shared memory, mma.sync on bf16 and on TF32, the 3xTF32 split that
+// keeps float32 accuracy on the TF32 tensor cores, and the fragment loads
+// of both.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k8 / k16"),
 // with g = lane / 4 and t = lane % 4:
@@ -36,10 +36,29 @@ namespace fmma {
 constexpr int kMaxWarps = 4;   // warps per CTA, 16 rows each
 constexpr int kMinCtas = 128;  // the grid the host aims for (132 SMs)
 
+// The flash kernels' instances take the padded head width D = 16, 32, 64,
+// 128 or 256. Past 128 a 16-row warp tile's accumulator no longer fits in
+// registers (16 x 256 f32 is 128 per thread, twice that for dk and dv), so
+// each CTA owns at most kMaxOutCols output columns: a D 256 instance runs a
+// second CTA for columns 128-255, which recomputes the scores. Its tiles
+// are twice as wide, so it also takes at most half the warps (shared
+// memory).
+constexpr int kMaxOutCols = 128;
+
+template <int D>
+__host__ __device__ constexpr int out_cols() {
+  return D < kMaxOutCols ? D : kMaxOutCols;
+}
+
+template <int D>
+__host__ __device__ constexpr int max_warps() {
+  return D <= 128 ? kMaxWarps : kMaxWarps / 2;
+}
+
 // Warps per CTA for `rows` owned rows of each of `bh` (batch, head) pairs:
-// the most, up to kMaxWarps, that still give kMinCtas CTAs.
-inline int pick_warps(int bh, int rows) {
-  int w = kMaxWarps;
+// the most, up to `most`, that still give kMinCtas CTAs.
+inline int pick_warps(int bh, int rows, int most) {
+  int w = most;
   while (w > 1 && int64_t(bh) * ((rows + 16 * w - 1) / (16 * w)) < kMinCtas) {
     w /= 2;
   }
@@ -166,6 +185,7 @@ __device__ __forceinline__ void split(float x, uint32_t& big,
 template <int N>
 struct Split {
   uint32_t big[N], small[N];
+  Split() = default;
   __device__ __forceinline__ explicit Split(const float (&x)[N]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) split(x[i], big[i], small[i]);
@@ -181,14 +201,26 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b in float32 accuracy on the TF32 tensor cores (3xTF32):
-// small*big + big*small + big*big; small*small (2^-22 relative) is dropped.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Split<4>& a,
-                                           const Split<2>& b) {
-  mma_tf32(c, a.small, b.big);
-  mma_tf32(c, a.big, b.small);
-  mma_tf32(c, a.big, b.big);
+// c[j] += a b[j] for the N blocks j in float32 accuracy on the TF32 tensor
+// cores (3xTF32): small*big + big*small + big*big; small*small (2^-22
+// relative) is dropped. The terms go block by block: mma.sync issues in
+// order, and each of the three products into one fragment waits for the
+// one before it, so consecutive products must be of other blocks.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (*c)[4], const Split<4>& a,
+                                           const Split<2> (&b)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(c[j], a.small, b[j].big);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(c[j], a.big, b[j].small);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(c[j], a.big, b[j].big);
 }
+
+// Blocks per 3xTF32 group: enough independent products to cover the
+// latency of one, few enough B fragments (4 registers each) to stay in
+// registers.
+constexpr int kTermBlocks = 4;
 
 // TF32 A fragment of rows [0, 16) and columns [k0, k0 + 8) of a row-major
 // float tile with row stride S.
@@ -316,12 +348,18 @@ template <int NB, int D>
 __device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const float* a,
                                         const float* b, int depth) {
   constexpr int S = stride<float, D>();
+  constexpr int kGroup = NB < kTermBlocks ? NB : kTermBlocks;
 #pragma unroll
   for (int k0 = 0; k0 < D; k0 += 8) {
     if (k0 >= depth) break;
     const Split<4> fa = tf32_a<S>(a, k0);
 #pragma unroll
-    for (int j = 0; j < NB; ++j) mma_3xtf32(acc[j], fa, tf32_b_t<S>(b, 8 * j, k0));
+    for (int j0 = 0; j0 < NB; j0 += kGroup) {
+      Split<2> fb[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) fb[j] = tf32_b_t<S>(b, 8 * (j0 + j), k0);
+      mma_3xtf32<kGroup>(acc + j0, fa, fb);
+    }
   }
 }
 
@@ -346,10 +384,11 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NB][4],
   }
 }
 
-// out[n] (16 x 8 C fragments, n < D / 8, blocks at or past `width` left
+// out[n] (16 x 8 C fragments, n < DO / 8, blocks at or past `width` left
 // alone) += P X: P the warp's 16 x (8 NB) left factor held in C fragments
-// p[j], X the rows [0, 8 NB) of a row-major D-wide tile (P V, or P^T dO and
-// dS^T Q in the dk/dv kernel). Blocks j at or past `k_blocks` are skipped
+// p[j], X the first DO columns of the rows [0, 8 NB) of a row-major tile
+// with the row stride of a D-wide tile (P V and dS K, or P^T dO and dS^T Q
+// in the dk/dv kernel; X may start at a column offset into the tile). Blocks j at or past `k_blocks` are skipped
 // (their P is zero). In bf16, P is rounded to bf16 here.
 //
 // The products of one call sum into zeroed fragments, which are then added
@@ -359,15 +398,16 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NB][4],
 // the zeroed fragments cost at most 32 registers.
 constexpr int kChunkBlocks = 8;
 
-template <int NB, int D>
-__device__ __forceinline__ void mma_cx(float (&out)[D / 8][4],
+template <int NB, int DO, int D>
+__device__ __forceinline__ void mma_cx(float (&out)[DO / 8][4],
                                        const float (&p)[NB][4],
                                        const float* x, int width,
                                        int k_blocks) {
   constexpr int S = stride<float, D>();
-  constexpr int kChunk = D / 8 < kChunkBlocks ? D / 8 : kChunkBlocks;
+  constexpr int kChunk = DO / 8 < kChunkBlocks ? DO / 8 : kChunkBlocks;
+  constexpr int kGroup = kChunk < kTermBlocks ? kChunk : kTermBlocks;
 #pragma unroll
-  for (int n0 = 0; n0 < D / 8; n0 += kChunk) {
+  for (int n0 = 0; n0 < DO / 8; n0 += kChunk) {
     if (8 * n0 >= width) break;
     float part[kChunk][4] = {};
 #pragma unroll
@@ -375,9 +415,14 @@ __device__ __forceinline__ void mma_cx(float (&out)[D / 8][4],
       if (j >= k_blocks) break;
       const Split<4> fa = tf32_a_from_c(p[j]);
 #pragma unroll
-      for (int n = 0; n < kChunk; ++n) {
-        if (8 * (n0 + n) >= width) break;
-        mma_3xtf32(part[n], fa, tf32_b_perm<S>(x, 8 * j, 8 * (n0 + n)));
+      for (int n = 0; n < kChunk; n += kGroup) {
+        if (8 * (n0 + n) >= width) break;  // whole groups: zeros past width
+        Split<2> fb[kGroup];
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          fb[i] = tf32_b_perm<S>(x, 8 * j, 8 * (n0 + n + i));
+        }
+        mma_3xtf32<kGroup>(part + n, fa, fb);
       }
     }
 #pragma unroll
@@ -388,16 +433,16 @@ __device__ __forceinline__ void mma_cx(float (&out)[D / 8][4],
   }
 }
 
-template <int NB, int D>
-__device__ __forceinline__ void mma_cx(float (&out)[D / 8][4],
+template <int NB, int DO, int D>
+__device__ __forceinline__ void mma_cx(float (&out)[DO / 8][4],
                                        const float (&p)[NB][4],
                                        const __nv_bfloat16* x, int width,
                                        int k_blocks) {
   constexpr int S = stride<__nv_bfloat16, D>();
-  constexpr int kChunk = D / 8 < kChunkBlocks ? D / 8 : kChunkBlocks;
+  constexpr int kChunk = DO / 8 < kChunkBlocks ? DO / 8 : kChunkBlocks;
   static_assert(NB % 2 == 0, "bf16 A fragments take pairs of blocks");
 #pragma unroll
-  for (int n0 = 0; n0 < D / 8; n0 += kChunk) {
+  for (int n0 = 0; n0 < DO / 8; n0 += kChunk) {
     if (8 * n0 >= width) break;
     float part[kChunk][4] = {};
 #pragma unroll

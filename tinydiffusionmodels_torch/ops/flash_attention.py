@@ -7,17 +7,18 @@ pallas_kernels.py`` to hand-written CUDA C++ for Hopper, built from
 - ``_flash_kernel`` (forward, with attention-weight dropout) ->
   ``csrc/flash_attention_fwd.cu``;
 - ``_flash_dq_kernel`` (recompute backward, dq) ->
-  ``csrc/flash_attention_bwd.cuh``, built from ``flash_attention_bwd_dq.cu``;
+  ``csrc/flash_attention_bwd_dq.cu`` (with ``flash_attention_bwd.cuh``, the
+  parameters both backward kernels share);
 - ``_flash_dkv_kernel`` (recompute backward, dk and dv) ->
   ``csrc/flash_attention_bwd_dkv.cu``;
 - ``_dropout_scale`` (the coordinate-hash mask all three share) ->
   ``csrc/dropout_hash.cuh``.
 
-The forward and dk/dv kernels run their products on the tensor cores
-(``csrc/flash_mma.cuh``). All three take any head width from 1 to
-``MAX_HEAD_DIM``; the host passes the widest copy the operands' addresses
-and strides allow (``vector_bytes``). The sources' headers say what bounds
-each kernel on the card and what its design does about that. The custom
+All three run their products on the tensor cores (``csrc/flash_mma.cuh``)
+and take any head width from 1 to ``MAX_HEAD_DIM``; the host passes the
+widest copy the operands' addresses and strides allow (``vector_bytes``).
+The sources' headers say what bounds each kernel on the card and what its
+design does about that. The custom
 VJPs ``_flash_attention_diffable`` and ``_flash_attention_lse_diffable``
 become the ``torch.autograd.Function``s
 ``_FlashAttention`` (out; ``flash_attention``) and ``_FlashAttentionLse``
@@ -51,7 +52,9 @@ dq_launches = 0       # backward, dq
 dkv_launches = 0      # backward, dk and dv
 
 # The widest Dh and Dv the kernels take; every width from 1 up to it runs.
-MAX_HEAD_DIM = 128
+# The JAX package takes any width; above this one the wrapper raises before
+# a launch.
+MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR = ctypes.c_void_p
@@ -120,11 +123,6 @@ def _check_cuda_operands(q, k, v, layout: str) -> None:
         raise TypeError(
             f"flash attention takes float32 or bfloat16, got {q.dtype}"
         )
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(
-            f"q is on {q.device} but the current CUDA device is "
-            f"{torch.cuda.current_device()}"
-        )
     bdim, hdim, ldim = (0, 1, 2) if layout == "bhld" else (0, 2, 1)
     b, h = q.shape[bdim], q.shape[hdim]
     if (k.shape[bdim], k.shape[hdim]) != (b, h) or (
@@ -146,6 +144,11 @@ def _check_cuda_operands(q, k, v, layout: str) -> None:
             )
     if min(q.shape[ldim], k.shape[ldim], b, h) == 0:
         raise ValueError("flash attention needs non-empty operands")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"q is on {q.device} but the current CUDA device is "
+            f"{torch.cuda.current_device()}"
+        )
 
 
 def _check_seed(seed, q: torch.Tensor) -> None:
@@ -329,7 +332,7 @@ def flash_attention_with_lse(
     Returns ``out`` in the layout and dtype of q (width Dv) and ``lse`` as
     (B, H, Lq) float32. CPU tensors run the plain version; CUDA tensors run
     the kernels, which take float32 or bfloat16, any Dh and Dv from 1 to
-    ``MAX_HEAD_DIM`` (128), and any strides whose last dim is contiguous. ``dropout_rate`` > 0
+    ``MAX_HEAD_DIM`` (256), and any strides whose last dim is contiguous. ``dropout_rate`` > 0
     needs ``dropout_seed``: on the card a one-element int32 tensor on the
     same device, which the kernels read there (no host sync); on the CPU
     also an int.

@@ -288,11 +288,21 @@ def fused_resblock(x, w1, b1, w2, b2, time_bias, ws=None, bs=None):
     and, for a 1x1 skip, (Cout, Cin, 1, 1) with bias ``bs``; ``ws=None`` is
     the identity skip); ``time_bias`` is (B, 1, 1, Cout). The convolutions
     are SAME-padded, so conv2 sees 0 outside the image, as the TPU kernel's
-    re-zeroed border gives it. Full float32 on every device."""
+    re-zeroed border gives it. Full float32 on every device. bfloat16
+    arguments are computed as the TPU kernel computes them: float32 convs of
+    the bfloat16 values, h rounded to bfloat16 before conv2, the output
+    rounded to bfloat16."""
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        x, w1, b1, w2, b2, time_bias, ws, bs = (
+            None if t is None else t.float()
+            for t in (x, w1, b1, w2, b2, time_bias, ws, bs))
     with full_f32_convs():
         xc = x.permute(0, 3, 1, 2)
         h = F.relu(F.conv2d(xc, w1, b1, padding=1))
         h = h + time_bias.permute(0, 3, 1, 2)
+        if dtype == torch.bfloat16:
+            h = h.to(dtype).float()
         h = F.relu(F.conv2d(h, w2, b2, padding=1))
         skip = xc if ws is None else F.conv2d(xc, ws, bs)
-        return (h + skip).permute(0, 2, 3, 1)
+        return (h + skip).permute(0, 2, 3, 1).to(dtype)

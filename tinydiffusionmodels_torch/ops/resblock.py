@@ -16,11 +16,17 @@ backward is the JAX package's ``_fused_resblock_bwd``: it differentiates the
 plain version (recomputed under autograd) for x, every weight and bias and
 the time bias. The JAX package has no backward kernel for this block, so
 neither has the port.
+
+The kernel takes float32 or bfloat16, every tensor argument in x's dtype.
+It accumulates in float32; in bfloat16 it rounds h to bfloat16 before the
+second conv and writes a bfloat16 output, as the TPU kernel does, and so
+does the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -32,12 +38,25 @@ launches = 0
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-_ARGTYPES = [_PTR] * 9 + [_INT] * 6 + [_PTR]
-# Output tile edge: 7 x 7 pixels per CTA. On the H100, summed over the four
-# blocks of a UNet forward, it is within 4 % of the better of 7 and 14 per
-# block at every batch, and 1.7-2.9x faster than 14 at batch 1-3, where 14
-# leaves SMs idle (tools/resblock_tile_ab.py).
-TILE = 7
+_ARGTYPES = [_PTR] * 9 + [_INT] * 8 + [_PTR]
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The output widths the kernel is instantiated for: the MNIST UNet's.
+COUTS = (32, 64)
+# Output tile edges, 7 or 14 pixels per CTA (both divide the UNet's 28 and
+# 14): 14 where it still gives WIDE_TILE_CTAS CTAs, else 7, which spreads
+# small batches over the card. On the H100 (tools/resblock_tile_ab.py, f32
+# and bf16, every block at batch 1, 3, 25 and 128), 14 was faster wherever it
+# gave 100 or more CTAs (28 x 28 at batch 25 and 128, 14 x 14 at 128) and
+# slower wherever it gave 25 or fewer.
+TILES = (7, 14)
+WIDE_TILE_CTAS = 100
+
+
+def tile_for(b: int, h: int, w: int) -> int:
+    """The output tile edge for a (b, h, w) input."""
+    small, wide = TILES
+    ctas = b * -(-h // wide) * -(-w // wide)
+    return wide if ctas >= WIDE_TILE_CTAS else small
 
 
 def _check(x, w1, b1, w2, b2, time_bias, ws, bs) -> None:
@@ -47,9 +66,12 @@ def _check(x, w1, b1, w2, b2, time_bias, ws, bs) -> None:
     for name, t in tensors.items():
         if t is None:
             continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"the fused resblock kernel takes float32; {name} "
-                            f"is {t.dtype}")
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"the fused resblock kernel takes float32 or "
+                            f"bfloat16; {name} is {t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}: the "
+                            f"kernel takes one dtype")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if x.dim() != 4:
@@ -67,9 +89,9 @@ def _check(x, w1, b1, w2, b2, time_bias, ws, bs) -> None:
     if ws is None and (bs is not None or cin != cout):
         raise ValueError("the identity skip (ws=None) needs Cin == Cout and "
                          "no bs")
-    if cout % 4 or cout > 1024:
-        raise ValueError(f"Cout={cout}: the kernel takes a multiple of 4, at "
-                         "most 1024")
+    if cout not in COUTS:
+        raise ValueError(f"Cout={cout}: the kernel is built for Cout in "
+                         f"{COUTS}")
     if min(b, h, w) == 0:
         raise ValueError("the fused resblock needs a non-empty input")
     if x.device.index != torch.cuda.current_device():
@@ -78,11 +100,12 @@ def _check(x, w1, b1, w2, b2, time_bias, ws, bs) -> None:
 
 
 def _launch(x, w1, b1, w2, b2, time_bias, ws=None, bs=None, *,
-            tile: int = TILE) -> torch.Tensor:
-    """One launch of the kernel on CUDA tensors; returns (B, H, W, Cout).
-    The weights are packed to (9, Cin, Cout) tap-major copies on each call
-    (no cache: in training they change every step). ``tile`` is for
-    ``tools/resblock_tile_ab.py``'s comparison only."""
+            tile: int | None = None) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors; returns (B, H, W, Cout) in
+    x's dtype. The weights are packed to (9, Cin, Cout) tap-major copies on
+    each call (no cache: in training they change every step). ``tile``
+    overrides ``tile_for`` for ``tools/resblock_tile_ab.py``'s
+    comparison."""
     global launches
     _check(x, w1, b1, w2, b2, time_bias, ws, bs)
     b, h, w, cin = x.shape
@@ -93,12 +116,16 @@ def _launch(x, w1, b1, w2, b2, time_bias, ws=None, bs=None, *,
               w2.permute(2, 3, 1, 0).contiguous(), b2.contiguous()]
     if ws is not None:
         packed += [ws.reshape(cout, cin).t().contiguous(), bs.contiguous()]
-    out = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     ptrs = [t.data_ptr() for t in packed]
     if ws is None:
         ptrs += [None, None]
+    # The widest copy of x's pixel rows into shared memory: every row
+    # starts on a multiple of it.
+    vec = math.gcd(16, x.data_ptr(), cin * x.element_size())
     err = _build.function("tdm_fused_resblock", _ARGTYPES)(
-        x.data_ptr(), *ptrs, out.data_ptr(), b, h, w, cin, cout, int(tile),
+        x.data_ptr(), *ptrs, out.data_ptr(), _DTYPE_CODES[x.dtype], b, h, w,
+        cin, cout, int(tile or tile_for(b, h, w)), vec,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.raise_on(err, "fused resblock")
@@ -140,7 +167,8 @@ def fused_resblock(x, w1, b1, w2, b2, time_bias, ws=None, bs=None):
     x (B, H, W, Cin) NHWC, torch OIHW conv weights, ``time_bias``
     (B, 1, 1, Cout), a 1x1 skip (``ws``, ``bs``) or the identity
     (``ws=None``). Differentiable in every tensor argument. On the card one
-    kernel launch per call, float32 only."""
+    kernel launch per call, float32 or bfloat16 (every argument in x's
+    dtype), Cout 32 or 64."""
     args = (x, w1, b1, w2, b2, time_bias, ws, bs)
     if x.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(
