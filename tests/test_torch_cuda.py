@@ -106,8 +106,6 @@ def test_one_launch_counted_per_call(cuda):
 
 
 @pytest.mark.parametrize("make, match", [
-    (lambda d: _qkv(1, 1, 8, 8, 257, 257, d), "Dh=257"),
-    (lambda d: _qkv(1, 1, 8, 8, 64, 257, d), "Dv=257"),
     (lambda d: _qkv(1, 1, 8, 8, 32, 32, d, torch.float16), "float32 or bfloat16"),
     (lambda d: tuple(x.transpose(-1, -2) for x in _qkv(1, 1, 32, 32, 32, 32, d)),
      "contiguous in its last dim"),
@@ -118,6 +116,52 @@ def test_wrapper_rejects_before_launch(cuda, make, match):
     with pytest.raises((TypeError, ValueError), match=match):
         fa.flash_attention(q, k, v)
     assert fa.launches == before
+
+
+# (Dh, Dv) above 256, where the D 256 instances walk the head width in
+# chunks of 256 columns: one column past it on either side, the text CLI's
+# --embed_dim 2048 (Dh 512) and a ragged last chunk of 8 with Dv != Dh.
+WIDE = {"dh257": (257, 257), "dh64_dv257": (64, 257), "dh512": (512, 512),
+        "dh264_dv320": (264, 320)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_kernels_match_plain_above_256(cuda, name, dtype):
+    """Widths the wrapper once refused: the forward (O, lse) and, with
+    dropout and an lse cotangent, dq, dk and dv against the plain version,
+    one launch of each kernel. bf16 gradients take chip_smoke.py's
+    BF16_LONG_GRAD_TOL (4e-2): the forward rounds each kept weight
+    p / (1 - rate) to bf16 before P V, where the TPU kernel does, and D
+    takes that output while dP takes the f32 factor, so ds is off by about
+    0.0016 |dp|, and |dp| grows as sqrt(Dv); the plain version multiplies
+    f32 weights. The f32 case holds the arithmetic to 2e-4."""
+    dh, dv = WIDE[name]
+    inputs = tuple(x.requires_grad_() for x in _qkv(
+        2, 2, 40, 40, dh, dv, cuda, dtype))
+    rng = np.random.default_rng(6)
+    g_out = torch.from_numpy(rng.standard_normal(
+        (2, 2, 40, dv), dtype=np.float32)).to(cuda, dtype)
+    g_lse = torch.from_numpy(rng.standard_normal(
+        (2, 2, 40), dtype=np.float32)).to(cuda)
+    kw = dict(causal=True, dropout_rate=0.1, dropout_seed=_seed(cuda))
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    results = []
+    for fn in (fa.flash_attention_with_lse, reference.attention):
+        out, lse = fn(*inputs, **kw)
+        results.append((out, lse, torch.autograd.grad(
+            (out, lse), inputs, (g_out, g_lse))))
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        n + 1 for n in before)
+    (out, lse, grads), (r_out, r_lse, r_grads) = results
+    bf = dtype == torch.bfloat16
+    tol_o = dict(rtol=2e-2, atol=2e-2) if bf else TOL
+    torch.testing.assert_close(out, r_out, **tol_o)
+    torch.testing.assert_close(
+        lse, r_lse, **(dict(rtol=1e-2, atol=1e-2) if bf else TOL))
+    tol_g = dict(rtol=4e-2, atol=4e-2) if bf else GRAD_TOL
+    for got, want in zip(grads, r_grads):
+        torch.testing.assert_close(got, want, **tol_g)
 
 
 def _views(b, length, h, d, device, dtype, seed=3):
@@ -400,11 +444,16 @@ def test_resblock_rejects_before_launch(cuda, change, error, match):
     assert rb.launches == before
 
 
-# name: (B, H, L, Dh)
+# name: (B, H, L, Dh): the sampler's shape, a ragged L, a narrow L, L 128
+# at Dh 128 (the old backward stopped at L 96 there) and widths once
+# refused, one in each padded instance below 256 and the widest.
 SINGLE_BLOCK_CASES = {"sampler": (8, 4, 64, 64),
                       "ragged_L100": (3, 2, 100, 64),
                       "L16_dh32": (2, 4, 16, 32),
-                      "dh128_L96": (2, 2, 96, 128)}
+                      "dh128_L96": (2, 2, 96, 128),
+                      "dh128_L128": (1, 2, 128, 128),
+                      "dh8": (2, 4, 40, 8), "dh24": (2, 2, 64, 24),
+                      "dh96": (2, 2, 64, 96), "dh256": (2, 2, 48, 256)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -443,9 +492,21 @@ def test_single_block_matches_plain(cuda, name, dtype):
             assert int((got != ref).sum()) < int((got != other).sum())
 
 
+def test_single_block_backward_repeats_its_bits(cuda):
+    """No float atomics: two backward calls on the same inputs give the
+    same bits."""
+    q, k, v = _qkv(8, 4, 64, 64, 64, 64, cuda)
+    g = torch.cos(torch.arange(q.numel(), device=cuda,
+                               dtype=torch.float32)).reshape(q.shape)
+    first = sb.backward(q, k, v, g)
+    second = sb.backward(q, k, v, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("shape, grad, match", [
     ((1, 1, 129, 64), False, "limit of 128"),
-    ((1, 1, 128, 128), True, "backward kernel's limit of 96"),
+    ((1, 1, 64, 257), True, "Dh=257"),
 ])
 def test_single_block_rejects_before_launch(cuda, shape, grad, match):
     x = torch.zeros(shape, device=cuda, requires_grad=grad)

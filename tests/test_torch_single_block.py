@@ -29,10 +29,15 @@ from tinydiffusionmodels_torch.ops import single_block as sb  # noqa: E402
 
 torch.set_num_threads(1)
 
-# (B, H, L, Dh): the shapes of tests/test_ops.py, a ragged L and Dh 128.
+# (B, H, L, Dh): the shapes of tests/test_ops.py, a ragged L, L 128 at Dh
+# 128 (the backward kernel once stopped at L 96 there), and head widths the
+# kernels once refused, one in each padded instance below 256 and the
+# widest.
 SHAPES = {"L64": (2, 4, 64, 64), "L128": (2, 4, 128, 64),
           "L16_dh32": (2, 4, 16, 32), "ragged_L100": (1, 2, 100, 64),
-          "dh128": (1, 2, 128, 128)}
+          "dh128": (1, 2, 128, 128), "dh8": (1, 2, 24, 8),
+          "dh24": (1, 2, 40, 24), "dh96": (1, 2, 48, 96),
+          "dh256": (1, 2, 32, 256)}
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 FWD_TOL = {"f32": 1e-5, "bf16": 1e-2}
@@ -140,23 +145,27 @@ def test_other_devices_raise():
         ops.single_block_attention(x, x, x)
 
 
-@pytest.mark.parametrize("shape, dtype, backward, match", [
-    ((1, 1, 129, 64), torch.float32, False, "above the kernels' limit of 128"),
-    ((1, 1, 64, 48), torch.float32, False, "Dh=48"),
-    ((1, 1, 97, 128), torch.float32, True, "backward kernel's limit of 96"),
-    ((1, 1, 64, 64), torch.float16, False, "float32 or bfloat16"),
-    ((1, 0, 64, 64), torch.float32, False, "non-empty"),
+# The domain is one for both kernels: L 1 to 128, Dh 1 to 256. The L 129
+# case at Dh 128 stands where the backward's old limit (L 96 at Dh 128)
+# was checked.
+@pytest.mark.parametrize("shape, dtype, match", [
+    ((1, 1, 129, 64), torch.float32, "above the kernels' limit of 128"),
+    ((1, 1, 64, 257), torch.float32, "Dh=257 is outside the kernels' widths "
+                                     "1 to 256"),
+    ((1, 1, 129, 128), torch.float32, "above the kernels' limit of 128"),
+    ((1, 1, 64, 64), torch.float16, "float32 or bfloat16"),
+    ((1, 0, 64, 64), torch.float32, "non-empty"),
 ])
-def test_domain_is_checked_before_a_launch(shape, dtype, backward, match):
+def test_domain_is_checked_before_a_launch(shape, dtype, match):
     x = torch.zeros(shape, dtype=dtype)
     with pytest.raises((TypeError, ValueError), match=match):
-        sb._check_cuda_operands(x, x, x, backward=backward)
+        sb._check_cuda_operands(x, x, x)
 
 
 def test_operands_must_agree():
     x = torch.zeros(1, 1, 16, 32)
     with pytest.raises(ValueError, match="one \\(B, H, L, Dh\\) shape"):
-        sb._check_cuda_operands(x, x, x[:, :, :8], backward=False)
+        sb._check_cuda_operands(x, x, x[:, :, :8])
     with pytest.raises(ValueError, match="contiguous in its last dim"):
         y = torch.zeros(1, 1, 32, 16).transpose(-1, -2)
-        sb._check_cuda_operands(y, y, y, backward=False)
+        sb._check_cuda_operands(y, y, y)

@@ -27,10 +27,11 @@
 // (masked_fill with float32's lowest value, ops/reference.py) gives. The TPU
 // kernel zeroes such rows' p instead; the port follows its plain version.
 //
-// Head widths: any Dh and Dv from 1 to 256, on instances at D = 16, 32,
-// 64, 128 and 256 (the padded max(Dh, Dv)); columns past the true widths
-// load as zeros and are not stored. Both kernels are on the tensor cores
-// (flash_mma.cuh); each source's header says how it is laid out.
+// Head widths: every Dh and Dv from 1 up, on instances at D = 16, 32, 64,
+// 128 and 256 (the padded max(Dh, Dv)), the D 256 one staged above 256;
+// columns past the true widths load as zeros and are not stored. Both
+// kernels are on the tensor cores (flash_mma.cuh); each source's header
+// says how it is laid out.
 
 #pragma once
 
@@ -77,7 +78,8 @@ __device__ __forceinline__ const T* operand(const BwdParams& p, const void* x,
   return static_cast<const T*>(x) + b * p.sb[o] + h * p.sh[o];
 }
 
-// The padded width of an instance: 16, 32, 64, 128 or 256 (0: above 256).
+// The padded width of an instance: 16, 32, 64, 128 or 256 (0: above 256,
+// where the D 256 instance runs staged).
 inline int padded_width(int dh, int dv) {
   const int d = dh > dv ? dh : dv;
   return d <= 16    ? 16
@@ -99,7 +101,7 @@ inline bool make_params(BwdParams& p, const void* q, const void* k,
                         float drop_scale) {
   const int min_vec = dtype == 1 ? 2 : 4;
   if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || dh <= 0 ||
-      dv_dim <= 0 || padded_width(dh, dv_dim) == 0 || (dtype != 0 && dtype != 1) ||
+      dv_dim <= 0 || (dtype != 0 && dtype != 1) ||
       vec < min_vec || vec > 16 || (vec & (vec - 1)) != 0) {
     return false;
   }
@@ -136,7 +138,7 @@ inline bool make_params(BwdParams& p, const void* q, const void* k,
 }  // namespace flash_bwd
 
 // Both entry points (one in each source) take the same arguments. dtype:
-// 0 = float32, 1 = bfloat16. dh, dv_dim: 1 to 256. vec: bytes per copy of
+// 0 = float32, 1 = bfloat16. dh, dv_dim: 1 or more. vec: bytes per copy of
 // q, k, v and dO into shared memory (16, 8, 4; 2 for bf16 only), which their
 // addresses and strides must be multiples of.
 // `strides` holds 21 element strides, (batch, head, row) for q, k, v, dO,

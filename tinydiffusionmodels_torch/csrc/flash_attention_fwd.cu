@@ -21,16 +21,24 @@
 // weights are rounded to bf16 before P*V, where the TPU kernel rounds them
 // (`pv.astype(v.dtype)`).
 //
-// Head widths. Any Dh and Dv from 1 to 256. The kernel is instantiated at
+// Head widths. Every Dh and Dv from 1 up. The kernel is instantiated at
 // D = 16, 32, 64, 128 and 256, D the padded max(Dh, Dv); it takes the true
 // widths at run time, loads columns at or past them as zeros (zero columns
 // of q and k change no score), skips whole k steps and output blocks past
 // them, and stores no padded column. The scale is 1/sqrt(Dh) of the true
-// width. A CTA accumulates at most 128 output columns (registers): at D 256
-// with Dv > 128 a second CTA (grid z) takes columns 128-255 and forms the
-// same scores and softmax; the first writes the lse. The D 256 instance
-// walks keys in tiles of 32 and takes at most two warps per query group or
-// two groups per CTA (shared memory: its Q and K tiles are 256 wide).
+// width. A CTA accumulates at most 128 output columns (registers): with
+// Dv > 128, further CTAs (grid z, ceil(Dv / 128) in all) take columns
+// 128-255, 256-383, ... and form the same scores and softmax; only the first
+// writes the lse. The D 256 instance walks keys in tiles of 32 and takes at
+// most two warps per query group or two groups per CTA (shared memory: its
+// Q and K tiles are 256 wide). Above 256 the D 256 instance runs staged
+// (STAGED): per key tile, S = Q K^T sums over Dh 256 columns at a time, the
+// Q and K column chunks restaged through the same shared tiles
+// (flash_mma.cuh mma_abt_staged), and the tile's V columns of the CTA come
+// in beside them; nothing is prefetched, so one stage of K and V does (67
+// KB of shared memory in f32 at 16 query rows: three CTAs per SM). The D
+// 256 instance's registers; slower: a width no instance holds costs one
+// reload of Q per key tile and chunk.
 //
 // Design. Each 16-row query group is one warp's, or, at short sequences,
 // four warps' that split every key tile among them (16 keys each) and merge
@@ -106,13 +114,20 @@ struct Params {
   float drop_scale;
 };
 
-template <typename T, int D>
+// Ring stages of K and V tiles: two, or one when staged (nothing is
+// prefetched there, and the smaller footprint fits more CTAs on an SM).
+template <bool STAGED>
+__host__ __device__ constexpr int stages() {
+  return STAGED ? 1 : 2;
+}
+
+template <typename T, int D, bool STAGED>
 constexpr size_t smem_bytes(int rows) {
-  // Q of `rows` rows, two stages of K tiles (D wide) and of V tiles (the
+  // Q of `rows` rows, the stages of K tiles (D wide) and of V tiles (the
   // CTA's output columns).
-  constexpr int kBK = key_tile<D>();
-  return sizeof(T) * (fmma::stride<T, D>() * (size_t(rows) + 2 * size_t(kBK)) +
-                      fmma::stride<T, fmma::out_cols<D>()>() * 2 * size_t(kBK));
+  constexpr size_t kTiles = size_t(stages<STAGED>()) * key_tile<D>();
+  return sizeof(T) * (fmma::stride<T, D>() * (size_t(rows) + kTiles) +
+                      fmma::stride<T, fmma::out_cols<D>()>() * kTiles);
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -123,8 +138,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 // KW warps share each 16-row query group and split every key tile among
 // them (KW = 1, or max_warps<D>() at short sequences: kBlockK / KW keys per
 // warp); their softmax states are merged at the end. The CTA accumulates
-// the output columns [col0, col0 + DO).
-template <typename T, int D, int KW>
+// the output columns [col0, col0 + DO). STAGED: Dh or Dv above D (256).
+template <typename T, int D, int KW, bool STAGED>
 __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     flash_fwd_kernel(const Params p) {
   constexpr int S = fmma::stride<T, D>();
@@ -136,8 +151,8 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = blockDim.x / (2 * KW);  // 16 per query group
   T* sq = reinterpret_cast<T*>(smem_raw);
-  T* sk = sq + rows * S;               // two stages of kBlockK x S
-  T* sv = sk + 2 * kBlockK * S;        // two stages of kBlockK x SV
+  T* sk = sq + rows * S;                          // stages of kBlockK x S
+  T* sv = sk + stages<STAGED>() * kBlockK * S;    // stages of kBlockK x SV
   const int col0 = blockIdx.z * DO;
 
   const int bh = blockIdx.x;
@@ -156,10 +171,13 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   const int g = lane / 4, t = lane % 4;
   const int n_tiles = (p.lk + kBlockK - 1) / kBlockK;
 
-  fmma::load_tile<T, D>(sq, q, p.q_sl, q0, rows, p.lq, p.dh, p.vec);
-  fmma::load_tile<T, D>(sk, k, p.k_sl, 0, kBlockK, p.lk, p.dh, p.vec);
-  fmma::load_tile<T, DO>(sv, v, p.v_sl, 0, kBlockK, p.lk, p.dv - col0, p.vec);
-  fmma::cp_async_commit();
+  if constexpr (!STAGED) {
+    fmma::load_tile<T, D>(sq, q, p.q_sl, q0, rows, p.lq, p.dh, p.vec);
+    fmma::load_tile<T, D>(sk, k, p.k_sl, 0, kBlockK, p.lk, p.dh, p.vec);
+    fmma::load_tile<T, DO>(sv, v, p.v_sl, 0, kBlockK, p.lk, p.dv - col0,
+                           p.vec);
+    fmma::cp_async_commit();
+  }
 
   // This thread's two query rows, g and g + 8 of the group's 16.
   int q_pos[2];
@@ -182,24 +200,26 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   }
 
   for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      const int stage = (it + 1) % 2;
-      const int k0 = (it + 1) * kBlockK;
-      fmma::load_tile<T, D>(sk + stage * kBlockK * S, k, p.k_sl, k0, kBlockK,
-                            p.lk, p.dh, p.vec);
-      fmma::load_tile<T, DO>(sv + stage * kBlockK * SV, v, p.v_sl, k0,
-                             kBlockK, p.lk, p.dv - col0, p.vec);
-      fmma::cp_async_commit();
-      fmma::cp_async_wait<1>();
-    } else {
-      fmma::cp_async_wait<0>();
+    if constexpr (!STAGED) {
+      if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
+        const int next = (it + 1) % 2;
+        const int k0 = (it + 1) * kBlockK;
+        fmma::load_tile<T, D>(sk + next * kBlockK * S, k, p.k_sl, k0,
+                              kBlockK, p.lk, p.dh, p.vec);
+        fmma::load_tile<T, DO>(sv + next * kBlockK * SV, v, p.v_sl, k0,
+                               kBlockK, p.lk, p.dv - col0, p.vec);
+        fmma::cp_async_commit();
+        fmma::cp_async_wait<1>();
+      } else {
+        fmma::cp_async_wait<0>();
+      }
+      __syncthreads();
     }
-    __syncthreads();
     // This warp's keys of the tile: kw0 .. kw0 + 8 kWarpBlocks.
-    const int kw0 = it * kBlockK + slice * 8 * kWarpBlocks;
-    const int stage_off = (it % 2) * kBlockK * S + (slice * 8 * kWarpBlocks) * S;
-    const int stage_off_v =
-        (it % 2) * kBlockK * SV + (slice * 8 * kWarpBlocks) * SV;
+    const int off = slice * 8 * kWarpBlocks;
+    const int kw0 = it * kBlockK + off;
+    const int stage = STAGED ? 0 : it % 2;
+    const int stage_off_v = stage * kBlockK * SV + off * SV;
     // Key blocks of 8 that hold a key below Lk (none: <= 0).
     const int k_blocks = min(kWarpBlocks, (p.lk - kw0 + 7) / 8);
 
@@ -209,9 +229,16 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
     }
-    if (k_blocks > 0) {
-      fmma::mma_abt<kWarpBlocks, D>(s, sq + group * 16 * S, sk + stage_off,
-                                    p.dh);
+    if constexpr (STAGED) {
+      fmma::load_tile<T, DO>(sv, v, p.v_sl, it * kBlockK, kBlockK, p.lk,
+                             p.dv - col0, p.vec);
+      fmma::mma_abt_staged<kWarpBlocks, D>(
+          s, sq, fmma::Rows<T>{q, p.q_sl, q0, rows, p.lq}, group * 16, sk,
+          fmma::Rows<T>{k, p.k_sl, it * kBlockK, kBlockK, p.lk}, off, p.dh,
+          p.vec, k_blocks > 0);
+    } else if (k_blocks > 0) {
+      fmma::mma_abt<kWarpBlocks, D>(s, sq + group * 16 * S,
+                                    sk + stage * kBlockK * S + off * S, p.dh);
     }
 
     // Scale, mask and the tile's row maxima. Element c of block j is row
@@ -276,7 +303,8 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
 
   if constexpr (KW > 1) {
     // Merge the group's KW softmax states into its first warp, through the
-    // K/V stages, free now: per warp the acc fragments, then m and l.
+    // K/V stages, free now (at least 32 rows of K and of V: room for two
+    // warps' states at D 256): per warp the acc fragments, then m and l.
     constexpr int kStash = (4 * kOutBlocks + 4) * 32;
     float* mine = reinterpret_cast<float*>(sk) + warp * kStash;
     fmma::stash(mine, acc);
@@ -337,19 +365,21 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   }
 }
 
-template <typename T, int D, int KW>
+template <typename T, int D, int KW, bool STAGED>
 cudaError_t launch_split(const Params& p, int bh, int groups,
                          cudaStream_t stream) {
   // Once per instance: the most shared memory any launch of it asks for.
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem_bytes<T, D>(16 * fmma::max_warps<D>() / KW)));
+      flash_fwd_kernel<T, D, KW, STAGED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem_bytes<T, D, STAGED>(16 * fmma::max_warps<D>() / KW)));
   if (attr != cudaSuccess) return attr;
   constexpr int DO = fmma::out_cols<D>();
   const dim3 grid(unsigned(bh), unsigned((p.lq + 16 * groups - 1) / (16 * groups)),
                   unsigned((p.dv + DO - 1) / DO));
-  flash_fwd_kernel<T, D, KW><<<grid, 32 * KW * groups,
-                               smem_bytes<T, D>(16 * groups), stream>>>(p);
+  flash_fwd_kernel<T, D, KW, STAGED><<<grid, 32 * KW * groups,
+                                       smem_bytes<T, D, STAGED>(16 * groups),
+                                       stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -357,13 +387,13 @@ cudaError_t launch_split(const Params& p, int bh, int groups,
 // max_warps<D>()) as keep 128 CTAs; where even one group per CTA gives no
 // more CTAs than that (short sequences), max_warps<D>() warps split each
 // key tile of the one group.
-template <typename T, int D>
+template <typename T, int D, bool STAGED = false>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr int kMost = fmma::max_warps<D>();
   const int bh = batch * p.heads;
   const int groups = fmma::pick_warps(bh, p.lq, kMost);
-  if (groups == 1) return launch_split<T, D, kMost>(p, bh, 1, stream);
-  return launch_split<T, D, 1>(p, bh, groups, stream);
+  if (groups == 1) return launch_split<T, D, kMost, STAGED>(p, bh, 1, stream);
+  return launch_split<T, D, 1, STAGED>(p, bh, groups, stream);
 }
 
 template <typename T>
@@ -374,12 +404,12 @@ cudaError_t launch_width(const Params& p, int batch, cudaStream_t s) {
   if (d <= 64) return launch<T, 64>(p, batch, s);
   if (d <= 128) return launch<T, 128>(p, batch, s);
   if (d <= 256) return launch<T, 256>(p, batch, s);
-  return cudaErrorInvalidValue;
+  return launch<T, 256, true>(p, batch, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. dh, dv: 1 to 256. vec: bytes per copy
+// dtype: 0 = float32, 1 = bfloat16. dh, dv: 1 or more. vec: bytes per copy
 // of q, k and v into shared memory (16, 8, 4; 2 for bf16 only), which their
 // addresses and (batch, head, row) strides must be multiples of. Strides are
 // in elements. `seed` is a device int32 (null: no dropout). Returns the

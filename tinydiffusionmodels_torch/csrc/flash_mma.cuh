@@ -1,5 +1,6 @@
 // Warp-level tile helpers shared by the tensor-core kernels (the three
-// flash-attention kernels and the fused resblock): asynchronous tile copies
+// flash-attention kernels, the single-block attention pair and the fused
+// resblock): asynchronous tile copies
 // into shared memory, mma.sync on bf16 and on TF32, the 3xTF32 split that
 // keeps float32 accuracy on the TF32 tensor cores, and the fragment loads
 // of both.
@@ -42,7 +43,9 @@ constexpr int kMinCtas = 128;  // the grid the host aims for (132 SMs)
 // each CTA owns at most kMaxOutCols output columns: a D 256 instance runs a
 // second CTA for columns 128-255, which recomputes the scores. Its tiles
 // are twice as wide, so it also takes at most half the warps (shared
-// memory).
+// memory). Past 256 the D 256 instance is staged: its contractions walk the
+// head width 256 columns at a time (mma_abt_staged), and grid z takes the
+// output columns 128 at a time, however many there are.
 constexpr int kMaxOutCols = 128;
 
 template <int D>
@@ -240,6 +243,17 @@ __device__ __forceinline__ Split<2> tf32_b_t(const float* tile, int n0,
   const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
   const float* p = tile + (n0 + g) * S + k0 + t;
   const float b[2] = {p[0], p[4]};
+  return Split<2>(b);
+}
+
+// TF32 B fragment of rows [k0, k0 + 8) of a row-major float tile (k the
+// row), columns [n0, n0 + 8): B (k, n) = X[k0 + k][n0 + n].
+template <int S>
+__device__ __forceinline__ Split<2> tf32_b(const float* tile, int k0,
+                                           int n0) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const float* p = tile + (k0 + t) * S + n0 + g;
+  const float b[2] = {p[0], p[4 * S]};
   return Split<2>(b);
 }
 
@@ -464,6 +478,80 @@ __device__ __forceinline__ void mma_cx(float (&out)[DO / 8][4],
 #pragma unroll
       for (int c = 0; c < 4; ++c) out[n0 + n][c] += part[n][c];
     }
+  }
+}
+
+// acc[j] (16 x 8 C fragments, j < NB) += A X over the first `depth` k (a
+// multiple of the k step): A the 16 rows of a row-major tile `a` (row stride
+// SA), X the columns [n0, n0 + 8 NB) of a row-major tile `x` (row stride SX,
+// k the row). Both factors come from shared memory (the single-block
+// backward's dS K, dS^T Q and P^T dO).
+template <int NB, int SA, int SX>
+__device__ __forceinline__ void mma_ab(float (&acc)[NB][4], const float* a,
+                                       const float* x, int n0, int depth) {
+  for (int k0 = 0; k0 < depth; k0 += 8) {
+    const Split<4> fa = tf32_a<SA>(a, k0);
+    Split<2> fb[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) fb[j] = tf32_b<SX>(x, k0, n0 + 8 * j);
+    mma_3xtf32<NB>(acc, fa, fb);
+  }
+}
+
+template <int NB, int SA, int SX>
+__device__ __forceinline__ void mma_ab(float (&acc)[NB][4],
+                                       const __nv_bfloat16* a,
+                                       const __nv_bfloat16* x, int n0,
+                                       int depth) {
+  static_assert(NB % 2 == 0, "bf16 B fragments come in pairs of blocks");
+  for (int k0 = 0; k0 < depth; k0 += 16) {
+    uint32_t fa[4];
+    bf16_a<SA>(fa, a, k0);
+#pragma unroll
+    for (int j = 0; j < NB; j += 2) {
+      uint32_t fb[4];
+      bf16_b<SX>(fb, x, k0, n0 + 8 * j);
+      mma_bf16(acc[j], fa, fb[0], fb[1]);
+      mma_bf16(acc[j + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// ---- head widths above 256 -------------------------------------------------
+
+// Rows [r0, r0 + rows) of a row-major operand with row stride `ld`; rows at
+// or past `limit` read as zeros.
+template <typename T>
+struct Rows {
+  const T* base;
+  int64_t ld;
+  int r0, rows, limit;
+};
+
+// acc[j] += A B^T (as mma_abt) over `depth` columns of any width: A and B
+// are staged from device memory through the D-wide shared tiles sa and sb,
+// D columns at a time, and every chunk's products sum into the same
+// fragments. The warp's 16 rows of A are at row a_off of sa, its B rows at
+// b_off of sb. Every thread of the CTA calls it, since it copies and waits
+// at barriers; a warp with `active` false only copies. Copies issued before
+// the call join its first chunk's group, so they have landed on return.
+template <int NB, int D, typename T>
+__device__ __forceinline__ void mma_abt_staged(float (&acc)[NB][4], T* sa,
+                                               const Rows<T>& a, int a_off,
+                                               T* sb, const Rows<T>& b,
+                                               int b_off, int depth, int vec,
+                                               bool active) {
+  constexpr int S = stride<T, D>();
+  for (int c0 = 0; c0 < depth; c0 += D) {
+    __syncthreads();  // the previous chunk is consumed
+    load_tile<T, D>(sa, a.base + c0, a.ld, a.r0, a.rows, a.limit, depth - c0,
+                    vec);
+    load_tile<T, D>(sb, b.base + c0, b.ld, b.r0, b.rows, b.limit, depth - c0,
+                    vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (active) mma_abt<NB, D>(acc, sa + a_off * S, sb + b_off * S, depth - c0);
   }
 }
 

@@ -15,8 +15,9 @@ pallas_kernels.py`` to hand-written CUDA C++ for Hopper, built from
   ``csrc/dropout_hash.cuh``.
 
 All three run their products on the tensor cores (``csrc/flash_mma.cuh``)
-and take any head width from 1 to ``MAX_HEAD_DIM``; the host passes the
-widest copy the operands' addresses and strides allow (``vector_bytes``).
+and take every head width Dh and Dv from 1 up (above 256 the D 256
+instances walk the width in chunks); the host passes the widest copy the
+operands' addresses and strides allow (``vector_bytes``).
 The sources' headers say what bounds each kernel on the card and what its
 design does about that. The custom
 VJPs ``_flash_attention_diffable`` and ``_flash_attention_lse_diffable``
@@ -51,10 +52,6 @@ launches = 0          # forward
 dq_launches = 0       # backward, dq
 dkv_launches = 0      # backward, dk and dv
 
-# The widest Dh and Dv the kernels take; every width from 1 up to it runs.
-# The JAX package takes any width; above this one the wrapper raises before
-# a launch.
-MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR = ctypes.c_void_p
@@ -136,13 +133,7 @@ def _check_cuda_operands(q, k, v, layout: str) -> None:
         raise ValueError("k and v must have the same length")
     if k.shape[-1] != q.shape[-1]:
         raise ValueError("q and k must have the same head dim")
-    for name, d in (("Dh", q.shape[-1]), ("Dv", v.shape[-1])):
-        if not 1 <= d <= MAX_HEAD_DIM:
-            raise ValueError(
-                f"{name}={d} is outside the kernels' widths 1 to "
-                f"{MAX_HEAD_DIM}"
-            )
-    if min(q.shape[ldim], k.shape[ldim], b, h) == 0:
+    if min(q.shape[ldim], k.shape[ldim], b, h, q.shape[-1], v.shape[-1]) == 0:
         raise ValueError("flash attention needs non-empty operands")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(
@@ -331,8 +322,8 @@ def flash_attention_with_lse(
 
     Returns ``out`` in the layout and dtype of q (width Dv) and ``lse`` as
     (B, H, Lq) float32. CPU tensors run the plain version; CUDA tensors run
-    the kernels, which take float32 or bfloat16, any Dh and Dv from 1 to
-    ``MAX_HEAD_DIM`` (256), and any strides whose last dim is contiguous. ``dropout_rate`` > 0
+    the kernels, which take float32 or bfloat16, every Dh and Dv from 1 up,
+    and any strides whose last dim is contiguous. ``dropout_rate`` > 0
     needs ``dropout_seed``: on the card a one-element int32 tensor on the
     same device, which the kernels read there (no host sync); on the CPU
     also an int.

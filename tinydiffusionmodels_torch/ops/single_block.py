@@ -18,12 +18,18 @@ one to the other. The JAX package routes no model path to this pair
 flash kernels), so neither does the port: ``ops.attention`` runs the flash
 kernels. ``python -m tinydiffusionmodels_torch.kernel_bench`` runs this pair.
 
+Both kernels run their products on the tensor cores. The forward takes one
+CTA per (B*H, 16 query rows). The backward is one launch of one CTA per
+(B*H, chunk of 16), which writes dq of the chunk's query rows and dk, dv of
+its keys; each CTA recomputes every query row's max, sum and D from full
+rows (cheap at L <= 128) rather than reading them from a first launch, so
+there is one backward launch and no workspace.
+
 The kernels' domain, checked here before any launch: q, k and v of one
 shape (B, H, L, Dh), one dtype (float32 or bfloat16), one device, the last
-dim contiguous (any other strides); L from 1 to ``MAX_LEN`` (128); Dh in
-``HEAD_DIMS`` (32, 64, 128); and for the backward at Dh 128, L at most
-``MAX_LEN_BWD_DH128`` (96), because its shared memory holds four L x Dh
-float arrays of one (b, h).
+dim contiguous (any other strides); L from 1 to ``MAX_LEN`` (128), because a
+query row's scores over all keys are held at once; Dh from 1 to
+``MAX_HEAD_DIM`` (256).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import math
 
 import torch
 
-from tinydiffusionmodels_torch.ops import _build, reference
+from tinydiffusionmodels_torch.ops import _build, flash_attention, reference
 
 # Kernel launches made by this process: each is incremented once per launch
 # of its kernel and nowhere else; callers reset them to 0 to count a run.
@@ -41,18 +47,17 @@ launches = 0        # forward
 bwd_launches = 0    # backward
 
 MAX_LEN = 128
-MAX_LEN_BWD_DH128 = 96
-HEAD_DIMS = (32, 64, 128)
+MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-_FWD_ARGTYPES = [_PTR] * 4 + [_INT] * 5 + [_STRIDES, ctypes.c_float, _PTR]
-_BWD_ARGTYPES = [_PTR] * 7 + [_INT] * 5 + [_STRIDES, ctypes.c_float, _PTR]
+_FWD_ARGTYPES = [_PTR] * 4 + [_INT] * 6 + [_STRIDES, ctypes.c_float, _PTR]
+_BWD_ARGTYPES = [_PTR] * 7 + [_INT] * 6 + [_STRIDES, ctypes.c_float, _PTR]
 
 
-def _check_cuda_operands(q, k, v, *, backward: bool) -> None:
+def _check_cuda_operands(q, k, v) -> None:
     """Raise before a launch on what the kernels do not take."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
@@ -75,16 +80,13 @@ def _check_cuda_operands(q, k, v, *, backward: bool) -> None:
     b, h, length, dh = q.shape
     if min(b, h, length) == 0:
         raise ValueError("single-block attention needs non-empty operands")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"Dh={dh} is not a width the kernels are built for "
-                         f"{HEAD_DIMS}")
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"Dh={dh} is outside the kernels' widths 1 to "
+                         f"{MAX_HEAD_DIM}")
     if length > MAX_LEN:
         raise ValueError(f"L={length} is above the kernels' limit of "
-                         f"{MAX_LEN}: one (b, h) lives in shared memory")
-    if backward and dh == 128 and length > MAX_LEN_BWD_DH128:
-        raise ValueError(f"L={length} at Dh=128 is above the backward "
-                         f"kernel's limit of {MAX_LEN_BWD_DH128}: its shared "
-                         "memory holds four L x Dh float arrays")
+                         f"{MAX_LEN}: a query row's scores over every key "
+                         "are held at once")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"q is on {q.device} but the current CUDA device is "
                          f"{torch.cuda.current_device()}")
@@ -97,9 +99,11 @@ def _strides(*tensors: torch.Tensor):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _args(q: torch.Tensor):
-    b, h, length, dh = q.shape
-    return (_DTYPE_CODES[q.dtype], b, h, length, dh)
+def _args(*operands: torch.Tensor):
+    """dtype code, B, H, L, Dh and the bytes per copy the operands allow."""
+    b, h, length, dh = operands[0].shape
+    return (_DTYPE_CODES[operands[0].dtype], b, h, length, dh,
+            flash_attention.vector_bytes(*operands))
 
 
 def forward(q, k, v) -> torch.Tensor:
@@ -107,7 +111,8 @@ def forward(q, k, v) -> torch.Tensor:
     global launches
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = _build.function("tdm_attention_single_block_fwd", _FWD_ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *_args(q),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *_args(q, k, v),
         _strides(q, k, v, out), 1.0 / math.sqrt(q.shape[-1]),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -125,7 +130,7 @@ def backward(q, k, v, g) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
                   for _ in range(3))
     err = _build.function("tdm_attention_single_block_bwd", _BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_args(q),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_args(q, k, v, g),
         _strides(q, k, v, g, dq, dk, dv), 1.0 / math.sqrt(q.shape[-1]),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -166,7 +171,5 @@ def single_block_attention(q: torch.Tensor, k: torch.Tensor,
         raise NotImplementedError(
             f"single-block attention has no path for {q.device.type} tensors")
     if q.device.type == "cuda":
-        needs_grad = torch.is_grad_enabled() and any(
-            x.requires_grad for x in (q, k, v))
-        _check_cuda_operands(q, k, v, backward=needs_grad)
+        _check_cuda_operands(q, k, v)
     return _SingleBlockAttention.apply(q, k, v)
