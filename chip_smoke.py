@@ -68,8 +68,9 @@ no result line) on any error; no phase catches its own failure.
    from it (150 launches), asserted the same way.
 7. Guided-decode kernel vs plain: the persistent kernel
    (``csrc/guided_decode.cu``) against its plain version on the same bf16
-   weights and N(0, 1) logits: B in {1, 8, 13, 256}, V in {97, 4096}, depth
-   2 and 4, raw and normalized mixing, temperature != 1. Every row's first
+   weights and N(0, 1) logits: B in {1, 8, 13, 256, 257}, V in {97, 4096,
+   4097}, depth 2 and 4, width 256 and the odd width 72 (H 4: Dh 18,
+   F 288), raw and normalized mixing, temperature != 1. Every row's first
    divergence from the plain tokens, and every position of the kernel's
    decode scored by the plain version teacher-forced on the kernel's
    tokens, must be a near-tie (DECODE_TIE_RTOL of the best score); each
@@ -105,9 +106,11 @@ no result line) on any error; no phase catches its own failure.
    plain version and its bound (bytes over 3.35 TB/s or the matmul FLOPs,
    bf16 products with f32 sums, over the bf16 tensor-core peak of 989
    TFLOP/s plus the attention's f32 FLOPs over 67 TFLOP/s, the larger; no
-   single PyTorch call computes it), the
-   cost of its grid barriers alone at its grid, and tokens/s of the exact
-   decode with the fused draft against the plain f32 scan.
+   single PyTorch call computes it), the chain floor (its grid barriers
+   alone, at its grid and count, with the kernel's own barrier and
+   cooperative_groups' grid.sync beside it), the mean time of each phase
+   from CTA 0's %globaltimer stamps, and tokens/s of the exact decode with
+   the fused draft against the plain f32 scan.
 13. Profiles: ``torch.profiler`` over a window of the sampler and over
    PROFILE_TRAIN_STEPS training steps: device time and kernels per step, the
    device's busy share, the kernels by device time.
@@ -610,13 +613,15 @@ def _mask_probes(seed) -> int:
     return bad
 
 
-def _tiny_gpt(vocab: int, depth: int, seed: int):
-    """A TinyGPT at the bench's width on the card, random weights from seed."""
+def _tiny_gpt(vocab: int, depth: int, seed: int, dim: int = DIM,
+              heads: int = HEADS):
+    """A TinyGPT of width ``dim`` and ``heads`` heads (the bench's by
+    default) on the card, random weights from seed."""
     import torch
 
     from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
 
-    cfg = TinyGPTConfig(vocab_size=vocab, dim=DIM, n_heads=HEADS, depth=depth,
+    cfg = TinyGPTConfig(vocab_size=vocab, dim=dim, n_heads=heads, depth=depth,
                         max_len=SEQ + 1)
     return TinyGPT(cfg, generator=torch.Generator().manual_seed(seed)).to(
         "cuda").eval()
@@ -673,22 +678,30 @@ def decode_kernel_vs_plain():
     from tinydiffusionmodels_torch.ops import decode_kernel as dk
 
     phase("guided-decode kernel vs plain (TF32 off)")
-    # name: (B, V, depth, normalize, temperature, launches)
+    # name: (B, V, depth, normalize, temperature, launches, width, heads);
+    # the odd width 72 (H 4: Dh 18, F 288) and B 257 cross the kernel's
+    # tiles; width 2304 with one head takes its rows in several K tiles and
+    # its head's output in 256-column passes
     cases = {
-        "b1_v97_d2": (1, 97, 2, False, 1.0, 4),
-        "b8_v4096_d4": (8, 4096, 4, False, 1.0, 1),
-        "b8_v4096_d4_norm": (8, 4096, 4, True, 1.0, 1),
-        "b13_v97_d4_norm_t0.7": (13, 97, 4, True, 0.7, 1),
-        "b13_v4096_d2_t1.5": (13, 4096, 2, False, 1.5, 1),
-        "b256_v4096_d4": (256, 4096, 4, False, 1.0, 1),
-        "b256_v97_d2_norm": (256, 97, 2, True, 1.0, 1),
+        "b1_v97_d2": (1, 97, 2, False, 1.0, 4, DIM, HEADS),
+        "b8_v4096_d4": (8, 4096, 4, False, 1.0, 1, DIM, HEADS),
+        "b8_v4096_d4_norm": (8, 4096, 4, True, 1.0, 1, DIM, HEADS),
+        "b13_v97_d4_norm_t0.7": (13, 97, 4, True, 0.7, 1, DIM, HEADS),
+        "b13_v4096_d2_t1.5": (13, 4096, 2, False, 1.5, 1, DIM, HEADS),
+        "b256_v4096_d4": (256, 4096, 4, False, 1.0, 1, DIM, HEADS),
+        "b256_v97_d2_norm": (256, 97, 2, True, 1.0, 1, DIM, HEADS),
+        "b8_v4097_d2_w72": (8, 4097, 2, False, 1.0, 1, 72, HEADS),
+        "b257_v4096_d4": (257, 4096, 4, False, 1.0, 1, DIM, HEADS),
+        "b3_v97_d1_w2304_h1": (3, 97, 1, False, 1.0, 1, 2304, 1),
     }
     worst_abs, stats = 0.0, {}
-    for i, (name, (b, v, depth, norm, temp, n)) in enumerate(cases.items()):
+    for i, (name, (b, v, depth, norm, temp, n, dim, heads)) in enumerate(
+            cases.items()):
         firsts, gap_first, gap_forced, off, positions = [], 0.0, 0.0, 0, 0
         for j in range(n):
             seed = 20 + 10 * i + j
-            w = dk.pack_weights(_tiny_gpt(v, depth, seed=seed))
+            w = dk.pack_weights(_tiny_gpt(v, depth, seed=seed, dim=dim,
+                                          heads=heads))
             g = torch.Generator(device="cuda").manual_seed(seed)
             diff = torch.randn(b, SEQ, v, generator=g, device="cuda")
             kw = dict(alpha=ALPHA, temperature=temp, normalize=norm)
@@ -1124,6 +1137,42 @@ def _decode_bound(b: int, seq_len: int, vocab: int, depth: int):
     return nbytes, b * seq_len * 2 * (depth * layer + d * vocab), b * attn
 
 
+def _decode_phases(w, diff, kw, depth: int) -> dict:
+    """Mean µs of each phase of one decode launch (QKV, attention,
+    projection, FC, MLP, head, and normalize's reduce), from CTA 0's
+    %globaltimer stamps: "total" from one barrier's release to the next
+    (the slowest CTA's work plus the barrier), and inside CTA 0's first
+    unit "stage" (its left factor), "mma" (the products), "epilogue" (to
+    the phase's end) and "wait" (arrival to release)."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import decode_kernel as dk
+
+    norm = kw["normalize"]
+    n = dk.barriers(depth, SEQ, norm)
+    stamps = torch.zeros(4 * (n + 1), dtype=torch.int64, device="cuda")
+    dk._launch(w, diff, 0, trace=stamps, **kw)
+    st = stamps.view(n + 1, 4).double().cpu()
+    names = (["stats"] if norm else []) + SEQ * (
+        ["qkv", "attn", "proj", "fc", "mlp"] * depth + ["head"]
+        + (["reduce"] if norm else []))
+    out = {}
+    for i, name in enumerate(names):
+        t0, (s1, s2, s3), t1 = st[i, 0], st[i, 1:].tolist(), st[i + 1, 0]
+        parts = {"total": t1 - t0}
+        if s1 > 0:
+            parts.update(stage=s1 - t0, mma=s2 - s1, epilogue=s3 - s2,
+                         wait=t1 - s3)
+        acc = out.setdefault(name, {})
+        for k, v in parts.items():
+            acc.setdefault(k, []).append(float(v) / 1e3)
+    res = {name: {k: round(sum(v) / len(v), 3) for k, v in parts.items()}
+           for name, parts in out.items()}
+    # CTA 0's SM clock over the launch: cycles over ns
+    res["sm_ghz"] = round(float(st[n, 1]) / float(st[n, 2] - st[0, 0]), 3)
+    return res
+
+
 def decode_timing(card: str) -> dict:
     """The decode kernel at the bench shape (TinyGPT V 4096, D 256, depth
     4, max_len 65, L 64, alpha 0.3, random weights and N(0, 1) logits), at
@@ -1163,14 +1212,19 @@ def decode_timing(card: str) -> dict:
                 perf.device_ms(kernel, iters=10, warmup=2)]
         p_ms.append(perf.device_ms(plain, iters=2, warmup=1))
         grid = dk._launch(w, diff, 0, **kw)[1]
-        syncs = SEQ * (5 * depth + 2) + 1
+        units = {ph: pp.units for ph, pp in dk.launch_plan(
+            w, b, torch.cuda.get_device_properties(0)
+            .multi_processor_count).phases.items()}
+        syncs = dk.barriers(depth, SEQ)
+        # The kernel's barrier alone, at its grid and count: the chain floor
         sync_ms = perf.device_ms(lambda: dk._grid_sync_probe(syncs, grid),
-                             iters=10, warmup=2)
+                                 iters=10, warmup=2)
+        phases_us = _decode_phases(w, diff, kw, depth)
         nbytes, mm_flops, attn_flops = _decode_bound(b, SEQ, vocab, depth)
         bound_ms, bound_by = perf.bound_ms(
             nbytes, [(mm_flops, "bf16"), (attn_flops, "f32")])
-        # The roof of the kernel as written (plain FP32 FMA, no tensor
-        # cores), beside the card's bound; not the bound.
+        # The same FLOPs at the FP32-FMA rate (the roof of a decode kernel
+        # without tensor cores), beside the card's bound; not the bound.
         fma_roof_ms = ((mm_flops + attn_flops)
                        / perf.device_peak_flops(dtype="f32") * 1e3)
         rates = {}
@@ -1190,7 +1244,9 @@ def decode_timing(card: str) -> dict:
         out[b] = dict(ms=k_mean, plain_ms=sum(p_ms) / 2, bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None,
                       fp32_fma_roof_ms=fma_roof_ms, grid=grid,
-                      barrier_ms=sync_ms, barrier_share=sync_ms / k_mean,
+                      units=units, phase_us=phases_us, barriers=syncs,
+                      barrier_ms=sync_ms,
+                      barrier_share=sync_ms / k_mean,
                       fused_verify_tokens_s=rates["fused"][0],
                       jacobi_rounds=rates["fused"][1],
                       plain_scan_tokens_s=rates["plain"][0])
@@ -1198,8 +1254,11 @@ def decode_timing(card: str) -> dict:
               f"ms by {bound_by} ({nbytes} B, {mm_flops} bf16 matmul FLOP, "
               f"{attn_flops} f32 attention FLOP), {k_mean / bound_ms:.0f}x; "
               f"FP32-FMA roof {fma_roof_ms} ms; grid {grid} "
-              f"CTAs, {syncs} barriers alone {sync_ms} ms = "
-              f"{sync_ms / k_mean:.3f} of the kernel; exact decode tokens/s: "
+              f"CTAs, units a phase {units}, mean us a phase (barrier "
+              f"included) {phases_us}; chain floor: {syncs} barriers "
+              f"alone {sync_ms} ms = {sync_ms / k_mean:.3f} of the kernel "
+              f"({sync_ms / syncs * 1e3:.3f} us a barrier); exact decode "
+              f"tokens/s: "
               f"fused+verify {rates['fused'][0]} ({rates['fused'][1]} Jacobi "
               f"rounds), plain f32 scan {rates['plain'][0]}; no single "
               f"PyTorch call computes this (library —); on {card}")
@@ -2160,8 +2219,16 @@ def main() -> None:
     timings["guided_decode"] = {
         **{k: bs8[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "fp32_fma_roof_ms")},
-        "at": "bs 8", "bs256": bs256,
+        "at": "bs 8",
+        "bs256": {k: v for k, v in bs256.items()
+                  if k not in ("grid", "units", "barriers")},
         "barrier_share_bs8": bs8["barrier_share"],
+        "bs8": {k: bs8[k] for k in ("barrier_ms", "phase_us",
+                                    "fused_verify_tokens_s", "jacobi_rounds",
+                                    "plain_scan_tokens_s")},
+        # from decode_kernel.plan and barriers(), not measured
+        **{f"{name}_plan": {k: t[k] for k in ("grid", "units", "barriers")}
+           for name, t in (("bs8", bs8), ("bs256", bs256))},
         "jacobi_rounds_main_path": rounds, "agreement_with_plain": agree,
         "vs_plain": decode_stats, "vs_plain_main_path": exact_stats,
     }

@@ -317,15 +317,32 @@ def test_dropout_seed_must_be_a_device_int32(cuda):
 
 DECODE_RTOL = 1e-2
 # name: (B, V, dim, depth, L, normalize, temperature)
+# B 1, 16, 17 and 257 cross the row tiles of the kernel's plan (16 rows a
+# unit); D 72 (H 4: Dh 18, F 288) leaves K and the head width off the k32
+# chunks and N off the 128-column groups, V 4097 off the n8 blocks; D 30
+# (H 2: Dh 15, F 120) takes the kernel's paths for D not a multiple of 4
+# and Dh not a multiple of 8; L 300 walks the attention's cache in two
+# chunks of scores; D 2304 (H 1) and 2302 (H 2: Dh 1151) stage their rows
+# in several K tiles and take a head's output 256 columns a pass, the
+# second with D not a multiple of 4. 4 heads unless the name says.
 DECODE_CASES = {
     "b8_v97_d64": (8, 97, 64, 2, 16, False, 1.0),
+    "b5_v97_d30_h2": (5, 97, 30, 2, 16, False, 1.0),
+    "b3_v97_d64_l300": (3, 97, 64, 1, 300, False, 1.0),
     "b13_v500_d256_norm": (13, 500, 256, 2, 32, True, 1.0),
     "b3_v4096_d256_t0.7": (3, 4096, 256, 1, 24, False, 0.7),
+    "b1_v97_d64": (1, 97, 64, 2, 16, False, 1.0),
+    "b16_v4097_d72": (16, 4097, 72, 2, 24, False, 1.0),
+    "b17_v500_d72_norm_t0.7": (17, 500, 72, 2, 24, True, 0.7),
+    "b257_v4096_d256": (257, 4096, 256, 1, 16, False, 1.0),
+    "b257_v97_d72_norm": (257, 97, 72, 2, 16, True, 1.0),
+    "b3_v97_d2304_h1": (3, 97, 2304, 1, 12, False, 1.0),
+    "b2_v97_d2302_h2": (2, 97, 2302, 1, 12, False, 1.0),
 }
 
 
-def _gpt(vocab, dim, depth, max_len, seed, device):
-    cfg = TinyGPTConfig(vocab_size=vocab, dim=dim, n_heads=4, depth=depth,
+def _gpt(vocab, dim, depth, max_len, seed, device, heads=4):
+    cfg = TinyGPTConfig(vocab_size=vocab, dim=dim, n_heads=heads, depth=depth,
                         max_len=max_len)
     return TinyGPT(cfg, generator=torch.Generator().manual_seed(seed)).to(
         device).eval()
@@ -334,7 +351,8 @@ def _gpt(vocab, dim, depth, max_len, seed, device):
 @pytest.mark.parametrize("name", sorted(DECODE_CASES))
 def test_decode_kernel_matches_plain(cuda, name):
     b, v, dim, depth, seq_len, norm, temp = DECODE_CASES[name]
-    w = dk.pack_weights(_gpt(v, dim, depth, seq_len + 1, 0, cuda))
+    heads = int(name.rsplit("_h", 1)[1]) if "_h" in name else 4
+    w = dk.pack_weights(_gpt(v, dim, depth, seq_len + 1, 0, cuda, heads))
     rng = np.random.default_rng(1)
     diff = torch.from_numpy(
         rng.standard_normal((b, seq_len, v), dtype=np.float32)).to(cuda)
@@ -360,6 +378,20 @@ def test_decode_launches_once_per_call(cuda):
     _, grid = dk._launch(dk.pack_weights(model), diff, 0, alpha=0.3,
                          temperature=1.0, normalize=False)
     assert dk.launches == before + 3 and grid >= 1
+
+
+@pytest.mark.parametrize("b, normalize", [(8, False), (64, True),
+                                          (256, False)])
+def test_decode_two_launches_identical(cuda, b, normalize):
+    """Split-K partials are added in a fixed order, never by float atomics:
+    two launches on the same inputs give the same tokens."""
+    w = dk.pack_weights(_gpt(4096, 256, 2, 33, 0, cuda))
+    rng = np.random.default_rng(2)
+    diff = torch.from_numpy(
+        rng.standard_normal((b, 32, 4096), dtype=np.float32)).to(cuda)
+    kw = dict(alpha=0.3, temperature=1.0, normalize=normalize)
+    first = dk.fused_guided_decode(w, diff, 0, **kw)
+    assert torch.equal(first, dk.fused_guided_decode(w, diff, 0, **kw))
 
 
 def test_decode_rejects_before_launch(cuda):
