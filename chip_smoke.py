@@ -139,7 +139,9 @@ no result line) on any error; no phase catches its own failure.
    3xTF32 in f32 or at the bf16 peak, against bytes at 3.35 TB/s; the
    FP32-FMA roof printed beside), and their sums over a UNet forward; then
    ``torch.profiler`` over PROFILE_STEPS MNIST sampler steps and over
-   PROFILE_TRAIN_STEPS MNIST training steps.
+   PROFILE_TRAIN_STEPS MNIST training steps; and over PROFILE_TRAIN_STEPS
+   bf16 steps of each trainer at the bench's bf16 batch, BF16_BATCH (512):
+   the text step at the bench's shape (vocab 4096) and the MNIST step.
 18. Single-block kernels vs plain (run after phase 14): the forward and
    the recompute backward of ``csrc/attention_single_block.cu`` at the
    shapes of SINGLE_BLOCK_CASES (the JAX package's test shapes, the
@@ -164,6 +166,31 @@ no result line) on any error; no phase catches its own failure.
    bound (bytes over 3.35 TB/s or the products as 3xTF32, the backward's
    five L x L x Dh products; the FP32-FMA roof printed beside).
 
+21. Main path, bf16 training (after phase 19): ``shakespeare.main([
+   "--train", "--dtype", "bf16", ...])`` at phase 5's width, batch and
+   corpus, asserted as phase 5 is, with every flash forward, dq and dk/dv
+   launch on bf16 operands, the strided views of one QKV projection (the
+   wrappers' launch functions wrapped to record dtype and layout); then ``mnist.main(["--train", "--dtype", "bf16",
+   ...])`` for MNIST_BF16_STEPS steps of batch 128, every resblock launch
+   bf16, the mean loss of the last quarter of the steps below the first's.
+   Both runs' checkpoints hold float32 tensors only.
+22. bf16 train step, card against CPU: one deterministic bf16 step of the
+   text model at the bench's bf16 shape with the batch cut to 64 (dim 256,
+   L 64, depth 3, vocab 4096; the same weights, tokens, t and noise) and
+   one of the UNet at batch 32: losses within LOSS_RTOL_BF16 (2e-2)
+   relative, each gradient within GRAD_RTOL_BF16 (5e-2) of the CPU bf16
+   gradient's largest magnitude plus the CPU bf16 gradient's own distance
+   from the CPU f32 one (``tests/test_torch_precision.py``'s rule, the CPU
+   in the JAX package's place), and ``perf.compiled_flops`` of each step
+   equal on both devices.
+23. Main path, the bench (last): ``python -m tinydiffusionmodels_torch.
+   bench --quick`` as a subprocess with TDM_BENCH_RETRIES=0 and
+   TDM_BENCH_QUIET_WAIT=0: its last line has ``bench.py``'s keys, all 14
+   metrics finite and > 0, mfu for every train and sample metric, and
+   launches of every kernel of its paths; ``valid`` is printed, not
+   asserted (the build raised the load average). Its launches count with
+   the main paths' in the kernels' record.
+
 The peaks, the bound and the timer are ``tinydiffusionmodels_torch.perf``'s.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``; before them, the command's time.
@@ -171,6 +198,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -268,6 +296,38 @@ _SINGLE_BLOCK_IDLE = {"attention_single_block_fwd": 0,
 MNIST_BATCH, MNIST_N, MNIST_IMAGES = 128, 25, 60_000
 MNIST_DDIM_STEPS = 50
 RESBLOCK_BATCHES = (1, 3, 25, 128)
+# bf16 training (phase a): MNIST steps of MNIST_BATCH; phase (b)'s
+# tolerances, those of tests/test_torch_precision.py: losses relative, and
+# gradients GRAD_RTOL_BF16 of the largest magnitude plus the reference's
+# own bf16 error.
+MNIST_BF16_STEPS = 64
+BF16_BATCH = 512        # the bench's bf16 training metrics, profiled
+LOSS_RTOL_BF16, GRAD_RTOL_BF16 = 2e-2, 5e-2
+# The bench (phase c): bench.py's schema, its 14 metrics, those with mfu.
+BENCH_TIMEOUT_S = 600
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "valid", "extra"}
+BENCH_EXTRA_KEYS = {
+    "backend", "device_kind", "peak_flops_bf16", "mnist_train_it_s_bs128",
+    "mnist_sample_samples_s_1000step_bs256", "mnist_train_vs_ref_t4_est",
+    "mnist_sample_vs_ref_t4_est", "shakespeare_sample_steps_s_bs8",
+    "shakespeare_sample_vs_t4_601", "guided_decode_tokens_s_bs8",
+    "guided_decode_tokens_s_bs256", "guided_fused_tokens_s_bs8",
+    "guided_fused_tokens_s_bs256", "guided_verified_tokens_s_bs8",
+    "guided_verified_tokens_s_bs256", "guided_spec_tokens_s_bs256",
+    "guided_exact_best_tokens_s_bs256",
+    "mnist_sample_dpmpp20_samples_s_bs256", "mnist_train_bs512_bf16_it_s",
+    "shakespeare_train_bs512_bf16_it_s", "mfu", "envelope", "provenance"}
+BENCH_METRICS = (
+    "shakespeare_train_it_s", "shakespeare_sample_steps_s",
+    "mnist_train_it_s", "mnist_sample_samples_s", "mnist_sample_dpmpp20_s",
+    "guided_tokens_s", "guided_tokens_s_bs256", "guided_fused_tokens_s",
+    "guided_fused_tokens_s_bs256", "guided_verified_tokens_s_bs8",
+    "guided_verified_tokens_s_bs256", "guided_spec_tokens_s_bs256",
+    "mnist_train_bs512_bf16_it_s", "shakespeare_train_bs512_bf16_it_s")
+BENCH_MFU_METRICS = {
+    "shakespeare_train_it_s", "shakespeare_sample_steps_s",
+    "mnist_train_it_s", "mnist_sample_samples_s", "mnist_sample_dpmpp20_s",
+    "mnist_train_bs512_bf16_it_s", "shakespeare_train_bs512_bf16_it_s"}
 
 
 def phase(name: str) -> None:
@@ -848,7 +908,8 @@ def main_path_train(card: str, dim: int = DIM, chars: int = TRAIN_CHARS,
           f"checkpoints)")
     print(f"training: {rate} steps/s ({result.steps} steps over "
           f"{result.seconds} s of step loop), bs={BATCH} seq={SEQ} dim={dim} "
-          f"depth={depth} dropout={DROPOUT} f32, on {card}")
+          f"depth={depth} dropout={DROPOUT} "
+          f"{'bf16' if 'bf16' in extra else 'f32'}, on {card}")
     return result, ckpt, counts, rate
 
 
@@ -1120,23 +1181,6 @@ def guided_exact(card: str, lm_ckpt: Path, ckpt: Path, z, rounding):
     return counts, rounds, agree, worst_abs, stats
 
 
-def _decode_bound(b: int, seq_len: int, vocab: int, depth: int):
-    """(bytes, matmul FLOPs, attention FLOPs) of one guided decode at the
-    bench width: every bf16 weight once, the token-table rows gathered, the
-    bf16 diffusion logits once, the int32 tokens written; the matmuls (bf16
-    weights times bf16-rounded activations, f32 sums: the bf16 tensor-core
-    operation) and the attention over slots <= pos (f32 queries and
-    probabilities against the bf16 cache: f32 operations), at 2 FLOPs per
-    multiply-add."""
-    d, f = DIM, 4 * DIM
-    layer = 3 * d * d + d * d + 2 * d * f
-    weights = depth * (layer + 3 * d + d + f + d + 4 * d) + d * vocab + 2 * d
-    weights += (seq_len + 1) * d + min(b * seq_len, vocab) * d
-    nbytes = 2 * weights + 2 * b * seq_len * vocab + 4 * b * seq_len
-    attn = 2 * 2 * d * depth * sum(p + 1 for p in range(seq_len))
-    return nbytes, b * seq_len * 2 * (depth * layer + d * vocab), b * attn
-
-
 def _decode_phases(w, diff, kw, depth: int) -> dict:
     """Mean µs of each phase of one decode launch (QKV, attention,
     projection, FC, MLP, head, and normalize's reduce), from CTA 0's
@@ -1220,7 +1264,7 @@ def decode_timing(card: str) -> dict:
         sync_ms = perf.device_ms(lambda: dk._grid_sync_probe(syncs, grid),
                                  iters=10, warmup=2)
         phases_us = _decode_phases(w, diff, kw, depth)
-        nbytes, mm_flops, attn_flops = _decode_bound(b, SEQ, vocab, depth)
+        nbytes, mm_flops, attn_flops = dk.work(w, b, SEQ)
         bound_ms, bound_by = perf.bound_ms(
             nbytes, [(mm_flops, "bf16"), (attn_flops, "f32")])
         # The same FLOPs at the FP32-FMA rate (the roof of a decode kernel
@@ -1381,18 +1425,11 @@ def kernel_timing(card: str) -> dict:
                                             retain_graph=True),
                 sdpa_bwd, "SDPA backward"),
         }
-        f32 = 4
-        n_qkv = b * l * h * d          # elements of each of q, k, v, O, dO
-        n_row = b * h * l              # lse and D
-        pairs = b * h * l * l          # (query, key) pairs
-        work = {  # (bytes read once and written once, f32 product FLOPs)
-            "flash_attention_fwd": ((4 * n_qkv + n_row) * f32 + 4,
-                                    2 * pairs * (d + d)),
-            "flash_attention_bwd_dq": ((5 * n_qkv + 2 * n_row) * f32 + 4,
-                                       2 * pairs * (d + d + d)),
-            "flash_attention_bwd_dkv": ((6 * n_qkv + 2 * n_row) * f32 + 4,
-                                        2 * pairs * (d + d + d + d)),
-        }
+        # (bytes read once and written once, f32 product FLOPs)
+        work = {name: fa.work(kind, q, k, v, **params)
+                for name, kind in (("flash_attention_fwd", "fwd"),
+                                   ("flash_attention_bwd_dq", "dq"),
+                                   ("flash_attention_bwd_dkv", "dkv"))}
         iters = 200 if l <= SEQ else 20
         at = f"B {b}, H {h}, L {l}, Dh {d}, f32, dropout {DROPOUT}"
         print(f"-- {at}")
@@ -1496,10 +1533,12 @@ def profile_sampler(model, wall_s_per_step: float, card: str) -> None:
     _profile_table(prof, PROFILE_STEPS, wall_s_per_step, card, "sampler")
 
 
-def profile_training(joint, card: str) -> None:
+def profile_training(joint, card: str, batch: int = BATCH,
+                     compute_dtype=None) -> None:
     """torch.profiler over PROFILE_TRAIN_STEPS optimizer steps of the
-    training path's own step function, after an unprofiled window of the
-    same length that gives the wall time per step."""
+    training path's own step function at ``batch`` in ``compute_dtype``,
+    after an unprofiled window of the same length that gives the wall time
+    per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1507,15 +1546,16 @@ def profile_training(joint, card: str) -> None:
     from tinydiffusionmodels_torch.train import text_train
     from tinydiffusionmodels_torch.train.optim import adamw
 
-    phase(f"profile: {PROFILE_TRAIN_STEPS} training steps under "
+    what = f"training (batch {batch}, {compute_dtype or 'f32'})"
+    phase(f"profile: {PROFILE_TRAIN_STEPS} steps of {what} under "
           "torch.profiler")
     optimizer = adamw(joint.parameters(), 1e-4, weight_decay=1e-4)
     gen = torch.Generator(device="cuda").manual_seed(5)
     vocab = joint["embedding_fn"].embeddings.weight.shape[0]
-    tokens = torch.randint(0, vocab, (BATCH, SEQ), generator=gen,
+    tokens = torch.randint(0, vocab, (batch, SEQ), generator=gen,
                            device="cuda")
     kw = dict(sched=make_schedule(device="cuda"), use_learned_embeddings=True,
-              pretrained_matrix=None)
+              pretrained_matrix=None, compute_dtype=compute_dtype)
 
     def steps(n):
         for _ in range(n):
@@ -1529,7 +1569,7 @@ def profile_training(joint, card: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         steps(PROFILE_TRAIN_STEPS)
-    _profile_table(prof, PROFILE_TRAIN_STEPS, wall, card, "training")
+    _profile_table(prof, PROFILE_TRAIN_STEPS, wall, card, what)
 
 
 def _resblock_args(name: str, b: int, seed: int, grad: bool = False):
@@ -1557,19 +1597,6 @@ def _resblock_args(name: str, b: int, seed: int, grad: bool = False):
         return args + [r(cout, cin, 1, 1, scale=1 / math.sqrt(cin)),
                        r(cout, scale=0.1)]
     return args + [None, None]
-
-
-def _resblock_work(args) -> tuple[int, int]:
-    """(bytes, FLOPs) of one block: every input read once and the output
-    written once, in the inputs' dtype; 2 FLOPs per multiply-add of both
-    3x3 convs and the 1x1 skip."""
-    x, w1 = args[0], args[1]
-    b, h, w, cin = x.shape
-    cout = w1.shape[0]
-    macs = b * h * w * (9 * cin * cout + 9 * cout * cout
-                        + (cin * cout if args[6] is not None else 0))
-    elements = sum(t.numel() for t in args if t is not None) + b * h * w * cout
-    return x.element_size() * elements, 2 * macs
 
 
 def resblock_kernel_vs_plain():
@@ -1816,7 +1843,7 @@ def resblock_timing(card: str) -> dict:
                 k_ms = [perf.device_ms(kernel), perf.device_ms(kernel)]
                 p_ms.append(perf.device_ms(plain))
                 cudnn_ms = _profiled_device_ms(plain)
-                nbytes, flops = _resblock_work(typed)
+                nbytes, flops = rb.work(*typed)
                 f32 = dtype == torch.float32
                 ops = (perf.f32_tensor_core_ops(flops) if f32
                        else [(flops, "bf16")])
@@ -1881,10 +1908,12 @@ def profile_mnist_sampler(model, wall_s_per_step: float, card: str) -> None:
                    "MNIST sampler")
 
 
-def profile_mnist_training(card: str) -> None:
+def profile_mnist_training(card: str, batch: int = MNIST_BATCH,
+                           compute_dtype=None) -> None:
     """torch.profiler over PROFILE_TRAIN_STEPS MNIST optimizer steps at
-    batch 128 (the training path's own step function), after an unprofiled
-    window of the same length that gives the wall time per step."""
+    ``batch`` in ``compute_dtype`` (the training path's own step function),
+    after an unprofiled window of the same length that gives the wall time
+    per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1893,18 +1922,20 @@ def profile_mnist_training(card: str) -> None:
     from tinydiffusionmodels_torch.train import mnist_train
     from tinydiffusionmodels_torch.train.optim import adamw
 
-    phase(f"profile: {PROFILE_TRAIN_STEPS} MNIST training steps (batch "
-          f"{MNIST_BATCH}) under torch.profiler")
+    what = f"MNIST training (batch {batch}, {compute_dtype or 'f32'})"
+    phase(f"profile: {PROFILE_TRAIN_STEPS} steps of {what} under "
+          "torch.profiler")
     model = SimpleUNet(generator=torch.Generator().manual_seed(6)).cuda()
     optimizer = adamw(model.parameters(), 1e-3, weight_decay=0.01)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    batch = torch.rand(MNIST_BATCH, 28, 28, 1, generator=gen,
-                       device="cuda") * 2 - 1
+    images = torch.rand(batch, 28, 28, 1, generator=gen,
+                        device="cuda") * 2 - 1
     sched = make_schedule(device="cuda")
 
     def steps(n):
         for _ in range(n):
-            mnist_train.train_step(model, optimizer, batch, sched, gen)
+            mnist_train.train_step(model, optimizer, images, sched, gen,
+                                   compute_dtype=compute_dtype)
         torch.cuda.synchronize()
 
     steps(5)
@@ -1914,7 +1945,7 @@ def profile_mnist_training(card: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         steps(PROFILE_TRAIN_STEPS)
-    _profile_table(prof, PROFILE_TRAIN_STEPS, wall, card, "MNIST training")
+    _profile_table(prof, PROFILE_TRAIN_STEPS, wall, card, what)
 
 
 # name: ((B, H, L, Dh), whether the backward is checked) of the single-block
@@ -2134,15 +2165,11 @@ def single_block_timing(card: str) -> dict:
             lambda: reference.single_block_attention_bwd(q, k, v, g),
             sdpa_fwd_bwd, "SDPA forward+backward"),
     }
-    n = q.numel()
-    pairs = b * h * length * length
-    work = {  # (bytes read once and written once, FP32 FLOPs)
-        # q, k, v in, O out; s = q k^T and p v.
-        "attention_single_block_fwd": (4 * n * 4, 2 * pairs * 2 * d),
-        # q, k, v, dO in, dq, dk, dv out; s, dp, dq, dk and dv. O is not
-        # needed: D = rowsum(dO O) = rowsum(round(p) dp).
-        "attention_single_block_bwd": (7 * n * 4, 2 * pairs * 5 * d),
-    }
+    # (bytes read once and written once, FP32 FLOPs): q, k, v in, O out,
+    # s = q k^T and p v; q, k, v, dO in, dq, dk, dv out, s, dp, dq, dk and
+    # dv (no O: D = rowsum(dO O) = rowsum(round(p) dp)).
+    work = {"attention_single_block_fwd": sb.work("fwd", q, k, v),
+            "attention_single_block_bwd": sb.work("bwd", q, k, v)}
     # The bound takes the f32 products as 3xTF32, the least time for them
     # on the card, as the flash rows do (the FP32-FMA roof is printed
     # beside); SDPA's own kernels' device time from the profiler, as its
@@ -2158,6 +2185,287 @@ def single_block_timing(card: str) -> dict:
         print(f"{name}: {timings[name]['profiler_ms']} ms of kernel time by "
               f"the profiler, on {card}")
     return timings
+
+
+@contextlib.contextmanager
+def _kernel_dtypes():
+    """Records the operand dtype and layout of every flash and resblock
+    kernel launch made inside (the wrappers' launch functions, wrapped):
+    yields a dict {(kernel, dtype, "strided" or "contiguous"): launches}
+    keyed by the first operand (q, or the block's x)."""
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import resblock as rb
+
+    seen = {}
+    originals = {(fa, "forward"): "flash_attention_fwd",
+                 (fa, "backward_dq"): "flash_attention_bwd_dq",
+                 (fa, "backward_dkv"): "flash_attention_bwd_dkv",
+                 (rb, "_launch"): "fused_resblock"}
+
+    def spy(fn, name):
+        def launch(x, *args, **kwargs):
+            key = (name, str(x.dtype).split(".")[-1],
+                   "contiguous" if x.is_contiguous() else "strided")
+            seen[key] = seen.get(key, 0) + 1
+            return fn(x, *args, **kwargs)
+        return launch
+
+    saved = {key: getattr(*key) for key in originals}
+    try:
+        for (module, attr), name in originals.items():
+            setattr(module, attr, spy(saved[(module, attr)], name))
+        yield seen
+    finally:
+        for (module, attr), fn in saved.items():
+            setattr(module, attr, fn)
+
+
+def _all_f32(tree, where: str) -> int:
+    """Asserts every floating tensor of a checkpoint (nested dicts) is
+    float32; returns how many there are."""
+    import torch
+
+    n = 0
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            n += _all_f32(value, f"{where}/{key}")
+        elif torch.is_tensor(value) and value.is_floating_point():
+            if value.dtype != torch.float32:
+                raise AssertionError(f"{where}/{key} is {value.dtype}")
+            n += 1
+    return n
+
+
+def main_path_bf16_train(card: str):
+    """Phase (a): ``shakespeare --train --dtype bf16`` at the bench's width
+    (dim 256, head width 64, batch 8) on the training corpus, asserted as
+    the f32 run is (launches, a falling loss, checkpoints), and every
+    flash launch on bf16 strided QKV views; then ``mnist --train --dtype
+    bf16`` on MNIST_BF16_STEPS batches of 128, every resblock launch bf16,
+    a falling loss. Both checkpoints hold float32 tensors only. Returns the launch
+    counts of both runs."""
+    import numpy as np
+    import torch
+
+    from tinydiffusionmodels_torch import mnist
+
+    with _kernel_dtypes() as seen:
+        _, ckpt, text_counts, _ = main_path_train(
+            card, extra=("--dtype", "bf16"), name="bf16_ckpt")
+    # q, k and v are the strided (B, L, H, Dh) views of one QKV projection.
+    want = {(k, "bfloat16", "strided"): text_counts[k] for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")}
+    if seen != want:
+        raise AssertionError(f"kernel launches by dtype {seen}, expected "
+                             f"{want}")
+    for path in (ckpt, ckpt.with_name("bf16_ckpt_best.pth")):
+        n = _all_f32(torch.load(path, weights_only=False), path.name)
+        print(f"{path.name}: {n} tensors, all float32")
+    print(f"bf16 text training: kernel launches by dtype {seen}")
+
+    phase(f"main path: mnist --train --dtype bf16 ({MNIST_BF16_STEPS} steps "
+          f"of batch {MNIST_BATCH}, synthetic digits)")
+    work = _prepare_mnist_workdir()
+    os.environ["TDM_DATA_LIMIT"] = str(MNIST_BF16_STEPS * MNIST_BATCH)
+    ckpt = work / "mnist_bf16_ckpt.pth"
+    ckpt.unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    _reset_counts()
+    with _kernel_dtypes() as seen:
+        result = mnist.main(["--train", "--dtype", "bf16", "--epochs", "1",
+                             "--batch_size", str(MNIST_BATCH), "--ckpt",
+                             str(ckpt), "--data_root", str(work / "data"),
+                             "--no_epoch_samples"])
+        torch.cuda.synchronize()
+    os.environ.pop("TDM_DATA_LIMIT")
+    mnist_counts = _counts()
+    expect = {name: 0 for name in mnist_counts}
+    expect["fused_resblock"] = MNIST_BF16_STEPS * 4
+    if mnist_counts != expect or seen != {
+            ("fused_resblock", "bfloat16", "contiguous"):
+            MNIST_BF16_STEPS * 4}:
+        raise AssertionError(f"launches {mnist_counts}, by dtype {seen}; "
+                             f"expected {expect}, all bf16")
+    losses = result.step_losses
+    window = MNIST_BF16_STEPS // 4
+    first, last = losses[:window].mean(), losses[-window:].mean()
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"bf16 MNIST losses: first {window} {first}, "
+                             f"last {window} {last}")
+    n = _all_f32(torch.load(ckpt, weights_only=False), ckpt.name)
+    print(f"bf16 MNIST training: launches {mnist_counts}, by dtype {seen}; "
+          f"mean loss first {window} steps {first}, last {window} {last}; "
+          f"{ckpt.name}: {n} tensors, all float32; "
+          f"{result.steps / result.seconds} steps/s, bs={MNIST_BATCH} bf16, "
+          f"on {card}")
+    return text_counts, mnist_counts
+
+
+def _close_bf16_grads(got: dict, want16: dict, want32: dict) -> float:
+    """``tests/test_torch_precision.py``'s bf16 gradient rule with the CPU
+    as the reference: each card gradient within GRAD_RTOL_BF16 of the CPU
+    bf16 gradient's largest magnitude plus the CPU bf16 gradient's own
+    distance from the CPU f32 one. Returns the worst error over its
+    allowance."""
+    worst = 0.0
+    for name, g in got.items():
+        g16, g32 = want16[name], want32[name]
+        scale = max(float(g16.abs().max()), 1e-12)
+        allowed = GRAD_RTOL_BF16 * scale + float((g16 - g32).abs().max())
+        err = float((g.cpu() - g16).abs().max())
+        if not err <= allowed:
+            raise AssertionError(f"{name}: card bf16 gradient off the CPU's "
+                                 f"by {err} > {allowed}")
+        worst = max(worst, err / allowed)
+    return worst
+
+
+def bf16_step_vs_cpu(card: str) -> None:
+    """Phase (b): one bf16 training step's losses and gradients on the card
+    against the CPU (plain versions), the same weights, tokens, t and
+    noise, no dropout: the text step at the bench's bf16 shape with the
+    batch cut to 64 (dim 256, L 64, depth 3, vocab 4096), then the MNIST
+    step at batch 32. Losses within LOSS_RTOL_BF16, gradients by
+    ``_close_bf16_grads``. Also ``perf.compiled_flops`` of each step is the
+    same on both devices."""
+    import copy
+
+    import torch
+    from torch import nn
+
+    from tinydiffusionmodels_torch import perf
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.core.diffusion import ddpm_loss
+    from tinydiffusionmodels_torch.models import (
+        LearnedEmbedding,
+        LearnedRounding,
+        SimpleUNet,
+        TinyTransformer,
+        TransformerConfig,
+    )
+    from tinydiffusionmodels_torch.train import text_train
+    from tinydiffusionmodels_torch.train.precision import in_dtype
+
+    phase("bf16 train step, card vs CPU (text at B 64, L 64, dim 256, "
+          "depth 3, vocab 4096; MNIST at B 32; no dropout)")
+    bf16, vocab, b = torch.bfloat16, 4096, 64
+    g = torch.Generator().manual_seed(21)
+    cfg = TransformerConfig(dim=DIM, n_heads=HEADS, depth=DEPTH, dropout=0.0)
+    joint = nn.ModuleDict({
+        "diffusion_model": TinyTransformer(cfg, generator=g),
+        "rounding_fn": LearnedRounding(DIM, vocab, generator=g),
+        "embedding_fn": LearnedEmbedding(vocab, DIM, generator=g)})
+    tokens = torch.randint(0, vocab, (b, SEQ), generator=g)
+    t = torch.randint(0, STEPS, (b,), generator=g)
+    noise = torch.randn(b, SEQ, DIM, generator=g)
+
+    def text_step(model, dev, dtype):
+        model.zero_grad(set_to_none=True)
+        total, (diff, round_) = text_train._losses(
+            model, tokens.to(dev), t.to(dev), noise.to(dev), 0.7,
+            sched=make_schedule(device=dev), use_learned_embeddings=True,
+            pretrained_matrix=None, deterministic=True, compute_dtype=dtype)
+        total.backward()
+        return (torch.stack([total, diff, round_]).detach().cpu(),
+                {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+    x = torch.randn(32, 28, 28, 1, generator=g).clamp(-1, 1)
+    t_img = torch.randint(0, STEPS, (32,), generator=g)
+    noise_img = torch.randn(32, 28, 28, 1, generator=g)
+    unet = SimpleUNet(generator=g)
+
+    def mnist_step(model, dev, dtype):
+        model.zero_grad(set_to_none=True)
+        loss = ddpm_loss(make_schedule(device=dev), in_dtype(model, dtype),
+                         x.to(dev), t_img.to(dev), noise_img.to(dev),
+                         compute_dtype=dtype)
+        loss.backward()
+        return (loss.detach().cpu()[None],
+                {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+    for what, model, step in (("text", joint, text_step),
+                              ("MNIST", unet, mnist_step)):
+        card_model = copy.deepcopy(model).cuda()
+        t0 = time.perf_counter()
+        losses, grads = step(card_model, "cuda", bf16)
+        losses16, grads16 = step(model, "cpu", bf16)
+        _, grads32 = step(model, "cpu", None)
+        loss_err = float(((losses - losses16).abs()
+                          / losses16.abs()).max())
+        if not loss_err <= LOSS_RTOL_BF16:
+            raise AssertionError(f"{what} bf16 losses {losses.tolist()} on "
+                                 f"the card, {losses16.tolist()} on the CPU")
+        worst = _close_bf16_grads(grads, grads16, grads32)
+        flops = [perf.compiled_flops(step, m, dev, bf16)
+                 for m, dev in ((card_model, "cuda"), (model, "cpu"))]
+        if flops[0] != flops[1]:
+            raise AssertionError(f"{what} step FLOPs {flops[0]} on the card,"
+                                 f" {flops[1]} on the CPU")
+        print(f"{what} bf16 step: losses card {losses.tolist()}, CPU "
+              f"{losses16.tolist()} (max relative difference {loss_err:.2e}, "
+              f"tol {LOSS_RTOL_BF16}); {len(grads)} gradients within the "
+              f"bf16 rule (worst at {worst:.3f} of its allowance); "
+              f"compiled_flops {flops[0]} on both devices; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+
+def main_path_bench(card: str) -> dict:
+    """Phase (c): ``python -m tinydiffusionmodels_torch.bench --quick`` as
+    a subprocess with TDM_BENCH_RETRIES=0 and TDM_BENCH_QUIET_WAIT=0. Its
+    last line must carry bench.py's keys and all 14 metrics finite and
+    > 0, mfu for the train and sample metrics; ``valid`` is printed, not
+    asserted (the kernel build just before raises the load average).
+    Returns the bench's kernel launches (its provenance)."""
+    import math
+
+    phase("main path: python -m tinydiffusionmodels_torch.bench --quick")
+    env = dict(os.environ, TDM_BENCH_RETRIES="0", TDM_BENCH_QUIET_WAIT="0")
+    env.pop("TDM_PLATFORM", None)
+    env.pop("TDM_DATA_LIMIT", None)
+    env["PYTHONPATH"] = str(REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tinydiffusionmodels_torch.bench", "--quick"],
+        cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    for line in proc.stderr.strip().splitlines()[-20:]:
+        print("  " + line)
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench exited {proc.returncode}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    keys, extra = set(line) - {"invalid_reasons", "loose_metrics"}, line[
+        "extra"]
+    if keys != BENCH_KEYS or set(extra) - {"metric_valid"} != (
+            BENCH_EXTRA_KEYS):
+        raise AssertionError(f"bench keys {sorted(line)}, extra "
+                             f"{sorted(extra)}")
+    envelope, mfu = extra["envelope"], extra["mfu"]
+    if sorted(envelope) != sorted(BENCH_METRICS):
+        raise AssertionError(f"bench metrics {sorted(envelope)}")
+    for name, (lo, mid, hi) in envelope.items():
+        if not all(math.isfinite(v) and v > 0 for v in (lo, mid, hi)):
+            raise AssertionError(f"{name}: envelope {[lo, mid, hi]}")
+    missing = BENCH_MFU_METRICS - set(mfu)
+    if missing or not all(0 <= v < 1 for v in mfu.values()):
+        raise AssertionError(f"mfu {mfu}, missing {sorted(missing)}")
+    if extra["backend"] != "cuda" or extra["device_kind"] != card:
+        raise AssertionError(f"bench backend {extra['backend']}, device "
+                             f"{extra['device_kind']}")
+    launches = extra["provenance"]["kernels"]
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "fused_resblock",
+                 "guided_decode"):
+        if not launches[name] > 0:
+            raise AssertionError(f"the bench launched no {name}: "
+                                 f"{launches}")
+    print(f"bench --quick: {seconds:.1f} s, valid {line['valid']} "
+          f"(reasons {line.get('invalid_reasons', [])}, loose "
+          f"{line.get('loose_metrics', [])}), kernel launches {launches}; "
+          f"on {card}")
+    print(json.dumps(line))
+    return launches
 
 
 def main() -> None:
@@ -2191,6 +2499,8 @@ def main() -> None:
     mnist_sample_counts, mnist_wall_per_step, unet = main_path_mnist_sample(
         card, mnist_ckpt)
     bench_counts, _, bench_seconds = main_path_kernel_bench(card)
+    bf16_text_counts, bf16_mnist_counts = main_path_bf16_train(card)
+    bf16_step_vs_cpu(card)
     device_vs_cpu(model)
     timings = kernel_timing(card)
     decode_times = decode_timing(card)
@@ -2202,6 +2512,15 @@ def main() -> None:
     profile_mnist_training(card)
     import torch
 
+    # The bench's bf16 training shapes (batch 512): host- or device-bound.
+    from tinydiffusionmodels_torch import bench
+
+    bf16 = torch.bfloat16
+    profile_training(bench._text_setup(BF16_BATCH, SEQ, DIM, depth=DEPTH,
+                                       vocab=4096, device="cuda")[1],
+                     card, BF16_BATCH, bf16)
+    profile_mnist_training(card, BF16_BATCH, bf16)
+    suite_counts = main_path_bench(card)
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib",
                                              "tinydiffusionmodels_tpu"))
@@ -2250,7 +2569,8 @@ def main() -> None:
              narrow_sample_counts, wide_train_counts, wide_sample_counts,
              gemma_train_counts, gemma_sample_counts, guided_counts,
              exact_counts,
-             mnist_train_counts, *mnist_sample_counts, bench_counts)
+             mnist_train_counts, *mnist_sample_counts, bench_counts,
+             bf16_text_counts, bf16_mnist_counts, suite_counts)
     record = []
     for name, (source, replaces) in KERNELS.items():
         entry = {

@@ -202,7 +202,6 @@ def test_port_rope_checkpoint_round_trip(workdir, capsys):
     pytest.param(["--train", "--resume"], id="--train"),
     # --guided_sample is ported with TinyGPT; the Hugging Face base LM is not.
     pytest.param(["--guided_sample", "--base_lm", "hf"], id="--guided_sample"),
-    pytest.param(["--train", "--dtype", "bf16"], id="--dtype bf16"),
     pytest.param(["--train", "--seq_parallel"], id="--seq_parallel"),
     pytest.param(["--sample", "--profile_dir", "prof"], id="--profile_dir"),
 ])
@@ -248,6 +247,36 @@ def test_train_writes_checkpoints_both_clis_sample(workdir, monkeypatch):
     (workdir / "samples" / "sample_0.txt").unlink()
     jax_cli.main(sample)
     assert (workdir / "samples" / "sample_0.txt").exists()
+
+
+def test_train_bf16_writes_f32_checkpoints(workdir, monkeypatch):
+    """``--train --dtype bf16``: one tiny epoch in bf16 on the CPU writes
+    f32 checkpoints, which the port's ``--sample`` and the JAX package's
+    reader load."""
+    from tinydiffusionmodels_tpu.io import load_checkpoint
+
+    monkeypatch.setenv("TDM_DATA_LIMIT", "2000")
+    (workdir / "empty").mkdir()
+    common = ["--model_id", "char", "--data_root", "empty", "--seq_len", "16",
+              "--ckpt", "b.pth"]
+    result = port_cli.main([
+        "--train", *common, "--dtype", "bf16", "--epochs", "1",
+        "--batch_size", "8", "--embed_dim", "32", "--depth", "1",
+        "--warmup_steps", "5",
+    ])
+    # 2000 chars -> 125 chunks of 16 -> 112 training (14 steps of 8).
+    assert result.steps == 14 and np.isfinite(result.step_losses).all()
+    assert all(p.dtype == torch.float32
+               for p in result.joint.parameters())
+    for path in ("b.pth", "b_best.pth"):
+        ckpt = load_checkpoint(path)
+        for part in ("diffusion_model", "rounding_fn", "embedding_fn"):
+            for key, value in ckpt[part].items():
+                assert np.asarray(value).dtype == np.float32, (path, key)
+    z = port_cli.main(["--sample", *common, "--n", "2", "--sampler", "ddim",
+                       "--steps", "3"])
+    assert tuple(z.shape) == (2, 16, 32) and z.dtype == torch.float32
+    assert torch.isfinite(z).all()
 
 
 def test_train_sample_at_embed_dim_48(workdir, monkeypatch):
@@ -502,9 +531,30 @@ def test_mnist_samples_jax_checkpoint(workdir):
     assert (workdir / "samples" / "samples.png").exists()
 
 
+def test_mnist_train_bf16_writes_f32_checkpoint(workdir, monkeypatch):
+    """``mnist --train --dtype bf16``: one tiny epoch in bf16 on the CPU
+    writes an f32 checkpoint that the port's ``--sample`` loads strict."""
+    from tinydiffusionmodels_tpu.io import load_checkpoint
+    from tinydiffusionmodels_torch import mnist as port_mnist
+
+    _write_mnist_idx(workdir / "digits")
+    monkeypatch.setenv("TDM_DATA_LIMIT", "32")
+    result = port_mnist.main([
+        "--train", "--dtype", "bf16", "--epochs", "1", "--batch_size", "16",
+        "--ckpt", "m.pth", "--data_root", "digits", "--no_epoch_samples",
+    ])
+    assert result.steps == 2 and np.isfinite(result.step_losses).all()
+    sd = load_checkpoint("m.pth")
+    assert all(np.asarray(v).dtype == np.float32 for v in sd.values())
+    for key, value in result.model.state_dict().items():
+        np.testing.assert_array_equal(sd[key], value.numpy())
+    x = port_mnist.main(["--sample", "--ckpt", "m.pth", "--sampler", "ddim",
+                         "--steps", "2"])
+    assert tuple(x.shape) == (25, 28, 28, 1) and torch.isfinite(x).all()
+
+
 @pytest.mark.parametrize("argv", [
     pytest.param(["--train", "--resume"], id="--resume"),
-    pytest.param(["--train", "--dtype", "bf16"], id="--dtype bf16"),
     pytest.param(["--sample", "--profile_dir", "prof"], id="--profile_dir"),
 ])
 def test_mnist_unported_modes_exit_nonzero(workdir, argv):

@@ -216,7 +216,9 @@ def test_packed_weights_decode_as_the_model(model):
 
 def test_auto_draft_is_the_kernel(model, monkeypatch):
     """No batch rule: ``auto`` drafts with the guided-decode kernel (its
-    plain version here) at any batch."""
+    plain version here) at any batch, the bench's 8 and 256 among them
+    (the bench found the fused draft ahead at 8 and no faster draft at
+    256)."""
     calls = []
     real = guided.fused_guided_decode
 
@@ -225,10 +227,10 @@ def test_auto_draft_is_the_kernel(model, monkeypatch):
         return real(*a, **k)
 
     monkeypatch.setattr(guided, "fused_guided_decode", spy)
-    for b in (2, 70):
+    for b in (2, 8, 70, 256):
         guided.guided_generate_verified(model, torch.from_numpy(_diff(8, b)),
                                         BOS, alpha=ALPHA)
-    assert calls == [2, 70]
+    assert calls == [2, 8, 70, 256]
     with pytest.raises(ValueError, match="unknown draft"):
         guided.guided_generate_verified(model, torch.from_numpy(_diff(8)),
                                         BOS, draft="spec")

@@ -263,6 +263,28 @@ def test_sampling_matches_jax(unet_pair, method, steps):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
 
 
+@pytest.mark.parametrize("steps", [5, 20])
+def test_dpmpp_sampling_matches_jax(unet_pair, steps):
+    """DPM-Solver++(2M) on the full 1000-step schedule (the bench's
+    ``mnist_sample_dpmpp20_s`` path) from the JAX sampler's x_T: the solver
+    draws no noise, so the two agree to float32 rounding, 1e-5 of the
+    samples' largest magnitude. The untrained UNet's x0 = (x - s eps) / a
+    divides by a = 0.0064 at t = 999, so the samples reach ~1e3 and a
+    last-bit difference of eps moves them by a few float32 ulps of that
+    (4.9e-4 absolute, 4.8e-7 of the magnitude, at 20 steps)."""
+    params, model = unet_pair
+    n, key = 2, jax.random.PRNGKey(13)
+    want = np.asarray(jax_train._sample_batch(
+        params, key, n_samples=n, method="dpm++", num_steps=steps,
+        timesteps=1000))
+    got = mnist_train.sample_images(
+        model, make_schedule(), n_samples=n, method="dpm++", num_steps=steps,
+        **_replayed(key, (n, 28, 28, 1), "dpm++", None))
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_checkpoints_cross_load(unet_pair, tmp_path, writer):
     """A .pth either package writes loads in the other, strict, with equal

@@ -144,3 +144,168 @@ def test_card_label_is_nvidia_smis_first_line(monkeypatch):
     assert perf.card_label() == "NVIDIA H100 80GB HBM3, 700.00 W"
     assert seen["cmd"] == ["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"]
+
+
+# --- kernel FLOP counts (each wrapper's ``work``) ---------------------------
+
+def _counted(fn, *args):
+    """FlopCounterMode's count of ``fn(*args)``, the plain version's own
+    operators, with no kernel-wrapper substitution."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    return counter.get_total_flops()
+
+
+def _qkv(b, h, lq, lk, dh, dv, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(b, h, lq, dh, generator=g),
+            torch.randn(b, h, lk, dh, generator=g),
+            torch.randn(b, h, lk, dv, generator=g))
+
+
+FLASH_SHAPES = [(2, 3, 16, 24, 8, 8), (1, 2, 40, 40, 16, 24)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_flash_work_is_the_flop_count_of_the_plain_version(kernel, shape):
+    """Within 1 % (the counts are exact): the forward against
+    ``reference.attention``, dq and dk/dv against ``attention_bwd_dq`` and
+    ``attention_bwd_dkv``, at dropout 0.1."""
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import reference
+
+    q, k, v = _qkv(*shape)
+    kw = dict(causal=False, layout="bhld", q_offset=0, k_offset=0,
+              dropout_rate=0.1, dropout_seed=3)
+    out, lse = reference.attention(q, k, v, **kw)
+    g_out = torch.randn_like(out)
+    delta = fa.backward_delta(out, g_out, None, "bhld")
+    plain = {"fwd": lambda: reference.attention(q, k, v, **kw),
+             "dq": lambda: reference.attention_bwd_dq(q, k, v, g_out, lse,
+                                                      delta, **kw),
+             "dkv": lambda: reference.attention_bwd_dkv(q, k, v, g_out, lse,
+                                                        delta, **kw)}
+    want = _counted(plain[kernel])
+    assert fa.work(kernel, q, k, v, **kw)[1] == pytest.approx(want, rel=0.01)
+
+
+def test_flash_work_counts_bytes_and_causal_pairs():
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+
+    b, h, l, d = 2, 3, 16, 8
+    q, k, v = _qkv(b, h, l, l, d, d)
+    n, rows = q.numel(), b * h * l
+    assert fa.work("fwd", q, k, v, dropout_rate=0.1)[0] == (
+        4 * n + rows) * 4 + 4
+    assert fa.work("dq", q, k, v)[0] == (5 * n + 2 * rows) * 4
+    assert fa.work("dkv", q, k, v)[0] == (6 * n + 2 * rows) * 4
+    # One tensor as q, k and v is read once; without the logsumexp.
+    assert fa.work("fwd", q, q, q, lse=False) == (2 * n * 4,
+                                                  2 * b * h * l * l * 2 * d)
+    # Causal: query i sees keys 0..i; with k_offset 4 the first 4 see none.
+    assert fa.pairs(b, h, l, l, causal=True) == b * h * l * (l + 1) // 2
+    assert fa.pairs(1, 1, 6, 6, causal=True, k_offset=4) == 0 + 0 + 0 + 0 + 1 + 2
+    with pytest.raises(ValueError, match="unknown flash kernel"):
+        fa.work("bwd", q, k, v)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 16, 8), (1, 2, 48, 32)])
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_single_block_work_is_the_flop_count_of_the_plain_version(kernel,
+                                                                  shape):
+    from tinydiffusionmodels_torch.ops import reference, single_block
+
+    q, k, v = _qkv(shape[0], shape[1], shape[2], shape[2], shape[3],
+                   shape[3])
+    g = torch.randn_like(q)
+    plain = {"fwd": lambda: reference.single_block_attention(q, k, v),
+             "bwd": lambda: reference.single_block_attention_bwd(q, k, v, g)}
+    want = _counted(plain[kernel])
+    assert single_block.work(kernel, q, k, v)[1] == pytest.approx(want,
+                                                                  rel=0.01)
+
+
+@pytest.mark.parametrize("b, hw, cin, cout", [(2, 14, 32, 64), (3, 28, 96, 32),
+                                              (1, 14, 64, 64)])
+def test_resblock_work_is_the_flop_count_of_the_plain_version(b, hw, cin,
+                                                              cout):
+    from tinydiffusionmodels_torch.ops import reference, resblock
+
+    g = torch.Generator().manual_seed(0)
+    args = [torch.randn(b, hw, hw, cin, generator=g),
+            torch.randn(cout, cin, 3, 3, generator=g), torch.randn(cout),
+            torch.randn(cout, cout, 3, 3, generator=g), torch.randn(cout),
+            torch.randn(b, 1, 1, cout)]
+    args += ([torch.randn(cout, cin, 1, 1), torch.randn(cout)]
+             if cin != cout else [None, None])
+    nbytes, flops = resblock.work(*args)
+    assert flops == pytest.approx(_counted(reference.fused_resblock, *args),
+                                  rel=0.01)
+    assert nbytes == 4 * (sum(t.numel() for t in args if t is not None)
+                          + b * hw * hw * cout)
+
+
+@pytest.mark.parametrize("b, vocab, depth", [(2, 97, 1), (3, 64, 2)])
+def test_decode_work_matmuls_are_the_flop_count_of_the_plain_version(
+        b, vocab, depth):
+    """FlopCounterMode sees the plain decode's matmuls (its attention is
+    elementwise products and sums, which it does not count): they equal
+    the analytic matmul FLOPs."""
+    from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
+    from tinydiffusionmodels_torch.ops import decode_kernel, reference
+
+    seq_len = 5
+    cfg = TinyGPTConfig(vocab_size=vocab, dim=32, n_heads=4, depth=depth,
+                        max_len=seq_len + 1)
+    w = decode_kernel.pack_weights(TinyGPT(cfg))
+    diff = torch.randn(b, seq_len, vocab)
+    nbytes, mm, attn = decode_kernel.work(w, b, seq_len)
+    want = _counted(lambda: reference.fused_guided_decode(w, diff, 0))
+    assert mm == pytest.approx(want, rel=0.01)
+    assert attn == b * 2 * 2 * 32 * depth * sum(range(1, seq_len + 1))
+    assert nbytes > 2 * b * seq_len * vocab
+
+
+def test_compiled_flops_counts_each_kernel_call_once():
+    """Operators outside the kernels as the counter sees them; each kernel
+    call by its analytic count in place of its plain version's operators:
+    causal attention counts the visible pairs, not the dense products the
+    plain version forms, and the backward is the dq and dk/dv kernels'."""
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+
+    b, h, l, d = 2, 2, 12, 8
+    x = torch.randn(b, h, l, d)
+    w = torch.randn(d, d, requires_grad=True)
+
+    def step():
+        q = x @ w
+        out = fa.flash_attention(q, q, q, causal=True)
+        out.sum().backward()
+
+    proj = 2 * b * h * l * d * d
+    kw = dict(causal=True)
+    q = x @ w
+    kernels = sum(fa.work(kind, q, q, q, **kw)[1]
+                  for kind in ("fwd", "dq", "dkv"))
+    # the projection forward, and its weight gradient x^T dq
+    assert perf.compiled_flops(step) == 2 * proj + kernels
+    pairs = b * h * l * (l + 1) // 2
+    # forward 2 products, dq 3, dk/dv 4, each of width d
+    assert kernels == 2 * pairs * 9 * d
+    assert kernels < sum(fa.work(kind, q, q, q)[1]
+                         for kind in ("fwd", "dq", "dkv"))
+
+
+def test_compiled_flops_of_the_decode_counts_its_attention():
+    from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
+    from tinydiffusionmodels_torch.ops import decode_kernel
+
+    cfg = TinyGPTConfig(vocab_size=50, dim=16, n_heads=2, depth=1, max_len=5)
+    w = decode_kernel.pack_weights(TinyGPT(cfg))
+    diff = torch.randn(2, 4, 50)
+    _, mm, attn = decode_kernel.work(w, 2, 4)
+    assert perf.compiled_flops(decode_kernel.fused_guided_decode, w, diff,
+                               0) == mm + attn

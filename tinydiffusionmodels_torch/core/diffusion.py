@@ -114,9 +114,17 @@ def ddpm_loss(
     x_start: torch.Tensor,
     t: torch.Tensor,
     noise: torch.Tensor,
+    *,
+    compute_dtype=None,
 ) -> torch.Tensor:
     """Epsilon-prediction MSE (reference src/mnist.py:154-158):
-    mean((denoise_fn(q_sample(x_start, t, noise), t) - noise)^2)."""
+    mean((denoise_fn(q_sample(x_start, t, noise), t) - noise)^2).
+
+    ``compute_dtype`` (bf16) casts ``x_noisy`` before ``denoise_fn``, whose
+    caller casts its parameters (``train/precision.py``); the MSE is taken
+    in f32 against the f32 noise."""
     x_noisy = q_sample(sched, x_start, t, noise)
+    if compute_dtype is not None:
+        x_noisy = x_noisy.to(compute_dtype)
     eps_pred = denoise_fn(x_noisy, t)
-    return torch.mean((eps_pred - noise) ** 2)
+    return torch.mean((eps_pred.float() - noise) ** 2)

@@ -129,10 +129,7 @@ def bench_resblock(shapes=RESBLOCK_SHAPES, *, device=None, iters=ITERS,
                      _randn((cout,), device, 10 * i + 7, 0.1)]
         else:
             args += [None, None]
-        flops = (2 * b * h * w * 9 * (cin * cout + cout * cout)
-                 + (2 * b * h * w * cin * cout if cin != cout else 0))
-        nbytes = 4 * (sum(t.numel() for t in args if t is not None)
-                      + b * h * w * cout)
+        nbytes, flops = resblock.work(*args)
         label = f"resblock B{b} {h}x{w} {cin:3d}->{cout:3d}"
         for impl, fn in (("plain", reference.fused_resblock),
                          ("kernel", resblock.fused_resblock)):
@@ -168,7 +165,9 @@ def _bench_attention(shapes, *, device, iters, warmup,
     rows = []
     for b, h, length, dh in shapes:
         x = _randn((b, h, length, dh), device, 1).requires_grad_(with_grad)
-        flops = 4 * b * h * length * length * dh * (3 if with_grad else 1)
+        # x read once, the output written once (no logsumexp)
+        nbytes, flops = flash_attention.work("fwd", x, x, x, lse=False)
+        flops *= 3 if with_grad else 1
         label = (f"{'attn-grad' if with_grad else 'attention'} B{b} H{h} "
                  f"L{length:5d} Dh{dh}")
         for impl, attn in _attention_impls(length <= SINGLE_BLOCK_MAX_L):
@@ -177,7 +176,7 @@ def _bench_attention(shapes, *, device, iters, warmup,
             with torch.set_grad_enabled(with_grad):
                 rows.append(_time(
                     mode, (b, h, length, dh), impl, fn, label=label,
-                    nbytes=2 * x.numel() * 4, flops=flops, peak="3xtf32",
+                    nbytes=nbytes, flops=flops, peak="3xtf32",
                     device=device, iters=iters, warmup=warmup))
     return rows
 
@@ -206,10 +205,10 @@ def bench_attention_bf16(shapes=BF16_SHAPES, *, device=None, iters=ITERS,
     rows = []
     for b, h, length, dh in shapes:
         x = _randn((b, h, length, dh), device, 1).bfloat16().requires_grad_()
-        flops = 4 * b * h * length * length * dh
+        nbytes, flops = flash_attention.work("fwd", x, x, x, lse=False)
         mb = b * h * length * length * 4 / 2**20
         label = f"attn-bf16 B{b} H{h} L{length:5d} ({mb:5.0f}MB f32-scores)"
-        common = dict(label=label, nbytes=2 * x.numel() * 2, peak="bf16",
+        common = dict(label=label, nbytes=nbytes, peak="bf16",
                       device=device, iters=iters, warmup=warmup)
         for impl, attn in _attention_impls(False):
             with torch.no_grad():

@@ -11,8 +11,10 @@ reference's bare state dict, which the JAX CLI reads; ``--sample`` reads a
 checkpoint either CLI wrote and writes ``samples/samples.png``, with
 ``--sampler ancestral|ddim|dpm++`` and ``--steps``. It runs on the GPU
 unless ``TDM_PLATFORM=cpu``; every residual block is one launch of the CUDA
-kernel there. ``--resume``, ``--dtype bf16`` and ``--profile_dir`` are not
-yet ported and exit non-zero.
+kernel there. ``--train --dtype bf16`` trains in bf16
+(``train/precision.py``: the parameters are cast inside the loss, the
+weights, AdamW's state and the checkpoint stay f32). ``--resume`` and
+``--profile_dir`` are not yet ported and exit non-zero.
 """
 
 from __future__ import annotations
@@ -87,7 +89,6 @@ def main(argv=None):
     the (25, 28, 28, 1) samples of ``--sample``, or both as a pair."""
     args = build_parser().parse_args(argv)
     for flag, given in (("--resume", args.resume),
-                        ("--dtype bf16", args.dtype == "bf16"),
                         ("--profile_dir", args.profile_dir)):
         if given:
             raise SystemExit(f"{flag} {_NOT_PORTED}")
@@ -97,6 +98,7 @@ def main(argv=None):
 
     from tinydiffusionmodels_torch.runtime import device
     from tinydiffusionmodels_torch.train import mnist_train
+    from tinydiffusionmodels_torch.train.precision import resolve_compute_dtype
 
     dev = device()
     result = samples = None
@@ -110,6 +112,7 @@ def main(argv=None):
             sample_every_epoch=not args.no_epoch_samples,
             metrics_path=args.metrics_path,
             ema_decay=args.ema_decay,
+            compute_dtype=resolve_compute_dtype(args.dtype),
             device=dev,
         )
     if args.sample:

@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from tinydiffusionmodels_torch import perf
 from tinydiffusionmodels_torch.ops import _build, reference
 
 # Launches of the kernel made by this process: incremented once per launch
@@ -271,6 +272,25 @@ def plan(b: int, vocab: int, d: int, heads: int, ffn: int,
                       stat_off + stat)
 
 
+def work(w: DecodeWeights, b: int, seq_len: int) -> tuple[int, int, int]:
+    """(bytes, matmul FLOPs, attention FLOPs) of one decode of ``b`` rows
+    and ``seq_len`` positions with the weights ``w``: every bf16 weight
+    read once (the position table whole, the token table's rows gathered,
+    at most one a decoded token), the bf16 diffusion logits once, the
+    int32 tokens written; the matmuls (bf16 weights times bf16-rounded
+    activations, f32 sums: the bf16 tensor-core operation) and the
+    attention over slots <= pos (f32 queries and probabilities against the
+    bf16 cache: f32 operations), at 2 FLOPs per multiply-add."""
+    vocab, d = w.tok_emb.shape
+    depth, f = w.fc_w.shape[0], w.fc_w.shape[2]
+    layer = 3 * d * d + d * d + 2 * d * f
+    weights = depth * (layer + 3 * d + d + f + d + 4 * d) + d * vocab + 2 * d
+    weights += w.pos_emb.shape[0] * d + min(b * seq_len, vocab) * d
+    nbytes = 2 * weights + 2 * b * seq_len * vocab + 4 * b * seq_len
+    attn = 2 * 2 * d * depth * sum(p + 1 for p in range(seq_len))
+    return nbytes, b * seq_len * 2 * (depth * layer + d * vocab), b * attn
+
+
 def fused_guided_decode(lm, diff_logits: torch.Tensor, bos: int, *,
                         alpha: float = 0.5, temperature: float = 1.0,
                         normalize: bool = False) -> torch.Tensor:
@@ -281,13 +301,15 @@ def fused_guided_decode(lm, diff_logits: torch.Tensor, bos: int, *,
     caller. One kernel launch on the card; the plain version on the CPU."""
     w = lm if isinstance(lm, DecodeWeights) else pack_weights(lm)
     kw = dict(alpha=alpha, temperature=temperature, normalize=normalize)
-    if diff_logits.device.type == "cpu":
-        return reference.fused_guided_decode(w, diff_logits, bos, **kw)
-    if diff_logits.device.type != "cuda":
+    if diff_logits.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(
             f"the guided decode has no path for {diff_logits.device.type} "
             "tensors")
-    return _launch(w, diff_logits, bos, **kw)[0]
+    b, seq_len = diff_logits.shape[:2]
+    with perf.kernel_call(lambda: sum(work(w, b, seq_len)[1:])):
+        if diff_logits.device.type == "cpu":
+            return reference.fused_guided_decode(w, diff_logits, bos, **kw)
+        return _launch(w, diff_logits, bos, **kw)[0]
 
 
 def _check(w: DecodeWeights, diff: torch.Tensor, bos: int) -> None:

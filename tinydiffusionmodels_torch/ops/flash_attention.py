@@ -26,10 +26,12 @@ become the ``torch.autograd.Function``s
 ((out, lse); ``flash_attention_with_lse``, whose lse gradient folds into
 the backward's D term). Both backwards launch the dq and dkv kernels.
 
-Dispatch is on the tensor's device alone. A CPU tensor goes to the plain
-PyTorch version (``ops/reference.py``), whose backward is its autograd; a
-CUDA tensor launches the kernels or raises. There is no fallback from one to
-the other.
+Dispatch is on the tensor's device alone, for each kernel: a CPU tensor
+goes to its plain PyTorch version (``reference.attention``,
+``attention_bwd_dq`` and ``attention_bwd_dkv``), a CUDA tensor launches the
+kernel or raises. There is no fallback from one to the other. The autograd
+Functions are the same on both devices, and ``work`` gives the bytes and
+FLOPs of each kernel's call (``perf``'s bounds and FLOP counts).
 
 The kernels are compiled with ``nvcc`` at first use, from the sources in
 ``csrc/`` only, by ``ops/_build.py``, which every wrapper shares. Nothing is
@@ -41,8 +43,10 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
+from tinydiffusionmodels_torch import perf
 from tinydiffusionmodels_torch.ops import _build, reference
 
 # Kernel launches made by this process, one counter per kernel: each is
@@ -99,6 +103,50 @@ def _dims(q, k, v, layout: str) -> tuple[int, int, int, int, int, int]:
     else:
         b, lq, h, dh = q.shape
     return b, h, lq, k.shape[2 if layout == "bhld" else 1], dh, v.shape[-1]
+
+
+def pairs(b: int, h: int, lq: int, lk: int, *, causal: bool = False,
+          q_offset: int = 0, k_offset: int = 0) -> int:
+    """(query, key) pairs the kernels compute: every pair, or with
+    ``causal`` those where ``q_offset + i >= k_offset + j`` (the kernels
+    skip the rest)."""
+    if not causal:
+        return b * h * lq * lk
+    visible = np.clip(q_offset - k_offset + 1 + np.arange(lq), 0, lk)
+    return b * h * int(visible.sum())
+
+
+KERNELS = ("fwd", "dq", "dkv")
+
+
+def work(kernel: str, q, k, v, *, layout: str = "bhld", causal: bool = False,
+         q_offset: int = 0, k_offset: int = 0, dropout_rate: float = 0.0,
+         lse: bool = True, **_) -> tuple[int, int]:
+    """(bytes, FLOPs) of one call of ``kernel`` ('fwd', 'dq' or 'dkv') on
+    these operands, with ``attention``'s keyword arguments: every input read
+    once (a tensor passed as more than one of q, k and v counts once; the
+    dropout seed 4 bytes), every output written once (``lse=False``: the
+    forward's logsumexp is not an output of the call), in the operands'
+    dtype and float32 for lse and D; and 2 FLOPs per multiply-add of the
+    products the kernel's function needs over ``pairs``: the forward S =
+    q k^T and P v; dq S, dP = dO v^T and dS k; dk/dv S, dP, P^T dO and
+    dS^T q (P is not an input, so both backward kernels form S)."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown flash kernel {kernel!r}")
+    b, h, lq, lk, dh, dv = _dims(q, k, v, layout)
+    size = q.element_size()
+    operands = {x.data_ptr(): x.numel() for x in (q, k, v)}
+    nbytes = size * sum(operands.values()) + (4 if dropout_rate > 0 else 0)
+    rows = 4 * b * h * lq                         # lse or D, float32
+    n = pairs(b, h, lq, lk, causal=causal, q_offset=q_offset,
+              k_offset=k_offset)
+    if kernel == "fwd":
+        nbytes += size * b * h * lq * dv + (rows if lse else 0)
+        return nbytes, 2 * n * (dh + dv)
+    nbytes += size * b * h * lq * dv + 2 * rows   # dO; lse and D
+    if kernel == "dq":
+        return nbytes + size * b * h * lq * dh, 2 * n * (2 * dh + dv)
+    return nbytes + size * b * h * lk * (dh + dv), 2 * n * (2 * dh + 2 * dv)
 
 
 def _check_cuda_operands(q, k, v, layout: str) -> None:
@@ -226,31 +274,49 @@ def backward_dkv(q, k, v, g_out, lse, delta, dk, dv, **kw) -> None:
     dkv_launches += 1
 
 
+def _forward(q, k, v, dropout_seed, params):
+    """(out, lse): the forward kernel on the card, its plain version on the
+    CPU (no autograd record)."""
+    with perf.kernel_call(lambda: work("fwd", q, k, v, **params)[1]):
+        if q.device.type == "cpu":
+            with torch.no_grad():
+                return reference.attention(q, k, v, dropout_seed=dropout_seed,
+                                           **params)
+        return forward(q, k, v, dropout_seed=dropout_seed, **params)
+
+
 def _save(ctx, q, k, v, dropout_seed, params):
-    """Forward kernel for an autograd Function; saves its residuals."""
-    out, lse = forward(q, k, v, dropout_seed=dropout_seed, **params)
-    ctx.save_for_backward(q, k, v, out, lse, dropout_seed)
-    ctx.params = params
+    """Forward for an autograd Function; saves its residuals."""
+    out, lse = _forward(q, k, v, dropout_seed, params)
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.seed, ctx.params = dropout_seed, params
     ctx.set_materialize_grads(False)
     return out, lse
 
 
 def _backward(ctx, g_out, g_lse):
-    """dq, dk and dv from the dq and dkv kernels (``_flash_bwd_impl``); a
-    None cotangent is a zero one."""
-    q, k, v, out, lse, seed = ctx.saved_tensors
-    params = ctx.params
+    """dq, dk and dv from the dq and dkv kernels (``_flash_bwd_impl``), or
+    on the CPU their plain versions; a None cotangent is a zero one."""
+    q, k, v, out, lse = ctx.saved_tensors
+    params, seed = ctx.params, ctx.seed
     if g_out is None:
         g_out = torch.zeros_like(out)
     elif g_out.dtype != q.dtype or g_out.stride(-1) != 1:
         g_out = g_out.to(q.dtype).contiguous()
     delta = backward_delta(out, g_out, g_lse, params["layout"])
-    # Gradients take the strides of q, k and v where those are dense, else
-    # the contiguous layout of the same logical shape.
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     kw = dict(params, dropout_seed=seed)
-    backward_dq(q, k, v, g_out, lse, delta, dq, **kw)
-    backward_dkv(q, k, v, g_out, lse, delta, dk, dv, **kw)
+    with perf.kernel_call(lambda: sum(work(name, q, k, v, **params)[1]
+                                      for name in ("dq", "dkv"))):
+        if q.device.type == "cpu":
+            dq = reference.attention_bwd_dq(q, k, v, g_out, lse, delta, **kw)
+            dk, dv = reference.attention_bwd_dkv(q, k, v, g_out, lse, delta,
+                                                 **kw)
+            return dq, dk, dv, None, None
+        # Gradients take the strides of q, k and v where those are dense,
+        # else the contiguous layout of the same logical shape.
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        backward_dq(q, k, v, g_out, lse, delta, dq, **kw)
+        backward_dkv(q, k, v, g_out, lse, delta, dk, dv, **kw)
     return dq, dk, dv, None, None
 
 
@@ -280,28 +346,25 @@ class _FlashAttentionLse(torch.autograd.Function):
 
 
 def _attention(q, k, v, *, with_lse: bool, dropout_seed, **params):
-    """Dispatch on the device of q: the plain version on the CPU, the
-    kernels (through the autograd Function when a gradient is wanted) on
-    the card."""
+    """Dispatch on the device of q: the plain versions on the CPU, the
+    kernels on the card; through the autograd Function when a gradient is
+    wanted."""
     if params["dropout_rate"] > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
-    if q.device.type == "cpu":
-        out, lse = reference.attention(q, k, v, dropout_seed=dropout_seed,
-                                       **params)
-        return (out, lse) if with_lse else out
-    if q.device.type != "cuda":
+    if q.device.type == "cuda":
+        _check_cuda_operands(q, k, v, params["layout"])
+        if params["dropout_rate"] > 0.0:
+            _check_seed(dropout_seed, q)
+        else:
+            dropout_seed = None
+    elif q.device.type != "cpu":
         raise NotImplementedError(
             f"flash attention has no path for {q.device.type} tensors"
         )
-    _check_cuda_operands(q, k, v, params["layout"])
-    if params["dropout_rate"] > 0.0:
-        _check_seed(dropout_seed, q)
-    else:
-        dropout_seed = None
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         fn = _FlashAttentionLse if with_lse else _FlashAttention
         return fn.apply(q, k, v, dropout_seed, params)
-    out, lse = forward(q, k, v, dropout_seed=dropout_seed, **params)
+    out, lse = _forward(q, k, v, dropout_seed, params)
     return (out, lse) if with_lse else out
 
 

@@ -5,8 +5,11 @@ to what the flash kernels compute: the output and the per-row float32
 logsumexp, an optional causal predicate on global positions, values whose
 width may differ from the keys', and the TPU flash kernel's attention-weight
 dropout with its coordinate-hash mask (``dropout_scale``). The CPU tests and
-the CPU path of the models run this, forward and (by autograd) backward;
-``chip_smoke.py`` holds the CUDA kernels against it on the card.
+the CPU path of the models run this forward; ``chip_smoke.py`` holds the
+CUDA kernels against it and its autograd on the card.
+``attention_bwd_dq`` and ``attention_bwd_dkv`` are the plain versions of
+the flash backward kernels (``ops/flash_attention.py``), the CPU path's
+backward.
 
 ``fused_guided_decode`` is the plain version of the guided-decode kernel
 (``ops/decode_kernel.py``, ``csrc/guided_decode.cu``),
@@ -124,6 +127,74 @@ def attention(
     return out, lse
 
 
+def _bwd_probs(q, k, lse, *, causal, q_offset, k_offset):
+    """The backward kernels' recompute of P from (B, H, L, D) operands: the
+    forward's scores (the causal mask at float32's lowest value) and
+    P = exp(S - lse); also the keep predicate (None when not causal) and
+    the positions."""
+    lq, lk = q.shape[-2], k.shape[-2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(
+        q.shape[-1])
+    q_pos = q_offset + torch.arange(lq, device=q.device)
+    k_pos = k_offset + torch.arange(lk, device=q.device)
+    keep = None
+    if causal:
+        keep = q_pos[:, None] >= k_pos[None, :]
+        s = s.masked_fill(~keep, torch.finfo(torch.float32).min)
+    return torch.exp(s - lse[..., None]), keep, q_pos, k_pos
+
+
+def _attention_bwd(q, k, v, g_out, lse, delta, *, causal, layout, q_offset,
+                   k_offset, dropout_rate, dropout_seed, want):
+    """dq (``want`` 'dq') or (dk, dv) ('dkv') of ``attention`` as the flash
+    backward kernels compute them: P recomputed from q, k and the forward's
+    lse, dP = (dO V^T) * mask, dS = P (dP - D) zeroed where the causal
+    predicate masks a key, with D = ``delta`` (rowsum(dO O) - the lse
+    cotangent, from the forward's stored output); every product in float32,
+    each gradient in its operand's dtype and layout."""
+    if layout == "blhd":
+        q, k, v, g_out = (a.transpose(1, 2) for a in (q, k, v, g_out))
+    b, h = q.shape[:2]
+    p, keep, q_pos, k_pos = _bwd_probs(q, k, lse, causal=causal,
+                                       q_offset=q_offset, k_offset=k_offset)
+    mask = None
+    if dropout_rate > 0.0:
+        bh = torch.arange(b * h, device=q.device).reshape(b, h, 1, 1)
+        mask = dropout_scale(dropout_seed, bh, q_pos[:, None],
+                             k_pos[None, :], dropout_rate)
+    g = g_out.float()
+    dp = torch.matmul(g, v.float().transpose(-1, -2))
+    if mask is not None:
+        dp = dp * mask
+    ds = p * (dp - delta[..., None])
+    if keep is not None:
+        ds = ds.masked_fill(~keep, 0.0)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if want == "dq":
+        grads = (torch.matmul(ds, k.float()) * scale).to(q.dtype),
+    else:
+        w = p if mask is None else p * mask
+        grads = ((torch.matmul(ds.transpose(-1, -2), q.float()) * scale).to(
+            k.dtype), torch.matmul(w.transpose(-1, -2), g).to(v.dtype))
+    if layout == "blhd":
+        grads = tuple(x.transpose(1, 2) for x in grads)
+    return grads
+
+
+def attention_bwd_dq(q, k, v, g_out, lse, delta, **params) -> torch.Tensor:
+    """Plain version of the flash dq kernel (``pallas_kernels.
+    _flash_dq_kernel``): dq from q, k, v, the output cotangent ``g_out``,
+    the forward's (B, H, Lq) float32 ``lse`` and ``delta`` (D), with
+    ``attention``'s keyword arguments."""
+    return _attention_bwd(q, k, v, g_out, lse, delta, want="dq", **params)[0]
+
+
+def attention_bwd_dkv(q, k, v, g_out, lse, delta, **params):
+    """Plain version of the flash dk/dv kernel (``pallas_kernels.
+    _flash_dkv_kernel``): (dk, dv), as ``attention_bwd_dq``."""
+    return _attention_bwd(q, k, v, g_out, lse, delta, want="dkv", **params)
+
+
 def _single_block_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(Dh)) in float32, as the TPU kernels form it:
     float32 scores times the scale, max-subtracted exp, normalised."""
@@ -154,17 +225,16 @@ def single_block_attention_bwd(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, g: torch.Tensor):
     """Plain version of the single-block recompute backward
     (``pallas_kernels._attention_bwd_kernel``): (dq, dk, dv) for the output
-    cotangent ``g``, in q's dtype. It recomputes p and a float32 O from
-    q, k and v alone, takes D = rowsum(g O) from that O (not from the
-    forward's stored output), and rounds ds to k's and q's dtype and p to
-    g's dtype before the three products, as the TPU kernel does. Written
-    out, not autograd of the forward, because autograd would not round
-    ds."""
+    cotangent ``g``, in q's dtype. It recomputes p from q and k alone,
+    takes D = rowsum(g O) of the recomputed float32 O = round(p) v (not the
+    forward's stored output) as rowsum(round(p) dp), which needs no O, and
+    rounds ds to k's and q's dtype and p to g's dtype before the three
+    products, as the TPU kernel does. Written out, not autograd of the
+    forward, because autograd would not round ds."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = _single_block_probs(q, k)
-    o = torch.matmul(_rounded(p, v.dtype), v.float())
-    d = (g.float() * o).sum(-1, keepdim=True)
     dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    d = (_rounded(p, v.dtype) * dp).sum(-1, keepdim=True)
     ds = p * (dp - d)
     dq = torch.matmul(_rounded(ds, k.dtype), k.float()) * scale
     dk = torch.matmul(_rounded(ds, q.dtype).transpose(-1, -2), q.float())
@@ -276,6 +346,19 @@ def full_f32_convs():
         torch.backends.cudnn.allow_tf32 = allow
 
 
+def _resblock(x, w1, b1, w2, b2, time_bias, ws, bs, round_h=None):
+    """The block's arithmetic in its operands' dtype; ``round_h`` rounds h
+    to that dtype (and back to float32) before conv2."""
+    xc = x.permute(0, 3, 1, 2)
+    h = F.relu(F.conv2d(xc, w1, b1, padding=1))
+    h = h + time_bias.permute(0, 3, 1, 2)
+    if round_h is not None:
+        h = h.to(round_h).float()
+    h = F.relu(F.conv2d(h, w2, b2, padding=1))
+    skip = xc if ws is None else F.conv2d(xc, ws, bs)
+    return (h + skip).permute(0, 2, 3, 1)
+
+
 def fused_resblock(x, w1, b1, w2, b2, time_bias, ws=None, bs=None):
     """Plain version of the fused residual block (``xla_ref.fused_resblock``,
     reference src/mnist.py:56-61):
@@ -293,16 +376,19 @@ def fused_resblock(x, w1, b1, w2, b2, time_bias, ws=None, bs=None):
     the bfloat16 values, h rounded to bfloat16 before conv2, the output
     rounded to bfloat16."""
     dtype = x.dtype
+    args = (x, w1, b1, w2, b2, time_bias, ws, bs)
     if dtype == torch.bfloat16:
-        x, w1, b1, w2, b2, time_bias, ws, bs = (
-            None if t is None else t.float()
-            for t in (x, w1, b1, w2, b2, time_bias, ws, bs))
+        args = (None if t is None else t.float() for t in args)
     with full_f32_convs():
-        xc = x.permute(0, 3, 1, 2)
-        h = F.relu(F.conv2d(xc, w1, b1, padding=1))
-        h = h + time_bias.permute(0, 3, 1, 2)
-        if dtype == torch.bfloat16:
-            h = h.to(dtype).float()
-        h = F.relu(F.conv2d(h, w2, b2, padding=1))
-        skip = xc if ws is None else F.conv2d(xc, ws, bs)
-        return (h + skip).permute(0, 2, 3, 1).to(dtype)
+        return _resblock(*args, round_h=dtype if dtype == torch.bfloat16
+                         else None).to(dtype)
+
+
+def resblock_in_dtype(x, w1, b1, w2, b2, time_bias, ws=None, bs=None):
+    """The block computed in its operands' dtype, as ``xla_ref.
+    fused_resblock`` computes it: what the kernel's backward differentiates
+    (``jax.vjp(xla_ref.fused_resblock, ...)`` in the JAX package), so bf16
+    operands get bf16 convolutions and bf16 gradients. Float32 convolutions
+    in full float32. In float32 it is ``fused_resblock``."""
+    with full_f32_convs():
+        return _resblock(x, w1, b1, w2, b2, time_bias, ws, bs)

@@ -15,7 +15,9 @@ threshold; the JAX package's routing of this op to XLA on the TPU
 backward is the JAX package's ``_fused_resblock_bwd``: it differentiates the
 plain version (recomputed under autograd) for x, every weight and bias and
 the time bias. The JAX package has no backward kernel for this block, so
-neither has the port.
+neither has the port. As ``jax.vjp(xla_ref.fused_resblock, ...)``, the
+backward computes in the operands' dtype (``reference.resblock_in_dtype``):
+bf16 convolutions and bf16 gradients for bf16 operands.
 
 The kernel takes float32 or bfloat16, every tensor argument in x's dtype.
 It accumulates in float32; in bfloat16 it rounds h to bfloat16 before the
@@ -30,6 +32,7 @@ import math
 
 import torch
 
+from tinydiffusionmodels_torch import perf
 from tinydiffusionmodels_torch.ops import _build, reference
 
 # Launches of the kernel made by this process: incremented once per launch
@@ -57,6 +60,19 @@ def tile_for(b: int, h: int, w: int) -> int:
     small, wide = TILES
     ctas = b * -(-h // wide) * -(-w // wide)
     return wide if ctas >= WIDE_TILE_CTAS else small
+
+
+def work(x, w1, b1, w2, b2, time_bias, ws=None, bs=None) -> tuple[int, int]:
+    """(bytes, FLOPs) of one call on these arguments: every input read once
+    and the output written once, in the inputs' dtype; 2 FLOPs per
+    multiply-add of both 3x3 convs and the 1x1 skip."""
+    b, h, w, cin = x.shape
+    cout = w1.shape[0]
+    macs = b * h * w * (9 * cin * cout + 9 * cout * cout
+                        + (cin * cout if ws is not None else 0))
+    elements = sum(t.numel() for t in (x, w1, b1, w2, b2, time_bias, ws, bs)
+                   if t is not None) + b * h * w * cout
+    return x.element_size() * elements, 2 * macs
 
 
 def _check(x, w1, b1, w2, b2, time_bias, ws, bs) -> None:
@@ -133,16 +149,17 @@ def _launch(x, w1, b1, w2, b2, time_bias, ws=None, bs=None, *,
     return out
 
 
-def _forward(x, w1, b1, w2, b2, time_bias, ws, bs) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return reference.fused_resblock(x, w1, b1, w2, b2, time_bias, ws, bs)
-    return _launch(x, w1, b1, w2, b2, time_bias, ws, bs)
+def _forward(*args) -> torch.Tensor:
+    with perf.kernel_call(lambda: work(*args)[1]):
+        if args[0].device.type == "cpu":
+            return reference.fused_resblock(*args)
+        return _launch(*args)
 
 
 class _FusedResblock(torch.autograd.Function):
     """``pallas_kernels.fused_resblock``'s custom VJP: the kernel (or, on
     the CPU, the plain version) forward; the backward differentiates the
-    plain version, recomputed from the saved inputs."""
+    block in the operands' dtype, recomputed from the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, time_bias, ws, bs):
@@ -152,10 +169,10 @@ class _FusedResblock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         need = ctx.needs_input_grad
-        with torch.enable_grad(), reference.full_f32_convs():
+        with torch.enable_grad():
             leaves = [None if t is None else t.detach().requires_grad_(n)
                       for t, n in zip(ctx.saved_tensors, need)]
-            out = reference.fused_resblock(*leaves)
+            out = reference.resblock_in_dtype(*leaves)
             wrt = [t for t, n in zip(leaves, need) if n and t is not None]
             grads = iter(torch.autograd.grad(out, wrt, g))
         return tuple(next(grads) if n and t is not None else None

@@ -39,6 +39,7 @@ import math
 
 import torch
 
+from tinydiffusionmodels_torch import perf
 from tinydiffusionmodels_torch.ops import _build, flash_attention, reference
 
 # Kernel launches made by this process: each is incremented once per launch
@@ -139,6 +140,22 @@ def backward(q, k, v, g) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return dq, dk, dv
 
 
+def work(kernel: str, q, k, v) -> tuple[int, int]:
+    """(bytes, FLOPs) of one call of ``kernel`` ('fwd' or 'bwd') on
+    distinct (B, H, L, Dh) operands: every input read once and every output
+    written once in their dtype; 2 FLOPs per multiply-add. The forward reads
+    q, k and v, writes O, and forms s = q k^T and p v; the backward reads
+    q, k, v and dO, writes dq, dk and dv, and forms s, dp, dq, dk and dv
+    (no O: D = rowsum(dO O) = rowsum(round(p) dp))."""
+    b, h, length, dh = q.shape
+    n, pairs = q.numel(), b * h * length * length
+    if kernel == "fwd":
+        return 4 * n * q.element_size(), 2 * pairs * 2 * dh
+    if kernel == "bwd":
+        return 7 * n * q.element_size(), 2 * pairs * 5 * dh
+    raise ValueError(f"unknown single-block kernel {kernel!r}")
+
+
 class _SingleBlockAttention(torch.autograd.Function):
     """``_attention_diffable``: the forward kernel, and the recompute
     backward kernel from the residuals q, k and v alone (no output, no
@@ -147,18 +164,20 @@ class _SingleBlockAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
         ctx.save_for_backward(q, k, v)
-        if q.device.type == "cpu":
-            return reference.single_block_attention(q, k, v)
-        return forward(q, k, v)
+        with perf.kernel_call(lambda: work("fwd", q, k, v)[1]):
+            if q.device.type == "cpu":
+                return reference.single_block_attention(q, k, v)
+            return forward(q, k, v)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         if g.dtype != q.dtype or g.stride(-1) != 1:
             g = g.to(q.dtype).contiguous()
-        if q.device.type == "cpu":
-            return reference.single_block_attention_bwd(q, k, v, g)
-        return backward(q, k, v, g)
+        with perf.kernel_call(lambda: work("bwd", q, k, v)[1]):
+            if q.device.type == "cpu":
+                return reference.single_block_attention_bwd(q, k, v, g)
+            return backward(q, k, v, g)
 
 
 def single_block_attention(q: torch.Tensor, k: torch.Tensor,

@@ -82,26 +82,75 @@ def device_hbm_bandwidth(device=None) -> float | None:
     return _lookup(_HBM_BW, name) if name else None
 
 
-def compiled_flops(fn, *args, **kwargs) -> float | None:
-    """FLOPs of one call of ``fn(*args, **kwargs)`` as
-    ``torch.utils.flop_counter.FlopCounterMode`` counts them (matmuls,
-    convolutions, attention; 2 FLOPs per multiply-add); None when it counts
-    none.
+class _Count:
+    """One ``compiled_flops`` count in progress: its counter, the kernels'
+    analytic FLOPs, and the FLOPs the counter saw inside kernel-wrapper
+    calls (taken out again)."""
 
-    The counter sees only PyTorch operators. It does not see the port's
-    kernels, which are launched through ctypes, so the kernels take analytic
-    counts (``kernel_bench.py``, ``chip_smoke.py``)."""
+    def __init__(self, counter):
+        self.counter = counter
+        self.kernels = 0.0
+        self.inside = 0
+
+
+# The counts in progress, innermost last (empty outside compiled_flops).
+_counts: list[_Count] = []
+
+
+class kernel_call:
+    """Context manager around one kernel-wrapper call (the kernel's launch
+    on the card, its plain version on the CPU). Inside a ``compiled_flops``
+    count the call counts as ``flops()``, the kernel's analytic FLOPs, and
+    whatever operators the counter sees inside it (the plain version's, on
+    the CPU) are taken out, so a count is the same on both devices. Outside
+    a count it does nothing, and ``flops`` is not called."""
+
+    def __init__(self, flops):
+        self.flops = flops
+        self.count = None
+
+    def __enter__(self):
+        if _counts:
+            self.count = _counts[-1]
+            self.before = self.count.counter.get_total_flops()
+        return self
+
+    def __exit__(self, *exc):
+        if self.count is not None:
+            self.count.inside += (self.count.counter.get_total_flops()
+                                  - self.before)
+            self.count.kernels += self.flops()
+        return False
+
+
+def compiled_flops(fn, *args, **kwargs) -> float | None:
+    """FLOPs of one call of ``fn(*args, **kwargs)``: the PyTorch operators
+    as ``torch.utils.flop_counter.FlopCounterMode`` counts them (matmuls,
+    convolutions, attention; 2 FLOPs per multiply-add), plus, for every
+    kernel-wrapper call made inside, the kernel's analytic count (each
+    wrapper's ``work``) in place of what the counter sees of it. The
+    counter cannot see the kernels, which launch through ctypes, and on the
+    CPU it would see their plain versions instead, so this way the count is
+    the same on both devices. None when it counts nothing."""
     from torch.utils.flop_counter import FlopCounterMode
 
     with FlopCounterMode(display=False) as counter:
-        fn(*args, **kwargs)
-    flops = counter.get_total_flops()
+        count = _Count(counter)
+        _counts.append(count)
+        try:
+            fn(*args, **kwargs)
+        finally:
+            _counts.pop()
+    flops = counter.get_total_flops() - count.inside + count.kernels
     return float(flops) if flops > 0 else None
 
 
 def mfu(flops_per_unit: float | None, units_per_sec: float,
         device=None, dtype: str = "bf16") -> float | None:
-    """Achieved FLOP/s over peak FLOP/s; None when either side is unknown."""
+    """Achieved FLOP/s over peak FLOP/s; None when either side is unknown.
+    The peak is the dense bf16 tensor-core one unless ``dtype`` says
+    otherwise, whatever dtype the work ran in, as the JAX bench's ``mfu``
+    divides by its chip's bf16 peak."""
     peak = device_peak_flops(device, dtype=dtype)
     if peak is None or flops_per_unit is None:
         return None

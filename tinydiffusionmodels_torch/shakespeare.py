@@ -22,9 +22,11 @@ or ``auto`` when no Hugging Face LM loads), loaded from ``--lm_ckpt`` (the
 JAX CLI's format) or trained and saved there when that file is missing or
 stale (another vocabulary, too short a position table). It runs on the GPU
 unless ``TDM_PLATFORM=cpu``; attention runs through the CUDA flash kernels
-there, forward and backward. ``--base_lm hf``, ``--seq_parallel``,
-``--profile_dir``, ``--resume`` and ``--dtype bf16`` are not yet ported and
-exit non-zero.
+there, forward and backward. ``--train --dtype bf16`` trains in bf16
+(``train/precision.py``: the parameters are cast inside the loss, the
+masters, AdamW's state and the checkpoints stay f32). ``--base_lm hf``,
+``--seq_parallel``, ``--profile_dir`` and ``--resume`` are not yet ported
+and exit non-zero.
 """
 
 from __future__ import annotations
@@ -226,8 +228,7 @@ def main(argv=None):
                          args.guided_sample and args.base_lm == "hf"),
                         ("--seq_parallel", args.seq_parallel),
                         ("--profile_dir", args.profile_dir),
-                        ("--resume", args.resume),
-                        ("--dtype bf16", args.dtype == "bf16")):
+                        ("--resume", args.resume)):
         if given:
             raise SystemExit(f"{flag} {_NOT_PORTED}")
 
@@ -323,6 +324,9 @@ def main(argv=None):
     use_cosine_fallback = args.use_cosine_fallback
     if args.train:
         from tinydiffusionmodels_torch.train import text_train
+        from tinydiffusionmodels_torch.train.precision import (
+            resolve_compute_dtype,
+        )
 
         joint = torch.nn.ModuleDict({
             "diffusion_model": TinyTransformer(cfg, generator=init_gen),
@@ -359,6 +363,7 @@ def main(argv=None):
             embed_norm=args.embed_norm,
             freeze_embeddings=args.freeze_embeddings,
             anchor_ce=args.anchor_ce,
+            compute_dtype=resolve_compute_dtype(args.dtype),
         )
         model = result.joint["diffusion_model"]
         rounding = result.joint["rounding_fn"]

@@ -50,6 +50,7 @@ from tinydiffusionmodels_torch.runtime import device as runtime_device
 from tinydiffusionmodels_torch.sample.ancestral import sample_loop
 from tinydiffusionmodels_torch.train.metrics import MetricsLogger
 from tinydiffusionmodels_torch.train.optim import adamw
+from tinydiffusionmodels_torch.train.precision import in_dtype
 from tinydiffusionmodels_torch.train.text_train import _generator
 
 IMAGE_SHAPE = (28, 28, 1)
@@ -57,23 +58,29 @@ IMAGE_SHAPE = (28, 28, 1)
 
 def optimizer_step(model: nn.Module, optimizer, batch: torch.Tensor,
                    t: torch.Tensor, noise: torch.Tensor,
-                   sched: DiffusionSchedule) -> torch.Tensor:
+                   sched: DiffusionSchedule, *,
+                   compute_dtype=None) -> torch.Tensor:
     """One AdamW step on ``ddpm_loss`` at the given timesteps and noise;
-    returns the loss, still on the device."""
-    loss = ddpm_loss(sched, model, batch, t, noise)
+    returns the loss, still on the device. ``compute_dtype`` (bf16) runs the
+    UNet forward and backward in bf16 on parameters cast inside the loss;
+    the parameters and AdamW's state stay f32."""
+    loss = ddpm_loss(sched, in_dtype(model, compute_dtype), batch, t, noise,
+                     compute_dtype=compute_dtype)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     optimizer.step()
     return loss.detach()
 
 
-def train_step(model, optimizer, batch, sched, generator) -> torch.Tensor:
+def train_step(model, optimizer, batch, sched, generator, *,
+               compute_dtype=None) -> torch.Tensor:
     """``optimizer_step`` with timesteps and noise drawn on the batch's
     device from ``generator``."""
     t = torch.randint(0, sched.timesteps, (batch.shape[0],),
                       generator=generator, device=batch.device)
     noise = torch.randn(batch.shape, generator=generator, device=batch.device)
-    return optimizer_step(model, optimizer, batch, t, noise, sched)
+    return optimizer_step(model, optimizer, batch, t, noise, sched,
+                          compute_dtype=compute_dtype)
 
 
 def ema_update(ema: nn.Module, model: nn.Module, decay: float) -> None:
@@ -157,6 +164,7 @@ def train(
     data_root: str = "./data",
     metrics_path: str | None = None,
     ema_decay: float | None = None,
+    compute_dtype=None,
     device=None,
     log_fn=print,
 ) -> TrainResult:
@@ -167,7 +175,9 @@ def train(
     ``ema_decay`` (e.g. 0.999) keeps an exponential moving average of the
     weights, updated after every step; the per-epoch grids and the final
     checkpoint then use it. The metrics record's ``loss`` is the epoch's
-    mean step loss."""
+    mean step loss. ``compute_dtype=torch.bfloat16`` trains in bf16
+    (``optimizer_step``); the weights, AdamW's state, the EMA, the sample
+    grids and the checkpoint stay f32."""
     dev = runtime_device() if device is None else torch.device(device)
     ckpt_path = (get_vertex_checkpoint_path("image-model.pth")
                  if "AIP_MODEL_DIR" in os.environ else ckpt_path)
@@ -204,7 +214,7 @@ def train(
         losses = []
         for i in range(order.shape[0]):
             losses.append(train_step(model, optimizer, data[order[i]], sched,
-                                     gen))
+                                     gen, compute_dtype=compute_dtype))
             if ema is not None:
                 ema_update(ema, model, ema_decay)
             if progress_every and (i + 1) % progress_every == 0:

@@ -49,6 +49,7 @@ from tinydiffusionmodels_torch.train.optim import (
     dynamic_rounding_weight_schedule,
     freeze_subtree,
 )
+from tinydiffusionmodels_torch.train.precision import in_dtype
 
 
 def _clamp_to_embedding(x0_hat, rounding, emb_table):
@@ -58,7 +59,8 @@ def _clamp_to_embedding(x0_hat, rounding, emb_table):
 
 
 def _token_ce(rounding, x, token_ids) -> torch.Tensor:
-    """Mean cross-entropy of the rounding head's logits on ``x``."""
+    """Mean cross-entropy of the rounding head's logits on ``x``, reduced
+    in f32."""
     logp = F.log_softmax(rounding(x).float(), dim=-1)
     return -torch.gather(logp, -1, token_ids[..., None]).mean()
 
@@ -81,9 +83,16 @@ def _losses(
     embed_norm: str = "none",
     freeze_embeddings: bool = False,
     anchor_ce: float = 0.0,
+    compute_dtype=None,
 ):
     """Joint diffusion + rounding loss (reference src/shakespeare.py:224-243);
     returns (total, (diffusion_loss, rounding_loss)).
+
+    ``compute_dtype=torch.bfloat16`` runs the denoiser and the rounding head
+    in bf16, as the JAX package does: their parameters, ``x_noisy`` and
+    ``x0`` are cast before them, the predicted x0 before the anchor CE. The
+    embedding table, its normalisation and the lookup, the clamp and every
+    loss stay f32, and the gradients reach the f32 parameters.
 
     ``t`` (B,) and ``noise`` (B, L, dim) are arguments, as in the JAX
     package, so a test can feed both packages the same values.
@@ -120,6 +129,12 @@ def _losses(
     norm_table = _apply_norm(emb_w, embed_norm)
     x0 = norm_table[token_ids]
     x_noisy = q_sample(sched, x0, t, noise)
+    denoise = in_dtype(model, compute_dtype)
+    rounding_c = in_dtype(rounding, compute_dtype)
+    x0_c = x0
+    if compute_dtype is not None:
+        x_noisy = x_noisy.to(compute_dtype)
+        x0_c = x0.to(compute_dtype)
 
     def to_x0(x, pred):
         if parameterization == "x0":
@@ -134,8 +149,8 @@ def _losses(
             # Gradient-free estimate pass with the zeros channel (eval-mode
             # dropout: how the sampler produces the estimate).
             with torch.no_grad():
-                pred1 = model(x_noisy, t, deterministic=True,
-                              x0_prev=torch.zeros_like(x_noisy)).float()
+                pred1 = denoise(x_noisy, t, deterministic=True,
+                                x0_prev=torch.zeros_like(x_noisy)).float()
                 x0_prev = to_x0(x_noisy.float(), pred1)
                 if clamp_train:
                     x0_prev = _clamp_to_embedding(x0_prev, rounding,
@@ -143,8 +158,8 @@ def _losses(
         else:
             x0_prev = torch.zeros(x_noisy.shape, device=x_noisy.device)
 
-    pred = model(x_noisy, t, deterministic=deterministic,
-                 generator=generator, x0_prev=x0_prev)
+    pred = denoise(x_noisy, t, deterministic=deterministic,
+                   generator=generator, x0_prev=x0_prev)
     target = x0 if parameterization == "x0" else noise
     pred_f32 = pred.float()
     if clamp_train:
@@ -158,11 +173,13 @@ def _losses(
     else:
         diffusion_loss = torch.mean(torch.square(pred_f32 - target))
 
-    rounding_loss = _token_ce(rounding, x0, token_ids)
+    rounding_loss = _token_ce(rounding_c, x0_c, token_ids)
     total = diffusion_loss + rounding_weight * rounding_loss
     if anchor_ce:
         x0_pred = to_x0(x_noisy.float(), pred_f32)
-        total = total + anchor_ce * _token_ce(rounding, x0_pred, token_ids)
+        if compute_dtype is not None:
+            x0_pred = x0_pred.to(compute_dtype)
+        total = total + anchor_ce * _token_ce(rounding_c, x0_pred, token_ids)
     return total, (diffusion_loss, rounding_loss)
 
 
@@ -262,6 +279,7 @@ def train(
     embed_norm: str = "none",
     freeze_embeddings: bool = False,
     anchor_ce: float = 0.0,
+    compute_dtype=None,
     log_fn=print,
 ) -> TrainResult:
     """Epoch loop with validation + early stopping
@@ -270,7 +288,11 @@ def train(
 
     ``ema_decay`` keeps an EMA of the joint parameters, updated after every
     step; validation, best-checkpoint selection and the final checkpoint
-    then use the EMA weights."""
+    then use the EMA weights.
+
+    ``compute_dtype=torch.bfloat16`` trains and validates in bf16
+    (``_losses``); the parameters, AdamW's state, the EMA and the
+    checkpoints stay f32."""
     if clamp_train and parameterization != "x0":
         raise ValueError(
             "clamp_train requires --parameterization x0 (the clamp operates "
@@ -298,6 +320,7 @@ def train(
         pretrained_matrix=pretrained_matrix, parameterization=parameterization,
         clamp_train=clamp_train, embed_norm=embed_norm,
         freeze_embeddings=freeze_embeddings, anchor_ce=anchor_ce,
+        compute_dtype=compute_dtype,
     )
     ema = None
     if ema_decay is not None:
