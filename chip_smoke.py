@@ -112,8 +112,9 @@ no result line) on any error; no phase catches its own failure.
    from CTA 0's %globaltimer stamps, and tokens/s of the exact decode with
    the fused draft against the plain f32 scan.
 13. Profiles: ``torch.profiler`` over a window of the sampler and over
-   PROFILE_TRAIN_STEPS training steps: device time and kernels per step, the
-   device's busy share, the kernels by device time.
+   PROFILE_TRAIN_STEPS training steps, each eager and replayed (phase 26):
+   device time and kernels per step, the device's busy share, the kernels
+   by device time.
 14. Resblock kernel vs plain: the fused UNet residual block
    (``csrc/fused_resblock.cu``) against its plain version (cuDNN convs, TF32
    off) at the four block shapes of the UNet, batch 1, 3, 25 and 128, both
@@ -190,6 +191,41 @@ no result line) on any error; no phase catches its own failure.
    launches of every kernel of its paths; ``valid`` is printed, not
    asserted (the build raised the load average). Its launches count with
    the main paths' in the kernels' record.
+
+CUDA graphs (after phase 22). Every main path above runs its training
+chunks and its reverse loops as CUDA graphs (``tinydiffusionmodels_torch/
+graphs.py``): each kind of step runs eagerly twice (a sampler step once)
+on a side stream, is captured and is replayed, and each replay adds the
+capture's launches to the counters, so the launch counts asserted there
+count replays.
+
+24. Replay against eager: GRAPH_STEPS (25) steps of the trainers' chunk
+   runners (``TextSteps``, ``MnistSteps``), replayed, against as many
+   eager steps from the same seeds: the text step at the headline shape in
+   f32 and bf16, with self-conditioning on and off, with an EMA
+   (TEXT_GRAPH_CASES), and the MNIST step at bs 128 f32 with an EMA and
+   bs 512 bf16 (MNIST_GRAPH_CASES). Every step loss, parameter and EMA
+   parameter must be bit-equal, and the launches equal. Where two eager
+   runs already differ, the op is named by running again with cuDNN's
+   deterministic algorithms (then two eager runs and the replay must be
+   bit-equal), and the replay is held to SPREAD_FACTOR times the spread of
+   three eager runs. Then each captured sampler against its eager loop
+   (``sample_loop(eager=True)``), bit for bit: text ancestral at n 8, text
+   DDIM 50 with self-conditioning, MNIST ancestral, DDIM 50 and DPM++ 20
+   at n 25.
+25. The kernels inside the graphs: torch.profiler over one replay of each
+   training graph must list the flash forward, dq and dk/dv kernels and
+   the resblock kernel as many times as the capture counted; over a
+   captured 10-step sampler loop, ten steps' worth. Where the profiler
+   lists no kernel of a replay, that is printed, and the counters' deltas
+   are the evidence.
+26. Timing (phases 13 and 17's profiles): for the text step at bs 8 f32,
+   the text sampler at n 8, the MNIST sampler at n 25, the MNIST step at
+   bs 128 f32 and both steps at bs 512 bf16, eager and replayed: the wall
+   time per step (unprofiled: a 1000-step loop, or GRAPH_WALL_STEPS
+   training steps), the device time and kernels per step from
+   torch.profiler, and the busy share, printed as one table beside the
+   card's name and power limit.
 
 The peaks, the bound and the timer are ``tinydiffusionmodels_torch.perf``'s.
 The line before the last is the kernels' JSON record; the last line is
@@ -821,7 +857,7 @@ def _prepare_workdir(chars: int = TRAIN_CHARS):
     os.chdir(WORK)
     os.environ["TDM_PLATFORM"] = "cuda"
     os.environ["TDM_DATA_LIMIT"] = str(chars)
-    os.environ["TDM_PROGRESS_EVERY"] = "100"
+    os.environ["TDM_PROGRESS_EVERY"] = "4"      # chunks
     for var in ("AIP_MODEL_DIR", "TDM_METRICS_PATH"):
         os.environ.pop(var, None)
 
@@ -1482,7 +1518,7 @@ def _time_against_plain(runs: dict, work: dict, card: str, library_note: str,
 
 
 def _profile_table(prof, steps: int, wall_s_per_step: float, card: str,
-                   what: str) -> None:
+                   what: str) -> dict:
     from torch.autograd import DeviceType
 
     # Device-side spans of host annotations (Optimizer.step#...) are not
@@ -1496,80 +1532,95 @@ def _profile_table(prof, steps: int, wall_s_per_step: float, card: str,
     if device_us <= 0:
         raise AssertionError("the profiler recorded no device time")
     per_step_us = device_us / steps
-    print(f"{what} on {card}: unprofiled wall {wall_s_per_step * 1e6} us per "
-          f"step; device {per_step_us} us per step; "
-          f"{sum(e.count for e in kernels) / steps} kernels per step; "
-          f"device busy {per_step_us / (wall_s_per_step * 1e6)} of the "
-          f"unprofiled step")
+    row = {"wall_us": wall_s_per_step * 1e6, "device_us": per_step_us,
+           "busy": per_step_us / (wall_s_per_step * 1e6),
+           "kernels": sum(e.count for e in kernels) / steps}
+    print(f"{what} on {card}: unprofiled wall {row['wall_us']} us per "
+          f"step; device {per_step_us} us per step; {row['kernels']} kernels "
+          f"per step; device busy {row['busy']} of the unprofiled step")
     print("device us/step  share  calls/step  kernel")
     for e in kernels[:14]:
         print(f"{e.self_device_time_total / steps:14.3f}  "
               f"{e.self_device_time_total / device_us:5.3f}  "
               f"{e.count / steps:10.2f}  {e.key[:90]}")
+    return row
 
 
-def profile_sampler(model, wall_s_per_step: float, card: str) -> None:
-    """torch.profiler over a PROFILE_STEPS-step window of the same ancestral
-    loop (a PROFILE_STEPS-step schedule: the per-step work is the same)."""
+def _profile_sampler_modes(what: str, model, shape, card: str) -> dict:
+    """The ancestral loop of ``model`` at ``shape``, eager and replayed:
+    the wall time per step of a 1000-step loop (after a warm loop), and
+    torch.profiler over a PROFILE_STEPS-step loop (a PROFILE_STEPS-step
+    schedule: the per-step work is the same). {mode: row}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tinydiffusionmodels_torch.core import make_schedule
-    from tinydiffusionmodels_torch.sample.text import (
-        sample_diffusion_embeddings,
-    )
+    from tinydiffusionmodels_torch.sample.ancestral import sample_loop
 
-    phase(f"profile: {PROFILE_STEPS} ancestral steps under torch.profiler")
-    sched = make_schedule(PROFILE_STEPS, device="cuda")
+    phase(f"profile: {what}, eager and replayed, under torch.profiler")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    sample_diffusion_embeddings(model, sched, n=N, seq_len=SEQ, embed_dim=DIM,
-                                generator=gen)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sample_diffusion_embeddings(model, sched, n=N, seq_len=SEQ,
-                                    embed_dim=DIM, generator=gen)
-        torch.cuda.synchronize()
-    _profile_table(prof, PROFILE_STEPS, wall_s_per_step, card, "sampler")
+    rows = {}
+    for mode in ("eager", "replayed"):
+        def loop(steps):
+            with torch.inference_mode():
+                sample_loop(model, make_schedule(steps, device="cuda"), shape,
+                            generator=gen, eager=mode == "eager")
+            torch.cuda.synchronize()
+
+        loop(PROFILE_STEPS)
+        t0 = time.perf_counter()
+        loop(STEPS)
+        wall = (time.perf_counter() - t0) / STEPS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            loop(PROFILE_STEPS)
+        rows[mode] = _profile_table(prof, PROFILE_STEPS, wall, card,
+                                    f"{what}, {mode}")
+    return rows
 
 
-def profile_training(joint, card: str, batch: int = BATCH,
-                     compute_dtype=None) -> None:
-    """torch.profiler over PROFILE_TRAIN_STEPS optimizer steps of the
-    training path's own step function at ``batch`` in ``compute_dtype``,
-    after an unprofiled window of the same length that gives the wall time
-    per step."""
+def _profile_runner_modes(what: str, make, card: str) -> dict:
+    """A trainer's chunk runner from ``make(eager=...)``, eager and
+    replayed: the wall time per step over GRAPH_WALL_STEPS steps (after 5,
+    which capture), and torch.profiler over PROFILE_TRAIN_STEPS steps.
+    {mode: row}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tinydiffusionmodels_torch.core import make_schedule
-    from tinydiffusionmodels_torch.train import text_train
-    from tinydiffusionmodels_torch.train.optim import adamw
-
-    what = f"training (batch {batch}, {compute_dtype or 'f32'})"
-    phase(f"profile: {PROFILE_TRAIN_STEPS} steps of {what} under "
-          "torch.profiler")
-    optimizer = adamw(joint.parameters(), 1e-4, weight_decay=1e-4)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    vocab = joint["embedding_fn"].embeddings.weight.shape[0]
-    tokens = torch.randint(0, vocab, (batch, SEQ), generator=gen,
-                           device="cuda")
-    kw = dict(sched=make_schedule(device="cuda"), use_learned_embeddings=True,
-              pretrained_matrix=None, compute_dtype=compute_dtype)
-
-    def steps(n):
-        for _ in range(n):
-            text_train.train_step(joint, optimizer, tokens, 1.0, gen, **kw)
+    phase(f"profile: {PROFILE_TRAIN_STEPS} steps of {what}, eager and "
+          "replayed, under torch.profiler")
+    rows = {}
+    for mode in ("eager", "replayed"):
+        runner, _ = make(eager=mode == "eager",
+                         steps=5 + GRAPH_WALL_STEPS + PROFILE_TRAIN_STEPS)
+        runner.run(5)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run(GRAPH_WALL_STEPS)
+        wall = (time.perf_counter() - t0) / GRAPH_WALL_STEPS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            runner.run(PROFILE_TRAIN_STEPS)
+            torch.cuda.synchronize()
+        rows[mode] = _profile_table(prof, PROFILE_TRAIN_STEPS, wall, card,
+                                    f"{what}, {mode}")
+    return rows
 
-    steps(5)
-    t0 = time.perf_counter()
-    steps(PROFILE_TRAIN_STEPS)
-    wall = (time.perf_counter() - t0) / PROFILE_TRAIN_STEPS
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        steps(PROFILE_TRAIN_STEPS)
-    _profile_table(prof, PROFILE_TRAIN_STEPS, wall, card, what)
+
+def profile_sampler(model, card: str) -> dict:
+    """The text sampler (n N, the trained model), eager and replayed."""
+    return _profile_sampler_modes(f"text sampler n {N}", model,
+                                  (N, SEQ, DIM), card)
+
+
+def profile_training(card: str, batch: int = BATCH,
+                     compute_dtype: str | None = None) -> dict:
+    """The text trainer's step at ``batch`` in ``compute_dtype`` ('bf16'
+    or None; the bench's shape: vocab 4096), eager and replayed."""
+    return _profile_runner_modes(
+        f"text training (batch {batch}, {compute_dtype or 'f32'})",
+        lambda **kw: _text_runner(batch=batch, dtype=compute_dtype, **kw),
+        card)
 
 
 def _resblock_args(name: str, b: int, seed: int, grad: bool = False):
@@ -1677,7 +1728,7 @@ def _prepare_mnist_workdir() -> Path:
     work.mkdir(parents=True, exist_ok=True)
     os.chdir(work)
     os.environ["TDM_PLATFORM"] = "cuda"
-    os.environ["TDM_PROGRESS_EVERY"] = "100"
+    os.environ["TDM_PROGRESS_EVERY"] = "4"      # chunks
     for var in ("AIP_MODEL_DIR", "TDM_METRICS_PATH", "TDM_DATA_LIMIT",
                 "TDM_MNIST_DIR"):
         os.environ.pop(var, None)
@@ -1884,68 +1935,21 @@ def resblock_timing(card: str) -> dict:
     return out
 
 
-def profile_mnist_sampler(model, wall_s_per_step: float, card: str) -> None:
-    """torch.profiler over PROFILE_STEPS steps of the MNIST ancestral loop
-    at n 25 (a PROFILE_STEPS-step schedule: the per-step work is the
-    same)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from tinydiffusionmodels_torch.core import make_schedule
-    from tinydiffusionmodels_torch.train.mnist_train import sample_images
-
-    phase(f"profile: {PROFILE_STEPS} MNIST ancestral steps (n {MNIST_N}) "
-          "under torch.profiler")
-    sched = make_schedule(PROFILE_STEPS, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    sample_images(model, sched, n_samples=MNIST_N, generator=gen)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sample_images(model, sched, n_samples=MNIST_N, generator=gen)
-        torch.cuda.synchronize()
-    _profile_table(prof, PROFILE_STEPS, wall_s_per_step, card,
-                   "MNIST sampler")
+def profile_mnist_sampler(model, card: str) -> dict:
+    """The MNIST sampler (n MNIST_N, the trained UNet), eager and
+    replayed."""
+    return _profile_sampler_modes(f"MNIST sampler n {MNIST_N}", model,
+                                  (MNIST_N, 28, 28, 1), card)
 
 
 def profile_mnist_training(card: str, batch: int = MNIST_BATCH,
-                           compute_dtype=None) -> None:
-    """torch.profiler over PROFILE_TRAIN_STEPS MNIST optimizer steps at
-    ``batch`` in ``compute_dtype`` (the training path's own step function),
-    after an unprofiled window of the same length that gives the wall time
-    per step."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from tinydiffusionmodels_torch.core import make_schedule
-    from tinydiffusionmodels_torch.models import SimpleUNet
-    from tinydiffusionmodels_torch.train import mnist_train
-    from tinydiffusionmodels_torch.train.optim import adamw
-
-    what = f"MNIST training (batch {batch}, {compute_dtype or 'f32'})"
-    phase(f"profile: {PROFILE_TRAIN_STEPS} steps of {what} under "
-          "torch.profiler")
-    model = SimpleUNet(generator=torch.Generator().manual_seed(6)).cuda()
-    optimizer = adamw(model.parameters(), 1e-3, weight_decay=0.01)
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    images = torch.rand(batch, 28, 28, 1, generator=gen,
-                        device="cuda") * 2 - 1
-    sched = make_schedule(device="cuda")
-
-    def steps(n):
-        for _ in range(n):
-            mnist_train.train_step(model, optimizer, images, sched, gen,
-                                   compute_dtype=compute_dtype)
-        torch.cuda.synchronize()
-
-    steps(5)
-    t0 = time.perf_counter()
-    steps(PROFILE_TRAIN_STEPS)
-    wall = (time.perf_counter() - t0) / PROFILE_TRAIN_STEPS
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        steps(PROFILE_TRAIN_STEPS)
-    _profile_table(prof, PROFILE_TRAIN_STEPS, wall, card, what)
+                           compute_dtype: str | None = None) -> dict:
+    """The MNIST trainer's step at ``batch`` in ``compute_dtype`` ('bf16'
+    or None), eager and replayed."""
+    return _profile_runner_modes(
+        f"MNIST training (batch {batch}, {compute_dtype or 'f32'})",
+        lambda **kw: _mnist_runner(batch=batch, dtype=compute_dtype, **kw),
+        card)
 
 
 # name: ((B, H, L, Dh), whether the backward is checked) of the single-block
@@ -2190,9 +2194,10 @@ def single_block_timing(card: str) -> dict:
 @contextlib.contextmanager
 def _kernel_dtypes():
     """Records the operand dtype and layout of every flash and resblock
-    kernel launch made inside (the wrappers' launch functions, wrapped):
-    yields a dict {(kernel, dtype, "strided" or "contiguous"): launches}
-    keyed by the first operand (q, or the block's x)."""
+    kernel wrapper call made inside, eager or captured into a CUDA graph
+    (the wrappers' launch functions, wrapped): yields a dict {(kernel,
+    dtype, "strided" or "contiguous"): calls} keyed by the first operand
+    (q, or the block's x). A graph's replays are not calls."""
     from tinydiffusionmodels_torch.ops import flash_attention as fa
     from tinydiffusionmodels_torch.ops import resblock as rb
 
@@ -2253,16 +2258,21 @@ def main_path_bf16_train(card: str):
         _, ckpt, text_counts, _ = main_path_train(
             card, extra=("--dtype", "bf16"), name="bf16_ckpt")
     # q, k and v are the strided (B, L, H, Dh) views of one QKV projection.
-    want = {(k, "bfloat16", "strided"): text_counts[k] for k in (
+    # ``seen`` counts the wrappers' eager and captured calls; a replay
+    # relaunches what its capture recorded, so every launch is bf16 on
+    # strided views when every recorded call is, and the counters (replays
+    # included, asserted by main_path_train) give the numbers.
+    want = {(k, "bfloat16", "strided") for k in (
         "flash_attention_fwd", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv")}
-    if seen != want:
-        raise AssertionError(f"kernel launches by dtype {seen}, expected "
-                             f"{want}")
+    if set(seen) != want:
+        raise AssertionError(f"kernel calls by dtype {seen}, expected only "
+                             f"{sorted(want)}")
     for path in (ckpt, ckpt.with_name("bf16_ckpt_best.pth")):
         n = _all_f32(torch.load(path, weights_only=False), path.name)
         print(f"{path.name}: {n} tensors, all float32")
-    print(f"bf16 text training: kernel launches by dtype {seen}")
+    print(f"bf16 text training: eager and captured kernel calls by dtype "
+          f"{seen}; launches {_nonzero(text_counts)}")
 
     phase(f"main path: mnist --train --dtype bf16 ({MNIST_BF16_STEPS} steps "
           f"of batch {MNIST_BATCH}, synthetic digits)")
@@ -2282,11 +2292,10 @@ def main_path_bf16_train(card: str):
     mnist_counts = _counts()
     expect = {name: 0 for name in mnist_counts}
     expect["fused_resblock"] = MNIST_BF16_STEPS * 4
-    if mnist_counts != expect or seen != {
-            ("fused_resblock", "bfloat16", "contiguous"):
-            MNIST_BF16_STEPS * 4}:
-        raise AssertionError(f"launches {mnist_counts}, by dtype {seen}; "
-                             f"expected {expect}, all bf16")
+    if mnist_counts != expect or set(seen) != {
+            ("fused_resblock", "bfloat16", "contiguous")}:
+        raise AssertionError(f"launches {mnist_counts}, calls by dtype "
+                             f"{seen}; expected {expect}, all bf16")
     losses = result.step_losses
     window = MNIST_BF16_STEPS // 4
     first, last = losses[:window].mean(), losses[-window:].mean()
@@ -2294,7 +2303,8 @@ def main_path_bf16_train(card: str):
         raise AssertionError(f"bf16 MNIST losses: first {window} {first}, "
                              f"last {window} {last}")
     n = _all_f32(torch.load(ckpt, weights_only=False), ckpt.name)
-    print(f"bf16 MNIST training: launches {mnist_counts}, by dtype {seen}; "
+    print(f"bf16 MNIST training: launches {_nonzero(mnist_counts)}, eager "
+          f"and captured calls by dtype {seen}; "
           f"mean loss first {window} steps {first}, last {window} {last}; "
           f"{ckpt.name}: {n} tensors, all float32; "
           f"{result.steps / result.seconds} steps/s, bs={MNIST_BATCH} bf16, "
@@ -2468,7 +2478,436 @@ def main_path_bench(card: str) -> dict:
     return launches
 
 
+# --- CUDA graphs (phases 24-26) ----------------------------------------------
+
+# K: the replayed steps held against as many eager ones, TDM_SCAN_CHUNK's
+# default; a learning-rate schedule that moves within them.
+GRAPH_STEPS, GRAPH_LR, GRAPH_WARMUP = 25, 1e-3, 10
+GRAPH_VOCAB = 4096      # the bench's text vocabulary
+# name: (compute dtype, self-conditioning, EMA decay) of the text step at
+# the headline shape (dim 256, depth 3, batch 8, seq 64, dropout 0.1).
+TEXT_GRAPH_CASES = {"f32": (None, False, None),
+                    "f32_self_cond_ema": (None, True, 0.999),
+                    "bf16_ema": ("bf16", False, 0.999),
+                    "bf16_self_cond": ("bf16", True, None)}
+# name: (batch, compute dtype, EMA decay) of the MNIST step.
+MNIST_GRAPH_CASES = {"bs128_f32_ema": (MNIST_BATCH, None, 0.999),
+                     "bs512_bf16": (BF16_BATCH, "bf16", None)}
+# Kernel names in torch.profiler's tables, by launch counter.
+GRAPH_KERNEL_NAMES = {"flash_attention_fwd": "flash_fwd_kernel",
+                      "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
+                      "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel",
+                      "fused_resblock": "fused_resblock_kernel"}
+GRAPH_WALL_STEPS = 100  # steps a row's unprofiled wall time is taken over
+# Where two eager runs differ (a nondeterministic op), the replay's distance
+# to the nearest eager run may be this many times the eager runs' spread:
+# rounding differences grow chaotically over the K steps, so one more run
+# lands anywhere within about the spread (PERF.md §6: a replay's distance
+# to eager runs was 0.1 to 1.2 times it on the H100).
+SPREAD_FACTOR = 2.0
+
+
+def _text_runner(*, batch=BATCH, dtype=None, self_cond=False,
+                 ema_decay=None, eager=False, steps=GRAPH_STEPS, seed=21):
+    """The text trainer's chunk runner (``text_train.TextSteps``) at the
+    headline shape with ``batch``, random weights and tokens from
+    ``seed``, an epoch of ``steps`` steps started; (runner, the tensors to
+    compare: every parameter and EMA parameter)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch import nn
+
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.models import (
+        LearnedEmbedding,
+        LearnedRounding,
+        TinyTransformer,
+        TransformerConfig,
+    )
+    from tinydiffusionmodels_torch.train import text_train
+    from tinydiffusionmodels_torch.train.optim import (
+        adamw,
+        cosine_warmup_lambda,
+    )
+    from tinydiffusionmodels_torch.train.precision import (
+        resolve_compute_dtype,
+    )
+
+    sched = make_schedule(device="cuda")
+    cfg = TransformerConfig(dim=DIM, n_heads=HEADS, depth=DEPTH,
+                            dropout=DROPOUT, timesteps=sched.timesteps,
+                            self_cond=self_cond)
+    g = torch.Generator().manual_seed(seed)
+    joint = nn.ModuleDict({
+        "diffusion_model": TinyTransformer(cfg, generator=g),
+        "rounding_fn": LearnedRounding(DIM, GRAPH_VOCAB, generator=g),
+        "embedding_fn": LearnedEmbedding(GRAPH_VOCAB, DIM, generator=g),
+    }).cuda()
+    ema = copy.deepcopy(joint).requires_grad_(False) if ema_decay else None
+    optimizer = adamw(joint.parameters(), GRAPH_LR, weight_decay=1e-4)
+    lam = cosine_warmup_lambda(GRAPH_WARMUP, 4 * steps)
+    tokens = torch.randint(0, GRAPH_VOCAB, (steps * batch, SEQ),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(seed + 1), device="cuda")
+    runner = text_train.TextSteps(
+        joint, optimizer, tokens, batch_size=batch, steps=steps,
+        generator=torch.Generator(device="cuda").manual_seed(seed + 2),
+        coin_rng=np.random.default_rng(seed + 3), ema=ema,
+        ema_decay=ema_decay, lr_at=lambda s: GRAPH_LR * lam(s), eager=eager,
+        sched=sched, use_learned_embeddings=True, pretrained_matrix=None,
+        compute_dtype=resolve_compute_dtype(dtype))
+    order = np.random.default_rng(seed + 4).permutation(steps * batch)
+    runner.start(order.reshape(steps, batch), 0.7)
+    tensors = {f"live.{n}": p for n, p in joint.named_parameters()}
+    if ema is not None:
+        tensors.update({f"ema.{n}": p for n, p in ema.named_parameters()})
+    return runner, tensors
+
+
+def _mnist_runner(*, batch=MNIST_BATCH, dtype=None, ema_decay=None,
+                  eager=False, steps=GRAPH_STEPS, seed=31):
+    """The MNIST trainer's chunk runner (``mnist_train.MnistSteps``) at
+    ``batch``, random weights and images in [-1, 1] from ``seed``, an epoch
+    of ``steps`` steps started; (runner, tensors to compare)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.models import SimpleUNet
+    from tinydiffusionmodels_torch.train import mnist_train
+    from tinydiffusionmodels_torch.train.optim import adamw
+    from tinydiffusionmodels_torch.train.precision import (
+        resolve_compute_dtype,
+    )
+
+    sched = make_schedule(device="cuda")
+    model = SimpleUNet(sched.timesteps,
+                       generator=torch.Generator().manual_seed(seed)).cuda()
+    ema = copy.deepcopy(model).requires_grad_(False) if ema_decay else None
+    optimizer = adamw(model.parameters(), 1e-3, weight_decay=0.01)
+    images = torch.rand((steps * batch, 28, 28, 1),
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(seed + 1), device="cuda") * 2 - 1
+    runner = mnist_train.MnistSteps(
+        model, optimizer, images, sched, batch_size=batch, steps=steps,
+        generator=torch.Generator(device="cuda").manual_seed(seed + 2),
+        ema=ema, ema_decay=ema_decay,
+        compute_dtype=resolve_compute_dtype(dtype), eager=eager)
+    order = np.random.default_rng(seed + 3).permutation(steps * batch)
+    runner.start(order.reshape(steps, batch))
+    tensors = {f"live.{n}": p for n, p in model.named_parameters()}
+    if ema is not None:
+        tensors.update({f"ema.{n}": p for n, p in ema.named_parameters()})
+    return runner, tensors
+
+
+def _diff(a, b) -> float:
+    import torch
+
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return 0.0 if torch.equal(a, b) else float(
+        (a.double() - b.double()).abs().max())
+
+
+def _worst(a: dict, b: dict) -> tuple[float, float]:
+    """The largest |a - b| of the losses and of every other tensor."""
+    return (_diff(a["losses"], b["losses"]) if "losses" in a else 0.0,
+            max((_diff(a[k], b[k]) for k in a if k != "losses"),
+                default=0.0))
+
+
+def _bit_equal(*runs: dict) -> bool:
+    return all(_worst(runs[0], r) == (0.0, 0.0) for r in runs[1:])
+
+
+def _run_steps(make, **kw):
+    """K steps of a chunk runner from ``make``; (losses and tensors, the
+    launches, the runner)."""
+    import torch
+
+    runner, tensors = make(**kw)
+    torch.cuda.synchronize()
+    _reset_counts()
+    losses = runner.run(GRAPH_STEPS)
+    torch.cuda.synchronize()
+    out = {"losses": torch.as_tensor(losses)}
+    out.update({k: v.detach().clone() for k, v in tensors.items()})
+    return out, _counts(), runner
+
+
+def _spread_rule(what: str, make, kw, eager_a, eager_b, replayed) -> None:
+    """Two eager runs differ: hold the replay to their spread, and name
+    the op. The spread is the largest pairwise difference of three eager
+    runs (losses, and every other tensor, apart); the replay's distance
+    to the nearest of them may be at most SPREAD_FACTOR times that, since
+    each run's rounding differences grow chaotically over the K steps.
+    Then the op: with cuDNN's deterministic algorithms, two eager runs
+    and the replay must be bit-equal."""
+    import torch
+
+    eager_c, _, _ = _run_steps(make, eager=True, **kw)
+    runs = (eager_a, eager_b, eager_c)
+    spread = [max(_worst(x, y)[i] for x, y in
+                  ((eager_a, eager_b), (eager_a, eager_c),
+                   (eager_b, eager_c))) for i in (0, 1)]
+    off = [min(_worst(replayed, e)[i] for e in runs) for i in (0, 1)]
+    print(f"{what}: two eager runs differ; replay - nearest eager run: "
+          f"losses {off[0]:.3g}, tensors {off[1]:.3g}; eager - eager: "
+          f"losses {spread[0]:.3g}, tensors {spread[1]:.3g}")
+    if any(o > SPREAD_FACTOR * sp for o, sp in zip(off, spread)):
+        raise AssertionError(f"{what}: the replay is {off} from the nearest "
+                             f"eager run, beyond {SPREAD_FACTOR} x the eager "
+                             f"runs' spread {spread}")
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = [_run_steps(make, eager=eager, **kw)[0]
+               for eager in (True, True, False)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if not _bit_equal(*det):
+        raise AssertionError(f"{what}: with torch.backends.cudnn."
+                             f"deterministic the runs still differ: "
+                             f"{[_worst(det[0], d) for d in det[1:]]}")
+    print(f"{what}: with torch.backends.cudnn.deterministic two eager runs "
+          f"and the replay are bit-equal: the op is a cuDNN convolution "
+          f"(the f32 weight gradients of the resblock backward)")
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def replay_vs_eager_training() -> dict:
+    """Phase 24a: K replayed steps against K eager steps from one seed, for
+    every case of TEXT_GRAPH_CASES and MNIST_GRAPH_CASES: every loss,
+    parameter and EMA parameter bit for bit, equal launch counts. Where
+    two eager runs already differ, ``_spread_rule``. Returns the replayed
+    runners, their graphs captured."""
+    phase(f"CUDA graphs: {GRAPH_STEPS} replayed training steps against "
+          f"{GRAPH_STEPS} eager ones, bit for bit")
+    runners = {}
+    cases = [(f"text {name}", _text_runner,
+              dict(dtype=d, self_cond=sc, ema_decay=e))
+             for name, (d, sc, e) in TEXT_GRAPH_CASES.items()]
+    cases += [(f"MNIST {name}", _mnist_runner,
+               dict(batch=b, dtype=d, ema_decay=e))
+              for name, (b, d, e) in MNIST_GRAPH_CASES.items()]
+    for what, make, kw in cases:
+        eager_a, counts_a, _ = _run_steps(make, eager=True, **kw)
+        eager_b, _, _ = _run_steps(make, eager=True, **kw)
+        replayed, counts_r, runner = _run_steps(make, **kw)
+        if counts_r != counts_a:
+            raise AssertionError(f"{what}: launches {counts_r} replayed, "
+                                 f"{counts_a} eager")
+        if not all(step.captured for step in runner.kinds.values()
+                   if step.calls > step.warmup):
+            raise AssertionError(f"{what}: a step was not captured")
+        calls = {str(v): (s.calls, s.warmup) for v, s in runner.kinds.items()}
+        if _bit_equal(eager_a, eager_b):
+            if not _bit_equal(eager_a, replayed):
+                raise AssertionError(f"{what}: replayed differs from eager "
+                                     f"by {_worst(replayed, eager_a)} "
+                                     f"(losses, tensors); two eager runs "
+                                     f"are bit-equal")
+            verdict = "bit-equal to eager"
+        else:
+            _spread_rule(what, make, kw, eager_a, eager_b, replayed)
+            verdict = "held to the eager runs' spread"
+        print(f"{what}: {GRAPH_STEPS} steps' losses and {len(replayed) - 1} "
+              f"tensors {verdict}; launches {_nonzero(counts_r)}; (steps, "
+              f"of which eager warm-up) by kind {calls}")
+        runners[what] = runner
+    return runners
+
+
+def _sampler_models(seed: int = 41):
+    """Random-weight denoisers at the samplers' widths: the text model at
+    the headline shape, a self-conditioned one (its projection drawn, not
+    zero) and the UNet."""
+    import torch
+
+    from tinydiffusionmodels_torch.models import (
+        SimpleUNet,
+        TinyTransformer,
+        TransformerConfig,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+    text = TinyTransformer(TransformerConfig(dim=DIM, n_heads=HEADS,
+                                             depth=DEPTH), generator=g)
+    text_sc = TinyTransformer(TransformerConfig(dim=DIM, n_heads=HEADS,
+                                                depth=DEPTH, self_cond=True),
+                              generator=g)
+    with torch.no_grad():
+        text_sc.selfcond_proj.weight.normal_(0.0, 0.05, generator=g)
+    unet = SimpleUNet(generator=g)
+    return [m.cuda().eval() for m in (text, text_sc, unet)]
+
+
+def _sampler_cases(models):
+    """name: (denoise_fn, shape, method, steps, self_cond) of the samplers
+    held against their eager loops."""
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.sample.text import make_denoiser
+
+    text, text_sc, unet = models
+    sched = make_schedule(device="cuda")
+    return sched, {
+        f"text ancestral n {N}": (make_denoiser(text, sched), (N, SEQ, DIM),
+                                  "ancestral", None, False),
+        f"text ddim {MNIST_DDIM_STEPS} self-cond n {N}": (
+            make_denoiser(text_sc, sched), (N, SEQ, DIM), "ddim",
+            MNIST_DDIM_STEPS, True),
+        f"MNIST ancestral n {MNIST_N}": (unet, (MNIST_N, 28, 28, 1),
+                                         "ancestral", None, False),
+        f"MNIST ddim {MNIST_DDIM_STEPS} n {MNIST_N}": (
+            unet, (MNIST_N, 28, 28, 1), "ddim", MNIST_DDIM_STEPS, False),
+        f"MNIST dpm++ 20 n {MNIST_N}": (unet, (MNIST_N, 28, 28, 1), "dpm++",
+                                        20, False),
+    }
+
+
+def _sample(case, sched, eager: bool, seed: int = 51) -> list:
+    """Two calls of one ``Sampler`` (the second replays every step on the
+    card, DPM-Solver++'s first-order step included): [(samples,
+    launches)] of each."""
+    import torch
+
+    from tinydiffusionmodels_torch.sample.ancestral import Sampler
+
+    denoise, shape, method, steps, self_cond = case
+    sampler = Sampler(denoise, sched, shape, method=method, num_steps=steps,
+                      self_cond=self_cond, eager=eager,
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(seed))
+    calls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        _reset_counts()
+        x = sampler()
+        torch.cuda.synchronize()
+        calls.append((x, _counts()))
+    return calls
+
+
+def replay_vs_eager_samplers(models) -> None:
+    """Phase 24b: each captured sampler against its eager loop, from one
+    seed, bit for bit (two eager loops are), with equal launch counts: the
+    first call of a ``Sampler`` (each kind of step eager once, then
+    captured) and its second (every step replayed)."""
+    import torch
+
+    phase("CUDA graphs: captured samplers against their eager loops, bit "
+          "for bit")
+    sched, cases = _sampler_cases(models)
+    for what, case in cases.items():
+        eager_a = _sample(case, sched, eager=True)
+        eager_b = _sample(case, sched, eager=True)
+        replayed = _sample(case, sched, eager=False)
+        for call, ((a, counts_a), (b, _), (r, counts_r)) in enumerate(
+                zip(eager_a, eager_b, replayed), 1):
+            if counts_r != counts_a:
+                raise AssertionError(f"{what}, call {call}: launches "
+                                     f"{counts_r} replayed, {counts_a} eager")
+            if not bool(torch.isfinite(r).all()):
+                raise AssertionError(f"{what}: samples are not finite")
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}, call {call}: two eager loops "
+                                     f"differ by {_diff(a, b)}")
+            if not torch.equal(r, a):
+                raise AssertionError(f"{what}, call {call}: the captured "
+                                     f"loop differs from the eager one by "
+                                     f"{_diff(r, a)}")
+        print(f"{what}: {tuple(r.shape)} samples of two calls bit-equal to "
+              f"the eager loop's; launches a call {_nonzero(counts_r)}")
+
+
+def _kernel_counts(prof) -> dict:
+    from torch.autograd import DeviceType
+
+    counts = dict.fromkeys(GRAPH_KERNEL_NAMES, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for counter, name in GRAPH_KERNEL_NAMES.items():
+            if name in e.key:
+                counts[counter] += e.count
+    return counts
+
+
+def kernels_in_graphs(runners: dict, models) -> None:
+    """Phase 25: torch.profiler over one replay of each training graph must
+    list the flash forward, dq and dk/dv kernels (text) and the resblock
+    kernel (MNIST) as many times as the capture counted them (one eager
+    step's launches); over a captured 10-step sampler loop, 10 steps'
+    worth. Where the profiler lists none from a replay, that is printed and
+    the launch counters' deltas are what remains."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinydiffusionmodels_torch import graphs
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.sample.ancestral import sample_loop
+
+    phase("CUDA graphs: the kernels inside the replays (torch.profiler)")
+    names = [f"{m.__name__.split('.')[-1]}.{a}" for m, a in graphs.COUNTERS]
+    print(f"counters {names}")
+    blind = []
+    for what, runner in runners.items():
+        for variant, step in runner.kinds.items():
+            if not step.captured:
+                continue
+            # COUNTERS begins with the flash and resblock counters, in
+            # GRAPH_KERNEL_NAMES' order.
+            want = dict(zip(GRAPH_KERNEL_NAMES, step.delta))
+            runner.cursor.zero_()   # the epoch's first step again
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                step.graph.replay()
+                torch.cuda.synchronize()
+            seen = _kernel_counts(prof)
+            if not any(seen.values()):
+                blind.append(what)
+            elif seen != want:
+                raise AssertionError(f"{what} (step {variant}): the "
+                                     f"profiler lists {seen} in one replay, "
+                                     f"the capture counted {want}")
+            print(f"{what} (step {variant}): one replay lists {seen}; the "
+                  f"capture counted {step.delta}")
+    sched = make_schedule(10, device="cuda")
+    text, _, unet = models
+    for what, model, shape, counter, per_step in (
+            (f"text sampler n {N}", text, (N, SEQ, DIM),
+             "flash_attention_fwd", DEPTH),
+            (f"MNIST sampler n {MNIST_N}", unet, (MNIST_N, 28, 28, 1),
+             "fused_resblock", 4)):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                torch.inference_mode():
+            sample_loop(model, sched, shape, generator=gen)
+            torch.cuda.synchronize()
+        seen = _kernel_counts(prof)[counter]
+        print(f"{what}, a captured 10-step loop (1 eager step, 9 replays): "
+              f"the profiler lists {seen} {GRAPH_KERNEL_NAMES[counter]}, "
+              f"{10 * per_step} launched")
+        if seen == per_step:
+            blind.append(what)
+        elif seen != 10 * per_step:
+            raise AssertionError(f"{what}: {seen} kernels listed, "
+                                 f"{10 * per_step} launched")
+    if blind:
+        print(f"torch.profiler lists no kernel of a replay for {blind}: "
+              "the launch counters' deltas are the evidence there")
+
+
 def main() -> None:
+    import torch
+
     t_start = time.perf_counter()
     card = environment()
     build()
@@ -2478,7 +2917,7 @@ def main() -> None:
     single_block_errors = single_block_kernel_vs_plain()
     result, ckpt, train_counts, _ = main_path_train(card)
     model = result.joint["diffusion_model"].eval()
-    sample_counts, wall_s_per_step, z = main_path_sample(card, ckpt, model)
+    sample_counts, _, z = main_path_sample(card, ckpt, model)
     _, narrow_ckpt, narrow_train_counts, _ = main_path_train(
         card, NARROW_DIM, NARROW_CHARS, NARROW_TRAIN_ARGS, "narrow_ckpt")
     narrow_sample_counts = main_path_sample_ddim(card, narrow_ckpt,
@@ -2496,30 +2935,37 @@ def main() -> None:
     exact_counts, rounds, agree, exact_gap, exact_stats = guided_exact(
         card, lm_ckpt, ckpt, z, result.joint["rounding_fn"].eval())
     _, mnist_ckpt, mnist_train_counts, _ = main_path_mnist_train(card)
-    mnist_sample_counts, mnist_wall_per_step, unet = main_path_mnist_sample(
-        card, mnist_ckpt)
+    mnist_sample_counts, _, unet = main_path_mnist_sample(card, mnist_ckpt)
     bench_counts, _, bench_seconds = main_path_kernel_bench(card)
     bf16_text_counts, bf16_mnist_counts = main_path_bf16_train(card)
     bf16_step_vs_cpu(card)
+    graph_runners = replay_vs_eager_training()
+    sampler_models = _sampler_models()
+    replay_vs_eager_samplers(sampler_models)
+    kernels_in_graphs(graph_runners, sampler_models)
+    del graph_runners
     device_vs_cpu(model)
     timings = kernel_timing(card)
     decode_times = decode_timing(card)
     resblock_times = resblock_timing(card)
     timings.update(single_block_timing(card))
-    profile_sampler(model, wall_s_per_step, card)
-    profile_training(result.joint, card)
-    profile_mnist_sampler(unet, mnist_wall_per_step, card)
-    profile_mnist_training(card)
-    import torch
-
-    # The bench's bf16 training shapes (batch 512): host- or device-bound.
-    from tinydiffusionmodels_torch import bench
-
-    bf16 = torch.bfloat16
-    profile_training(bench._text_setup(BF16_BATCH, SEQ, DIM, depth=DEPTH,
-                                       vocab=4096, device="cuda")[1],
-                     card, BF16_BATCH, bf16)
-    profile_mnist_training(card, BF16_BATCH, bf16)
+    bf16 = "bf16"
+    rows = {f"text train bs {BATCH} f32": profile_training(card),
+            f"text sampler n {N}": profile_sampler(model, card),
+            f"MNIST sampler n {MNIST_N}": profile_mnist_sampler(unet, card),
+            f"MNIST train bs {MNIST_BATCH} f32": profile_mnist_training(card),
+            # The bench's bf16 training shapes (batch 512).
+            f"text train bs {BF16_BATCH} bf16 (vocab {GRAPH_VOCAB})":
+                profile_training(card, BF16_BATCH, bf16),
+            f"MNIST train bs {BF16_BATCH} bf16":
+                profile_mnist_training(card, BF16_BATCH, bf16)}
+    print(f"\nsteps eager and replayed, on {card}:")
+    print("step | mode | wall us | device us | busy | kernels")
+    for what, modes in rows.items():
+        for mode, r in modes.items():
+            print(f"{what} | {mode} | {r['wall_us']:.1f} | "
+                  f"{r['device_us']:.1f} | {r['busy']:.3f} | "
+                  f"{r['kernels']:.1f}")
     suite_counts = main_path_bench(card)
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib",

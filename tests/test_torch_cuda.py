@@ -546,3 +546,87 @@ def test_single_block_rejects_before_launch(cuda, shape, grad, match):
     with pytest.raises(ValueError, match=match):
         sb.single_block_attention(x, x, x)
     assert (sb.launches, sb.bwd_launches) == before
+
+
+def _graph_step_runs(kind, eager, device):
+    """Eight steps of a trainer's chunk runner (``text_train.TextSteps``:
+    dim 64, depth 2, dropout 0.1, self-conditioning, an EMA; or
+    ``mnist_train.MnistSteps`` at batch 16) from fixed seeds, eagerly or
+    replayed from its CUDA graph; (losses, every parameter, the flash and
+    resblock launches)."""
+    import copy
+
+    from torch import nn
+
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.models import (
+        LearnedEmbedding,
+        LearnedRounding,
+        TinyTransformer,
+        TransformerConfig,
+    )
+    from tinydiffusionmodels_torch.train import mnist_train, text_train
+    from tinydiffusionmodels_torch.train.optim import adamw
+
+    steps, batch = 8, 16 if kind == "mnist" else 4
+    sched = make_schedule(device=device)
+    g = torch.Generator().manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(1)
+    order = np.random.default_rng(2).permutation(steps * batch).reshape(
+        steps, batch)
+    if kind == "mnist":
+        model = SimpleUNet(generator=g).to(device)
+        images = torch.rand((steps * batch, 28, 28, 1), device=device,
+                            generator=gen) * 2 - 1
+        optimizer = adamw(model.parameters(), 1e-3)
+        runner = mnist_train.MnistSteps(
+            model, optimizer, images, sched, batch_size=batch, steps=steps,
+            generator=gen, eager=eager)
+        runner.start(order)
+    else:
+        cfg = TransformerConfig(dim=64, n_heads=4, depth=2, dropout=0.1,
+                                self_cond=True)
+        model = nn.ModuleDict({
+            "diffusion_model": TinyTransformer(cfg, generator=g),
+            "rounding_fn": LearnedRounding(64, 50, generator=g),
+            "embedding_fn": LearnedEmbedding(50, 64, generator=g),
+        }).to(device)
+        ema = copy.deepcopy(model).requires_grad_(False)
+        tokens = torch.randint(0, 50, (steps * batch, 16), device=device,
+                               generator=gen)
+        optimizer = adamw(model.parameters(), 1e-3)
+        runner = text_train.TextSteps(
+            model, optimizer, tokens, batch_size=batch, steps=steps,
+            generator=gen, coin_rng=np.random.default_rng(3), ema=ema,
+            ema_decay=0.9, lr_at=lambda s: 1e-3 * min(1.0, (s + 1) / 4),
+            eager=eager, sched=sched, use_learned_embeddings=True,
+            pretrained_matrix=None)
+        runner.start(order, 0.5)
+        model = nn.ModuleList([model, ema])
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches, rb.launches)
+    losses = runner.run(steps)
+    after = (fa.launches, fa.dq_launches, fa.dkv_launches, rb.launches)
+    captured = any(s.captured for s in runner.kinds.values())
+    return (losses, [p.detach().clone() for p in model.parameters()],
+            [a - b for a, b in zip(after, before)], captured)
+
+
+@pytest.mark.parametrize("kind", ["text", "mnist"])
+def test_replayed_steps_equal_eager_steps(cuda, kind):
+    """A trainer's step captured as a CUDA graph and replayed gives the
+    eager steps' losses and parameters bit for bit, and the launch
+    counters count each replay's launches. The MNIST step runs cuDNN's
+    deterministic algorithms: its default f32 weight-gradient convolution
+    differs from run to run by itself (PERF.md §6)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = _graph_step_runs(kind, True, cuda)
+        replayed = _graph_step_runs(kind, False, cuda)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert replayed[3] and not eager[3]
+    np.testing.assert_array_equal(replayed[0], eager[0])
+    for a, b in zip(replayed[1], eager[1]):
+        assert torch.equal(a, b)
+    assert replayed[2] == eager[2] and max(eager[2]) > 0

@@ -19,11 +19,13 @@ synchronize``). Each metric keeps the JAX bench's window structure: a
 warm-up call, then 5 windows; its value is the median window and its
 envelope [min, median, max]:
 
-- training: a "chunk" is K calls of the trainer's ``train_step`` with no
-  host read between them and one synchronisation at the end (the
-  counterpart of the JAX package's K-step scans); a window is two chunks;
+- training: a "chunk" is K steps of the trainer's chunk runner
+  (``text_train.TextSteps``, ``mnist_train.MnistSteps``: on the card K
+  replays of the step's CUDA graph) ending in its one host read, the
+  counterpart of the JAX bench's K-step scans; a window is two chunks;
 - sampling: a window is one (``--quick``) or three whole 1000-step (or
-  20-step DPM-Solver++) sampling loops;
+  20-step DPM-Solver++) sampling loops of one ``sample.ancestral.Sampler``,
+  whose steps are captured in the warm-up call and replayed after;
 - guided decoding: a window is as many whole decodes as fill at least
   0.6 s (2.5 s at n <= 8, where the decode is latency-bound), as the JAX
   bench sizes its chained windows. The JAX bench's chained-delta timing
@@ -130,8 +132,9 @@ def _seed(seed: int, device=None) -> torch.Generator:
 def bench_mnist_train(batch_size: int = 128, chunk: int = F32_CHUNK,
                       compute_dtype=None, *, device=None,
                       windows: int = WINDOWS):
-    """(optimizer steps/s of ``mnist_train.train_step`` in chunks, FLOPs
-    per step)."""
+    """(optimizer steps/s of the trainer's chunk runner,
+    ``mnist_train.MnistSteps``, in chunks of ``chunk`` steps; FLOPs per
+    step)."""
     from tinydiffusionmodels_torch.core import make_schedule
     from tinydiffusionmodels_torch.models import SimpleUNet
     from tinydiffusionmodels_torch.train import mnist_train
@@ -142,18 +145,19 @@ def bench_mnist_train(batch_size: int = 128, chunk: int = F32_CHUNK,
     model = SimpleUNet(sched.timesteps, generator=_seed(0)).to(device)
     optimizer = adamw(model.parameters(), 1e-3)
     gen = _seed(2, device)
-    batches = torch.randn((chunk, batch_size, 28, 28, 1),
-                          generator=_seed(1, device), device=device)
-
-    def step(i):
-        return mnist_train.train_step(model, optimizer, batches[i], sched,
-                                      gen, compute_dtype=compute_dtype)
-
-    flops = perf.compiled_flops(step, 0)
+    images = torch.randn((chunk * batch_size, 28, 28, 1),
+                         generator=_seed(1, device), device=device)
+    flops = perf.compiled_flops(
+        mnist_train.train_step, model, optimizer, images[:batch_size], sched,
+        gen, compute_dtype=compute_dtype)
+    steps = mnist_train.MnistSteps(
+        model, optimizer, images, sched, batch_size=batch_size, steps=chunk,
+        generator=gen, compute_dtype=compute_dtype)
+    order = torch.arange(chunk * batch_size).reshape(chunk, batch_size)
 
     def run_chunk():
-        for i in range(chunk):
-            step(i)
+        steps.start(order.numpy())
+        steps.run(chunk)
 
     return _chunk_windows(run_chunk, chunk, device, windows), flops
 
@@ -163,10 +167,13 @@ def bench_mnist_sample(n_samples: int = 256, quick: bool = False,
                        num_steps: int | None = None, *,
                        timesteps: int = 1000, device=None,
                        windows: int = WINDOWS):
-    """(samples/s of ``mnist_train.sample_images``, FLOPs per sample)."""
+    """(samples/s of the MNIST reverse loop, FLOPs per sample). The loop is
+    ``mnist_train.sample_images``'s, kept as one ``Sampler`` across the
+    calls (its graphs captured once, as the JAX bench's program is
+    compiled once)."""
     from tinydiffusionmodels_torch.core import make_schedule, p_sample
     from tinydiffusionmodels_torch.models import SimpleUNet
-    from tinydiffusionmodels_torch.train import mnist_train
+    from tinydiffusionmodels_torch.sample.ancestral import Sampler
 
     device = _device(device)
     sched = make_schedule(timesteps, device=device)
@@ -184,10 +191,10 @@ def bench_mnist_sample(n_samples: int = 256, quick: bool = False,
     step_flops = perf.compiled_flops(one_step)
     nsteps = timesteps if method == "ancestral" else (num_steps or 20)
     flops = step_flops * nsteps / n_samples if step_flops else None
-    secs = _timeit(lambda: mnist_train.sample_images(
-        model, sched, n_samples=n_samples, method=method,
-        num_steps=num_steps, generator=gen), device,
-        iters=1 if quick else 3, windows=windows)
+    sampler = Sampler(model, sched, shape, method=method,
+                      num_steps=num_steps, generator=gen)
+    secs = _timeit(sampler, device, iters=1 if quick else 3,
+                   windows=windows)
     return [n_samples / s for s in secs], flops
 
 
@@ -219,30 +226,31 @@ def bench_text_train(batch_size: int = 8, seq_len: int = 64, dim: int = 256,
                      chunk: int = F32_CHUNK, compute_dtype=None, *,
                      depth: int = 3, vocab: int = 4096, device=None,
                      windows: int = WINDOWS):
-    """(joint 3-model optimizer steps/s of ``text_train.train_step`` in
-    chunks, FLOPs per step). The reference's config is bs 8, seq 64, dim
-    256 (T4: 25 it/s); vocab 4096 is the JAX bench's stand-in."""
+    """(joint 3-model optimizer steps/s of the trainer's chunk runner,
+    ``text_train.TextSteps``, in chunks of ``chunk`` steps; FLOPs per
+    step). The reference's config is bs 8, seq 64, dim 256 (T4: 25 it/s);
+    vocab 4096 is the JAX bench's stand-in."""
     from tinydiffusionmodels_torch.train import text_train
 
     device = _device(device)
     sched, joint, optimizer = _text_setup(batch_size, seq_len, dim,
                                           depth=depth, vocab=vocab,
                                           device=device)
-    tokens = torch.randint(0, vocab, (chunk, batch_size, seq_len),
+    tokens = torch.randint(0, vocab, (chunk * batch_size, seq_len),
                            generator=_seed(3, device), device=device)
     gen = _seed(4, device)
     kw = dict(sched=sched, use_learned_embeddings=True,
               pretrained_matrix=None, compute_dtype=compute_dtype)
-
-    def step(i):
-        return text_train.train_step(joint, optimizer, tokens[i], 1.0, gen,
-                                     **kw)
-
-    flops = perf.compiled_flops(step, 0)
+    flops = perf.compiled_flops(text_train.train_step, joint, optimizer,
+                                tokens[:batch_size], 1.0, gen, **kw)
+    steps = text_train.TextSteps(joint, optimizer, tokens,
+                                 batch_size=batch_size, steps=chunk,
+                                 generator=gen, **kw)
+    order = torch.arange(chunk * batch_size).reshape(chunk, batch_size)
 
     def run_chunk():
-        for i in range(chunk):
-            step(i)
+        steps.start(order.numpy())
+        steps.run(chunk)
 
     return _chunk_windows(run_chunk, chunk, device, windows), flops
 
@@ -252,13 +260,13 @@ def bench_text_sample(n: int = 8, seq_len: int = 64, dim: int = 256,
                       timesteps: int = 1000, device=None,
                       windows: int = WINDOWS):
     """(reverse-diffusion steps/s, the reference's tqdm it/s unit; FLOPs
-    per reverse step)."""
+    per reverse step), of one ``Sampler`` kept across the calls."""
     from tinydiffusionmodels_torch.core import make_schedule, p_sample
     from tinydiffusionmodels_torch.models import (
         TinyTransformer,
         TransformerConfig,
     )
-    from tinydiffusionmodels_torch.sample.ancestral import sample_loop
+    from tinydiffusionmodels_torch.sample.ancestral import Sampler
 
     device = _device(device)
     sched = make_schedule(timesteps, device=device)
@@ -276,11 +284,8 @@ def bench_text_sample(n: int = 8, seq_len: int = 64, dim: int = 256,
 
     step_flops = perf.compiled_flops(one_step)
 
-    def run():
-        with torch.inference_mode():
-            sample_loop(model, sched, shape, generator=gen)
-
-    secs = _timeit(run, device, iters=1 if quick else 3, windows=windows)
+    secs = _timeit(Sampler(model, sched, shape, generator=gen), device,
+                   iters=1 if quick else 3, windows=windows)
     return [timesteps / s for s in secs], step_flops
 
 

@@ -5,15 +5,17 @@ Rebuild of reference src/mnist.py:128-212: AdamW (lr 1e-3, weight decay
 after every epoch, the final weights saved as the reference's bare state
 dict (the JAX CLI reads it), and standalone sampling from a checkpoint.
 
-One optimizer step per Python iteration, with no host sync inside it: the
-dataset (60 000 images, 188 MB in float32) is put on the device once and
-each step gathers its batch there by index, in ``batch_iterator``'s order
-(the JAX package's device-resident data path, without its knob); timesteps
-and noise are drawn on the device from one ``torch.Generator``; losses stay
-on the device until the progress interval (``TDM_PROGRESS_EVERY`` steps)
-and the end of the epoch. The JAX package's K-step scans
-(``TDM_SCAN_CHUNK``) have no counterpart; a CUDA graph over K steps is later
-work.
+The epoch runs in chunks of ``TDM_SCAN_CHUNK`` steps with one host read a
+chunk (``train/chunks.py``), the counterpart of the JAX package's
+``make_train_step_multi[_ema]``: ``MnistSteps`` is its step on device
+state. The dataset (60 000 images, 188 MB in float32) is put on the device
+once and each step gathers its batch there by a device step cursor, in
+``batch_iterator``'s order (the JAX package's device-resident data path,
+without its knob); timesteps and noise are drawn on the device from one
+``torch.Generator``; the EMA update runs in the same step. On the card the
+step is captured once as a CUDA graph and replayed (``graphs.py``); on the
+CPU it runs eagerly. The metrics record's ``loss`` is the last chunk's
+mean step loss, as the JAX trainer logs it.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from tinydiffusionmodels_torch.io import (
 from tinydiffusionmodels_torch.models import SimpleUNet
 from tinydiffusionmodels_torch.runtime import device as runtime_device
 from tinydiffusionmodels_torch.sample.ancestral import sample_loop
+from tinydiffusionmodels_torch.train import chunks
 from tinydiffusionmodels_torch.train.metrics import MetricsLogger
 from tinydiffusionmodels_torch.train.optim import adamw
 from tinydiffusionmodels_torch.train.precision import in_dtype
@@ -103,6 +106,38 @@ def epoch_order(n: int, batch_size: int, *, seed: int, epoch: int,
     if not order:
         return torch.zeros((0, batch_size), dtype=torch.long, device=device)
     return torch.as_tensor(np.stack(order), device=device)
+
+
+class MnistSteps(chunks.EpochSteps):
+    """Optimizer steps of ``train_step`` on device state, in chunks: the
+    counterpart of ``make_train_step_multi`` (and, with ``ema``, of
+    ``make_train_step_multi_ema``). A step gathers its batch from ``data``
+    (N, 28, 28, 1) by the epoch's order at the device cursor, steps AdamW,
+    updates ``ema`` and writes its loss. ``eager`` runs every step eagerly
+    on the card too (the plain version a replay is held against)."""
+
+    def __init__(self, model, optimizer, data, sched, *, batch_size: int,
+                 steps: int, generator, ema=None,
+                 ema_decay: float | None = None, compute_dtype=None,
+                 eager: bool = False):
+
+        def step(_):
+            loss = train_step(model, optimizer,
+                              data.index_select(0, self.rows()), sched,
+                              generator, compute_dtype=compute_dtype)
+            if ema is not None:
+                ema_update(ema, model, ema_decay)
+            optimizer.zero_grad(set_to_none=True)
+            self.finish(loss)
+
+        super().__init__(step, optimizer=optimizer, steps=steps,
+                         batch_size=batch_size, loss_width=1,
+                         device=data.device, generators=(generator,),
+                         eager=eager)
+
+    def run(self, n: int) -> np.ndarray:
+        """The next ``n`` steps; their (n,) losses, one host read."""
+        return self.run_variants([None] * n)[:, 0]
 
 
 def sample_images(model: nn.Module, sched: DiffusionSchedule, *,
@@ -174,10 +209,11 @@ def train(
 
     ``ema_decay`` (e.g. 0.999) keeps an exponential moving average of the
     weights, updated after every step; the per-epoch grids and the final
-    checkpoint then use it. The metrics record's ``loss`` is the epoch's
-    mean step loss. ``compute_dtype=torch.bfloat16`` trains in bf16
-    (``optimizer_step``); the weights, AdamW's state, the EMA, the sample
-    grids and the checkpoint stay f32."""
+    checkpoint then use it. The metrics record's ``loss`` is the mean step
+    loss of the epoch's last chunk (the JAX trainer's).
+    ``compute_dtype=torch.bfloat16`` trains in bf16 (``optimizer_step``);
+    the weights, AdamW's state, the EMA, the sample grids and the
+    checkpoint stay f32."""
     dev = runtime_device() if device is None else torch.device(device)
     ckpt_path = (get_vertex_checkpoint_path("image-model.pth")
                  if "AIP_MODEL_DIR" in os.environ else ckpt_path)
@@ -201,39 +237,44 @@ def train(
     if ema_decay is not None:
         ema = copy.deepcopy(model).requires_grad_(False)
     gen = _generator(dev, seed, 0)
-    progress_every = int(os.environ.get("TDM_PROGRESS_EVERY", "250"))
     epoch_steps = data.shape[0] // batch_size
+    steps = MnistSteps(model, optimizer, data, sched, batch_size=batch_size,
+                       steps=epoch_steps, generator=gen, ema=ema,
+                       ema_decay=ema_decay, compute_dtype=compute_dtype)
+    chunk, progress_every = chunks.scan_chunk(), chunks.progress_every()
 
     history, records = [], []
     steps_done, loop_seconds = 0, 0.0
     for epoch in range(epochs):
         order = epoch_order(data.shape[0], batch_size, seed=seed,
-                            epoch=epoch, device=dev)
+                            epoch=epoch, device="cpu")
+        if epoch_steps:
+            steps.start(order.numpy())
         model.train()
         t0 = time.perf_counter()
         losses = []
-        for i in range(order.shape[0]):
-            losses.append(train_step(model, optimizer, data[order[i]], sched,
-                                     gen, compute_dtype=compute_dtype))
-            if ema is not None:
-                ema_update(ema, model, ema_decay)
-            if progress_every and (i + 1) % progress_every == 0:
+        for c, k in enumerate(chunks.chunk_lengths(epoch_steps, chunk)):
+            losses.append(steps.run(k))
+            if progress_every and (c + 1) % progress_every == 0:
                 dt = time.perf_counter() - t0
-                recent = float(torch.stack(losses[-progress_every:]).mean())
-                log_fn(f"[epoch {epoch + 1}] step {i + 1}/{epoch_steps} "
-                       f"({(i + 1) / dt:.1f} it/s), loss~{recent:.4f}")
-        n = len(losses)
-        epoch_losses = (torch.stack(losses).cpu().numpy() if n
+                n = sum(len(x) for x in losses)
+                log_fn(f"[epoch {epoch + 1}] step {n}/{epoch_steps} "
+                       f"({n / dt:.1f} it/s), "
+                       f"loss~{float(losses[-1].mean()):.4f}")
+        epoch_losses = (np.concatenate(losses) if losses
                         else np.zeros(0, np.float32))
+        n = len(epoch_losses)
         dt = time.perf_counter() - t0
         steps_done += n
         loop_seconds += dt
         history.append(epoch_losses)
-        mean_loss = float(epoch_losses.mean()) if n else float("nan")
+        # The JAX trainer's ``float(loss)``: the last chunk's mean (0 when
+        # the epoch has no step).
+        last_chunk = float(losses[-1].mean()) if losses else 0.0
         log_fn(f"Epoch {epoch + 1}/{epochs}: {n} steps in {dt:.1f}s "
-               f"({n / dt:.1f} it/s), loss~{mean_loss:.4f}")
+               f"({n / dt:.1f} it/s), loss~{last_chunk:.4f}")
         record = {"workload": "mnist", "epoch": epoch + 1, "steps": n,
-                  "it_per_s": round(n / dt, 2), "loss": mean_loss}
+                  "it_per_s": round(n / dt, 2), "loss": last_chunk}
         metrics.log(record)
         records.append(record)
         if sample_every_epoch:

@@ -44,7 +44,24 @@ def adamw(
     lr: float,
     weight_decay: float = 1e-4,
 ) -> torch.optim.AdamW:
-    """AdamW with torch defaults (betas=(0.9, 0.999), eps=1e-8)."""
+    """AdamW with torch defaults (betas=(0.9, 0.999), eps=1e-8).
+
+    For parameters on the card it is built for CUDA graphs:
+    ``capturable=True`` (its step count and bias corrections stay on the
+    card) and the learning rate a float32 tensor there, which a captured
+    step rewrites in place (``train/chunks.py``); and ``fused=True``, one
+    kernel for every parameter where the capturable multi-tensor update
+    launches about a hundred (a replayed text step at bs 8 took 1463
+    against 1776 µs on an H100 80GB HBM3 at 700 W, PERF.md §6). Torch
+    refuses ``capturable`` for CPU parameters, so on the CPU the learning
+    rate stays a float."""
+    params = list(params)
+    if params and params[0].is_cuda:
+        return torch.optim.AdamW(
+            params, lr=torch.tensor(float(lr), device=params[0].device),
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+            capturable=True, fused=True,
+        )
     return torch.optim.AdamW(
         params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
     )

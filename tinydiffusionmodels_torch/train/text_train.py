@@ -11,14 +11,16 @@ The joint model is an ``nn.ModuleDict`` with the JAX package's keys:
 'diffusion_model' (TinyTransformer), 'rounding_fn' (LearnedRounding) and,
 with learned embeddings, 'embedding_fn' (LearnedEmbedding).
 
-One optimizer step per Python iteration, with no host sync inside it: the
-batch is gathered on the device from the corpus held there, timesteps,
-noise, dropout masks and attention-dropout seeds are drawn on the device
-from one ``torch.Generator``, and each step's losses stay on the device
-until the progress interval (``TDM_PROGRESS_EVERY`` steps) or the end of
-the epoch. The JAX package's K-step scans (``TDM_SCAN_CHUNK``) are a
-dispatch device of XLA and have no counterpart here; a CUDA graph over the
-step is later work.
+The epoch runs in chunks of ``TDM_SCAN_CHUNK`` steps with one host read a
+chunk (``train/chunks.py``), the counterpart of the JAX package's
+``make_text_train_step_multi[_ema]``: ``TextSteps`` is its step on device
+state. The batch is gathered on the device from the corpus held there by
+a device step cursor, the learning rate comes from a device table of the
+schedule, timesteps, noise, dropout masks and attention-dropout seeds are
+drawn on the device from one ``torch.Generator``, and the EMA update runs
+in the same step. On the card each kind of step (one per value of the
+self-conditioning coin, which the host draws) is captured once as a CUDA
+graph and replayed (``graphs.py``); on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from tinydiffusionmodels_torch.io import (
     text_checkpoint_dict,
 )
 from tinydiffusionmodels_torch.models.embedding import _apply_norm
+from tinydiffusionmodels_torch.train import chunks
 from tinydiffusionmodels_torch.train.metrics import MetricsLogger
 from tinydiffusionmodels_torch.train.optim import (
     adamw,
@@ -231,6 +234,65 @@ def _generator(device, seed: int, *words: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state))
 
 
+class TextSteps(chunks.EpochSteps):
+    """Optimizer steps of ``train_step`` on device state, in chunks: the
+    counterpart of ``make_text_train_step_multi`` (and, with ``ema``, of
+    ``make_text_train_step_multi_ema``).
+
+    A step gathers its batch from ``train_dev`` (N, L) by the epoch's order
+    at the device cursor, takes its learning rate from the epoch's table
+    (``lr_at``: global step -> lr) and the rounding weight from a device
+    scalar, steps AdamW, updates ``ema`` (ema <- d * ema + (1 - d) * live)
+    and writes its (diff, round, total) losses. With ``cfg.self_cond``,
+    ``run`` draws each step's coin from ``coin_rng`` on the host, in the
+    order the eager loop draws it, and runs that coin's step (a graph
+    each on the card). ``eager`` runs every step eagerly on the card too
+    (the plain version a replay is held against)."""
+
+    def __init__(self, joint, optimizer, train_dev, *, batch_size: int,
+                 steps: int, generator, coin_rng=None, ema=None,
+                 ema_decay: float | None = None, lr_at=None,
+                 eager: bool = False, **loss_kwargs):
+        dev = train_dev.device
+        self.self_cond = joint["diffusion_model"].cfg.self_cond
+        self.coin_rng = coin_rng
+        self.rounding_weight = torch.zeros((), device=dev)
+        live = list(joint.parameters())
+        shadow = list(ema.parameters()) if ema is not None else None
+
+        def step(coin):
+            self.set_lr()
+            losses = train_step(
+                joint, optimizer, train_dev.index_select(0, self.rows()),
+                self.rounding_weight, generator, self_cond_coin=coin,
+                **loss_kwargs)
+            if shadow is not None:
+                with torch.no_grad():
+                    torch._foreach_mul_(shadow, ema_decay)
+                    torch._foreach_add_(shadow, live, alpha=1.0 - ema_decay)
+            optimizer.zero_grad(set_to_none=True)
+            self.finish(losses)
+
+        super().__init__(step, optimizer=optimizer, steps=steps,
+                         batch_size=batch_size, loss_width=3, device=dev,
+                         generators=(generator,),
+                         variants=(False, True) if self.self_cond else (False,),
+                         lr_at=lr_at, eager=eager)
+
+    def start(self, order: np.ndarray, rounding_weight: float = 1.0,
+              first_step: int = 0) -> None:
+        """A new epoch: its batch order, rounding weight and first global
+        step."""
+        super().start(order, first_step)
+        self.rounding_weight.fill_(rounding_weight)
+
+    def run(self, n: int) -> np.ndarray:
+        """The next ``n`` steps; their (n, 3) losses, one host read."""
+        coins = [bool(self.self_cond and self.coin_rng.random() < 0.5)
+                 for _ in range(n)]
+        return self.run_variants(coins)
+
+
 def _checkpoint_dict(joint, **kw) -> dict:
     return text_checkpoint_dict(
         joint["diffusion_model"], joint["rounding_fn"],
@@ -299,7 +361,6 @@ def train(
             "on the predicted clean embeddings)"
         )
     dev = next(joint.parameters()).device
-    model = joint["diffusion_model"]
     steps_per_epoch = num_batches(train_chunks.shape[0], batch_size)
     total_steps = steps_per_epoch * epochs
     if freeze_embeddings and use_learned_embeddings:
@@ -307,11 +368,12 @@ def train(
     else:
         params = list(joint.parameters())
     optimizer = adamw(params, lr, weight_decay=weight_decay)
-    scheduler = (
-        torch.optim.lr_scheduler.LambdaLR(
-            optimizer, cosine_warmup_lambda(warmup_steps, total_steps))
-        if use_lr_scheduling else None
-    )
+    lr_at = None
+    if use_lr_scheduling:
+        lam = cosine_warmup_lambda(warmup_steps, total_steps)
+
+        def lr_at(step):
+            return lr * lam(step)   # LambdaLR's base_lr * lambda(step)
     if pretrained_matrix is not None:
         pretrained_matrix = torch.as_tensor(
             pretrained_matrix, dtype=torch.float32, device=dev)
@@ -325,7 +387,6 @@ def train(
     ema = None
     if ema_decay is not None:
         ema = copy.deepcopy(joint).requires_grad_(False)
-        ema_params, live_params = list(ema.parameters()), list(joint.parameters())
 
     # The corpus lives on the device; each step gathers its batch there.
     train_dev = torch.as_tensor(train_chunks, dtype=torch.long, device=dev)
@@ -334,7 +395,11 @@ def train(
                                device=dev) if val_batches else None)
     gen = _generator(dev, seed, 0)            # t, noise and dropout
     coin_rng = np.random.default_rng([seed, 2])  # self-conditioning coin
-    progress_every = int(os.environ.get("TDM_PROGRESS_EVERY", "250"))
+    steps = TextSteps(joint, optimizer, train_dev, batch_size=batch_size,
+                      steps=steps_per_epoch, generator=gen, coin_rng=coin_rng,
+                      ema=ema, ema_decay=ema_decay, lr_at=lr_at,
+                      **loss_kwargs)
+    chunk, progress_every = chunks.scan_chunk(), chunks.progress_every()
 
     ckpt_meta = dict(
         tokenizer_state=tokenizer_state, parameterization=parameterization,
@@ -351,30 +416,19 @@ def train(
         # The batch order of data.loader.batch_iterator, as index rows.
         order = list(batch_iterator(np.arange(train_chunks.shape[0]),
                                     batch_size, seed=seed, epoch=epoch))
-        t0 = time.perf_counter()
-        losses = []
         if order:
-            order_dev = torch.as_tensor(np.stack(order), device=dev)
-        for i in range(len(order)):
-            coin = bool(model.cfg.self_cond and coin_rng.random() < 0.5)
-            losses.append(train_step(
-                joint, optimizer, train_dev[order_dev[i]], w, gen,
-                self_cond_coin=coin, **loss_kwargs,
-            ))
-            if scheduler is not None:
-                scheduler.step()
-            if ema is not None:
-                with torch.no_grad():  # no autograd record across steps
-                    torch._foreach_mul_(ema_params, ema_decay)
-                    torch._foreach_add_(ema_params, live_params,
-                                        alpha=1.0 - ema_decay)
-            if progress_every and (i + 1) % progress_every == 0:
+            steps.start(np.stack(order), w, epoch * steps_per_epoch)
+        t0 = time.perf_counter()
+        losses, n = [], 0
+        for c, k in enumerate(chunks.chunk_lengths(len(order), chunk)):
+            losses.append(steps.run(k))
+            n += k
+            if progress_every and (c + 1) % progress_every == 0:
                 dt = time.perf_counter() - t0
-                recent = float(torch.stack(losses).sum(0)[2]) / (i + 1)
-                log_fn(f"[epoch {epoch + 1}] step {i + 1}/{steps_per_epoch} "
-                       f"({(i + 1) / dt:.1f} it/s), loss~{recent:.4f}")
-        n = len(losses)
-        epoch_losses = (torch.stack(losses).cpu().numpy() if n
+                recent = float(np.concatenate(losses)[:, 2].sum()) / n
+                log_fn(f"[epoch {epoch + 1}] step {n}/{steps_per_epoch} "
+                       f"({n / dt:.1f} it/s), loss~{recent:.4f}")
+        epoch_losses = (np.concatenate(losses) if n
                         else np.zeros((0, 3), np.float32))
         dt = time.perf_counter() - t0
         steps_done += n
