@@ -78,16 +78,21 @@ no result line) on any error; no phase catches its own failure.
 8. Main path, guided CLI: ``shakespeare.main(["--guided_sample",
    "--base_lm", "tinygpt", ...])`` from the trained checkpoint, n 8, seq
    64: trains TinyGPT (dim 256, depth 4) for LM_EPOCHS and writes
-   lm_ckpt.pth and 8 guided samples; asserts forward = 1000 x 3 (sampler)
-   + 64 x 4 (decode steps) + steps x 4, dq = dkv = steps x 4, no decode
-   launch. A second call reuses lm_ckpt.pth: no training launch.
-9. Main path, exact guided decode: ``guided_generate_verified(draft=
-   "fused")`` on that TinyGPT and the trained rounding head's logits of
-   phase 6's embeddings: one decode-kernel launch, forward = Jacobi rounds
-   x 4, the output equal to its own fixpoint, >= 95 % agreement with the
-   plain f32 scan. Outside the counted run, the kernel's decode of the same
-   TinyGPT and logits is held against its plain version by phase 7's
-   criteria: the main path's own shape and trained weights.
+   lm_ckpt.pth and 8 guided samples; the decode is a ``GuidedDecoder``'s
+   replayed scan; asserts forward = 1000 x 3 (sampler) + 65 x 4 (the
+   scan's 64 positions and its prime's one) + steps x 4, dq = dkv = steps
+   x 4, no decode launch. A second call reuses lm_ckpt.pth (no training
+   launch), samples by DDIM 10 and runs under ``--profile_dir``: its
+   per-op table must list the flash forward kernel.
+9. Main path, exact guided decode: a ``GuidedDecoder(draft="fused")`` on
+   that TinyGPT and the trained rounding head's logits of phase 6's
+   embeddings: one decode-kernel launch and forward = Jacobi rounds x 4,
+   plus the primes' (one decode launch, 4 forwards), the output equal to
+   its own fixpoint and to ``guided_generate_verified``'s (tokens and
+   rounds), >= 95 % agreement with the plain f32 scan. Outside the counted
+   run, the kernel's decode of the same TinyGPT and logits is held against
+   its plain version by phase 7's criteria: the main path's own shape and
+   trained weights. Then phase 28.
 10. Device vs CPU: one full-width denoiser forward on the card (kernel) and
    on the CPU (plain version), same weights and inputs, within 1e-3.
 11. Timing at the training shape (B 8, L 64, H 4, Dh 64, f32, the model's
@@ -108,9 +113,9 @@ no result line) on any error; no phase catches its own failure.
    TFLOP/s plus the attention's f32 FLOPs over 67 TFLOP/s, the larger; no
    single PyTorch call computes it), the chain floor (its grid barriers
    alone, at its grid and count, with the kernel's own barrier and
-   cooperative_groups' grid.sync beside it), the mean time of each phase
-   from CTA 0's %globaltimer stamps, and tokens/s of the exact decode with
-   the fused draft against the plain f32 scan.
+   cooperative_groups' grid.sync beside it), and the mean time of each
+   phase from CTA 0's %globaltimer stamps. (Tokens/s of the exact decodes:
+   phase 27.)
 13. Profiles: ``torch.profiler`` over a window of the sampler and over
    PROFILE_TRAIN_STEPS training steps, each eager and replayed (phase 26):
    device time and kernels per step, the device's busy share, the kernels
@@ -189,7 +194,8 @@ no result line) on any error; no phase catches its own failure.
    TDM_BENCH_QUIET_WAIT=0: its last line has ``bench.py``'s keys, all 14
    metrics finite and > 0, mfu for every train and sample metric, and
    launches of every kernel of its paths; ``valid`` is printed, not
-   asserted (the build raised the load average). Its launches count with
+   asserted (the build raised the load average), and its provenance's
+   Jacobi record for the three verified metrics. Its launches count with
    the main paths' in the kernels' record.
 
 CUDA graphs (after phase 22). Every main path above runs its training
@@ -227,6 +233,23 @@ count replays.
    torch.profiler, and the busy share, printed as one table beside the
    card's name and power limit.
 
+27. The guided decoder (after phase 25): ``sample.guided.GuidedDecoder``
+   at the bench's guided shape (V 4096, D 256, depth 4, L 64), cases
+   DECODER_CASES: the plain scan at bs 8 and 256, the bf16-scan draft at
+   256, the fused draft at 8 and 256. A decoder's first call (prime,
+   capture, replay) and a later one, on other logits, must equal
+   ``guided_generate_verified`` bit for bit, tokens and Jacobi rounds; the
+   launches are a scan's 64 x 4 flash forwards, 4 a round, one decode
+   launch, plus the primes' on the first call. Printed per case, beside
+   the card's name and power limit: eager and replayed ms a call, device
+   µs and busy share from torch.profiler (a replayed call's kernels by
+   device time), and for the verified cases the ms of a round (its replay
+   and flag read), its device µs and the flag read alone.
+28. The Jacobi-rounds tool (after phase 9): ``python -m
+   tinydiffusionmodels_torch.jacobi_rounds --lm_ckpt`` on phase 8's
+   trained TinyGPT: rounds of the fused and bf16-scan drafts at bs 8 and
+   256, random and trained weights; every case must converge within 65.
+
 The peaks, the bound and the timer are ``tinydiffusionmodels_torch.perf``'s.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``; before them, the command's time.
@@ -253,8 +276,14 @@ RATE_RUNS = 3           # timed 1000-step sampler runs after the CLI's
 PROFILE_STEPS = 100     # the profiled sampler window
 PROFILE_TRAIN_STEPS = 20
 LM_DEPTH, LM_EPOCHS, LM_BATCH = 4, 1, 64   # the guided CLI's TinyGPT
+PROFILE_DDIM_STEPS = 10  # the profiled guided CLI call's sampler
 ALPHA = 0.3
 DECODE_BATCHES = (8, 256)
+# The guided decoder's cases (phase 27): (draft, batch) at the bench shape,
+# and the timed calls a mode.
+DECODER_CASES = (("plain", 8), ("plain", 256), ("scan_bf16", 256),
+                 ("fused", 8), ("fused", 256))
+DECODER_RUNS = 5
 # Near-tie tolerance of the decode kernel against its plain version: the
 # plain version's score gap between its best token and the kernel's, over
 # the best score's magnitude. Both round the same activations to bf16, so
@@ -1056,7 +1085,11 @@ def main_path_guided(card: str, ckpt: Path):
     """``shakespeare.main(["--guided_sample", "--base_lm", "tinygpt", ...])``
     from the trained checkpoint: trains TinyGPT for LM_EPOCHS, writes
     lm_ckpt.pth and the guided samples; then a second call reuses
-    lm_ckpt.pth and trains nothing. Returns the first call's launches."""
+    lm_ckpt.pth, trains nothing, samples by DDIM in PROFILE_DDIM_STEPS
+    steps and profiles itself (``--profile_dir``), whose per-op table must
+    list the flash forward kernel. The guided decode is the CLI's
+    ``GuidedDecoder``: one scan and its prime. Returns both calls'
+    launches."""
     import torch
 
     from tinydiffusionmodels_torch import shakespeare
@@ -1068,7 +1101,8 @@ def main_path_guided(card: str, ckpt: Path):
     )
 
     phase("main path: shakespeare --guided_sample --base_lm tinygpt from the "
-          "trained checkpoint (TinyGPT trained, then reused)")
+          "trained checkpoint (TinyGPT trained, then reused with "
+          "--profile_dir)")
     _prepare_workdir()
     lm_ckpt = WORK / "lm_ckpt.pth"
     lm_ckpt.unlink(missing_ok=True)
@@ -1082,18 +1116,27 @@ def main_path_guided(card: str, ckpt: Path):
             "--n", str(N), "--seq_len", str(SEQ), "--model_id", "char",
             "--lm_epochs", str(LM_EPOCHS), "--lm_ckpt", str(lm_ckpt),
             "--alpha", str(ALPHA), "--data_root", str(WORK / "data")]
+    profile_dir = WORK / "profile"
+    for old in profile_dir.glob("*"):
+        old.unlink()
+    # The second call: the reused TinyGPT, DDIM 10 (a short trace) under
+    # --profile_dir.
+    second = ["--sampler", "ddim", "--steps", str(PROFILE_DDIM_STEPS),
+              "--profile_dir", str(profile_dir)]
     runs = []
     for i in range(2):
         torch.cuda.synchronize()
         _reset_counts()
         t0 = time.perf_counter()
-        tokens = shakespeare.main(argv)
+        tokens = shakespeare.main(argv + (second if i else []))
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         counts = _counts()
         steps = lm_steps if i == 0 else 0
-        expect = {"flash_attention_fwd": STEPS * DEPTH + SEQ * LM_DEPTH
-                  + steps * LM_DEPTH,
+        sampler = STEPS if i == 0 else PROFILE_DDIM_STEPS
+        # The decoder's scan (SEQ positions) and its prime (one position).
+        expect = {"flash_attention_fwd": sampler * DEPTH
+                  + (SEQ + 1) * LM_DEPTH + steps * LM_DEPTH,
                   "flash_attention_bwd_dq": steps * LM_DEPTH,
                   "flash_attention_bwd_dkv": steps * LM_DEPTH,
                   "guided_decode": 0, "fused_resblock": 0,
@@ -1111,9 +1154,19 @@ def main_path_guided(card: str, ckpt: Path):
         print(f"guided CLI call {i + 1} ({'trains' if steps else 'reuses'} "
               f"TinyGPT, {steps} steps): launches {counts}, {len(written)} "
               f"guided samples, {lm_ckpt.name} present, CLI call {cli_s:.3f} s "
-              f"(includes the 1000-step sampler), on {card}")
+              f"(includes the {sampler}-step sampler), on {card}")
         runs.append(counts)
-    return runs[0], lm_ckpt
+    ops = (profile_dir / "ops.txt").read_text()
+    trace_mb = (profile_dir / "trace.json").stat().st_size / 2**20
+    listed = [line for line in ops.splitlines()
+              if GRAPH_KERNEL_NAMES["flash_attention_fwd"] in line]
+    if not listed:
+        raise AssertionError("the --profile_dir table lists no flash "
+                             "forward kernel")
+    print(f"--profile_dir: trace.json {trace_mb:.1f} MiB; ops.txt lists the "
+          f"flash forward kernel on {len(listed)} lines; its top rows:")
+    print("\n".join(ops.splitlines()[:8]))
+    return {k: sum(r[k] for r in runs) for k in runs[0]}, lm_ckpt
 
 
 def _fixpoint(lm, tokens, diff, bos: int):
@@ -1131,12 +1184,13 @@ def _fixpoint(lm, tokens, diff, bos: int):
 
 
 def guided_exact(card: str, lm_ckpt: Path, ckpt: Path, z, rounding):
-    """Path (B), the exact guided decode: ``guided_generate_verified`` with
-    the fused draft on the TinyGPT the CLI phase trained and the diffusion
+    """Path (B), the exact guided decode with the fused draft through a
+    ``GuidedDecoder`` (its graphs replayed from its first call), on the TinyGPT the CLI phase trained and the diffusion
     logits of the trained text checkpoint (its rounding head on the --sample
-    phase's embeddings), n 8, L 64. Asserts one decode-kernel launch, the
-    output equal to its own fixpoint and >= 95 % agreement with the plain
-    f32 scan. Then, outside the counted run, the kernel's decode of the
+    phase's embeddings), n 8, L 64. Asserts one decode-kernel launch and
+    the Jacobi rounds' forwards (plus the primes': one decode launch, one
+    forward), the output equal to its own fixpoint and to the eager decode
+    (tokens and rounds), and >= 95 % agreement with the plain f32 scan. Then, outside the counted run, the kernel's decode of the
     same TinyGPT and logits against its plain version (phase 7's criteria).
     Returns (launches, rounds, agreement, worst absolute forced gap,
     agreement stats)."""
@@ -1150,11 +1204,12 @@ def guided_exact(card: str, lm_ckpt: Path, ckpt: Path, z, rounding):
     from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
     from tinydiffusionmodels_torch.ops import decode_kernel as dk
     from tinydiffusionmodels_torch.sample.guided import (
+        GuidedDecoder,
         guided_generate_verified,
     )
 
     phase("main path: exact guided decode (fused kernel draft + Jacobi "
-          "verify) on the trained TinyGPT")
+          "verify, GuidedDecoder's graphs) on the trained TinyGPT")
     params = load_checkpoint(lm_ckpt)["params"]
     v, _ = params["tok_emb"].shape
     lm = TinyGPT(TinyGPTConfig(vocab_size=int(v), dim=DIM, n_heads=HEADS,
@@ -1168,28 +1223,36 @@ def guided_exact(card: str, lm_ckpt: Path, ckpt: Path, z, rounding):
         diff = rounding(z)
     torch.cuda.synchronize()
     _reset_counts()
-    tokens, rounds = guided_generate_verified(lm, diff, bos, alpha=ALPHA,
-                                              draft="fused",
-                                              return_rounds=True)
+    decoder = GuidedDecoder(lm, diff.shape[0], SEQ, bos, alpha=ALPHA,
+                            draft="fused")
+    tokens, rounds = decoder(diff, return_rounds=True)
     torch.cuda.synchronize()
     counts = _counts()
-    expect = {"flash_attention_fwd": rounds * LM_DEPTH,
+    # The rounds' replays and the draft's, plus the primes: one decode
+    # launch on one position and one verify forward.
+    expect = {"flash_attention_fwd": (rounds + 1) * LM_DEPTH,
               "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-              "guided_decode": 1, "fused_resblock": 0,
+              "guided_decode": 2, "fused_resblock": 0,
               **_SINGLE_BLOCK_IDLE}
     if counts != expect:
         raise AssertionError(f"launches {counts} on the exact guided path, "
                              f"expected {expect}")
     if not torch.equal(tokens, _fixpoint(lm, tokens, diff, bos)):
         raise AssertionError("the verified decode is not its own fixpoint")
+    eager, eager_rounds = guided_generate_verified(
+        lm, diff, bos, alpha=ALPHA, draft="fused", return_rounds=True)
+    if not torch.equal(tokens, eager) or rounds != eager_rounds:
+        raise AssertionError("the replayed exact decode differs from the "
+                             "eager one")
     plain = guided_generate_verified(lm, diff, bos, alpha=ALPHA, draft="plain")
     agree = float((tokens == plain).float().mean())
     if not agree >= 0.95:
         raise AssertionError(f"fused+verify agrees with the plain scan on "
                              f"{agree} of tokens (must be >= 0.95)")
     print(f"exact guided decode: launches {counts}; {rounds} Jacobi rounds "
-          f"(verify forwards); output equals its fixpoint; agreement with "
-          f"the plain f32 scan {agree}; on {card}")
+          f"(verify forwards); output equals its fixpoint and the eager "
+          f"decode's, bit for bit; agreement with the plain f32 scan "
+          f"{agree}; on {card}")
 
     # The draft this path launched, held against its plain version at the
     # path's own shape (B 8, L 64, the char vocab) and trained weights.
@@ -1258,17 +1321,13 @@ def decode_timing(card: str) -> dict:
     4, max_len 65, L 64, alpha 0.3, random weights and N(0, 1) logits), at
     batch 8 and 256: CUDA-event device time of one launch beside the plain
     version (plain, kernel, kernel, plain), the bound, the grid barrier's
-    cost at the launch's grid, and host-clock tokens/s of the exact decode
-    with the fused draft against the plain f32 scan."""
+    cost at the launch's grid (phase 27 times the exact decodes)."""
     import torch
 
     from tinydiffusionmodels_torch import perf
 
     from tinydiffusionmodels_torch.ops import decode_kernel as dk
     from tinydiffusionmodels_torch.ops import reference
-    from tinydiffusionmodels_torch.sample.guided import (
-        guided_generate_verified,
-    )
 
     phase("timing: guided decode at the bench shape (V 4096, D 256, depth 4, "
           "L 64, alpha 0.3)")
@@ -1307,29 +1366,13 @@ def decode_timing(card: str) -> dict:
         # without tensor cores), beside the card's bound; not the bound.
         fma_roof_ms = ((mm_flops + attn_flops)
                        / perf.device_peak_flops(dtype="f32") * 1e3)
-        rates = {}
-        for draft in ("fused", "plain"):
-            guided_generate_verified(model, diff, 0, alpha=ALPHA, draft=draft,
-                                     weights=w)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(RATE_RUNS):
-                _, rounds = guided_generate_verified(
-                    model, diff, 0, alpha=ALPHA, draft=draft, weights=w,
-                    return_rounds=True)
-            torch.cuda.synchronize()
-            rates[draft] = (b * SEQ * RATE_RUNS / (time.perf_counter() - t0),
-                            rounds)
         k_mean = sum(k_ms) / 2
         out[b] = dict(ms=k_mean, plain_ms=sum(p_ms) / 2, bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None,
                       fp32_fma_roof_ms=fma_roof_ms, grid=grid,
                       units=units, phase_us=phases_us, barriers=syncs,
                       barrier_ms=sync_ms,
-                      barrier_share=sync_ms / k_mean,
-                      fused_verify_tokens_s=rates["fused"][0],
-                      jacobi_rounds=rates["fused"][1],
-                      plain_scan_tokens_s=rates["plain"][0])
+                      barrier_share=sync_ms / k_mean)
         print(f"bs {b}: kernel {k_ms} ms, plain {p_ms} ms; bound {bound_ms} "
               f"ms by {bound_by} ({nbytes} B, {mm_flops} bf16 matmul FLOP, "
               f"{attn_flops} f32 attention FLOP), {k_mean / bound_ms:.0f}x; "
@@ -1337,12 +1380,163 @@ def decode_timing(card: str) -> dict:
               f"CTAs, units a phase {units}, mean us a phase (barrier "
               f"included) {phases_us}; chain floor: {syncs} barriers "
               f"alone {sync_ms} ms = {sync_ms / k_mean:.3f} of the kernel "
-              f"({sync_ms / syncs * 1e3:.3f} us a barrier); exact decode "
-              f"tokens/s: "
-              f"fused+verify {rates['fused'][0]} ({rates['fused'][1]} Jacobi "
-              f"rounds), plain f32 scan {rates['plain'][0]}; no single "
+              f"({sync_ms / syncs * 1e3:.3f} us a barrier); no single "
               f"PyTorch call computes this (library —); on {card}")
     return out
+
+
+def _wall_ms(fn, calls: int) -> float:
+    """Host-clock ms a call of ``fn`` over ``calls`` calls, synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def guided_decoder_replay(card: str) -> dict:
+    """Phase 27: ``sample.guided.GuidedDecoder`` at the bench's guided shape
+    (TinyGPT V 4096, D 256, 4 heads, depth 4, max_len 65, L 64, alpha 0.3,
+    random weights, N(0, 1) logits) for DECODER_CASES. A new decoder's first
+    call primes, captures and replays; it and a later call, each on other
+    logits, must equal ``guided_generate_verified`` (the eager loops) bit
+    for bit, tokens and Jacobi rounds. Launches: a call replays L x depth
+    flash forwards for a scan, depth a round, one decode launch for the
+    fused draft; the first call adds the primes' (depth for a scan
+    position, depth for a verify forward, one decode launch on one
+    position). Prints eager and replayed ms a call, device µs and busy
+    share from torch.profiler, and for the verified cases the ms of a
+    round (replay and flag read), its device µs and the flag read alone.
+    Returns {case: row} and the launches of the counted calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinydiffusionmodels_torch.ops import decode_kernel as dk
+    from tinydiffusionmodels_torch.sample.guided import (
+        GuidedDecoder,
+        guided_generate_verified,
+    )
+
+    phase("CUDA graphs: the guided decoder, replayed against the eager "
+          "decode (V 4096, D 256, depth 4, L 64, alpha 0.3)")
+    vocab, depth = 4096, 4
+    model = _tiny_gpt(vocab, depth, seed=0)
+    w = dk.pack_weights(model)
+    rows, total = {}, {}
+    for draft, b in DECODER_CASES:
+        what = f"{draft} bs {b}"
+        g = torch.Generator(device="cuda").manual_seed(1)
+        diffs = [torch.randn(b, SEQ, vocab, generator=g, device="cuda")
+                 for _ in range(2)]
+
+        def eager(diff, draft=draft):
+            return guided_generate_verified(model, diff, 0, alpha=ALPHA,
+                                            draft=draft, weights=w,
+                                            return_rounds=True)
+
+        want = [eager(d) for d in diffs]
+        torch.cuda.synchronize()
+        _reset_counts()
+        decoder = GuidedDecoder(model, b, SEQ, 0, alpha=ALPHA, draft=draft,
+                                weights=w)
+        got = [decoder(d, return_rounds=True) for d in diffs]
+        torch.cuda.synchronize()
+        first = _counts()
+        _reset_counts()
+        got.append(decoder(diffs[0], return_rounds=True))
+        torch.cuda.synchronize()
+        later = _counts()
+        for i, ((gt, gr), (wt, wr)) in enumerate(zip(got, want + want[:1])):
+            if not torch.equal(gt, wt) or gr != wr:
+                raise AssertionError(
+                    f"{what}: replayed call {i + 1} differs from the eager "
+                    f"decode ({int((gt != wt).sum())} tokens, rounds {gr} "
+                    f"against {wr})")
+
+        def launches(rounds, draft=draft):
+            scan = SEQ * depth if draft != "fused" else 0
+            return {"flash_attention_fwd": scan + rounds * depth,
+                    "guided_decode": int(draft == "fused")}
+
+        prime = {"flash_attention_fwd":
+                 depth * (int(draft != "fused") + int(draft != "plain")),
+                 "guided_decode": int(draft == "fused")}
+        calls = [launches(r) for _, r in want]
+        want_first = {k: calls[0][k] + calls[1][k] + prime[k] for k in prime}
+        for counts, expect, which in ((first, want_first, "first two calls"),
+                                      (later, calls[0], "a later call")):
+            seen = {k: counts[k] for k in expect}
+            rest = {k: v for k, v in counts.items() if k not in expect and v}
+            if seen != expect or rest:
+                raise AssertionError(f"{what}, {which}: launches {counts}, "
+                                     f"expected {expect}")
+        for k, v in first.items():
+            total[k] = total.get(k, 0) + v + later[k]
+
+        rounds = want[0][1]
+        replay_ms = [_wall_ms(lambda: decoder(diffs[0]), DECODER_RUNS)]
+        eager_ms = _wall_ms(lambda: eager(diffs[0]), DECODER_RUNS)
+        replay_ms.append(_wall_ms(lambda: decoder(diffs[0]), DECODER_RUNS))
+        row = {"rounds": rounds, "eager_ms": eager_ms,
+               "replayed_ms": sum(replay_ms) / 2}
+        for mode, fn in (("eager", lambda: eager(diffs[0])),
+                         ("replayed", lambda: decoder(diffs[0]))):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            if mode == "replayed":   # the kernels of a call, by device time
+                us = _profile_table(prof, 1, row["replayed_ms"] / 1e3, card,
+                                    f"guided decoder {what}, a replayed "
+                                    "call")["device_us"]
+            else:
+                us = _device_us(prof)
+            row[f"{mode}_device_us"] = us
+            row[f"{mode}_busy"] = us / (row[f"{mode}_ms"] * 1e3)
+        if draft != "plain":
+            row["round_ms"] = _wall_ms(decoder.verify_round, 20)
+            row["flag_read_us"] = 1e3 * _wall_ms(
+                lambda: bool(decoder.changed), 100)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    decoder.verify_round()
+                torch.cuda.synchronize()
+            row["round_device_us"] = _device_us(prof) / 5
+        rows[what] = row
+        print(f"{what}: replayed calls equal the eager decode bit for bit "
+              f"(tokens, {rounds} rounds); launches first two calls {first}, "
+              f"a later call {later}; {row}; on {card}")
+        del decoder
+    print(f"\nguided decoder, eager and replayed, on {card}:")
+    print("case | rounds | eager ms | replayed ms | device us (eager / "
+          "replayed) | busy (eager / replayed) | round ms | round device us "
+          "| flag read us")
+    for what, r in rows.items():
+        print(f"{what} | {r['rounds']} | {r['eager_ms']:.3f} | "
+              f"{r['replayed_ms']:.3f} | {r['eager_device_us']:.1f} / "
+              f"{r['replayed_device_us']:.1f} | {r['eager_busy']:.3f} / "
+              f"{r['replayed_busy']:.3f} | {r.get('round_ms', '—')} | "
+              f"{r.get('round_device_us', '—')} | "
+              f"{r.get('flag_read_us', '—')}")
+    return rows, {**{k: 0 for k in _counts()}, **total}
+
+
+def jacobi_rounds_on_card(card: str, lm_ckpt: Path) -> list:
+    """Phase 28: ``python -m tinydiffusionmodels_torch.jacobi_rounds
+    --lm_ckpt`` on the guided CLI phase's trained TinyGPT (no training
+    again): the rounds of the fused and bf16-scan drafts at bs 8 and 256,
+    random and trained weights, each converged or not within L + 1."""
+    from tinydiffusionmodels_torch import jacobi_rounds
+
+    phase("the Jacobi-rounds tool on the guided CLI's trained TinyGPT")
+    records = jacobi_rounds.main(["--lm_ckpt", str(lm_ckpt)])
+    if len(records) != 8 or not all(r["converged"] for r in records):
+        raise AssertionError(f"jacobi_rounds: {records}")
+    print(f"jacobi_rounds on {card}: {records}")
+    return records
 
 
 def device_vs_cpu(model_gpu):
@@ -1517,17 +1711,27 @@ def _time_against_plain(runs: dict, work: dict, card: str, library_note: str,
     return timings
 
 
-def _profile_table(prof, steps: int, wall_s_per_step: float, card: str,
-                   what: str) -> dict:
+def _kernel_events(prof) -> list:
+    """The kernels of a torch.profiler window, by device time. Device-side
+    spans of host annotations (Optimizer.step#...) are not kernels: they
+    cover the host's launch time and would double count."""
     from torch.autograd import DeviceType
 
-    # Device-side spans of host annotations (Optimizer.step#...) are not
-    # kernels: they cover the host's launch time and would double count.
-    kernels = sorted(
+    return sorted(
         (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
          and not getattr(e, "is_user_annotation", False)),
         key=lambda e: e.self_device_time_total, reverse=True,
     )
+
+
+def _device_us(prof) -> float:
+    """Device µs of the kernels a torch.profiler window recorded."""
+    return sum(e.self_device_time_total for e in _kernel_events(prof))
+
+
+def _profile_table(prof, steps: int, wall_s_per_step: float, card: str,
+                   what: str) -> dict:
+    kernels = _kernel_events(prof)
     device_us = sum(e.self_device_time_total for e in kernels)
     if device_us <= 0:
         raise AssertionError("the profiler recorded no device time")
@@ -2470,10 +2674,17 @@ def main_path_bench(card: str) -> dict:
         if not launches[name] > 0:
             raise AssertionError(f"the bench launched no {name}: "
                                  f"{launches}")
+    jacobi = extra["provenance"]["jacobi"]
+    if sorted(jacobi) != ["guided_spec_tokens_s_bs256",
+                          "guided_verified_tokens_s_bs256",
+                          "guided_verified_tokens_s_bs8"] or not all(
+            {"draft", "jacobi_rounds", "verify_ms_per_round"} <= set(v)
+            for v in jacobi.values()):
+        raise AssertionError(f"the bench's Jacobi record: {jacobi}")
     print(f"bench --quick: {seconds:.1f} s, valid {line['valid']} "
           f"(reasons {line.get('invalid_reasons', [])}, loose "
           f"{line.get('loose_metrics', [])}), kernel launches {launches}; "
-          f"on {card}")
+          f"Jacobi record {jacobi}; on {card}")
     print(json.dumps(line))
     return launches
 
@@ -2934,6 +3145,7 @@ def main() -> None:
     guided_counts, lm_ckpt = main_path_guided(card, ckpt)
     exact_counts, rounds, agree, exact_gap, exact_stats = guided_exact(
         card, lm_ckpt, ckpt, z, result.joint["rounding_fn"].eval())
+    jacobi = jacobi_rounds_on_card(card, lm_ckpt)
     _, mnist_ckpt, mnist_train_counts, _ = main_path_mnist_train(card)
     mnist_sample_counts, _, unet = main_path_mnist_sample(card, mnist_ckpt)
     bench_counts, _, bench_seconds = main_path_kernel_bench(card)
@@ -2944,6 +3156,7 @@ def main() -> None:
     replay_vs_eager_samplers(sampler_models)
     kernels_in_graphs(graph_runners, sampler_models)
     del graph_runners
+    decoder_rows, decoder_counts = guided_decoder_replay(card)
     device_vs_cpu(model)
     timings = kernel_timing(card)
     decode_times = decode_timing(card)
@@ -2988,13 +3201,12 @@ def main() -> None:
         "bs256": {k: v for k, v in bs256.items()
                   if k not in ("grid", "units", "barriers")},
         "barrier_share_bs8": bs8["barrier_share"],
-        "bs8": {k: bs8[k] for k in ("barrier_ms", "phase_us",
-                                    "fused_verify_tokens_s", "jacobi_rounds",
-                                    "plain_scan_tokens_s")},
+        "bs8": {k: bs8[k] for k in ("barrier_ms", "phase_us")},
         # from decode_kernel.plan and barriers(), not measured
         **{f"{name}_plan": {k: t[k] for k in ("grid", "units", "barriers")}
            for name, t in (("bs8", bs8), ("bs256", bs256))},
         "jacobi_rounds_main_path": rounds, "agreement_with_plain": agree,
+        "jacobi_rounds_tool": jacobi, "decoder": decoder_rows,
         "vs_plain": decode_stats, "vs_plain_main_path": exact_stats,
     }
     n25, n128 = (resblock_times[b] for b in (MNIST_N, MNIST_BATCH))
@@ -3014,7 +3226,7 @@ def main() -> None:
     paths = (train_counts, sample_counts, narrow_train_counts,
              narrow_sample_counts, wide_train_counts, wide_sample_counts,
              gemma_train_counts, gemma_sample_counts, guided_counts,
-             exact_counts,
+             exact_counts, decoder_counts,
              mnist_train_counts, *mnist_sample_counts, bench_counts,
              bf16_text_counts, bf16_mnist_counts, suite_counts)
     record = []

@@ -267,6 +267,9 @@ def test_main_prints_every_metric_each_from_its_own_call(monkeypatch,
     assert line["extra"]["backend"] == "cpu"
     assert line["extra"]["provenance"]["scan_chunk"] == {"f32": 200,
                                                          "bf16": 20}
+    assert sorted(line["extra"]["provenance"]["jacobi"]) == [
+        "guided_spec_tokens_s_bs256", "guided_verified_tokens_s_bs256",
+        "guided_verified_tokens_s_bs8"]
 
     r = {name: 1.0 for name in METRICS}
     root._emit(None, r, {}, {}, "x", "x", None, {}, valid=False,
@@ -275,3 +278,23 @@ def test_main_prints_every_metric_each_from_its_own_call(monkeypatch,
     want = json.loads(capsys.readouterr().out)
     assert set(line) <= set(want) and set(line["extra"]) == set(
         want["extra"])
+
+
+@pytest.mark.parametrize("draft, rounds", [("fused", True),
+                                           ("scan_bf16", True),
+                                           ("auto", False)])
+def test_verified_bench_notes_its_rounds(draft, rounds, monkeypatch):
+    """``bench_guided_verified(notes=...)`` records the draft ``auto``
+    resolved to, the Jacobi rounds of a decode and the ms of a round (None
+    for the plain scan, which runs none)."""
+    monkeypatch.setenv("TDM_PLATFORM", "cpu")
+    monkeypatch.setattr(port, "_min_window_s", lambda n: 0.01)
+    notes = {}
+    port.bench_guided_verified(2, draft=draft, notes=notes, **GUIDED)
+    assert notes["draft"] == ("plain" if draft == "auto" else draft)
+    if rounds:
+        assert notes["jacobi_rounds"] >= 1
+        assert notes["verify_ms_per_round"] > 0
+    else:
+        assert notes["jacobi_rounds"] == 0
+        assert notes["verify_ms_per_round"] is None

@@ -203,11 +203,35 @@ def test_port_rope_checkpoint_round_trip(workdir, capsys):
     # --guided_sample is ported with TinyGPT; the Hugging Face base LM is not.
     pytest.param(["--guided_sample", "--base_lm", "hf"], id="--guided_sample"),
     pytest.param(["--train", "--seq_parallel"], id="--seq_parallel"),
-    pytest.param(["--sample", "--profile_dir", "prof"], id="--profile_dir"),
 ])
 def test_unported_modes_exit_nonzero(workdir, argv):
     with pytest.raises(SystemExit, match="not yet ported to the torch package"):
         port_cli.main([*argv, "--ckpt", "ckpt.pth"])
+
+
+def _assert_profile(logdir: Path, op: str) -> None:
+    """``runtime.profile_trace``'s output: a Chrome trace and the per-op
+    table, which lists ``op``."""
+    import json
+
+    trace = json.loads((logdir / "trace.json").read_text())
+    assert trace["traceEvents"]
+    assert op in (logdir / "ops.txt").read_text()
+
+
+@pytest.mark.parametrize("sampler", ["ddim", "dpm++"])
+def test_profile_dir_traces_the_text_cli(workdir, capsys, sampler):
+    """``--sample --profile_dir`` writes trace.json and ops.txt (the flash
+    attention's plain version's matmul among the ops on the CPU) and
+    samples what the unprofiled call samples."""
+    _write_jax_checkpoint(workdir / "ckpt.pth")
+    argv = [*SAMPLE, "--ckpt", "ckpt.pth", "--sampler", sampler, "--steps",
+            "2"]
+    z = port_cli.main([*argv, "--profile_dir", "prof"])
+    assert "[profile] wrote trace.json and ops.txt to prof" in \
+        capsys.readouterr().out
+    _assert_profile(workdir / "prof", "aten::matmul")
+    torch.testing.assert_close(z, port_cli.main(argv), rtol=0, atol=0)
 
 
 def test_train_writes_checkpoints_both_clis_sample(workdir, monkeypatch):
@@ -555,13 +579,43 @@ def test_mnist_train_bf16_writes_f32_checkpoint(workdir, monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     pytest.param(["--train", "--resume"], id="--resume"),
-    pytest.param(["--sample", "--profile_dir", "prof"], id="--profile_dir"),
 ])
 def test_mnist_unported_modes_exit_nonzero(workdir, argv):
     from tinydiffusionmodels_torch import mnist as port_mnist
 
     with pytest.raises(SystemExit, match="not yet ported to the torch package"):
         port_mnist.main([*argv, "--ckpt", "m.pth"])
+
+
+def test_profile_dir_traces_the_mnist_cli(workdir):
+    """``mnist --sample --profile_dir`` writes trace.json and ops.txt (the
+    residual block's plain convolutions among the ops on the CPU) and
+    draws what the unprofiled call draws."""
+    from tinydiffusionmodels_tpu.io.checkpoint import unet_to_state_dict
+    from tinydiffusionmodels_tpu.models import init_unet
+    from tinydiffusionmodels_torch import mnist as port_mnist
+
+    save_checkpoint(unet_to_state_dict(init_unet(jax.random.PRNGKey(1))),
+                    "jax.pth")
+    argv = ["--sample", "--ckpt", "jax.pth", "--sampler", "ddim", "--steps",
+            "2"]
+    x = port_mnist.main([*argv, "--profile_dir", "prof"])
+    _assert_profile(workdir / "prof", "aten::conv")
+    torch.testing.assert_close(x, port_mnist.main(argv), rtol=0, atol=0)
+
+
+def test_profile_trace_without_a_directory_profiles_nothing(tmp_path,
+                                                            monkeypatch):
+    """``runtime.profile_trace(None)`` runs the block and writes nothing."""
+    from tinydiffusionmodels_torch.runtime import profile_trace
+
+    monkeypatch.chdir(tmp_path)
+    ran = []
+    with profile_trace(None):
+        ran.append(1)
+    with profile_trace(""):
+        ran.append(2)
+    assert ran == [1, 2] and not list(tmp_path.iterdir())
 
 
 def test_mnist_no_cuda_without_cpu_opt_in_fails(workdir, monkeypatch, capsys):

@@ -1,6 +1,7 @@
 """The CUDA kernels and their wrappers, on an NVIDIA GPU: flash attention,
 the persistent guided-decode kernel, the fused UNet residual block and the
-single-block attention pair.
+single-block attention pair; and the CUDA graphs that replay them (the
+trainers' steps, the guided decoder) against eager runs.
 
 Every test here needs a card and ``nvcc``, carries the ``cuda`` marker and
 skips on a machine without a GPU. The file imports nothing of jax, so it runs
@@ -630,3 +631,31 @@ def test_replayed_steps_equal_eager_steps(cuda, kind):
     for a, b in zip(replayed[1], eager[1]):
         assert torch.equal(a, b)
     assert replayed[2] == eager[2] and max(eager[2]) > 0
+
+
+@pytest.mark.parametrize("draft, b", [("plain", 8), ("plain", 96),
+                                      ("scan_bf16", 96), ("fused", 8),
+                                      ("fused", 96)])
+def test_guided_decoder_replays_equal_eager(cuda, draft, b):
+    """``GuidedDecoder``'s replayed scan, draft and Jacobi rounds give the
+    eager decode's tokens and rounds bit for bit, from the first call on
+    and on new logits; a later call launches a scan's L x depth flash
+    forwards, depth a round, one decode kernel for the fused draft."""
+    from tinydiffusionmodels_torch.sample.guided import GuidedDecoder
+
+    depth, seq_len = 2, 32
+    model = _gpt(512, 128, depth, seq_len + 1, 0, cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    diffs = [torch.randn(b, seq_len, 512, generator=g, device=cuda)
+             for _ in range(2)]
+    decoder = GuidedDecoder(model, b, seq_len, 0, alpha=0.3, draft=draft)
+    for diff in diffs + diffs[:1]:
+        before = (fa.launches, dk.launches)
+        tokens, rounds = decoder(diff, return_rounds=True)
+        launched = (fa.launches - before[0], dk.launches - before[1])
+        want, want_rounds = guided_generate_verified(
+            model, diff, 0, alpha=0.3, draft=draft, return_rounds=True)
+        assert torch.equal(tokens, want) and rounds == want_rounds
+    assert decoder.draft_step.captured
+    scan = seq_len * depth if draft != "fused" else 0
+    assert launched == (scan + rounds * depth, int(draft == "fused"))

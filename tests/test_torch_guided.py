@@ -183,7 +183,8 @@ def _fixpoint(model, tokens, diff, **kw):
 @pytest.mark.parametrize("normalize", [False, True])
 def test_verified_matches_jax(params, model, draft, normalize):
     diff = _diff(7)
-    jax_draft = "fused" if draft == "auto" else draft
+    # The port's auto is the plain scan at every batch (AUTO_DRAFT).
+    jax_draft = "plain" if draft == "auto" else draft
     want = np.asarray(jax_guided.guided_generate_verified(
         params, JCFG, jnp.asarray(diff), BOS, alpha=ALPHA,
         normalize=normalize, draft=jax_draft))
@@ -194,7 +195,7 @@ def test_verified_matches_jax(params, model, draft, normalize):
     np.testing.assert_array_equal(
         _fixpoint(model, got, torch.from_numpy(diff),
                   normalize=normalize).numpy(), got.numpy())
-    assert (rounds == 0) if draft == "plain" else (1 <= rounds <= L + 1)
+    assert (rounds == 0) if jax_draft == "plain" else (1 <= rounds <= L + 1)
 
 
 def test_packed_weights_decode_as_the_model(model):
@@ -215,21 +216,30 @@ def test_packed_weights_decode_as_the_model(model):
 
 
 def test_auto_draft_is_the_kernel(model, monkeypatch):
-    """No batch rule: ``auto`` drafts with the guided-decode kernel (its
-    plain version here) at any batch, the bench's 8 and 256 among them
-    (the bench found the fused draft ahead at 8 and no faster draft at
-    256)."""
+    """No batch rule: ``auto`` is the plain f32 scan at any batch, the
+    bench's 8 and 256 among them (replayed on the card, the scan was ahead
+    of the guided-decode kernel's draft with its Jacobi rounds at both),
+    in the eager function and in ``GuidedDecoder``; the kernel is not
+    called."""
     calls = []
-    real = guided.fused_guided_decode
+    real = guided.guided_generate_scan
 
     def spy(*a, **k):
-        calls.append(a[1].shape[0])
+        calls.append(a[2].shape[0])
         return real(*a, **k)
 
-    monkeypatch.setattr(guided, "fused_guided_decode", spy)
+    def kernel(*a, **k):
+        raise AssertionError("auto called the decode kernel")
+
+    monkeypatch.setattr(guided, "guided_generate_scan", spy)
+    monkeypatch.setattr(guided, "fused_guided_decode", kernel)
     for b in (2, 8, 70, 256):
-        guided.guided_generate_verified(model, torch.from_numpy(_diff(8, b)),
-                                        BOS, alpha=ALPHA)
+        diff = torch.from_numpy(_diff(8, b))
+        got = guided.guided_generate_verified(model, diff, BOS, alpha=ALPHA)
+        decoder = guided.GuidedDecoder(model, b, L, BOS, alpha=ALPHA,
+                                       draft="auto")
+        assert decoder.draft == guided.AUTO_DRAFT == "plain"
+        torch.testing.assert_close(decoder(diff), got, rtol=0, atol=0)
     assert calls == [2, 8, 70, 256]
     with pytest.raises(ValueError, match="unknown draft"):
         guided.guided_generate_verified(model, torch.from_numpy(_diff(8)),

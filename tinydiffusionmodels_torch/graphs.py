@@ -13,8 +13,12 @@ call (cuBLAS and cuDNN handles, the kernel library and its
 ``cudaFuncSetAttribute`` calls, AdamW's state) happens there, outside a
 capture. The next call captures the function into a
 ``torch.cuda.CUDAGraph`` and every call from then on replays it: one
-launch for the step's hundreds of kernels. A capture that fails raises;
-there is no eager fallback on the card.
+launch for the step's hundreds of kernels. A step whose warm-up would be
+a whole costly call (a guided decode's L positions) passes ``prime``
+instead: a smaller piece of real work on the same shapes, run once on the
+side stream just before the capture, so that the first call already
+replays. A capture that fails raises; there is no eager fallback on the
+card.
 
 Randomness: each ``torch.Generator`` the step draws from is registered
 with the graph (``CUDAGraph.register_generator_state``), so a replay
@@ -70,14 +74,18 @@ class Step:
     tensors it does not reallocate, and write its results into such
     tensors: a replay repeats the captured launches on the captured
     addresses. ``generators`` are the ``torch.Generator``s it draws from
-    (the default CUDA generator is registered by torch itself)."""
+    (the default CUDA generator is registered by torch itself).
+    ``prime()``, with ``warmup=0``, runs on the side stream before the
+    capture: work that sets up what ``fn`` needs lazily and leaves no
+    state that ``fn``'s results depend on."""
 
     def __init__(self, fn, device, *, generators=(), warmup: int = 1,
-                 eager: bool = False):
+                 eager: bool = False, prime=None):
         self.fn = fn
         self.device = torch.device(device)
         self.generators = tuple(g for g in generators if g is not None)
         self.warmup = warmup
+        self.prime = prime
         self.eager = eager or self.device.type != "cuda"
         self.calls = 0
         self.graph = None
@@ -110,6 +118,8 @@ class Step:
         main.wait_stream(self.stream)
 
     def _capture(self) -> None:
+        if self.prime is not None:
+            self._on_side_stream(self.prime)
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)

@@ -13,8 +13,10 @@ checkpoint either CLI wrote and writes ``samples/samples.png``, with
 unless ``TDM_PLATFORM=cpu``; every residual block is one launch of the CUDA
 kernel there. ``--train --dtype bf16`` trains in bf16
 (``train/precision.py``: the parameters are cast inside the loss, the
-weights, AdamW's state and the checkpoint stay f32). ``--resume`` and
-``--profile_dir`` are not yet ported and exit non-zero.
+weights, AdamW's state and the checkpoint stay f32). ``--profile_dir
+DIR`` profiles the run with ``torch.profiler`` (``runtime.profile_trace``:
+``DIR/trace.json`` and the per-op table ``DIR/ops.txt``). ``--resume`` is
+not yet ported and exits non-zero.
 """
 
 from __future__ import annotations
@@ -88,14 +90,19 @@ def main(argv=None):
     """Run the CLI. Returns the ``mnist_train.TrainResult`` of ``--train``,
     the (25, 28, 28, 1) samples of ``--sample``, or both as a pair."""
     args = build_parser().parse_args(argv)
-    for flag, given in (("--resume", args.resume),
-                        ("--profile_dir", args.profile_dir)):
-        if given:
-            raise SystemExit(f"{flag} {_NOT_PORTED}")
+    if args.resume:
+        raise SystemExit(f"--resume {_NOT_PORTED}")
     if not args.train and not args.sample:
         print("Nothing to do. Pass --train or --sample.")
         return None
+    from tinydiffusionmodels_torch.runtime import profile_trace
 
+    with profile_trace(args.profile_dir):
+        return _run(args)
+
+
+def _run(args):
+    """``main`` past its argument checks."""
     from tinydiffusionmodels_torch.runtime import device
     from tinydiffusionmodels_torch.train import mnist_train
     from tinydiffusionmodels_torch.train.precision import resolve_compute_dtype

@@ -24,7 +24,10 @@ from tinydiffusionmodels_torch.models.embedding import (
 )
 from tinydiffusionmodels_torch.models.transformer import TinyTransformer
 from tinydiffusionmodels_torch.sample.ancestral import NoiseFn, sample_loop
-from tinydiffusionmodels_torch.sample.guided import guided_generate_scan
+from tinydiffusionmodels_torch.sample.guided import (
+    GuidedDecoder,
+    guided_generate_scan,
+)
 
 
 def make_denoiser(
@@ -224,7 +227,7 @@ def sample_text(
 
 def guided_sample_text(
     decode_step,
-    init_cache: dict,
+    init_cache: dict | None,
     z: torch.Tensor,
     tokenizer,
     *,
@@ -240,21 +243,34 @@ def guided_sample_text(
     return_tokens: bool = False,
 ):
     """Guided generation end to end (reference src/shakespeare.py:429-470,
-    590-603): diffusion logits from z, the KV-cached greedy decode
-    (``sample.guided.guided_generate_scan``), decode, and
-    ``guided_sample_{i}.txt`` when ``save``. ``normalize=True`` mixes
+    590-603): diffusion logits from z, the KV-cached greedy decode, decode,
+    and ``guided_sample_{i}.txt`` when ``save``. ``normalize=True`` mixes
     probabilities instead of logits (``sample.guided.mix_logits``).
-    Returns the texts, or (texts, (B, L) int32 tokens) with
-    ``return_tokens``."""
+
+    ``decode_step`` is a ``sample.guided.GuidedDecoder`` built for z's
+    batch and length, the tokenizer's BOS and this mix (``init_cache``
+    None): its graphs replayed on the card. Or it is a cached decode step
+    with its ``init_cache``, run eagerly by ``sample.guided.
+    guided_generate_scan``. Returns the texts, or (texts, (B, L) int32
+    tokens) with ``return_tokens``."""
     diff_logits = diffusion_position_logits(
         z, rounding=rounding, embed_matrix=embed_matrix,
         use_learned_rounding=use_learned_rounding,
     )
     bos = tokenizer.bos_token_id or tokenizer.eos_token_id or 0
-    tokens = guided_generate_scan(
-        decode_step, init_cache, diff_logits, bos, alpha=alpha,
-        temperature=temperature, normalize=normalize,
-    )
+    mix = dict(alpha=float(alpha), temperature=float(temperature),
+               normalize=bool(normalize))
+    if isinstance(decode_step, GuidedDecoder):
+        if init_cache is not None or decode_step.mix != mix or \
+                decode_step.bos_token != bos:
+            raise ValueError(
+                f"the decoder serves BOS {decode_step.bos_token} and "
+                f"{decode_step.mix} with no init_cache; asked for BOS {bos} "
+                f"and {mix}")
+        tokens = decode_step(diff_logits)
+    else:
+        tokens = guided_generate_scan(decode_step, init_cache, diff_logits,
+                                      bos, **mix)
     texts = tokenizer.batch_decode(tokens.cpu().numpy(),
                                    skip_special_tokens=True)
     if save:

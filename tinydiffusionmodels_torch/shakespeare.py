@@ -24,9 +24,12 @@ stale (another vocabulary, too short a position table). It runs on the GPU
 unless ``TDM_PLATFORM=cpu``; attention runs through the CUDA flash kernels
 there, forward and backward. ``--train --dtype bf16`` trains in bf16
 (``train/precision.py``: the parameters are cast inside the loss, the
-masters, AdamW's state and the checkpoints stay f32). ``--base_lm hf``,
-``--seq_parallel``, ``--profile_dir`` and ``--resume`` are not yet ported
-and exit non-zero.
+masters, AdamW's state and the checkpoints stay f32). The guided decode
+runs through a ``sample.guided.GuidedDecoder``: on the card its whole scan
+is one CUDA graph, replayed. ``--profile_dir DIR`` profiles the run with
+``torch.profiler`` (``runtime.profile_trace``: ``DIR/trace.json`` and the
+per-op table ``DIR/ops.txt``). ``--base_lm hf``, ``--seq_parallel`` and
+``--resume`` are not yet ported and exit non-zero.
 """
 
 from __future__ import annotations
@@ -174,8 +177,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "is exact reference mixing — see "
                              "sample.guided.mix_logits)")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="capture a profiler trace to this directory "
-                             "(not yet ported to the torch package)")
+                        help="capture a torch.profiler trace (trace.json) "
+                             "and per-op table (ops.txt) to this directory")
     parser.add_argument("--metrics_path", type=str, default=None,
                         help="write per-epoch JSONL metrics here "
                              "(or set TDM_METRICS_PATH)")
@@ -227,11 +230,17 @@ def main(argv=None):
     for flag, given in (("--guided_sample --base_lm hf",
                          args.guided_sample and args.base_lm == "hf"),
                         ("--seq_parallel", args.seq_parallel),
-                        ("--profile_dir", args.profile_dir),
                         ("--resume", args.resume)):
         if given:
             raise SystemExit(f"{flag} {_NOT_PORTED}")
+    from tinydiffusionmodels_torch.runtime import profile_trace
 
+    with profile_trace(args.profile_dir):
+        return _run(args)
+
+
+def _run(args):
+    """``main`` past its argument checks."""
     from tinydiffusionmodels_torch.core import make_schedule
     from tinydiffusionmodels_torch.core.schedule import DEFAULT_TIMESTEPS
     from tinydiffusionmodels_torch.data import (
@@ -501,6 +510,7 @@ def main(argv=None):
         raise SystemExit(f"--guided_sample --base_lm hf {_NOT_PORTED}")
     lm = _load_or_train_lm(args, vocab_size, corpus, tokenizer, dev)
 
+    from tinydiffusionmodels_torch.sample.guided import GuidedDecoder
     from tinydiffusionmodels_torch.sample.text import (
         guided_sample_text,
         sample_diffusion_embeddings,
@@ -513,8 +523,13 @@ def main(argv=None):
         parameterization=args.parameterization,
         generator=torch.Generator(device=dev).manual_seed(args.seed),
     )
+    decoder = GuidedDecoder(
+        lm, args.n, args.seq_len,
+        tokenizer.bos_token_id or tokenizer.eos_token_id or 0,
+        alpha=args.alpha, temperature=args.temperature,
+        normalize=args.guidance_norm)
     _, tokens = guided_sample_text(
-        lm.decode_step, lm.init_cache(args.n), z_guided, tokenizer,
+        decoder, None, z_guided, tokenizer,
         rounding=rounding, embed_matrix=embed_matrix,
         use_learned_rounding=not use_cosine_fallback,
         alpha=args.alpha, temperature=args.temperature,
