@@ -197,15 +197,28 @@ def test_port_rope_checkpoint_round_trip(workdir, capsys):
     torch.testing.assert_close(z, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("argv", [
+UNPORTED = "not yet ported to the torch package"
+
+
+@pytest.mark.parametrize("argv, match", [
     # --train itself is ported; its resume state (optax's pytree) is not.
-    pytest.param(["--train", "--resume"], id="--train"),
+    pytest.param(["--train", "--resume"], UNPORTED, id="--train"),
     # --guided_sample is ported with TinyGPT; the Hugging Face base LM is not.
-    pytest.param(["--guided_sample", "--base_lm", "hf"], id="--guided_sample"),
-    pytest.param(["--train", "--seq_parallel"], id="--seq_parallel"),
+    pytest.param(["--guided_sample", "--base_lm", "hf"], UNPORTED,
+                 id="--guided_sample"),
+    # --seq_parallel is ported: a seq_len the ring does not divide exits with
+    # the JAX CLI's message (a ring of 2 laid out without processes).
+    pytest.param(["--train", "--seq_parallel", "--seq_len", "9"],
+                 "--seq_parallel needs seq_len divisible by the ring size 2",
+                 id="--seq_parallel"),
 ])
-def test_unported_modes_exit_nonzero(workdir, argv):
-    with pytest.raises(SystemExit, match="not yet ported to the torch package"):
+def test_unported_modes_exit_nonzero(workdir, monkeypatch, argv, match):
+    from tinydiffusionmodels_torch import parallel
+    from tinydiffusionmodels_torch.parallel import mesh
+
+    monkeypatch.setattr(parallel, "make_mesh",
+                        lambda axes=None: mesh.make_mesh(axes, world=2))
+    with pytest.raises(SystemExit, match=match):
         port_cli.main([*argv, "--ckpt", "ckpt.pth"])
 
 

@@ -16,7 +16,11 @@ kernel there. ``--train --dtype bf16`` trains in bf16
 weights, AdamW's state and the checkpoint stay f32). ``--profile_dir
 DIR`` profiles the run with ``torch.profiler`` (``runtime.profile_trace``:
 ``DIR/trace.json`` and the per-op table ``DIR/ops.txt``). ``--resume`` is
-not yet ported and exits non-zero.
+not yet ported and exits non-zero. Under ``torchrun`` (``python -m
+torch.distributed.run --nproc_per_node N -m tinydiffusionmodels_torch.mnist
+--train``) each process takes one GPU and ``--train`` is data-parallel over
+all of them, ``--batch_size`` the global batch; rank 0 writes the
+checkpoint and the sample grids.
 """
 
 from __future__ import annotations
@@ -103,11 +107,13 @@ def main(argv=None):
 
 def _run(args):
     """``main`` past its argument checks."""
+    from tinydiffusionmodels_torch.parallel import make_mesh, multihost
     from tinydiffusionmodels_torch.runtime import device
     from tinydiffusionmodels_torch.train import mnist_train
     from tinydiffusionmodels_torch.train.precision import resolve_compute_dtype
 
     dev = device()
+    mesh = make_mesh() if multihost.initialize() else None
     result = samples = None
     if args.train:
         result = mnist_train.train(
@@ -121,8 +127,9 @@ def _run(args):
             ema_decay=args.ema_decay,
             compute_dtype=resolve_compute_dtype(args.dtype),
             device=dev,
+            mesh=mesh,
         )
-    if args.sample:
+    if args.sample and (mesh is None or mesh.rank == 0):
         samples = mnist_train.sample(
             ckpt_path=args.ckpt,
             seed=args.seed,

@@ -16,6 +16,14 @@ package's sites: the input, the attention weights (inside the flash kernels,
 seeded per layer), and ``dropout1``, ``dropout_ffn`` and ``dropout2`` of
 every layer. Every mask and seed is drawn from the ``torch.Generator`` the
 caller passes, on the model's device, so a training step needs no host sync.
+
+Sequence parallelism (``cfg.seq_axis``): the model is called on this
+rank's shard of the sequence, attention is the ring over the axis's
+registered mesh (``ops.attention``), and positions are global: the rotary
+angles and the absolute table start at the shard's offset, and each
+dropout mask is drawn for the whole sequence and cut to the shard, so a
+ring drops what one device drops for the same generator. (The JAX package
+gets global positions from GSPMD's global arrays.)
 """
 
 from __future__ import annotations
@@ -45,7 +53,9 @@ class TransformerConfig:
     dropout: float = 0.1
     ffn_dim: int = FFN_DIM
     timesteps: int = 1000
-    # Sequence-parallel ring axis: not ported; ops.attention raises if set.
+    # Sequence-parallel: route attention through the ring over this axis
+    # (ops.register_sequence_mesh must have registered it); the model then
+    # takes this rank's shard of the sequence. None = single device.
     seq_axis: str | None = None
     # 'none' (reference), 'abs' (learned absolute table) or 'rope' (rotary);
     # bool True is accepted as 'abs'.
@@ -69,26 +79,40 @@ def _linear(in_dim: int, out_dim: int) -> nn.Linear:
 
 
 def dropout(
-    x: torch.Tensor, rate: float, generator: torch.Generator | None
+    x: torch.Tensor, rate: float, generator: torch.Generator | None,
+    shard: tuple[int, int] = (0, 1),
 ) -> torch.Tensor:
     """Inverted dropout with torch nn.Dropout semantics (JAX:
     ``torch_init.dropout``), its mask drawn from ``generator``; no generator
-    (eval mode) or rate 0 returns ``x``."""
+    (eval mode) or rate 0 returns ``x``. ``shard`` = (index, n): ``x`` is
+    shard ``index`` of n along dim 1 (a sequence ring), and the mask is
+    drawn for all n shards and cut to this one."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    index, n = shard
+    if n == 1:
+        keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    else:
+        shape = list(x.shape)
+        shape[1] *= n
+        keep = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
+            1.0 - rate, generator=generator).narrow(
+                1, index * x.shape[1], x.shape[1])
     return x * keep / (1.0 - rate)
 
 
-def _rope(x: torch.Tensor, base: float = 10000.0, *, l_axis: int = 2):
+def _rope(x: torch.Tensor, base: float = 10000.0, *, l_axis: int = 2,
+          offset: int = 0):
     """Rotary position embedding over axis ``l_axis`` (2 for (B, H, L, Dh),
-    1 for (B, L, H, Dh)); same float32 formulas as the JAX package."""
+    1 for (B, L, H, Dh)), the rows at global positions ``offset`` on; same
+    float32 formulas as the JAX package."""
     dh = x.shape[-1]
     half = dh // 2
     freqs = base ** (
         -torch.arange(half, dtype=torch.float32, device=x.device) / half
     )
-    pos = torch.arange(x.shape[l_axis], dtype=torch.float32, device=x.device)
+    pos = torch.arange(offset, offset + x.shape[l_axis], dtype=torch.float32,
+                       device=x.device)
     ang = pos[:, None] * freqs[None, :]                      # (L, half)
     cos = torch.cos(ang).to(x.dtype)
     sin = torch.sin(ang).to(x.dtype)
@@ -123,7 +147,9 @@ class SelfAttention(nn.Module):
             a.reshape(b, l, cfg.n_heads, dh) for a in qkv.split(d, dim=-1)
         )
         if cfg.pos_kind == "rope":
-            q, k = _rope(q, l_axis=1), _rope(k, l_axis=1)
+            offset = ops.sequence_shard(cfg.seq_axis)[0] * l
+            q = _rope(q, l_axis=1, offset=offset)
+            k = _rope(k, l_axis=1, offset=offset)
         rate, seed = 0.0, None
         if generator is not None and cfg.dropout > 0.0:
             # One int32 seed per call, drawn on the device: the kernels read
@@ -147,6 +173,7 @@ class EncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(cfg.dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(cfg.dim, eps=1e-5)
         self.rate = cfg.dropout
+        self.seq_axis = cfg.seq_axis
 
     def forward(
         self, x: torch.Tensor, generator: torch.Generator | None = None
@@ -155,10 +182,11 @@ class EncoderLayer(nn.Module):
         attention output, dropout_ffn after the ReLU, dropout2 after
         linear2."""
         g, rate = generator, self.rate
-        sa = dropout(self.self_attn(x, g), rate, g)
+        shard = ops.sequence_shard(self.seq_axis)
+        sa = dropout(self.self_attn(x, g), rate, g, shard)
         x = self.norm1(x + sa)
-        ff = dropout(F.relu(self.linear1(x)), rate, g)
-        ff = dropout(self.linear2(ff), rate, g)
+        ff = dropout(F.relu(self.linear1(x)), rate, g, shard)
+        ff = dropout(self.linear2(ff), rate, g, shard)
         return self.norm2(x + ff)
 
 
@@ -236,24 +264,27 @@ class TinyTransformer(nn.Module):
         if not deterministic and generator is None:
             raise ValueError("training mode requires a torch.Generator")
         g = None if deterministic else generator
+        shard = ops.sequence_shard(cfg.seq_axis)
         t_scaled = (t.to(x.dtype) / cfg.timesteps)[:, None]      # (B, 1)
         x = x + self.time_emb(t_scaled)[:, None, :]
         if self.pos_emb is not None:
             table = self.pos_emb.weight
-            if x.shape[1] > table.shape[0]:
+            start = shard[0] * x.shape[1]
+            if shard[1] * x.shape[1] > table.shape[0]:
                 raise ValueError(
-                    f"seq_len {x.shape[1]} exceeds the absolute-position "
+                    f"seq_len {shard[1] * x.shape[1]} exceeds the "
+                    "absolute-position "
                     f"table trained for max_len={table.shape[0]}; sample "
                     "with a shorter --seq_len, or train with --pos_emb rope "
                     "for length extrapolation"
                 )
-            x = x + table[: x.shape[1]][None].to(x.dtype)
+            x = x + table[start:start + x.shape[1]][None].to(x.dtype)
         if cfg.self_cond:
             if x0_prev is not None:
                 x = x + self.selfcond_proj(x0_prev.to(x.dtype))
         elif x0_prev is not None:
             raise ValueError("x0_prev passed but cfg.self_cond is False")
-        x = dropout(x, cfg.dropout, g)
+        x = dropout(x, cfg.dropout, g, shard)
         for layer in self.encoder.layers:
             x = layer(x, g)
         return x

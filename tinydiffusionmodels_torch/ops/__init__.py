@@ -11,6 +11,12 @@ flash, the residual block sent to XLA) were TPU measurements and do not
 carry over. ``attention`` runs the flash kernels on every model path; the
 single-block pair has no route from a model, as in the JAX package, and
 runs from the kernel bench (``kernel_bench.py``).
+
+Sequence parallelism (counterpart of ``ops/registry.py``'s
+``register_sequence_mesh``): a model configured with a sequence axis
+(``TransformerConfig.seq_axis``) passes it to ``attention``, which then
+runs ring attention (``parallel/ring_attention.py``) over the mesh
+registered for that axis, on the flash kernels of every block.
 """
 
 from __future__ import annotations
@@ -26,11 +32,42 @@ from tinydiffusionmodels_torch.ops.resblock import fused_resblock
 from tinydiffusionmodels_torch.ops.single_block import single_block_attention
 
 
+# Sequence axis -> the mesh whose ring it names.
+_SEQ_MESHES: dict = {}
+
+
+def register_sequence_mesh(mesh, axis: str = "seq") -> None:
+    """Register ``mesh`` (``parallel.mesh.Mesh``) as the ring of sequence
+    axis ``axis``; every rank registers it before its first step."""
+    _SEQ_MESHES[axis] = mesh
+
+
+def sequence_mesh(axis: str):
+    """The mesh registered for ``axis``; ValueError when there is none."""
+    mesh = _SEQ_MESHES.get(axis)
+    if mesh is None:
+        raise ValueError(
+            f"seq_axis={axis!r} routed to ring attention but no mesh "
+            "is registered; call ops.register_sequence_mesh(mesh, axis)"
+        )
+    return mesh
+
+
+def sequence_shard(axis: str | None) -> tuple[int, int]:
+    """(this rank's place on the ring, the ring's size) of ``axis``; (0, 1)
+    for None."""
+    if axis is None:
+        return 0, 1
+    mesh = sequence_mesh(axis)
+    return mesh.index(axis), mesh.axis_size(axis)
+
+
 def attention(
     q,
     k,
     v,
     *,
+    mask=None,
     causal: bool = False,
     layout: str = "bhld",
     dropout_rate: float = 0.0,
@@ -42,11 +79,31 @@ def attention(
 
     ``dropout_rate`` > 0 (training) drops attention weights with the flash
     kernels' coordinate-hash mask, seeded by ``dropout_seed`` (a one-element
-    int32 tensor on the operands' device)."""
+    int32 tensor on the operands' device).
+
+    ``seq_axis``: the operands are this rank's shard of the sequence, and
+    attention is the ring over the mesh registered for that axis (every
+    block on the flash kernels; ValueError when none is registered).
+    ``mask``: the port's kernels take no arbitrary mask (``causal``
+    covers the models' one), so a mask raises NotImplementedError."""
     if seq_axis is not None:
+        from tinydiffusionmodels_torch.parallel.ring_attention import (
+            ring_attention_shard,
+        )
+
+        mesh = sequence_mesh(seq_axis)
+        if mask is not None:
+            raise NotImplementedError(
+                "ring attention supports causal=True or unmasked; arbitrary "
+                "masks stay on the single-chip path"
+            )
+        return ring_attention_shard(
+            q, k, v, mesh=mesh, axis=seq_axis, causal=causal, layout=layout,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+    if mask is not None:
         raise NotImplementedError(
-            "sequence-parallel (ring) attention is not yet ported to the "
-            "torch package"
+            "the flash kernels take causal=True or no mask; an arbitrary "
+            "mask is not ported to the torch package"
         )
     return flash_attention.flash_attention(
         q, k, v, causal=causal, layout=layout, dropout_rate=dropout_rate,
@@ -55,4 +112,5 @@ def attention(
 
 
 __all__ = ["attention", "decode_kernel", "flash_attention", "fused_resblock",
-           "reference", "resblock", "single_block", "single_block_attention"]
+           "reference", "register_sequence_mesh", "resblock", "sequence_mesh",
+           "sequence_shard", "single_block", "single_block_attention"]

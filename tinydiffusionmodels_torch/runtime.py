@@ -3,7 +3,8 @@
 ``TDM_PLATFORM`` is the same variable the JAX package reads. Unset or
 ``cuda`` selects the GPU; ``cpu`` selects the CPU, where every op runs its
 plain PyTorch version. There is no silent fallback: asking for the GPU on a
-machine without one is an error.
+machine without one is an error. Under ``torchrun`` each process takes the
+GPU of its ``LOCAL_RANK`` (``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ import torch
 
 
 def device() -> torch.device:
-    """The device named by ``TDM_PLATFORM`` (default ``cuda``)."""
+    """The device named by ``TDM_PLATFORM`` (default ``cuda``): on the card
+    ``cuda:LOCAL_RANK`` when torchrun set ``LOCAL_RANK`` (made the current
+    CUDA device), else ``cuda``."""
     platform = os.environ.get("TDM_PLATFORM", "").strip().lower() or "cuda"
     if platform == "cpu":
         return torch.device("cpu")
@@ -29,7 +32,12 @@ def device() -> torch.device:
             "CUDA is not available to torch; set TDM_PLATFORM=cpu to run on "
             "the CPU with the plain PyTorch versions of the kernels"
         )
-    return torch.device("cuda")
+    local_rank = os.environ.get("LOCAL_RANK")
+    if local_rank is None:
+        return torch.device("cuda")
+    dev = torch.device("cuda", int(local_rank))
+    torch.cuda.set_device(dev)
+    return dev
 
 
 @contextlib.contextmanager

@@ -28,8 +28,18 @@ masters, AdamW's state and the checkpoints stay f32). The guided decode
 runs through a ``sample.guided.GuidedDecoder``: on the card its whole scan
 is one CUDA graph, replayed. ``--profile_dir DIR`` profiles the run with
 ``torch.profiler`` (``runtime.profile_trace``: ``DIR/trace.json`` and the
-per-op table ``DIR/ops.txt``). ``--base_lm hf``, ``--seq_parallel`` and
-``--resume`` are not yet ported and exit non-zero.
+per-op table ``DIR/ops.txt``). ``--base_lm hf`` and ``--resume`` are not
+yet ported and exit non-zero.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N
+-m tinydiffusionmodels_torch.shakespeare --train ...``) each process takes
+one GPU and ``--train`` is data-parallel over all of them, ``--batch_size``
+the global batch (``parallel/``). ``--seq_parallel`` shards the token
+sequence over a ring of every rank, ``--seq_parallel RING`` over rings of
+RING ranks with the batch over the rest ({'data': N / RING, 'seq': RING});
+attention is then ring attention on the flash kernels. The ring is
+registered before training, so ``--sample`` in the same run samples
+through it too. Only rank 0 writes checkpoints and samples.
 """
 
 from __future__ import annotations
@@ -229,7 +239,6 @@ def main(argv=None):
         return None
     for flag, given in (("--guided_sample --base_lm hf",
                          args.guided_sample and args.base_lm == "hf"),
-                        ("--seq_parallel", args.seq_parallel),
                         ("--resume", args.resume)):
         if given:
             raise SystemExit(f"{flag} {_NOT_PORTED}")
@@ -263,10 +272,12 @@ def _run(args):
         TransformerConfig,
         embedding_matrix,
     )
+    from tinydiffusionmodels_torch.parallel import multihost
     from tinydiffusionmodels_torch.runtime import device
     from tinydiffusionmodels_torch.sample.text import sample_text
 
     dev = device()
+    multihost.initialize()
     # Parameters are drawn on the CPU so a seed gives the same weights on
     # every device; noise, masks and dropout seeds are drawn on the device.
     init_gen = torch.Generator().manual_seed(args.seed)
@@ -322,10 +333,13 @@ def _run(args):
         embed_dim = pretrained_dim
         print(f"Using pre-trained embeddings (dim={embed_dim})")
 
+    train_mesh, seq_axis = _parallel_mesh(args)
+    main_rank = train_mesh is None or train_mesh.rank == 0
     cfg = TransformerConfig(
         dim=embed_dim, n_heads=4, depth=args.depth, dropout=args.dropout,
         timesteps=DEFAULT_TIMESTEPS, self_cond=args.self_cond,
         pos_emb=args.pos_emb, max_len=max(512, args.seq_len),
+        seq_axis=seq_axis,
     )
 
     # --- train ------------------------------------------------------------
@@ -373,6 +387,7 @@ def _run(args):
             freeze_embeddings=args.freeze_embeddings,
             anchor_ce=args.anchor_ce,
             compute_dtype=resolve_compute_dtype(args.dtype),
+            mesh=train_mesh,
         )
         model = result.joint["diffusion_model"]
         rounding = result.joint["rounding_fn"]
@@ -459,6 +474,12 @@ def _run(args):
         model.load_state_dict(state_from_checkpoint(diff_sd), strict=True)
     embed_dim = cfg.dim
     model.to(dev).eval()
+    if seq_axis is not None:
+        # Every rank of the ring samples the whole batch, each its positions
+        # through the ring.
+        from tinydiffusionmodels_torch.parallel import SequenceSharded
+
+        model = SequenceSharded(model, train_mesh)
     if rounding is not None:
         rounding.to(dev).eval()
     sched = make_schedule(kind=args.noise_schedule, device=dev)
@@ -497,7 +518,7 @@ def _run(args):
             use_learned_rounding=not use_cosine_fallback,
             method=args.sampler, num_steps=args.steps, clamp=args.clamp,
             parameterization=args.parameterization,
-            generator=sample_gen, return_embeddings=True,
+            generator=sample_gen, return_embeddings=True, save=main_rank,
         )
     if not args.guided_sample:
         return z
@@ -508,7 +529,8 @@ def _run(args):
         lm_choice = "hf" if torch_lm is not None else "tinygpt"
     if lm_choice == "hf":
         raise SystemExit(f"--guided_sample --base_lm hf {_NOT_PORTED}")
-    lm = _load_or_train_lm(args, vocab_size, corpus, tokenizer, dev)
+    lm = _load_or_train_lm(args, vocab_size, corpus, tokenizer, dev,
+                           save=main_rank)
 
     from tinydiffusionmodels_torch.sample.guided import GuidedDecoder
     from tinydiffusionmodels_torch.sample.text import (
@@ -533,12 +555,49 @@ def _run(args):
         rounding=rounding, embed_matrix=embed_matrix,
         use_learned_rounding=not use_cosine_fallback,
         alpha=args.alpha, temperature=args.temperature,
-        normalize=args.guidance_norm, return_tokens=True,
+        normalize=args.guidance_norm, return_tokens=True, save=main_rank,
     )
     return tokens if z is None else (z, tokens)
 
 
-def _load_or_train_lm(args, vocab_size: int, corpus: str, tokenizer, dev):
+def _parallel_mesh(args):
+    """(training mesh, sequence axis) of the run: with ``--seq_parallel``
+    a ring over every rank (a value RING: rings of RING ranks, the batch
+    over the rest), registered for ``ops.attention`` here, before any
+    training or sampling, with the JAX CLI's checks and its ``[parallel]``
+    line; else, in a process group, every rank on 'data'; else (None,
+    None)."""
+    import torch.distributed as dist
+
+    from tinydiffusionmodels_torch import ops
+    from tinydiffusionmodels_torch.parallel import make_mesh
+
+    if not args.seq_parallel:
+        return (make_mesh() if dist.is_initialized() else None), None
+    if args.seq_parallel == -1:
+        mesh = make_mesh({"seq": -1})  # ring over every device
+    else:
+        mesh = make_mesh({"data": -1, "seq": args.seq_parallel})
+    ops.register_sequence_mesh(mesh, "seq")
+    if args.seq_len % mesh.shape["seq"]:
+        raise SystemExit(
+            f"--seq_parallel needs seq_len divisible by the ring size "
+            f"{mesh.shape['seq']}"
+        )
+    dp = mesh.shape.get("data", 1)
+    if args.batch_size % dp:
+        raise SystemExit(
+            f"--seq_parallel {args.seq_parallel}: batch_size "
+            f"{args.batch_size} not divisible by the {dp}-way data axis"
+        )
+    if mesh.rank == 0:
+        print(f"[parallel] sequence-parallel: ring({mesh.shape['seq']})"
+              + (f" x dp({dp})" if dp > 1 else "") + " (ring attention)")
+    return mesh, "seq"
+
+
+def _load_or_train_lm(args, vocab_size: int, corpus: str, tokenizer, dev,
+                      save: bool = True):
     """The guided sampler's TinyGPT base LM: ``--lm_ckpt`` when it holds an
     LM for this vocabulary with a long enough position table, else one
     trained for ``--lm_epochs`` on the corpus and saved there in the JAX
@@ -579,7 +638,8 @@ def _load_or_train_lm(args, vocab_size: int, corpus: str, tokenizer, dev):
     train_chunks, _ = tokenize_corpus(corpus, tokenizer, args.seq_len + 1, 0.0)
     lm = train_lm(train_chunks, lm_cfg, epochs=args.lm_epochs, seed=args.seed,
                   device=dev)
-    save_checkpoint({"params": tiny_gpt_params_dict(lm)}, args.lm_ckpt)
+    if save:
+        save_checkpoint({"params": tiny_gpt_params_dict(lm)}, args.lm_ckpt)
     return lm
 
 

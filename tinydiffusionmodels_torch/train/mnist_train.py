@@ -16,6 +16,14 @@ without its knob); timesteps and noise are drawn on the device from one
 step is captured once as a CUDA graph and replayed (``graphs.py``); on the
 CPU it runs eagerly. The metrics record's ``loss`` is the last chunk's
 mean step loss, as the JAX trainer logs it.
+
+Data parallelism (``mesh``, the JAX trainer's): every rank gathers the
+same global batch and draws its timesteps and noise from the same
+generator, trains on its rows, and one all-reduce inside the captured step
+averages the gradients and the loss over the ranks
+(``parallel/data_parallel.py``); ``batch_size`` stays the global batch,
+and only rank 0 samples the epoch grids and writes the checkpoint and
+metrics.
 """
 
 from __future__ import annotations
@@ -48,6 +56,12 @@ from tinydiffusionmodels_torch.io import (
     unet_checkpoint_dict,
 )
 from tinydiffusionmodels_torch.models import SimpleUNet
+from tinydiffusionmodels_torch.parallel import (
+    average_gradients,
+    make_mesh,
+    replicate_tree,
+    shard_batch,
+)
 from tinydiffusionmodels_torch.runtime import device as runtime_device
 from tinydiffusionmodels_torch.sample.ancestral import sample_loop
 from tinydiffusionmodels_torch.train import chunks
@@ -62,28 +76,36 @@ IMAGE_SHAPE = (28, 28, 1)
 def optimizer_step(model: nn.Module, optimizer, batch: torch.Tensor,
                    t: torch.Tensor, noise: torch.Tensor,
                    sched: DiffusionSchedule, *,
-                   compute_dtype=None) -> torch.Tensor:
+                   compute_dtype=None, mesh=None) -> torch.Tensor:
     """One AdamW step on ``ddpm_loss`` at the given timesteps and noise;
     returns the loss, still on the device. ``compute_dtype`` (bf16) runs the
     UNet forward and backward in bf16 on parameters cast inside the loss;
-    the parameters and AdamW's state stay f32."""
+    the parameters and AdamW's state stay f32. With ``mesh``
+    (``parallel.average_gradients``) the gradients and the loss are
+    averaged over the ranks before AdamW."""
     loss = ddpm_loss(sched, in_dtype(model, compute_dtype), batch, t, noise,
                      compute_dtype=compute_dtype)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss = loss.detach()
+    average_gradients(optimizer, loss, mesh)
     optimizer.step()
-    return loss.detach()
+    return loss
 
 
 def train_step(model, optimizer, batch, sched, generator, *,
-               compute_dtype=None) -> torch.Tensor:
+               compute_dtype=None, mesh=None) -> torch.Tensor:
     """``optimizer_step`` with timesteps and noise drawn on the batch's
-    device from ``generator``."""
+    device from ``generator``. ``batch`` is the global batch; with
+    ``mesh`` the step trains on this rank's rows of it and of the
+    timesteps and noise drawn for all of it."""
     t = torch.randint(0, sched.timesteps, (batch.shape[0],),
                       generator=generator, device=batch.device)
     noise = torch.randn(batch.shape, generator=generator, device=batch.device)
+    if mesh is not None:
+        batch, t, noise = shard_batch(mesh, (batch, t, noise))
     return optimizer_step(model, optimizer, batch, t, noise, sched,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype, mesh=mesh)
 
 
 def ema_update(ema: nn.Module, model: nn.Module, decay: float) -> None:
@@ -119,12 +141,13 @@ class MnistSteps(chunks.EpochSteps):
     def __init__(self, model, optimizer, data, sched, *, batch_size: int,
                  steps: int, generator, ema=None,
                  ema_decay: float | None = None, compute_dtype=None,
-                 eager: bool = False):
+                 eager: bool = False, mesh=None):
 
         def step(_):
             loss = train_step(model, optimizer,
                               data.index_select(0, self.rows()), sched,
-                              generator, compute_dtype=compute_dtype)
+                              generator, compute_dtype=compute_dtype,
+                              mesh=mesh)
             if ema is not None:
                 ema_update(ema, model, ema_decay)
             optimizer.zero_grad(set_to_none=True)
@@ -201,6 +224,7 @@ def train(
     ema_decay: float | None = None,
     compute_dtype=None,
     device=None,
+    mesh=None,
     log_fn=print,
 ) -> TrainResult:
     """Full training run (reference src/mnist.py:128-165 surface) on
@@ -213,11 +237,25 @@ def train(
     loss of the epoch's last chunk (the JAX trainer's).
     ``compute_dtype=torch.bfloat16`` trains in bf16 (``optimizer_step``);
     the weights, AdamW's state, the EMA, the sample grids and the
-    checkpoint stay f32."""
+    checkpoint stay f32. ``mesh`` (default: every rank of the process
+    group on 'data', or one rank without one) makes the run data-parallel
+    over its 'data' axis; ``batch_size`` is the global batch."""
     dev = runtime_device() if device is None else torch.device(device)
+    if mesh is None:
+        mesh = make_mesh()
+    dp = mesh.axis_size("data")
+    if batch_size % dp:
+        raise ValueError(f"batch {batch_size} not divisible by 'data' axis "
+                         f"size {dp}")
+    main = mesh.rank == 0
+    if not main:
+        def log_fn(*_):
+            pass
     ckpt_path = (get_vertex_checkpoint_path("image-model.pth")
                  if "AIP_MODEL_DIR" in os.environ else ckpt_path)
     metrics = MetricsLogger(metrics_path)
+    if not main:
+        metrics.path = None
     images, _, source = load_mnist(data_root, train=True)
     if source == "synthetic":
         log_fn("[data] MNIST unavailable -> deterministic synthetic digits")
@@ -231,6 +269,7 @@ def train(
     # every device; t and noise are drawn on the device.
     model = SimpleUNet(sched.timesteps,
                        generator=torch.Generator().manual_seed(seed)).to(dev)
+    replicate_tree(mesh, model)
     # torch AdamW default weight decay, reference src/mnist.py:148.
     optimizer = adamw(model.parameters(), lr, weight_decay=0.01)
     ema = None
@@ -240,7 +279,8 @@ def train(
     epoch_steps = data.shape[0] // batch_size
     steps = MnistSteps(model, optimizer, data, sched, batch_size=batch_size,
                        steps=epoch_steps, generator=gen, ema=ema,
-                       ema_decay=ema_decay, compute_dtype=compute_dtype)
+                       ema_decay=ema_decay, compute_dtype=compute_dtype,
+                       mesh=mesh)
     chunk, progress_every = chunks.scan_chunk(), chunks.progress_every()
 
     history, records = [], []
@@ -277,7 +317,7 @@ def train(
                   "it_per_s": round(n / dt, 2), "loss": last_chunk}
         metrics.log(record)
         records.append(record)
-        if sample_every_epoch:
+        if sample_every_epoch and main:
             png = sample_grid_png(
                 ema if ema is not None else model, sched,
                 n_samples=samples_per_epoch,
@@ -287,7 +327,8 @@ def train(
             log_fn(f"[epoch {epoch + 1}] saved samples to {sample_path}")
 
     final = ema if ema is not None else model
-    save_checkpoint(unet_checkpoint_dict(final), ckpt_path)
+    if main:
+        save_checkpoint(unet_checkpoint_dict(final), ckpt_path)
     metrics.close()
     return TrainResult(
         model=final.eval(),

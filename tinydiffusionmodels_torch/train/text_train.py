@@ -21,6 +21,17 @@ drawn on the device from one ``torch.Generator``, and the EMA update runs
 in the same step. On the card each kind of step (one per value of the
 self-conditioning coin, which the host draws) is captured once as a CUDA
 graph and replayed (``graphs.py``); on the CPU it runs eagerly.
+
+Data and sequence parallelism (``mesh``, the JAX trainer's): every rank
+gathers the same global batch and draws its timesteps and noise from the
+same generator, keeps its rows (the 'data' axis) and, with
+``cfg.seq_axis``, its token positions, and after the backward one
+all-reduce averages the gradients and losses over the ranks
+(``parallel/data_parallel.py``), inside the captured step. ``batch_size``
+stays the global batch. Dropout draws from a generator of its own for
+each data shard, shared by the ranks of a sequence ring; validation
+losses are the global mean, so every rank stops early alike; only rank 0
+writes checkpoints and metrics.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tinydiffusionmodels_torch import ops
 from tinydiffusionmodels_torch.core.diffusion import _bcast, q_sample
 from tinydiffusionmodels_torch.core.schedule import DiffusionSchedule
 from tinydiffusionmodels_torch.data.loader import batch_iterator, num_batches
@@ -44,6 +56,13 @@ from tinydiffusionmodels_torch.io import (
     text_checkpoint_dict,
 )
 from tinydiffusionmodels_torch.models.embedding import _apply_norm
+from tinydiffusionmodels_torch.parallel import (
+    all_reduce_mean,
+    average_gradients,
+    make_mesh,
+    replicate_tree,
+    shard_batch,
+)
 from tinydiffusionmodels_torch.train import chunks
 from tinydiffusionmodels_torch.train.metrics import MetricsLogger
 from tinydiffusionmodels_torch.train.optim import (
@@ -196,36 +215,61 @@ def _draw_t_noise(joint, token_ids, timesteps, generator):
     return t, noise
 
 
+def _local(joint, mesh, token_ids, t, noise):
+    """This rank's rows (and positions) of a global batch's tokens,
+    timesteps and noise."""
+    if mesh is None:
+        return token_ids, t, noise
+    return shard_batch(mesh, (token_ids, t, noise),
+                       seq_axis=joint["diffusion_model"].cfg.seq_axis)
+
+
 def train_step(joint, optimizer, token_ids, rounding_weight, generator, *,
-               sched, self_cond_coin=False, **loss_kwargs):
+               sched, self_cond_coin=False, mesh=None,
+               dropout_generator=None, **loss_kwargs):
     """One optimizer step: forward with dropout, backward, AdamW. Returns
-    the (diff, round, total) losses as a (3,) tensor on the device."""
+    the (diff, round, total) losses as a (3,) tensor on the device.
+
+    ``token_ids`` is the global batch; with ``mesh`` the step trains on
+    this rank's share of it, the timesteps and noise drawn for the whole
+    batch from ``generator``, the dropout masks from ``dropout_generator``
+    (default ``generator``), and ``parallel.average_gradients`` averages
+    the gradients and losses over the ranks before AdamW."""
     t, noise = _draw_t_noise(joint, token_ids, sched.timesteps, generator)
+    token_ids, t, noise = _local(joint, mesh, token_ids, t, noise)
     total, (diff, round_) = _losses(
         joint, token_ids, t, noise, rounding_weight, sched=sched,
-        deterministic=False, generator=generator,
+        deterministic=False, generator=dropout_generator or generator,
         self_cond_coin=self_cond_coin, **loss_kwargs,
     )
     optimizer.zero_grad(set_to_none=True)
     total.backward()
+    losses = torch.stack([diff, round_, total]).detach()
+    average_gradients(optimizer, losses, mesh)
     optimizer.step()
-    return torch.stack([diff, round_, total]).detach()
+    return losses
 
 
 @torch.no_grad()
 def eval_losses(joint, batches, rounding_weight, generator, *, sched,
-                **loss_kwargs):
+                mesh=None, **loss_kwargs):
     """Mean (diff, round, total) over ``batches`` (K, B, L) on the device,
-    without dropout; one host read at the end."""
+    without dropout; one host read at the end. With ``mesh`` each rank
+    evaluates its share of every batch and the means are averaged over
+    the ranks (the global mean, the same on every rank)."""
     sums = torch.zeros(3, device=batches.device)
     for token_ids in batches:
         t, noise = _draw_t_noise(joint, token_ids, sched.timesteps, generator)
+        token_ids, t, noise = _local(joint, mesh, token_ids, t, noise)
         total, (diff, round_) = _losses(
             joint, token_ids, t, noise, rounding_weight, sched=sched,
             deterministic=True, **loss_kwargs,
         )
         sums += torch.stack([diff, round_, total])
-    return (sums / max(len(batches), 1)).cpu().numpy()
+    means = sums / max(len(batches), 1)
+    if mesh is not None and mesh.distributed:
+        means = all_reduce_mean([means], mesh.size)[0]
+    return means.cpu().numpy()
 
 
 def _generator(device, seed: int, *words: int) -> torch.Generator:
@@ -252,7 +296,8 @@ class TextSteps(chunks.EpochSteps):
     def __init__(self, joint, optimizer, train_dev, *, batch_size: int,
                  steps: int, generator, coin_rng=None, ema=None,
                  ema_decay: float | None = None, lr_at=None,
-                 eager: bool = False, **loss_kwargs):
+                 eager: bool = False, mesh=None, dropout_generator=None,
+                 **loss_kwargs):
         dev = train_dev.device
         self.self_cond = joint["diffusion_model"].cfg.self_cond
         self.coin_rng = coin_rng
@@ -265,6 +310,7 @@ class TextSteps(chunks.EpochSteps):
             losses = train_step(
                 joint, optimizer, train_dev.index_select(0, self.rows()),
                 self.rounding_weight, generator, self_cond_coin=coin,
+                mesh=mesh, dropout_generator=dropout_generator,
                 **loss_kwargs)
             if shadow is not None:
                 with torch.no_grad():
@@ -275,7 +321,7 @@ class TextSteps(chunks.EpochSteps):
 
         super().__init__(step, optimizer=optimizer, steps=steps,
                          batch_size=batch_size, loss_width=3, device=dev,
-                         generators=(generator,),
+                         generators=(generator, dropout_generator),
                          variants=(False, True) if self.self_cond else (False,),
                          lr_at=lr_at, eager=eager)
 
@@ -342,6 +388,7 @@ def train(
     freeze_embeddings: bool = False,
     anchor_ce: float = 0.0,
     compute_dtype=None,
+    mesh=None,
     log_fn=print,
 ) -> TrainResult:
     """Epoch loop with validation + early stopping
@@ -354,13 +401,39 @@ def train(
 
     ``compute_dtype=torch.bfloat16`` trains and validates in bf16
     (``_losses``); the parameters, AdamW's state, the EMA and the
-    checkpoints stay f32."""
+    checkpoints stay f32.
+
+    ``mesh`` (``parallel.make_mesh``; default: every rank of the process
+    group on 'data', or one rank without one) makes the run data-parallel
+    over its 'data' axis and, with ``cfg.seq_axis``, sequence-parallel over
+    that axis (registered here for ``ops.attention``); ``batch_size`` is
+    the global batch."""
     if clamp_train and parameterization != "x0":
         raise ValueError(
             "clamp_train requires --parameterization x0 (the clamp operates "
             "on the predicted clean embeddings)"
         )
     dev = next(joint.parameters()).device
+    if mesh is None:
+        mesh = make_mesh()
+    seq_axis = joint["diffusion_model"].cfg.seq_axis
+    if seq_axis is not None:
+        if seq_axis not in mesh.shape:
+            raise ValueError(
+                f"cfg.seq_axis={seq_axis!r} is not an axis of the "
+                f"training mesh {dict(mesh.shape)}; build the mesh with "
+                f"that axis (e.g. make_mesh({{{seq_axis!r}: -1}}))"
+            )
+        ops.register_sequence_mesh(mesh, seq_axis)
+    dp = mesh.axis_size("data")
+    if batch_size % dp:
+        raise ValueError(f"batch {batch_size} not divisible by 'data' axis "
+                         f"size {dp}")
+    replicate_tree(mesh, joint)
+    main = mesh.rank == 0
+    if not main:
+        def log_fn(*_):
+            pass
     steps_per_epoch = num_batches(train_chunks.shape[0], batch_size)
     total_steps = steps_per_epoch * epochs
     if freeze_embeddings and use_learned_embeddings:
@@ -394,11 +467,14 @@ def train(
     val_dev = (torch.as_tensor(np.stack(val_batches), dtype=torch.long,
                                device=dev) if val_batches else None)
     gen = _generator(dev, seed, 0)            # t, noise and dropout
+    # With several data shards each draws its own dropout masks.
+    drop_gen = (None if dp == 1
+                else _generator(dev, seed, 0, 1 + mesh.index("data")))
     coin_rng = np.random.default_rng([seed, 2])  # self-conditioning coin
     steps = TextSteps(joint, optimizer, train_dev, batch_size=batch_size,
                       steps=steps_per_epoch, generator=gen, coin_rng=coin_rng,
                       ema=ema, ema_decay=ema_decay, lr_at=lr_at,
-                      **loss_kwargs)
+                      mesh=mesh, dropout_generator=drop_gen, **loss_kwargs)
     chunk, progress_every = chunks.scan_chunk(), chunks.progress_every()
 
     ckpt_meta = dict(
@@ -407,6 +483,8 @@ def train(
         anchor_ce=anchor_ce,
     )
     metrics = MetricsLogger(metrics_path)
+    if not main:
+        metrics.path = None
     best_val_loss = float("inf")
     patience_counter = 0
     history, records = [], []
@@ -440,7 +518,7 @@ def train(
         vn = len(val_batches)
         val_losses = (
             eval_losses(eval_joint, val_dev, w, _generator(dev, seed, 1, epoch),
-                        **loss_kwargs)
+                        mesh=mesh, **loss_kwargs)
             if vn else np.zeros(3)
         )
         record = {
@@ -469,12 +547,13 @@ def train(
             best_val_loss = float(val_losses[2])
             patience_counter = 0
             best_ckpt_path = str(ckpt_path).replace(".pth", "_best.pth")
-            save_checkpoint(
-                _checkpoint_dict(eval_joint, epoch=epoch,
-                                 extra={"val_loss": best_val_loss},
-                                 **ckpt_meta),
-                best_ckpt_path,
-            )
+            if main:
+                save_checkpoint(
+                    _checkpoint_dict(eval_joint, epoch=epoch,
+                                     extra={"val_loss": best_val_loss},
+                                     **ckpt_meta),
+                    best_ckpt_path,
+                )
             log_fn(f"  New best validation loss! Saved to {best_ckpt_path}")
         elif vn:
             # Patience counts only when a val measurement exists (with
@@ -492,11 +571,12 @@ def train(
         else ckpt_path
     )
     log_fn(f"✔ Saving final checkpoint to {final_ckpt_path}...")
-    save_checkpoint(
-        _checkpoint_dict(final, epoch=epochs, extra={"final_training": True},
-                         **ckpt_meta),
-        final_ckpt_path,
-    )
+    if main:
+        save_checkpoint(
+            _checkpoint_dict(final, epoch=epochs,
+                             extra={"final_training": True}, **ckpt_meta),
+            final_ckpt_path,
+        )
     metrics.close()
     return TrainResult(
         joint=final,
