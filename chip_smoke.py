@@ -8,7 +8,7 @@ JAX package (only ``tinydiffusionmodels_torch``), and fails (exit code != 0,
 no result line) on any error; no phase catches its own failure.
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch,
-   CUDA and nvcc versions. Fails when CUDA is not available.
+   CUDA, nvcc and transformers versions. Fails when CUDA is not available.
 2. Build: compiles every CUDA source in ``tinydiffusionmodels_torch/csrc``
    (one nvcc per source, all started together) and prints ptxas' registers
    and spills of every kernel instance, the flash kernels' D 256 ones
@@ -23,7 +23,12 @@ no result line) on any error; no phase catches its own failure.
    9 case on 2 bytes), Dh 12 with Dv 24 and Dh 160 with Dv 256, causal,
    and Dh 256 with Dv 24; above 256, where the D 256 instances stage the
    head width, Dh 512 on the QKV views (the --embed_dim 2048 path's) and
-   Dh 264 with Dv 320, causal, f32 and bf16.
+   Dh 264 with Dv 320, causal, f32 and bf16. And the Gemma base LM's
+   operands as ``models.gemma`` lays them out (phase 32), f32 and bf16: a
+   decode position's folded MQA view (B 10, Gemma-2B's 8 query heads as
+   the 8 rows of its one KV head, Dh 256) against cache prefixes of Lk 1,
+   2, 17, 64 and 65, and the causal forward (B 2, L 64) with k and v
+   expanded over the 8 heads at head stride 0.
 4. Training kernels vs plain: the forward with attention-weight dropout and
    the recompute backward (dq; dk and dv; with an lse cotangent) against
    autograd of the plain version, same seed, same tolerances on O and lse.
@@ -105,7 +110,10 @@ no result line) on any error; no phase catches its own failure.
    device time from torch.profiler: the forward, and the backward for dq
    and dk/dv), and the bound (bytes over 3.35 TB/s or the products as
    3xTF32, three TF32 products at 495 TFLOP/s each, the larger), with the
-   FP32-FMA roof (the FLOPs at 67 TFLOP/s) printed beside it.
+   FP32-FMA roof (the FLOPs at 67 TFLOP/s) printed beside it. Then the
+   forward alone at the Gemma decode shape (B 10, 8 rows on 1 KV head, Lk
+   64, Dh 256, f32) beside its plain version, SDPA's self device time on
+   the same views and the bound.
 12. Timing of the guided decode at the bench shape (V 4096, D 256, depth 4,
    L 64, alpha 0.3) at bs 8 and 256: the kernel's CUDA-event time beside its
    plain version and its bound (bytes over 3.35 TB/s or the matmul FLOPs,
@@ -286,6 +294,44 @@ processes on the card; the CPU tests do (``tests/test_torch_parallel.py``,
    steps, two rounds each alternately, and torch.profiler's device time of
    the NCCL kernel per step, beside the card's name and power limit.
 
+The Gemma base LM (after phase 27).
+
+32. The guided decode with a Gemma-2B base LM: HF ``google/gemma-2b``'s
+   published widths (vocab 256000, hidden 2048, 18 layers, 8 heads on 1
+   KV head of 256, intermediate 16384, rope theta 10000, rms eps 1e-6),
+   every weight N(0, 0.02) drawn on the card from a seed, f32 (10.0 GB;
+   the real weights are not on the card machine), n 10 (the CLI's
+   ``--n`` default), seq 64, alpha 0.3. A
+   width-2048 denoiser samples the embeddings by DDIM 10 and a random
+   rounding head over the 256 000 tokens gives the (10, 64, 256000)
+   diffusion logits, all through the text CLI's own
+   ``shakespeare.guided_decode``, whose ``GuidedDecoder`` replays the
+   64-position scan as one CUDA graph. Asserts: flash-forward launches =
+   18 x (64 + 1 prime) for the decode (30 for the sampler), no other
+   kernel, 10 sample files, the tokens bit-equal to the eager
+   ``guided_generate_scan`` on the same logits (a second decoder's replay
+   too); then the module at depth 2 (the same widths) on the card against
+   the CPU, one 16-token causal forward and 4 decode positions, logits
+   within 1e-3 (TF32 off). Prints the replayed ms a decode and a position,
+   tokens/s, the eager ms, the bound (the 10.02 GB of f32 weights read
+   once a position at 3.35 TB/s: 2.99 ms, 191 ms a decode, 3.34k tokens/s
+   at n 10), and the busy share and top kernels of one replay from
+   torch.profiler. Its launches count with the main paths'.
+33. The text CLI's Hugging Face route: ``shakespeare.main(["--train",
+   "--guided_sample", "--base_lm", "hf", ...])`` with ``_load_hf`` stubbed
+   to return a stand-in tokenizer over Gemma's 256 000 ids, the embedding
+   matrix and a random HF ``GemmaForCausalLM`` (transformers' own module,
+   Gemma-2B widths at depth 2, on the host as a checkpoint loads). The CLI
+   trains a width-2048 denoiser of depth 1 for one epoch of 8000
+   characters on the pretrained embeddings, samples by DDIM 10, converts
+   the HF weights to the port's Gemma on the card and decodes n 10 at seq
+   64. Asserts the launches, 10 sample files of the tokens' texts, the
+   tokens bit-equal to the eager scan of the converted Gemma on the
+   diffusion logits the CLI computed, and that Gemma against HF's module
+   on the card (a 16-token causal forward, 4 decode positions) within
+   1e-3 (TF32 off). Needs transformers. Its launches count with the main
+   paths'.
+
 The peaks, the bound and the timer are ``tinydiffusionmodels_torch.perf``'s.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``; before them, the command's time.
@@ -294,6 +340,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import importlib.metadata
 import json
 import os
 import subprocess
@@ -368,6 +415,24 @@ GEMMA_TRAIN_ARGS = ("--lr", "1e-4", "--warmup_steps", "10")
 # kernel bench's L 512 and 2048, and the training shape at GEMMA_DIM.
 TIMING_SHAPES = ((BATCH, SEQ, DIM // HEADS), (8, 512, DIM // HEADS),
                  (2, 2048, DIM // HEADS), (BATCH, SEQ, GEMMA_DIM // HEADS))
+
+# The Gemma base LM (phase 32): HF google/gemma-2b's config.json, its
+# published widths; the CLI's --n default; DDIM steps of the width-2048
+# denoiser that samples the guided embeddings; timed replayed decodes a
+# round. The module against the CPU: GEMMA_CPU_DEPTH layers at these widths,
+# GEMMA_CPU_POSITIONS decode positions and a GEMMA_CPU_L-token causal
+# forward, logits within GEMMA_CPU_TOL (TF32 off; sums in another order).
+GEMMA_2B = dict(vocab_size=256000, hidden_size=2048, num_layers=18,
+                num_heads=8, num_kv_heads=1, head_dim=256,
+                intermediate_size=16384, rope_theta=10000.0, rms_eps=1e-6)
+GEMMA_N, GEMMA_DDIM_STEPS, GEMMA_RUNS = 10, 10, 5
+GEMMA_CPU_DEPTH, GEMMA_CPU_POSITIONS, GEMMA_CPU_L = 2, 4, 16
+GEMMA_CPU_TOL = 1e-3
+# The CLI's HF route (phase 33): characters of its one training epoch.
+HF_CLI_CHARS = 8000
+# The flash forward at the Gemma shapes (phase 3): a decode position's
+# folded MQA view against cache prefixes of these lengths.
+GEMMA_DECODE_LK = (1, 2, 17, 64, 65)
 
 _CSRC = "tinydiffusionmodels_torch/csrc/"
 _PALLAS = "tinydiffusionmodels_tpu/ops/pallas_kernels.py"
@@ -462,6 +527,11 @@ def environment():
           f"torch CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print("nvcc: " + nvcc.strip().splitlines()[-1])
+    try:   # phase 33 imports it and fails without it
+        hf = importlib.metadata.version("transformers")
+    except importlib.metadata.PackageNotFoundError:
+        hf = "not installed"
+    print(f"transformers: {hf}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return smi
@@ -501,8 +571,6 @@ def kernel_vs_plain():
     import torch
 
     from tinydiffusionmodels_torch import kernel_bench as kb
-    from tinydiffusionmodels_torch.ops import flash_attention as fa
-    from tinydiffusionmodels_torch.ops import reference
 
     phase("forward kernel vs plain (TF32 off)")
     f32, bf16 = torch.float32, torch.bfloat16
@@ -555,19 +623,71 @@ def kernel_vs_plain():
             qkv = torch.stack([q, k, v], dim=2)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
             assert not q.is_contiguous()
-        out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
-                                               layout=layout, k_offset=k_off)
-        ref_out, ref_lse = reference.attention(q, k, v, causal=causal,
-                                               layout=layout, k_offset=k_off)
-        torch.cuda.synchronize()
-        tol_o = 2e-2 if dtype == bf16 else 1e-4
-        tol_l = 1e-2 if dtype == bf16 else 1e-4
-        torch.testing.assert_close(out, ref_out, atol=tol_o, rtol=tol_o)
-        torch.testing.assert_close(lse, ref_lse, atol=tol_l, rtol=tol_l)
-        errors[name] = _max_err(out, ref_out)
-        print(f"{name:20s} max|dO| {errors[name]:.3e} (tol {tol_o:g})  "
-              f"max|dlse| {_max_err(lse, ref_lse):.3e} (tol {tol_l:g})")
+        errors[name] = _forward_vs_plain(name, q, k, v, causal=causal,
+                                         layout=layout, k_offset=k_off)
+    # The Gemma base LM's operands as models/gemma.py lays them out.
+    for dtype in (f32, bf16):
+        for name, (q, k, v, causal) in _gemma_attention_cases(
+                dtype, 97).items():
+            name = f"{name}_{str(dtype)[6:]}"
+            errors[name] = _forward_vs_plain(name, q, k, v, causal=causal,
+                                             layout="blhd")
     return errors
+
+
+def _forward_vs_plain(name: str, q, k, v, **kw) -> float:
+    """The forward kernel against its plain version on (q, k, v) with
+    ``attention``'s keyword arguments: O and lse within phase 3's limits
+    (f32 1e-4; bf16 2e-2 on O, 1e-2 on lse). Returns max |dO|."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import reference
+
+    out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    ref_out, ref_lse = reference.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    bf16 = q.dtype == torch.bfloat16
+    tol_o = 2e-2 if bf16 else 1e-4
+    tol_l = 1e-2 if bf16 else 1e-4
+    torch.testing.assert_close(out, ref_out, atol=tol_o, rtol=tol_o)
+    torch.testing.assert_close(lse, ref_lse, atol=tol_l, rtol=tol_l)
+    err = _max_err(out, ref_out)
+    print(f"{name:20s} max|dO| {err:.3e} (tol {tol_o:g})  "
+          f"max|dlse| {_max_err(lse, ref_lse):.3e} (tol {tol_l:g})")
+    return err
+
+
+def _gemma_attention_cases(dtype, seed: int) -> dict:
+    """name: (q, k, v, causal) of the flash forward on the Gemma-2B head
+    layout (8 query heads on 1 KV head, Dh 256), built as ``models.gemma``
+    builds them: a decode position's folded view (B GEMMA_N; the 8 query
+    heads as the 8 rows of the KV head, a transposed view of the q
+    projection) against cache prefixes of GEMMA_DECODE_LK keys, strided
+    slices of one (B, 65, 1, Dh) cache; and the causal forward (B 2, L 64)
+    with k and v expanded over the 8 heads at head stride 0."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h, kv, dh = (GEMMA_2B[k] for k in ("num_heads", "num_kv_heads",
+                                        "head_dim"))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    cache_k, cache_v = (randn(GEMMA_N, max(GEMMA_DECODE_LK), kv, dh)
+                        for _ in range(2))
+    q = randn(GEMMA_N, 1, h * dh).reshape(GEMMA_N, kv, h // kv, dh)
+    q = q.transpose(1, 2)
+    cases = {f"gemma_decode_Lk{lk}": (q, cache_k[:, :lk], cache_v[:, :lk],
+                                      False) for lk in GEMMA_DECODE_LK}
+    b, l = 2, SEQ
+    k, v = (randn(b, l, kv, dh)[:, :, :, None].expand(b, l, kv, h // kv, dh)
+            .reshape(b, l, h, dh) for _ in range(2))
+    if k.stride(2) != 0:
+        raise AssertionError(f"expanded k has strides {k.stride()}")
+    cases["gemma_causal_stride0"] = (randn(b, l, h, dh), k, v, True)
+    return cases
 
 
 def _bench_attention_cases(kb, bf16_rates) -> dict:
@@ -1707,7 +1827,45 @@ def kernel_timing(card: str) -> dict:
         f"B{b} L{l} Dh{d}": out[(b, l, d)][name]
         for b, l, d in TIMING_SHAPES[1:]})
         for name, row in out[TIMING_SHAPES[0]].items()}
+    timings["flash_attention_fwd"]["shapes"].update(_gemma_decode_timing(card))
     return timings
+
+
+def _gemma_decode_timing(card: str) -> dict:
+    """The forward kernel at the Gemma-2B decode shape (phase 32's every
+    layer and position: B GEMMA_N, the 8 query heads folded into 8 rows of
+    the one KV head, Lk 64, Dh 256, f32): CUDA-event times beside its plain
+    version, ``scaled_dot_product_attention``'s self device time from
+    torch.profiler on the same (bhld-strided) views, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import reference
+
+    q, k, v, _ = _gemma_attention_cases(torch.float32, 13)["gemma_decode_Lk64"]
+    params = dict(causal=False, layout="blhd", q_offset=0, k_offset=0,
+                  dropout_rate=0.0, dropout_seed=None)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def plain():
+        with torch.no_grad():
+            reference.attention(q, k, v, layout="blhd")
+
+    def sdpa():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt)
+
+    at = (f"Gemma decode: B {GEMMA_N}, {tuple(q.shape)[1]} rows on 1 KV "
+          f"head, Lk {k.shape[1]}, Dh {q.shape[-1]}, f32")
+    print(f"-- {at}")
+    row = _time_against_plain(
+        {"flash_attention_fwd": (lambda: fa.forward(q, k, v, **params),
+                                 plain, sdpa, "SDPA forward")},
+        {"flash_attention_fwd": fa.work("fwd", q, k, v, **params)}, card,
+        "profiler self device time", at=at,
+        library_timer=_profiled_device_ms)["flash_attention_fwd"]
+    return {f"Gemma decode B{GEMMA_N} rows8 Lk64 Dh256": row}
 
 
 def _time_against_plain(runs: dict, work: dict, card: str, library_note: str,
@@ -2667,9 +2825,19 @@ def main_path_bench(card: str) -> dict:
     > 0, mfu for the train and sample metrics; ``valid`` is printed, not
     asserted (the kernel build just before raises the load average).
     Returns the bench's kernel launches (its provenance)."""
+    import gc
     import math
 
+    import torch
+
     phase("main path: python -m tinydiffusionmodels_torch.bench --quick")
+    # The bench is a process of its own: this one first hands back what its
+    # caching allocator holds (the Gemma phases' freed models and graphs).
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"GiB of the card ({torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB allocated) while the bench runs")
     env = dict(os.environ, TDM_BENCH_RETRIES="0", TDM_BENCH_QUIET_WAIT="0")
     env.pop("TDM_PLATFORM", None)
     env.pop("TDM_DATA_LIMIT", None)
@@ -3535,6 +3703,371 @@ def replayed_step_with_group(card: str) -> dict:
     return {"wall_us": walls, "ratio": ratio, "nccl_us": nccl_us}
 
 
+# --- the Gemma base LM (phase 32) --------------------------------------------
+
+
+def _random_gemma(depth: int, seed: int, device="cuda"):
+    """A ``models.gemma.Gemma`` at Gemma-2B's published widths (GEMMA_2B)
+    cut to ``depth`` layers, max_len 65, every weight N(0, 0.02) drawn on
+    ``device`` from ``seed``, f32: the real gemma-2b-it weights are not on
+    the card machine."""
+    import torch
+
+    from tinydiffusionmodels_torch.models.gemma import Gemma, GemmaConfig
+
+    cfg = GemmaConfig(**dict(GEMMA_2B, num_layers=depth),
+                      max_len=max(SEQ + 1, 64))
+    model = Gemma(cfg, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+    return model.eval()
+
+
+class _StandInTokenizer:
+    """``data.tokenizer.HFTokenizerAdapter``'s interface over Gemma's
+    vocabulary: characters encode as ord mod vocab, ids decode as text of
+    numbers (so texts are equal exactly when tokens are)."""
+
+    bos_token_id, eos_token_id = 2, 1
+    vocab_size = GEMMA_2B["vocab_size"]
+
+    def encode(self, text: str):
+        import numpy as np
+
+        return np.asarray([ord(c) % self.vocab_size for c in text], np.int64)
+
+    def decode(self, ids) -> str:
+        return " ".join(str(int(i)) for i in ids)
+
+    def batch_decode(self, ids, skip_special_tokens=True):
+        return [self.decode(row) for row in ids]
+
+
+def gemma_guided_decode(card: str):
+    """Phase 32: the guided decode with a Gemma-2B base LM at its published
+    widths (GEMMA_2B, random weights, f32, about 10.0 GB), n GEMMA_N, seq
+    SEQ, alpha ALPHA, through the text CLI's own ``shakespeare.
+    guided_decode``: a width-2048 denoiser samples the embeddings by DDIM
+    GEMMA_DDIM_STEPS, a random rounding head over the 256 000 tokens gives
+    the (10, 64, 256000) diffusion logits, and the port's Gemma decodes
+    them with a ``GuidedDecoder`` (its 64-position scan one CUDA graph).
+    Asserts: flash-forward launches 18 x (64 + 1 prime) for the decode (and
+    DDIM steps x 3 for the sampler), no other kernel, GEMMA_N sample files,
+    the tokens bit-equal to the eager ``guided_generate_scan`` on the same
+    logits, and the module at GEMMA_CPU_DEPTH layers against the CPU.
+    Prints the replayed ms a decode and a position, tokens/s, the eager
+    time, the bound (the f32 weights read once a position at 3.35 TB/s),
+    and the busy share and top kernels of one replay (torch.profiler).
+    Returns the launches and the measured row."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinydiffusionmodels_torch import perf, shakespeare
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.models import (
+        LearnedRounding,
+        TinyTransformer,
+        TransformerConfig,
+    )
+    from tinydiffusionmodels_torch.models.gemma import Gemma
+    from tinydiffusionmodels_torch.sample.guided import (
+        GuidedDecoder,
+        guided_generate_scan,
+    )
+    from tinydiffusionmodels_torch.sample.text import (
+        diffusion_position_logits,
+        sample_diffusion_embeddings,
+    )
+
+    phase("the guided decode with a Gemma-2B base LM (published widths, "
+          f"random weights, f32), n {GEMMA_N}, seq {SEQ}, through the "
+          "CLI's guided_decode")
+    work = WORK / "gemma"
+    (work / "samples").mkdir(parents=True, exist_ok=True)
+    os.chdir(work)
+    for old in (work / "samples").glob("guided_sample_*.txt"):
+        old.unlink()
+    t0 = time.perf_counter()
+    gemma = _random_gemma(GEMMA_2B["num_layers"], seed=7)
+    layers, vocab = GEMMA_2B["num_layers"], GEMMA_2B["vocab_size"]
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in gemma.parameters())
+    g = torch.Generator().manual_seed(8)
+    denoiser = TinyTransformer(TransformerConfig(
+        dim=GEMMA_DIM, n_heads=HEADS, depth=DEPTH), generator=g)
+    rounding = LearnedRounding(GEMMA_DIM, vocab, generator=g)
+    denoiser, rounding = denoiser.cuda().eval(), rounding.cuda().eval()
+    sched = make_schedule(device="cuda")
+    tok = _StandInTokenizer()
+    torch.cuda.synchronize()
+    print(f"Gemma-2B widths, {layers} layers: {weight_bytes / 1e9:.3f} GB "
+          f"of f32 weights, drawn on the card with the denoiser and "
+          f"rounding head in {time.perf_counter() - t0:.1f} s")
+
+    idle = {k: 0 for k in _counts()}
+    _reset_counts()
+    z = sample_diffusion_embeddings(
+        denoiser, sched, n=GEMMA_N, seq_len=SEQ, embed_dim=GEMMA_DIM,
+        method="ddim", num_steps=GEMMA_DDIM_STEPS,
+        generator=torch.Generator(device="cuda").manual_seed(9))
+    torch.cuda.synchronize()
+    sampler = _counts()
+    expect = dict(idle, flash_attention_fwd=GEMMA_DDIM_STEPS * DEPTH)
+    if sampler != expect or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"the sampler launched {sampler}, expected "
+                             f"{expect}; finite: {torch.isfinite(z).all()}")
+    _reset_counts()
+    t0 = time.perf_counter()
+    tokens = shakespeare.guided_decode(gemma, tok, z, rounding=rounding,
+                                       alpha=ALPHA)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    decode = _counts()
+    expect = dict(idle, flash_attention_fwd=layers * (SEQ + 1))
+    if decode != expect:
+        raise AssertionError(f"the Gemma decode launched {decode}, expected "
+                             f"{expect}")
+    written = sorted((work / "samples").glob("guided_sample_*.txt"))
+    if len(written) != GEMMA_N or tuple(tokens.shape) != (GEMMA_N, SEQ):
+        raise AssertionError(f"{len(written)} samples, tokens "
+                             f"{tuple(tokens.shape)}")
+
+    diff = diffusion_position_logits(z, rounding=rounding, embed_matrix=None,
+                                     use_learned_rounding=True)
+    if tuple(diff.shape) != (GEMMA_N, SEQ, vocab):
+        raise AssertionError(f"diffusion logits {tuple(diff.shape)}")
+    bos = tok.bos_token_id
+
+    def eager():
+        return guided_generate_scan(gemma.decode_step,
+                                    gemma.init_cache(GEMMA_N), diff, bos,
+                                    alpha=ALPHA)
+
+    want = eager()
+    if not torch.equal(tokens, want):
+        raise AssertionError(f"the replayed decode differs from the eager "
+                             f"scan in {int((tokens != want).sum())} tokens")
+    decoder = GuidedDecoder(gemma, GEMMA_N, SEQ, bos, alpha=ALPHA)
+    if not torch.equal(decoder(diff), want):
+        raise AssertionError("a second decoder's replay differs from the "
+                             "eager scan")
+    replay_ms = [_wall_ms(lambda: decoder(diff), GEMMA_RUNS)]
+    eager_ms = _wall_ms(eager, 2)
+    replay_ms.append(_wall_ms(lambda: decoder(diff), GEMMA_RUNS))
+    ms = sum(replay_ms) / 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decoder(diff)
+        torch.cuda.synchronize()
+    prof_row = _profile_table(prof, 1, ms / 1e3, card,
+                              "Gemma-2B guided decode, a replayed call")
+    # The bound of a position: its f32 weights read once (the tied head's
+    # 2.1 GB included); the products, 2 FLOPs a weight a row, at the FP32
+    # FMA rate, are below it.
+    bound_ms, bound_by = perf.bound_ms(
+        weight_bytes, [(2 * GEMMA_N * weight_bytes / 4, "f32")])
+    row = {"first_call_s": first_s, "replayed_ms": ms,
+           "replayed_ms_runs": replay_ms, "eager_ms": eager_ms,
+           "ms_per_position": ms / SEQ, "tokens_s": GEMMA_N * SEQ / ms * 1e3,
+           "bound_ms_per_position": bound_ms, "bound_by": bound_by,
+           "bound_ms_per_decode": bound_ms * SEQ,
+           "bound_tokens_s": GEMMA_N / bound_ms * 1e3,
+           "device_us": prof_row["device_us"], "busy": prof_row["busy"],
+           "kernels": prof_row["kernels"], "weight_gb": weight_bytes / 1e9}
+    print(f"Gemma-2B guided decode: replayed tokens equal the eager scan bit "
+          f"for bit; launches {decode} (decode), {sampler} (DDIM "
+          f"{GEMMA_DDIM_STEPS}); first call (prime, capture, replay) "
+          f"{first_s:.3f} s; replayed {ms:.3f} ms a decode ({replay_ms}), "
+          f"{ms / SEQ:.4f} ms a position, {row['tokens_s']:.1f} tokens/s; "
+          f"eager {eager_ms:.3f} ms; bound {bound_ms:.4f} ms a position by "
+          f"{bound_by} ({weight_bytes / 1e9:.3f} GB at 3.35 TB/s), "
+          f"{bound_ms * SEQ:.2f} ms a decode, {row['bound_tokens_s']:.1f} "
+          f"tokens/s; replayed at {bound_ms * SEQ / ms:.3f} of the bound; "
+          f"busy {prof_row['busy']:.3f}; on {card}")
+    del decoder, gemma, diff
+
+    # The module at GEMMA_CPU_DEPTH layers, card against CPU, one weight set.
+    small = _random_gemma(GEMMA_CPU_DEPTH, seed=11)
+    cpu = Gemma(small.cfg, device="cpu")
+    cpu.load_state_dict(small.state_dict())
+    cpu.eval()
+    ids = torch.randint(0, vocab, (2, GEMMA_CPU_L),
+                        generator=torch.Generator().manual_seed(12))
+    with torch.inference_mode():
+        errs = [_max_err(small(ids.cuda()).cpu(), cpu(ids))]
+        caches = [small.init_cache(2), cpu.init_cache(2)]
+        for pos in range(GEMMA_CPU_POSITIONS):
+            (a, caches[0]), (b, caches[1]) = (
+                small.decode_step(caches[0], ids[:, pos].cuda()),
+                cpu.decode_step(caches[1], ids[:, pos]))
+            errs.append(_max_err(a.cpu(), b))
+    print(f"Gemma-2B widths at depth {GEMMA_CPU_DEPTH}, card vs CPU (TF32 "
+          f"off): {GEMMA_CPU_L}-token causal forward max |d logits| "
+          f"{errs[0]:.3e}, {GEMMA_CPU_POSITIONS} decode positions "
+          f"{max(errs[1:]):.3e} (tol {GEMMA_CPU_TOL:g})")
+    if not max(errs) <= GEMMA_CPU_TOL:
+        raise AssertionError(f"the Gemma on the card and on the CPU differ "
+                             f"by {errs}")
+    del small, cpu
+    row["cpu_max_abs_err"] = max(errs)
+    return {k: sampler[k] + decode[k] for k in sampler}, row
+
+
+def _random_hf_gemma(depth: int, seed: int):
+    """An HF ``transformers.GemmaForCausalLM`` at Gemma-2B's published
+    widths (GEMMA_2B) cut to ``depth`` layers, f32 on the host, as the
+    CLI's ``_load_hf`` returns a checkpoint: transformers' own init from
+    ``seed`` (N(0, 0.02) embedding and projections), its zero norm weights
+    drawn N(0, 0.1) so that they count."""
+    import torch
+    import transformers
+
+    cfg = transformers.GemmaConfig(
+        vocab_size=GEMMA_2B["vocab_size"],
+        hidden_size=GEMMA_2B["hidden_size"],
+        intermediate_size=GEMMA_2B["intermediate_size"],
+        num_hidden_layers=depth,
+        num_attention_heads=GEMMA_2B["num_heads"],
+        num_key_value_heads=GEMMA_2B["num_kv_heads"],
+        head_dim=GEMMA_2B["head_dim"], rms_norm_eps=GEMMA_2B["rms_eps"],
+        rope_theta=GEMMA_2B["rope_theta"])
+    torch.manual_seed(seed)
+    hf = transformers.GemmaForCausalLM(cfg).eval()
+    with torch.no_grad():
+        for name, p in hf.named_parameters():
+            if "norm" in name:
+                p.normal_(0.0, 0.1)
+    return hf
+
+
+def gemma_hf_cli(card: str) -> dict:
+    """Phase 33: the text CLI's Hugging Face route on the card,
+    ``shakespeare.main(["--train", "--guided_sample", "--base_lm", "hf",
+    ...])``. ``shakespeare._load_hf`` is stubbed to return what it returns
+    for a Gemma checkpoint: a stand-in tokenizer over Gemma's 256 000 ids,
+    the embedding matrix, and a random HF ``GemmaForCausalLM`` at Gemma-2B's
+    widths cut to GEMMA_CPU_DEPTH layers, on the host. The CLI trains a
+    width-2048 denoiser of depth 1 on the pretrained embeddings for one
+    epoch of HF_CLI_CHARS characters, samples by DDIM GEMMA_DDIM_STEPS,
+    converts the HF weights to the port's Gemma on the card
+    (``gemma_from_hf``) and decodes. Asserts: the launches, GEMMA_N sample
+    files, the tokens bit-equal to the eager scan of a Gemma converted
+    again on the card on the diffusion logits the CLI computed, and that
+    Gemma's logits against HF's own on the card (one GEMMA_CPU_L-token
+    causal forward, GEMMA_CPU_POSITIONS decode positions) within
+    GEMMA_CPU_TOL. Returns the launches."""
+    import importlib.metadata
+
+    import torch
+
+    from tinydiffusionmodels_torch import shakespeare
+    from tinydiffusionmodels_torch.data import (
+        load_text_corpus,
+        num_batches,
+        tokenize_corpus,
+    )
+    from tinydiffusionmodels_torch.models.gemma import gemma_from_hf
+    from tinydiffusionmodels_torch.sample import text
+    from tinydiffusionmodels_torch.sample.guided import guided_generate_scan
+
+    phase("the CLI's --guided_sample --base_lm hf with an HF Gemma (Gemma-2B "
+          f"widths, depth {GEMMA_CPU_DEPTH}, random) on transformers "
+          f"{importlib.metadata.version('transformers')}")
+    _prepare_workdir(HF_CLI_CHARS)
+    work = WORK / "gemma_hf"
+    (work / "samples").mkdir(parents=True, exist_ok=True)
+    os.chdir(work)
+    for old in (work / "samples").glob("guided_sample_*.txt"):
+        old.unlink()
+    t0 = time.perf_counter()
+    hf = _random_hf_gemma(GEMMA_CPU_DEPTH, seed=13)
+    matrix = hf.get_input_embeddings().weight.detach().cpu().numpy()
+    tok = _StandInTokenizer()
+    print(f"HF GemmaForCausalLM built on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    corpus, _ = load_text_corpus(WORK / "data")
+    train_chunks, val_chunks = tokenize_corpus(corpus[:HF_CLI_CHARS], tok,
+                                               SEQ, 0.1)
+    steps = num_batches(len(train_chunks), BATCH)
+    val_batches = num_batches(len(val_chunks), BATCH)
+    argv = ["--train", "--guided_sample", "--base_lm", "hf", "--model_id",
+            "google/gemma-2b-it", "--ckpt", str(work / "hf_ckpt.pth"),
+            "--epochs", "1", "--batch_size", str(BATCH), "--seq_len",
+            str(SEQ), "--depth", "1", "--n", str(GEMMA_N), "--alpha",
+            str(ALPHA), "--sampler", "ddim", "--steps",
+            str(GEMMA_DDIM_STEPS), "--data_root", str(WORK / "data")]
+    seen = []
+    plain_logits = text.diffusion_position_logits
+    load_hf = shakespeare._load_hf
+
+    def recording(*args, **kw):
+        seen.append(plain_logits(*args, **kw))
+        return seen[-1]
+
+    text.diffusion_position_logits = recording
+    shakespeare._load_hf = lambda model_id: (tok, matrix, hf)
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        tokens = shakespeare.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        text.diffusion_position_logits = plain_logits
+        shakespeare._load_hf = load_hf
+    expect = {"flash_attention_fwd": steps + val_batches + GEMMA_DDIM_STEPS
+              + GEMMA_CPU_DEPTH * (SEQ + 1),
+              "flash_attention_bwd_dq": steps,
+              "flash_attention_bwd_dkv": steps, "guided_decode": 0,
+              "fused_resblock": 0, **_SINGLE_BLOCK_IDLE}
+    if counts != expect:
+        raise AssertionError(f"launches {counts} on the HF route, expected "
+                             f"{expect}")
+    written = sorted((work / "samples").glob("guided_sample_*.txt"))
+    if (len(written) != GEMMA_N or tuple(tokens.shape) != (GEMMA_N, SEQ)
+            or tokens.device.type != "cuda" or len(seen) != 1):
+        raise AssertionError(f"{len(written)} samples, tokens "
+                             f"{tuple(tokens.shape)} on {tokens.device}, "
+                             f"{len(seen)} diffusion logits")
+    gemma = gemma_from_hf(hf, max_len=max(SEQ + 1, 64), device="cuda")
+    want = guided_generate_scan(gemma.decode_step, gemma.init_cache(GEMMA_N),
+                                seen[0], tok.bos_token_id, alpha=ALPHA)
+    if not torch.equal(tokens, want):
+        raise AssertionError(f"the CLI's tokens differ from the eager scan "
+                             f"in {int((tokens != want).sum())}")
+    for i, path in enumerate(written):
+        if path.read_text() != tok.decode(tokens[i].tolist()):
+            raise AssertionError(f"{path.name} is not the tokens' text")
+
+    # The converted Gemma against HF's own model, both on the card.
+    hf.to("cuda")
+    ids = torch.randint(0, GEMMA_2B["vocab_size"], (2, GEMMA_CPU_L),
+                        generator=torch.Generator().manual_seed(14)).cuda()
+    with torch.inference_mode():
+        ref = hf(ids, use_cache=False).logits
+        errs = [_max_err(gemma(ids), ref)]
+        cache = gemma.init_cache(2)
+        for pos in range(GEMMA_CPU_POSITIONS):
+            logits, cache = gemma.decode_step(cache, ids[:, pos])
+            errs.append(_max_err(logits, ref[:, pos]))
+    print(f"HF route: CLI call {cli_s:.1f} s ({steps} training steps, "
+          f"{val_batches} validation batches, DDIM {GEMMA_DDIM_STEPS}, the "
+          f"conversion and the decode); launches {counts}; {len(written)} "
+          f"samples; tokens bit-equal to the eager scan; the converted "
+          f"Gemma against HF on the card (TF32 off): {GEMMA_CPU_L}-token "
+          f"forward max |d logits| {errs[0]:.3e}, {GEMMA_CPU_POSITIONS} "
+          f"decode positions {max(errs[1:]):.3e} (tol {GEMMA_CPU_TOL:g}); "
+          f"on {card}")
+    if not max(errs) <= GEMMA_CPU_TOL:
+        raise AssertionError(f"the port's Gemma and HF's differ by {errs}")
+    del hf, gemma, seen
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -3576,6 +4109,8 @@ def main() -> None:
     kernels_in_graphs(graph_runners, sampler_models)
     del graph_runners
     decoder_rows, decoder_counts = guided_decoder_replay(card)
+    gemma_counts, gemma_row = gemma_guided_decode(card)
+    gemma_hf_counts = gemma_hf_cli(card)
     ring_errors = ring_on_card(card)
     torchrun_counts = torchrun_paths(card)
     replayed_step_with_group(card)
@@ -3648,7 +4183,7 @@ def main() -> None:
     paths = (train_counts, sample_counts, narrow_train_counts,
              narrow_sample_counts, wide_train_counts, wide_sample_counts,
              gemma_train_counts, gemma_sample_counts, guided_counts,
-             exact_counts, decoder_counts,
+             exact_counts, decoder_counts, gemma_counts, gemma_hf_counts,
              mnist_train_counts, *mnist_sample_counts, bench_counts,
              bf16_text_counts, bf16_mnist_counts, suite_counts,
              *torchrun_counts)
@@ -3663,6 +4198,8 @@ def main() -> None:
             "max_abs_err": errors[name],
             **timings[name],
         }
+        if name == "flash_attention_fwd":
+            entry["gemma_2b_guided_decode"] = gemma_row
         if name.startswith("flash"):
             entry["ring_max_abs_err_f32"] = ring_errors[
                 {"flash_attention_fwd": "out", "flash_attention_bwd_dq": "dq",

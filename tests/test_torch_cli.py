@@ -203,9 +203,6 @@ UNPORTED = "not yet ported to the torch package"
 @pytest.mark.parametrize("argv, match", [
     # --train itself is ported; its resume state (optax's pytree) is not.
     pytest.param(["--train", "--resume"], UNPORTED, id="--train"),
-    # --guided_sample is ported with TinyGPT; the Hugging Face base LM is not.
-    pytest.param(["--guided_sample", "--base_lm", "hf"], UNPORTED,
-                 id="--guided_sample"),
     # --seq_parallel is ported: a seq_len the ring does not divide exits with
     # the JAX CLI's message (a ring of 2 laid out without processes).
     pytest.param(["--train", "--seq_parallel", "--seq_len", "9"],
@@ -491,6 +488,141 @@ def test_guided_sample_stale_lm_ckpt_retrains(workdir, monkeypatch, capsys):
     assert "could not load lm_ckpt.pth" in out
     assert "[lm] training TinyGPT" in out
     assert (workdir / "samples" / "guided_sample_0.txt").exists()
+
+
+class StandInHFTokenizer:
+    """``data.tokenizer.HFTokenizerAdapter``'s interface over characters
+    (ord mod vocab), decoding ids as text of numbers, so texts are equal
+    exactly when tokens are."""
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+        self.bos_token_id, self.eos_token_id = 2, 1
+
+    def encode(self, text: str) -> np.ndarray:
+        return np.asarray([ord(c) % self.vocab_size for c in text], np.int64)
+
+    def decode(self, ids) -> str:
+        return " ".join(str(int(i)) for i in ids)
+
+    def batch_decode(self, ids, skip_special_tokens: bool = True) -> list:
+        return [self.decode(row) for row in np.asarray(ids)]
+
+
+HF_VOCAB = 97
+
+
+def _tiny_hf_lm(kind: str):
+    """A seeded random HF causal LM built from a config in code: a tiny
+    Gemma (2 layers, 4 heads of 16 on 1 KV head) or a tiny Llama."""
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    if kind == "gemma":
+        cfg = transformers.GemmaConfig(
+            vocab_size=HF_VOCAB, hidden_size=64, intermediate_size=128,
+            num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=1, head_dim=16)
+        return transformers.GemmaForCausalLM(cfg).eval()
+    cfg = transformers.LlamaConfig(
+        vocab_size=HF_VOCAB, hidden_size=32, intermediate_size=64,
+        num_hidden_layers=1, num_attention_heads=2)
+    return transformers.LlamaForCausalLM(cfg).eval()
+
+
+@pytest.fixture()
+def hf_lm(workdir, monkeypatch):
+    """Returns a function that makes ``_load_hf`` return a stand-in
+    tokenizer, the embedding matrix and the tiny HF LM of ``kind``, and
+    records every ``diffusion_position_logits`` result of the run."""
+    from tinydiffusionmodels_torch.sample import text
+
+    monkeypatch.setenv("TDM_DATA_LIMIT", "2000")
+    seen = []
+    plain = text.diffusion_position_logits
+
+    def recording(*args, **kw):
+        seen.append(plain(*args, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(text, "diffusion_position_logits", recording)
+
+    def install(kind: str):
+        lm = _tiny_hf_lm(kind)
+        matrix = lm.get_input_embeddings().weight.detach().numpy().copy()
+        monkeypatch.setattr(port_cli, "_load_hf", lambda model_id: (
+            StandInHFTokenizer(HF_VOCAB), matrix, lm))
+        return lm, seen
+
+    return install
+
+
+HF_GUIDED = ["--train", "--guided_sample", "--epochs", "1", "--batch_size",
+             "4", "--seq_len", "8", "--depth", "1", "--warmup_steps", "2",
+             "--n", "3", "--sampler", "ddim", "--steps", "2", "--data_root",
+             "data", "--ckpt", "hf.pth", "--model_id", "tiny-hf"]
+
+
+@pytest.mark.parametrize("base_lm", ["hf", "auto"])
+def test_guided_sample_hf_gemma(workdir, hf_lm, capsys, base_lm):
+    """``--train --guided_sample --base_lm hf`` (and ``auto``, which takes
+    the HF LM whenever it loads) with a Gemma: the port's Gemma decodes,
+    n guided samples are written, and the tokens are the reference torch
+    loop's on the same diffusion logits."""
+    lm, seen = hf_lm("gemma")
+    tokens = port_cli.main([*HF_GUIDED, "--base_lm", base_lm])
+    assert "[lm] running Gemma natively" in capsys.readouterr().out
+    assert tokens.dtype == torch.int32 and tuple(tokens.shape) == (3, 8)
+    for i in range(3):
+        text = (workdir / "samples" / f"guided_sample_{i}.txt").read_text()
+        assert text == StandInHFTokenizer(HF_VOCAB).decode(tokens[i].tolist())
+    assert not (workdir / "lm_ckpt.pth").exists()
+    _, want = port_cli._guided_with_torch_lm(
+        lm, StandInHFTokenizer(HF_VOCAB), seen[-1], alpha=0.3,
+        return_tokens=True)
+    torch.testing.assert_close(tokens.long(), want, rtol=0, atol=0)
+
+
+def test_guided_sample_hf_gemma_mixes_normalized(workdir, hf_lm):
+    """``--guidance_norm`` reaches the Gemma decoder: the tokens are the
+    eager scan's with probability mixing."""
+    from tinydiffusionmodels_torch.models.gemma import gemma_from_hf
+    from tinydiffusionmodels_torch.sample.guided import guided_generate_scan
+
+    lm, seen = hf_lm("gemma")
+    tokens = port_cli.main([*HF_GUIDED, "--base_lm", "hf",
+                            "--guidance_norm", "--alpha", "0.6"])
+    gemma = gemma_from_hf(lm, max_len=64)
+    want = guided_generate_scan(gemma.decode_step, gemma.init_cache(3),
+                                seen[-1], 2, alpha=0.6, normalize=True)
+    torch.testing.assert_close(tokens, want, rtol=0, atol=0)
+
+
+def test_guided_sample_hf_other_lm_takes_torch_loop(workdir, hf_lm, capsys):
+    """An HF causal LM that is not a Gemma (a tiny Llama) takes the
+    reference's full-prefix torch loop: its tokens, and n sample files of
+    their texts."""
+    lm, seen = hf_lm("llama")
+    tokens = port_cli.main([*HF_GUIDED, "--base_lm", "hf"])
+    assert "running Gemma" not in capsys.readouterr().out
+    texts, want = port_cli._guided_with_torch_lm(
+        lm, StandInHFTokenizer(HF_VOCAB), seen[-1], alpha=0.3,
+        return_tokens=True)
+    torch.testing.assert_close(tokens.long(), want, rtol=0, atol=0)
+    for i, text in enumerate(texts):
+        assert (workdir / "samples" / f"guided_sample_{i}.txt").read_text() \
+            == text
+
+
+def test_guided_sample_hf_unloadable_exits_nonzero(workdir, monkeypatch):
+    """``--base_lm hf`` when no HF LM loads exits non-zero with the JAX
+    CLI's message, before any training."""
+    monkeypatch.setattr(port_cli, "_load_hf",
+                        lambda model_id: (None, None, None))
+    with pytest.raises(SystemExit,
+                       match="--base_lm hf requested but tiny-hf not "
+                             "loadable"):
+        port_cli.main([*HF_GUIDED, "--base_lm", "hf"])
+    assert not (workdir / "hf.pth").exists()
 
 
 def _write_mnist_idx(root, n=96):

@@ -9,6 +9,7 @@ modules; ``images`` is the port's copy of the PNG grid writer.
 from tinydiffusionmodels_torch.io.convert import (
     config_from_state_dict,
     embedding_state_from_jax,
+    gemma_state_from_jax,
     rounding_state_from_jax,
     state_from_checkpoint,
     text_checkpoint_dict,
@@ -31,6 +32,7 @@ from tinydiffusionmodels_torch.io.storage import (
 __all__ = [
     "config_from_state_dict",
     "embedding_state_from_jax",
+    "gemma_state_from_jax",
     "get_samples_dir",
     "grid_png",
     "get_vertex_checkpoint_path",

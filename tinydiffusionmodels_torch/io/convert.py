@@ -10,6 +10,9 @@ text maps in ``io/checkpoint.py``, which imports jax and so is not imported).
 - ``tiny_gpt_state_from_jax`` / ``tiny_gpt_params_dict``: the guided
   sampler's base LM both ways, so each CLI loads the other's
   ``lm_ckpt.pth`` (``{"params": <JAX tree>}``).
+- ``gemma_state_from_jax``: the JAX Gemma's parameter tree (``models/
+  gemma.py``'s, as ``gemma_from_hf_state_dict`` builds it) -> the port's
+  ``Gemma`` state dict, HF's names (the inverse of that conversion).
 - ``unet_state_from_jax`` / ``unet_params_dict``: the MNIST UNet both ways
   (conv kernels HWIO <-> OIHW, ``time_emb`` (in, out) <-> (out, in), no
   ``skip`` keys for an identity skip); ``unet_checkpoint_dict`` is the bare
@@ -125,6 +128,34 @@ def tiny_gpt_params_dict(module: torch.nn.Module) -> dict[str, Any]:
         "ln_f": {"scale": sd["ln_f.weight"], "bias": sd["ln_f.bias"]},
         "lm_head": {"w": np.ascontiguousarray(sd["lm_head.weight"].T)},
     }
+
+
+# JAX Gemma layer key -> the port's (HF's) name under model.layers.N, and
+# whether it is a linear weight stored (in, out) in JAX.
+_GEMMA_LAYER = (("input_norm", "input_layernorm.weight", False),
+                ("q_proj", "self_attn.q_proj.weight", True),
+                ("k_proj", "self_attn.k_proj.weight", True),
+                ("v_proj", "self_attn.v_proj.weight", True),
+                ("o_proj", "self_attn.o_proj.weight", True),
+                ("post_attn_norm", "post_attention_layernorm.weight", False),
+                ("gate_proj", "mlp.gate_proj.weight", True),
+                ("up_proj", "mlp.up_proj.weight", True),
+                ("down_proj", "mlp.down_proj.weight", True))
+
+
+def gemma_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX Gemma params (``{"embed", "layers", "final_norm"}``, leaves as
+    numpy arrays) -> the port's ``Gemma`` state dict: linear weights (in,
+    out) -> (out, in), the inverse of ``gemma_from_hf_state_dict``. The
+    head is tied, so there is no ``lm_head.weight``."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    sd["model.embed_tokens.weight"] = _t(params["embed"])
+    for i, layer in enumerate(params["layers"]):
+        for key, name, linear in _GEMMA_LAYER:
+            x = np.asarray(layer[key])
+            sd[f"model.layers.{i}.{name}"] = _t(x.T if linear else x)
+    sd["model.norm.weight"] = _t(params["final_norm"])
+    return sd
 
 
 _UNET_BLOCKS = ("rb1", "rb2", "rb3", "rb4")

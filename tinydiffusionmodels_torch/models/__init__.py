@@ -1,5 +1,6 @@
 """Models of the port: the text denoiser, the embedding/rounding heads, the
-guided sampler's base LM (TinyGPT) and the MNIST UNet."""
+guided sampler's base LMs (TinyGPT, and Gemma for a Hugging Face Gemma
+checkpoint) and the MNIST UNet."""
 
 from tinydiffusionmodels_torch.models.ar_lm import TinyGPT, TinyGPTConfig
 from tinydiffusionmodels_torch.models.embedding import (
@@ -9,6 +10,7 @@ from tinydiffusionmodels_torch.models.embedding import (
     embedding_matrix,
     rounding_apply,
 )
+from tinydiffusionmodels_torch.models.gemma import Gemma, GemmaConfig
 from tinydiffusionmodels_torch.models.transformer import (
     TinyTransformer,
     TransformerConfig,
@@ -16,6 +18,8 @@ from tinydiffusionmodels_torch.models.transformer import (
 from tinydiffusionmodels_torch.models.unet import SimpleUNet
 
 __all__ = [
+    "Gemma",
+    "GemmaConfig",
     "LearnedEmbedding",
     "LearnedRounding",
     "SimpleUNet",

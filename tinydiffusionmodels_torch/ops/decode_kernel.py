@@ -112,7 +112,13 @@ class DecodeWeights:
 def pack_weights(model) -> DecodeWeights:
     """A ``models.ar_lm.TinyGPT`` -> its bf16 ``DecodeWeights``, on the
     model's device (the JAX wrapper's ``_cast_weights``), with the kernel's
-    packed matrices built once here."""
+    packed matrices built once here. ValueError for another base LM: the
+    kernel serves TinyGPT alone, as in the JAX CLI."""
+    from tinydiffusionmodels_torch.models.ar_lm import TinyGPT
+
+    if not isinstance(model, TinyGPT):
+        raise ValueError(f"the decode kernel packs a TinyGPT's weights; a "
+                         f"{type(model).__name__} decodes with draft='plain'")
 
     def bf(t):
         return t.detach().to(torch.bfloat16).contiguous()

@@ -7,8 +7,11 @@ base LM's next-token logits with the diffusion-derived logits
 The JAX package runs its decodes as single device programs: the KV-cached
 scan over positions and the bf16 draft scan are ``lax.scan``s, the exact
 decode's Jacobi verifier a ``lax.while_loop``. Here they are a
-``GuidedDecoder``, which serves one configuration (TinyGPT, batch, length,
-mix, draft) from static device buffers. On the card each kind of work is
+``GuidedDecoder``, which serves one configuration (base LM, batch, length,
+mix, draft) from static device buffers. The base LM is a TinyGPT or a
+Gemma (``models.gemma``): any model with ``cfg.vocab_size``, ``cfg.max_len``,
+``init_cache`` and ``decode_step``; the bf16 and fused drafts take TinyGPT
+alone. On the card each kind of work is
 one CUDA graph (``graphs.Step``): the whole L-position scan, unrolled (the
 decode step writes the cache in place at a Python-int position and reads
 the filled prefix as a strided view, so the capture launches exactly the
@@ -34,6 +37,7 @@ from typing import Callable
 import torch
 
 from tinydiffusionmodels_torch import graphs
+from tinydiffusionmodels_torch.models.ar_lm import TinyGPT
 from tinydiffusionmodels_torch.ops.decode_kernel import (
     DecodeWeights,
     fused_guided_decode,
@@ -44,6 +48,24 @@ from tinydiffusionmodels_torch.ops.decode_kernel import (
 CachedDecodeFn = Callable[..., tuple[torch.Tensor, dict]]
 
 DRAFTS = ("plain", "scan_bf16", "fused")
+
+
+def _check_draft(draft: str) -> str:
+    """``draft`` with "auto" resolved; ValueError for an unknown one."""
+    if draft == "auto":
+        draft = AUTO_DRAFT
+    if draft not in DRAFTS:
+        raise ValueError(f"unknown draft mode {draft!r}")
+    return draft
+
+
+def _bf16_copy(model):
+    """The bf16 draft scan's copy of a TinyGPT; ValueError for another base
+    LM (the bf16 scan serves TinyGPT alone, as in the JAX CLI)."""
+    if not isinstance(model, TinyGPT):
+        raise ValueError(f"the bf16 draft scan serves TinyGPT only; a "
+                         f"{type(model).__name__} decodes with draft='plain'")
+    return copy.deepcopy(model).to(torch.bfloat16)
 
 
 def mix_logits(ar_logits: torch.Tensor, diff_logits: torch.Tensor,
@@ -164,8 +186,9 @@ def guided_generate_verified(model, diff_logits_all: torch.Tensor,
                              normalize: bool = False, draft: str = "auto",
                              weights: DecodeWeights | None = None,
                              return_rounds: bool = False):
-    """Exact greedy guided decode of a TinyGPT ``model``, as eager loops
-    (one call; ``GuidedDecoder`` replays the same decode).
+    """Exact greedy guided decode of a base LM ``model``, as eager loops
+    (one call; ``GuidedDecoder`` replays the same decode). A model other
+    than TinyGPT takes ``"plain"`` (or ``"auto"``) alone: ValueError else.
 
     ``draft`` selects the implementation:
 
@@ -196,10 +219,7 @@ def guided_generate_verified(model, diff_logits_all: torch.Tensor,
     ``"plain"``).
     """
     b = diff_logits_all.shape[0]
-    if draft == "auto":
-        draft = AUTO_DRAFT
-    if draft not in DRAFTS:
-        raise ValueError(f"unknown draft mode {draft!r}")
+    draft = _check_draft(draft)
     mix = dict(alpha=alpha, temperature=temperature, normalize=normalize)
     if draft == "plain":
         tokens = guided_generate_scan(
@@ -211,9 +231,8 @@ def guided_generate_verified(model, diff_logits_all: torch.Tensor,
                      device=diff_logits_all.device)
     with torch.inference_mode():
         if draft == "scan_bf16":
-            tokens = _scan_bf16_draft(
-                copy.deepcopy(model).to(torch.bfloat16), diff_logits_all,
-                bos_token, **mix)
+            tokens = _scan_bf16_draft(_bf16_copy(model), diff_logits_all,
+                                      bos_token, **mix)
         else:
             tokens = fused_guided_decode(
                 model if weights is None else weights, diff_logits_all,
@@ -229,9 +248,14 @@ def guided_generate_verified(model, diff_logits_all: torch.Tensor,
 
 class GuidedDecoder:
     """The greedy guided decode of one configuration, run as often as
-    called: a TinyGPT ``model``, ``batch`` rows of ``seq_len`` tokens after
-    ``bos_token``, the mix (``alpha``, ``temperature``, ``normalize``) and
-    the ``draft`` (as ``guided_generate_verified``'s).
+    called: a base LM ``model`` (TinyGPT, or any model with
+    ``cfg.vocab_size``, ``cfg.max_len``, ``init_cache`` and ``decode_step``,
+    such as ``models.gemma.Gemma``, whose draft is ``"plain"``), ``batch``
+    rows of ``seq_len`` tokens after ``bos_token``, the mix (``alpha``,
+    ``temperature``, ``normalize``) and the ``draft`` (as
+    ``guided_generate_verified``'s; ValueError for a bf16 or fused draft of
+    a model other than TinyGPT). The device is that of the model's
+    parameters.
 
     It holds static device buffers (the (B, L, V) diffusion logits, the KV
     cache, the BOS column, the tokens, a round counter and a "changed"
@@ -261,10 +285,7 @@ class GuidedDecoder:
                  alpha: float = 0.5, temperature: float = 1.0,
                  normalize: bool = False, draft: str = "plain",
                  weights: DecodeWeights | None = None):
-        if draft == "auto":
-            draft = AUTO_DRAFT
-        if draft not in DRAFTS:
-            raise ValueError(f"unknown draft mode {draft!r}")
+        draft = _check_draft(draft)
         cfg = model.cfg
         if batch < 1 or not 1 <= seq_len <= cfg.max_len:
             raise ValueError(f"batch {batch}, length {seq_len}: the model "
@@ -276,7 +297,7 @@ class GuidedDecoder:
         self.bos_token = int(bos_token)
         self.mix = dict(alpha=float(alpha), temperature=float(temperature),
                         normalize=bool(normalize))
-        self.device = device = model.lm_head.weight.device
+        self.device = device = next(model.parameters()).device
         self.converged = True
         with torch.inference_mode():
             self.diff = torch.zeros((batch, seq_len, cfg.vocab_size),
@@ -294,7 +315,7 @@ class GuidedDecoder:
             else:
                 lm = model
                 if draft == "scan_bf16":
-                    lm = self.model16 = copy.deepcopy(model).to(torch.bfloat16)
+                    lm = self.model16 = _bf16_copy(model)
                 self.cache = lm.init_cache(batch)
                 self.draft_step = self._step(self._scan, self._scan_prime)
             self.round_step = self._step(self._round, self._round_prime)

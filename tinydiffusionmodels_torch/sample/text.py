@@ -274,12 +274,19 @@ def guided_sample_text(
     texts = tokenizer.batch_decode(tokens.cpu().numpy(),
                                    skip_special_tokens=True)
     if save:
-        samples_dir = get_samples_dir(outdir)
-        for i, text in enumerate(texts):
-            if isinstance(samples_dir, str) and samples_dir.startswith("gs://"):
-                sample_path = f"{samples_dir}/guided_sample_{i}.txt"
-            else:
-                sample_path = Path(samples_dir) / f"guided_sample_{i}.txt"
-            save_samples(text, sample_path)
-            log_fn(f"✔ Wrote {sample_path}")
+        write_guided_samples(texts, outdir, log_fn)
     return (texts, tokens) if return_tokens else texts
+
+
+def write_guided_samples(texts, outdir: str = "samples",
+                         log_fn=print) -> None:
+    """``guided_sample_{i}.txt`` of each text under the samples directory
+    (local or ``gs://``)."""
+    samples_dir = get_samples_dir(outdir)
+    for i, text in enumerate(texts):
+        if isinstance(samples_dir, str) and samples_dir.startswith("gs://"):
+            sample_path = f"{samples_dir}/guided_sample_{i}.txt"
+        else:
+            sample_path = Path(samples_dir) / f"guided_sample_{i}.txt"
+        save_samples(text, sample_path)
+        log_fn(f"✔ Wrote {sample_path}")

@@ -5,6 +5,8 @@
     python -m tinydiffusionmodels_torch.shakespeare --sample --ckpt X.pth
     python -m tinydiffusionmodels_torch.shakespeare --guided_sample \
         --base_lm tinygpt --ckpt X.pth
+    python -m tinydiffusionmodels_torch.shakespeare --guided_sample \
+        --base_lm hf --model_id google/gemma-2b-it --ckpt X.pth
 
 The parser is the port's own copy of the JAX CLI's (``build_parser``), so
 every flag keeps its name, default and meaning. ``--train`` trains the
@@ -17,19 +19,24 @@ positions, embedding norm, self-conditioning, width, depth and tokenizer,
 plus the legacy bare-state-dict branch that decodes by cosine similarity.
 ``--guided_sample`` mixes a base LM's KV-cached greedy decode with the
 diffusion logits of the sampled embeddings and writes
-``guided_sample_{i}.txt``; its base LM is TinyGPT (``--base_lm tinygpt``,
-or ``auto`` when no Hugging Face LM loads), loaded from ``--lm_ckpt`` (the
-JAX CLI's format) or trained and saved there when that file is missing or
-stale (another vocabulary, too short a position table). It runs on the GPU
+``guided_sample_{i}.txt``. Its base LM is the Hugging Face LM of
+``--model_id`` (``--base_lm hf``, or ``auto`` when one loads): a Gemma
+checkpoint runs as the port's own ``models.gemma.Gemma`` on the device, its
+weights copied there once, with the KV-cached decode; any other causal LM
+takes the reference's full-prefix torch loop (``_guided_with_torch_lm``).
+Else it is TinyGPT (``--base_lm tinygpt``, or ``auto`` when no Hugging Face
+LM loads), loaded from ``--lm_ckpt`` (the JAX CLI's format) or trained and
+saved there when that file is missing or stale (another vocabulary, too
+short a position table). It runs on the GPU
 unless ``TDM_PLATFORM=cpu``; attention runs through the CUDA flash kernels
 there, forward and backward. ``--train --dtype bf16`` trains in bf16
 (``train/precision.py``: the parameters are cast inside the loss, the
 masters, AdamW's state and the checkpoints stay f32). The guided decode
-runs through a ``sample.guided.GuidedDecoder``: on the card its whole scan
-is one CUDA graph, replayed. ``--profile_dir DIR`` profiles the run with
-``torch.profiler`` (``runtime.profile_trace``: ``DIR/trace.json`` and the
-per-op table ``DIR/ops.txt``). ``--base_lm hf`` and ``--resume`` are not
-yet ported and exit non-zero.
+of TinyGPT or Gemma runs through a ``sample.guided.GuidedDecoder``
+(``guided_decode``): on the card its whole scan is one CUDA graph,
+replayed. ``--profile_dir DIR`` profiles the run with ``torch.profiler``
+(``runtime.profile_trace``: ``DIR/trace.json`` and the per-op table
+``DIR/ops.txt``). ``--resume`` is not yet ported and exits non-zero.
 
 Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N
 -m tinydiffusionmodels_torch.shakespeare --train ...``) each process takes
@@ -228,6 +235,59 @@ def _load_hf(model_id: str):
         return None, None, None
 
 
+def _guided_with_torch_lm(lm, tokenizer, diff_logits_all, *, alpha,
+                          temperature=1.0, return_tokens: bool = False):
+    """Guided decode against a torch HF LM, the reference loop (src/
+    shakespeare.py:445-470) with its no-KV-cache full-prefix forwards and
+    raw logits mixed, kept for exact behavioral parity on the HF path of a
+    model that is not a Gemma. The inputs go on the device of the LM's
+    parameters. Returns the decoded texts; with ``return_tokens`` also the
+    (B, L) int64 tokens."""
+    dev = next(lm.parameters()).device
+    diff = torch.as_tensor(diff_logits_all, device=dev)
+    b, seq_len, _ = diff.shape
+    bos = tokenizer.bos_token_id or tokenizer.eos_token_id
+    input_ids = torch.full((b, 1), bos, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        for pos in range(seq_len):
+            ar_logits = lm(input_ids).logits[:, -1, :] / temperature
+            mixed = (1 - alpha) * ar_logits + alpha * (
+                diff[:, pos, :] / temperature
+            )
+            next_id = torch.argmax(mixed, dim=-1, keepdim=True)
+            input_ids = torch.cat([input_ids, next_id], dim=1)
+    tokens = input_ids[:, 1:]
+    texts = tokenizer.batch_decode(tokens.cpu().numpy(),
+                                   skip_special_tokens=True)
+    return (texts, tokens) if return_tokens else texts
+
+
+def guided_decode(lm, tokenizer, z: torch.Tensor, *, rounding=None,
+                  embed_matrix=None, use_learned_rounding: bool = True,
+                  alpha: float = 0.3, temperature: float = 1.0,
+                  normalize: bool = False, save: bool = True) -> torch.Tensor:
+    """The guided decode of the CLI's TinyGPT and Gemma base LMs: the
+    diffusion logits of the sampled embeddings ``z`` (``rounding``, or
+    cosine against ``embed_matrix``), then a ``GuidedDecoder`` of ``lm``
+    for z's batch and length, the tokenizer's BOS and this mix (its scan
+    one CUDA graph on the card, replayed), and ``guided_sample_{i}.txt``
+    when ``save``. Returns the (B, L) int32 tokens."""
+    from tinydiffusionmodels_torch.sample.guided import GuidedDecoder
+    from tinydiffusionmodels_torch.sample.text import guided_sample_text
+
+    decoder = GuidedDecoder(
+        lm, z.shape[0], z.shape[1],
+        tokenizer.bos_token_id or tokenizer.eos_token_id or 0,
+        alpha=alpha, temperature=temperature, normalize=normalize)
+    _, tokens = guided_sample_text(
+        decoder, None, z, tokenizer, rounding=rounding,
+        embed_matrix=embed_matrix, use_learned_rounding=use_learned_rounding,
+        alpha=alpha, temperature=temperature, normalize=normalize,
+        return_tokens=True, save=save,
+    )
+    return tokens
+
+
 def main(argv=None):
     """Run the CLI. Returns the sampled (n, seq_len, dim) embeddings of
     ``--sample``, the (n, seq_len) int32 guided tokens of
@@ -237,11 +297,8 @@ def main(argv=None):
     if not (args.train or args.sample or args.guided_sample):
         print("Nothing to do. Try --train or --guided_sample.")
         return None
-    for flag, given in (("--guided_sample --base_lm hf",
-                         args.guided_sample and args.base_lm == "hf"),
-                        ("--resume", args.resume)):
-        if given:
-            raise SystemExit(f"{flag} {_NOT_PORTED}")
+    if args.resume:
+        raise SystemExit(f"--resume {_NOT_PORTED}")
     from tinydiffusionmodels_torch.runtime import profile_trace
 
     with profile_trace(args.profile_dir):
@@ -287,6 +344,10 @@ def _run(args):
     is_bpe = bool(args.model_id) and args.model_id.split(":")[0] == "bpe"
     if args.model_id and args.model_id != "char" and not is_bpe:
         hf_tok, pretrained_matrix, torch_lm = _load_hf(args.model_id)
+    if args.guided_sample and args.base_lm == "hf" and torch_lm is None:
+        raise SystemExit(
+            f"--base_lm hf requested but {args.model_id} not loadable"
+        )
 
     corpus, corpus_source = load_text_corpus(args.data_root)
     if corpus_source == "builtin":
@@ -527,15 +588,24 @@ def _run(args):
     lm_choice = args.base_lm
     if lm_choice == "auto":
         lm_choice = "hf" if torch_lm is not None else "tinygpt"
-    if lm_choice == "hf":
-        raise SystemExit(f"--guided_sample --base_lm hf {_NOT_PORTED}")
-    lm = _load_or_train_lm(args, vocab_size, corpus, tokenizer, dev,
-                           save=main_rank)
+    if lm_choice == "tinygpt":
+        lm = _load_or_train_lm(args, vocab_size, corpus, tokenizer, dev,
+                               save=main_rank)
+    elif torch_lm.config.model_type == "gemma":
+        from tinydiffusionmodels_torch.models.gemma import gemma_from_hf
 
-    from tinydiffusionmodels_torch.sample.guided import GuidedDecoder
+        # The HF weights go to the device once; no fallback to the torch
+        # loop when the conversion fails.
+        lm = gemma_from_hf(torch_lm, max_len=max(args.seq_len + 1, 64),
+                           device=dev)
+        print("[lm] running Gemma natively (KV-cached decode)")
+    else:
+        lm = torch_lm.to(dev).eval()
+
     from tinydiffusionmodels_torch.sample.text import (
-        guided_sample_text,
+        diffusion_position_logits,
         sample_diffusion_embeddings,
+        write_guided_samples,
     )
 
     # Unclamped, as the JAX CLI's guided draw; from --seed.
@@ -545,18 +615,20 @@ def _run(args):
         parameterization=args.parameterization,
         generator=torch.Generator(device=dev).manual_seed(args.seed),
     )
-    decoder = GuidedDecoder(
-        lm, args.n, args.seq_len,
-        tokenizer.bos_token_id or tokenizer.eos_token_id or 0,
-        alpha=args.alpha, temperature=args.temperature,
-        normalize=args.guidance_norm)
-    _, tokens = guided_sample_text(
-        decoder, None, z_guided, tokenizer,
-        rounding=rounding, embed_matrix=embed_matrix,
-        use_learned_rounding=not use_cosine_fallback,
-        alpha=args.alpha, temperature=args.temperature,
-        normalize=args.guidance_norm, return_tokens=True, save=main_rank,
-    )
+    heads = dict(rounding=rounding, embed_matrix=embed_matrix,
+                 use_learned_rounding=not use_cosine_fallback)
+    mix = dict(alpha=args.alpha, temperature=args.temperature)
+    if lm is torch_lm:
+        # Not a Gemma: the reference's full-prefix torch loop.
+        texts, tokens = _guided_with_torch_lm(
+            lm, tokenizer, diffusion_position_logits(z_guided, **heads),
+            **mix, return_tokens=True)
+        tokens = tokens.to(torch.int32)
+        if main_rank:
+            write_guided_samples(texts)
+    else:
+        tokens = guided_decode(lm, tokenizer, z_guided, **heads, **mix,
+                               normalize=args.guidance_norm, save=main_rank)
     return tokens if z is None else (z, tokens)
 
 
