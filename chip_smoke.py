@@ -106,14 +106,18 @@ no result line) on any error; no phase catches its own failure.
    --embed_dim 2048 path's): CUDA-event device times of the forward with
    dropout, the dq kernel and the dkv kernel, each beside its plain version,
    the device time of a PyTorch call the port never calls
-   (``scaled_dot_product_attention`` at dropout 0, its own kernels' self
-   device time from torch.profiler: the forward, and the backward for dq
-   and dk/dv), and the bound (bytes over 3.35 TB/s or the products as
-   3xTF32, three TF32 products at 495 TFLOP/s each, the larger), with the
-   FP32-FMA roof (the FLOPs at 67 TFLOP/s) printed beside it. Then the
-   forward alone at the Gemma decode shape (B 10, 8 rows on 1 KV head, Lk
-   64, Dh 256, f32) beside its plain version, SDPA's self device time on
-   the same views and the bound.
+   (``scaled_dot_product_attention`` at dropout 0: the forward, and the
+   backward for dq and dk/dv; CUDA events over replays of a graph of 20
+   calls, as its eager calls can be host-bound), which must be no less
+   than the bound (bytes
+   over 3.35 TB/s or the products as 3xTF32, three TF32 products at 495
+   TFLOP/s each, the larger), with the FP32-FMA roof (the FLOPs at 67
+   TFLOP/s) printed beside it. Then the forward alone at the Gemma decode
+   shape (B 10, 8 rows on 1 KV head, Lk 64, Dh 256, f32) beside its plain
+   version, SDPA's time on the same views and the bound. At the training
+   shape SDPA's forward and backward are also read by torch.profiler (the
+   launches it recorded, and their time over the calls) and by eager CUDA
+   events, printed beside the replayed graph's time, not asserted.
 12. Timing of the guided decode at the bench shape (V 4096, D 256, depth 4,
    L 64, alpha 0.3) at bs 8 and 256: the kernel's CUDA-event time beside its
    plain version and its bound (bytes over 3.35 TB/s or the matmul FLOPs,
@@ -148,10 +152,9 @@ no result line) on any error; no phase catches its own failure.
    Prints the wall time of the 1000-step loop and samples/s.
 17. Resblock timing: each block at n 25 and 128, f32 and bf16, the
    kernel's CUDA-event time beside the plain version's (cuDNN convs, TF32
-   off), its cuDNN kernels' self device time from torch.profiler (no
-   single PyTorch call computes the block) and the bound (the products as
-   3xTF32 in f32 or at the bf16 peak, against bytes at 3.35 TB/s; the
-   FP32-FMA roof printed beside), and their sums over a UNet forward; then
+   off) and the bound (the products as 3xTF32 in f32 or at the bf16
+   peak, against bytes at 3.35 TB/s; the FP32-FMA roof printed beside; no
+   single PyTorch call computes the block), and their sums over a UNet forward; then
    ``torch.profiler`` over PROFILE_STEPS MNIST sampler steps and over
    PROFILE_TRAIN_STEPS MNIST training steps; and over PROFILE_TRAIN_STEPS
    bf16 steps of each trainer at the bench's bf16 batch, BF16_BATCH (512):
@@ -176,8 +179,7 @@ no result line) on any error; no phase catches its own failure.
 20. Single-block timing (after phase 17): both kernels at the sampler
    shape (B 8, H 4, L 64, Dh 64, f32), CUDA-event times beside the plain
    versions, ``scaled_dot_product_attention`` (forward; forward and
-   backward; its kernels' self device time from torch.profiler) and the
-   bound (bytes over 3.35 TB/s or the products as 3xTF32, the backward's
+   backward; a replayed graph, as phase 11's) and the bound (bytes over 3.35 TB/s or the products as 3xTF32, the backward's
    five L x L x Dh products; the FP32-FMA roof printed beside).
 
 21. Main path, bf16 training (after phase 19): ``shakespeare.main([
@@ -331,6 +333,35 @@ The Gemma base LM (after phase 27).
    on the card (a 16-token causal forward, 4 decode positions) within
    1e-3 (TF32 off). Needs transformers. Its launches count with the main
    paths'.
+
+Resume and the fidelity tools (after the bench, phase c).
+
+34. ``--resume`` on the card, a ``SIGKILL`` drill of each CLI as a
+   subprocess: (a) the uninterrupted run, (b) the same command killed as
+   soon as its ``_state.pth`` lands (during epoch 2; the file must say
+   epoch 1), (c) the command again, which must log ``[resume] restored
+   epoch 1`` and finish. The text CLI at the headline width (bs 8, seq 64,
+   dim 256, depth 3, dropout 0.1, f32, ``--ema_decay 0.999``) for two
+   epochs of TRAIN_CHARS characters: (c)'s final and best checkpoints and
+   last resume file bit-equal to (a)'s, and its epoch-2 record equal but
+   for the rate, through the replayed graphs. The MNIST CLI (bs 128, two
+   epochs of the 60 000 digits, ``--ema_decay 0.99``) likewise, under
+   ``cudnn.deterministic``. Prints the restore time (reading the file and
+   copying it into a trainer's tensors on the card, in this process) and
+   the replayed epochs' it/s before and after the restart. (a)'s and
+   (c)'s launches count with the main paths'.
+35. The fidelity tools on the card: ``python -m tinydiffusionmodels_torch.
+   fidelity`` (its ``main``) on phase 34's MNIST checkpoint, n 256, DDIM
+   50, f32 and bf16 (200 resblock launches each), then bf16 again with
+   the UNet's blocks through their plain version (the witness that tells
+   the kernel's bf16 from bf16 rounding; no launch). Every run's samples
+   must hold all ten classes, and the f32 run's FID must lie within
+   FID_FLOOR_MULTIPLE (10) times the real digits' floor. Then ``python -m
+   tinydiffusionmodels_torch.text_fidelity`` on phase 5's checkpoint and
+   phase 8's TinyGPT, n 16, ``pure`` and ``guided`` (the 1000-step sampler
+   and the TinyGPT judge on the flash forward). Asserts the JAX tools'
+   JSON keys, finite values and the synthetic digits and built-in corpus,
+   and prints the JSON lines. Their launches count with the main paths'.
 
 The peaks, the bound and the timer are ``tinydiffusionmodels_torch.perf``'s.
 The line before the last is the kernels' JSON record; the last line is
@@ -1714,15 +1745,62 @@ def device_vs_cpu(model_gpu):
         raise AssertionError(f"device and CPU forwards differ by {err}")
 
 
-def _profiled_device_ms(fn, calls: int = 20) -> float:
-    """Device time in ms of one call of ``fn``, read from torch.profiler:
-    the self device time of every CUDA kernel launched in ``calls`` calls
-    (host annotations dropped), over ``calls``. For PyTorch's own fused
-    attention, whose CUDA-event time is bound by its host enqueue at small
-    shapes."""
+_LIBRARY_STREAM = []
+
+
+def _library_stream():
+    """The side stream that ``_graph_device_ms`` captures on (one per
+    process). A library call's autograd graph is built on it, as a
+    backward runs on its forward's stream."""
     import torch
-    from torch.autograd import DeviceType
+
+    if not _LIBRARY_STREAM:
+        _LIBRARY_STREAM.append(torch.cuda.Stream())
+    return _LIBRARY_STREAM[0]
+
+
+def _graph_device_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time in ms of one call of ``fn``: ``calls`` calls captured
+    into one CUDA graph on ``_library_stream()`` (after 3 calls there to
+    warm up), replayed ``reps`` times behind a sleep kernel between CUDA
+    events. For a PyTorch call, whose burst of eager calls can be bound by
+    the host (its autograd, its allocator) rather than by the device: a
+    replay runs no host code and allocates nothing. torch.profiler is no
+    timer here: on the card it records 16-18 of 20 calls' kernels."""
+    import torch
+
+    stream = _library_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps / calls
+
+
+def _timer_cross_check(fn, what: str, card: str, calls: int = 20) -> None:
+    """Prints what three timers make of ``fn``: torch.profiler over
+    ``calls`` calls (the kernels it recorded, against ``calls``, and their
+    device time over ``calls``), eager CUDA events (``perf.device_ms``) and
+    a replayed graph (``_graph_device_ms``). Not asserted: it shows why a
+    library call is timed by a replayed graph."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from tinydiffusionmodels_torch import perf
 
     fn()
     torch.cuda.synchronize()
@@ -1731,12 +1809,13 @@ def _profiled_device_ms(fn, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False))
-    if us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return us / calls / 1e3
+    kernels = _kernel_events(prof)
+    counts = sorted({e.count for e in kernels})
+    summed = sum(e.self_device_time_total for e in kernels) / calls / 1e3
+    print(f"timers on {what}: torch.profiler recorded {counts} launches of "
+          f"each of its {len(kernels)} kernels in {calls} calls, {summed} ms "
+          f"a call by its sum; eager CUDA events {perf.device_ms(fn)} ms; a "
+          f"replayed graph {_graph_device_ms(fn)} ms; on {card}")
 
 
 def kernel_timing(card: str) -> dict:
@@ -1744,10 +1823,10 @@ def kernel_timing(card: str) -> dict:
     (strided views of one QKV projection, f32, dropout 0.1): CUDA-event
     device times in turns within this call (plain, kernel, kernel, plain),
     beside the device time of PyTorch's fused attention
-    (``scaled_dot_product_attention`` at dropout 0, its kernels' self device
-    time from torch.profiler: the forward for the forward kernel, the
-    backward for dq and dk/dv, which together compute what that backward
-    does) and the bound (3xTF32 products, or bytes). Returns per kernel the
+    (``scaled_dot_product_attention`` at dropout 0: the forward for the
+    forward kernel, the backward for dq and dk/dv, which together compute
+    what that backward does; CUDA events over a replayed graph of its
+    calls) and the bound (3xTF32 products, or bytes). Returns per kernel the
     training shape's ms, plain_ms, library_ms, bound_ms, bound_by and
     fp32_fma_roof_ms, and each shape's under "shapes"."""
     import torch
@@ -1780,7 +1859,9 @@ def kernel_timing(card: str) -> dict:
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
                       for x in (q, k, v))
         g_t = g_out.transpose(1, 2)
-        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
+        _library_stream().wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(_library_stream()):
+            sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
 
         def plain_fwd():
             with torch.no_grad():
@@ -1820,8 +1901,11 @@ def kernel_timing(card: str) -> dict:
         at = f"B {b}, H {h}, L {l}, Dh {d}, f32, dropout {DROPOUT}"
         print(f"-- {at}")
         out[(b, l, d)] = _time_against_plain(
-            runs, work, card, "dropout 0, profiler self device time", at=at,
-            iters=iters, library_timer=_profiled_device_ms)
+            runs, work, card, "dropout 0, a replayed graph", at=at,
+            iters=iters)
+        if (b, l, d) == TIMING_SHAPES[0]:
+            _timer_cross_check(sdpa_fwd, "SDPA forward", card)
+            _timer_cross_check(sdpa_bwd, "SDPA backward", card)
         del plain_out, sdpa_out
     timings = {name: dict(row, shapes={
         f"B{b} L{l} Dh{d}": out[(b, l, d)][name]
@@ -1835,8 +1919,8 @@ def _gemma_decode_timing(card: str) -> dict:
     """The forward kernel at the Gemma-2B decode shape (phase 32's every
     layer and position: B GEMMA_N, the 8 query heads folded into 8 rows of
     the one KV head, Lk 64, Dh 256, f32): CUDA-event times beside its plain
-    version, ``scaled_dot_product_attention``'s self device time from
-    torch.profiler on the same (bhld-strided) views, and the bound."""
+    version, ``scaled_dot_product_attention``'s (a replayed graph) on the
+    same (bhld-strided) views, and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1863,18 +1947,16 @@ def _gemma_decode_timing(card: str) -> dict:
         {"flash_attention_fwd": (lambda: fa.forward(q, k, v, **params),
                                  plain, sdpa, "SDPA forward")},
         {"flash_attention_fwd": fa.work("fwd", q, k, v, **params)}, card,
-        "profiler self device time", at=at,
-        library_timer=_profiled_device_ms)["flash_attention_fwd"]
+        "a replayed graph", at=at)["flash_attention_fwd"]
     return {f"Gemma decode B{GEMMA_N} rows8 Lk64 Dh256": row}
 
 
 def _time_against_plain(runs: dict, work: dict, card: str, library_note: str,
-                        iters: int = 200, library_timer=None,
-                        **extra) -> dict:
+                        iters: int = 200, **extra) -> dict:
     """For each name: (kernel, plain version, library yardstick, its label)
     of ``runs``, device times in turns within this call (plain, kernel,
     kernel, plain: CUDA events over ``iters`` calls), then the library's
-    (``library_timer``, CUDA events by default), and the bound of
+    (``_graph_device_ms``; no less than the bound), and the bound of
     ``work[name]`` = (bytes read once and written once, f32 product FLOPs):
     the FLOPs as 3xTF32 on the tensor cores, the least time for an f32
     product on the card. Returns per name ms, plain_ms, library_ms, bound_ms,
@@ -1882,16 +1964,18 @@ def _time_against_plain(runs: dict, work: dict, card: str, library_note: str,
     ``extra``."""
     from tinydiffusionmodels_torch import perf
 
-    library_timer = library_timer or perf.device_ms
     timings = {}
     for name, (kernel, plain, library, lib_name) in runs.items():
         p_ms = [perf.device_ms(plain, iters)]
         k_ms = [perf.device_ms(kernel, iters), perf.device_ms(kernel, iters)]
         p_ms.append(perf.device_ms(plain, iters))
-        lib_ms = library_timer(library)
         nbytes, flops = work[name]
         bound_ms, bound_by = perf.bound_ms(nbytes,
                                            perf.f32_tensor_core_ops(flops))
+        lib_ms = _graph_device_ms(library)
+        if not lib_ms >= bound_ms:
+            raise AssertionError(f"{lib_name}: {lib_ms} ms, under the bound "
+                                 f"{bound_ms} ms")
         roof_ms = perf.bound_ms(0, [(flops, "f32")])[0]
         timings[name] = dict(ms=sum(k_ms) / 2, plain_ms=sum(p_ms) / 2,
                              library_ms=lib_ms, bound_ms=bound_ms,
@@ -2256,10 +2340,8 @@ def main_path_mnist_sample(card: str, ckpt: Path):
 
 def resblock_timing(card: str) -> dict:
     """CUDA-event device times of each block at n 25 and 128 (plain,
-    kernel, kernel, plain), f32 and bf16, at the wrapper's tile; beside
-    them the plain version's cuDNN kernels' self device time from
-    torch.profiler (no single PyTorch call computes the block) and the
-    bound: bytes, or the products on the tensor cores (f32 as 3xTF32, bf16
+    kernel, kernel, plain), f32 and bf16, at the wrapper's tile, and the
+    bound (no single PyTorch call computes the block): bytes, or the products on the tensor cores (f32 as 3xTF32, bf16
     at its peak), the larger; the FP32-FMA roof printed beside. Returns,
     per batch, the f32 sums, the bf16 sums and the per-block numbers."""
     import torch
@@ -2291,7 +2373,6 @@ def resblock_timing(card: str) -> dict:
                 p_ms = [perf.device_ms(plain)]
                 k_ms = [perf.device_ms(kernel), perf.device_ms(kernel)]
                 p_ms.append(perf.device_ms(plain))
-                cudnn_ms = _profiled_device_ms(plain)
                 nbytes, flops = rb.work(*typed)
                 f32 = dtype == torch.float32
                 ops = (perf.f32_tensor_core_ops(flops) if f32
@@ -2301,14 +2382,13 @@ def resblock_timing(card: str) -> dict:
                 ms = sum(k_ms) / 2
                 key = "f32" if f32 else "bf16"
                 row[key] = dict(ms=ms, plain_ms=sum(p_ms) / 2,
-                                library_ms=cudnn_ms, bound_ms=bound_ms,
+                                bound_ms=bound_ms,
                                 bound_by=bound_by, fp32_fma_roof_ms=roof_ms,
                                 bytes=nbytes, flops=flops)
                 x = typed[0]
                 tile = rb.tile_for(*x.shape[:3])
                 print(f"{name} {key} n {b} (tile {tile}): kernel {k_ms} ms, "
-                      f"plain {p_ms} ms, its cuDNN kernels {cudnn_ms} ms "
-                      f"(profiler); bound {bound_ms} ms by {bound_by} "
+                      f"plain {p_ms} ms; bound {bound_ms} ms by {bound_by} "
                       f"({nbytes} B, {flops} FLOP as "
                       f"{'3xTF32' if f32 else 'bf16'}), "
                       f"{ms / bound_ms:.1f}x; FP32-FMA roof {roof_ms} ms; "
@@ -2317,16 +2397,16 @@ def resblock_timing(card: str) -> dict:
         sums = {}
         for key in ("f32", "bf16"):
             t = {k: sum(v[key][k] for v in blocks.values())
-                 for k in ("ms", "plain_ms", "library_ms", "fp32_fma_roof_ms",
-                           "bytes", "flops")}
+                 for k in ("ms", "plain_ms", "fp32_fma_roof_ms", "bytes",
+                           "flops")}
             # The bound of the four blocks as one piece of work.
             t["bound_ms"], t["bound_by"] = perf.bound_ms(
                 t["bytes"], perf.f32_tensor_core_ops(t["flops"])
                 if key == "f32" else [(t["flops"], "bf16")])
             sums[key] = t
             print(f"UNet forward's four blocks at n {b}, {key}: kernel "
-                  f"{t['ms']} ms, plain {t['plain_ms']} ms, cuDNN kernels "
-                  f"{t['library_ms']} ms, bound {t['bound_ms']} ms by "
+                  f"{t['ms']} ms, plain {t['plain_ms']} ms, bound "
+                  f"{t['bound_ms']} ms by "
                   f"{t['bound_by']} ({t['ms'] / t['bound_ms']:.1f}x), "
                   f"FP32-FMA roof {t['fp32_fma_roof_ms']} ms; on {card}")
         out[b] = dict(sums["f32"], bf16=sums["bf16"], blocks=blocks)
@@ -2538,8 +2618,7 @@ def single_block_timing(card: str) -> dict:
     turns within this call (plain, kernel, kernel, plain), beside a PyTorch
     yardstick the port never calls (``scaled_dot_product_attention``: the
     forward without grad, as the kernel keeps no logsumexp; forward and
-    backward for the backward kernel; its kernels' profiler time) and the
-    bound."""
+    backward for the backward kernel; a replayed graph) and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -2574,19 +2653,10 @@ def single_block_timing(card: str) -> dict:
             "attention_single_block_bwd": sb.work("bwd", q, k, v)}
     # The bound takes the f32 products as 3xTF32, the least time for them
     # on the card, as the flash rows do (the FP32-FMA roof is printed
-    # beside); SDPA's own kernels' device time from the profiler, as its
-    # autograd call is bound by its host enqueue. The kernels' own profiler
-    # time is recorded beside their CUDA-event time (which includes the gap
-    # between back-to-back launches), to compare like with like.
-    timings = _time_against_plain(runs, work, card,
-                                  "distinct q, k, v, profiler self device "
-                                  "time", library_timer=_profiled_device_ms,
-                                  at="B 8, H 4, L 64, Dh 64, f32")
-    for name, (kernel, _, _, _) in runs.items():
-        timings[name]["profiler_ms"] = _profiled_device_ms(kernel)
-        print(f"{name}: {timings[name]['profiler_ms']} ms of kernel time by "
-              f"the profiler, on {card}")
-    return timings
+    # beside).
+    return _time_against_plain(runs, work, card,
+                               "distinct q, k, v, a replayed graph",
+                               at="B 8, H 4, L 64, Dh 64, f32")
 
 
 @contextlib.contextmanager
@@ -3462,7 +3532,8 @@ def _cli_child(argv: list[str]) -> None:
         torch.cuda.synchronize()
     world = dist.get_world_size() if dist.is_initialized() else 0
     print(CLI_MARK + json.dumps({"counts": _counts(), "steps": result.steps,
-                                 "seconds": result.seconds, "world": world}),
+                                 "seconds": result.seconds, "world": world,
+                                 "epochs": result.epochs}),
           flush=True)
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -3518,6 +3589,9 @@ def _checkpoint_diff(a: Path, b: Path) -> list:
         if isinstance(tree, dict):
             for key, value in tree.items():
                 yield from leaves(value, f"{prefix}{key}/")
+        elif isinstance(tree, (list, tuple)):
+            for i, value in enumerate(tree):
+                yield from leaves(value, f"{prefix}{i}/")
         else:
             yield prefix.rstrip("/"), tree
 
@@ -3704,6 +3778,346 @@ def replayed_step_with_group(card: str) -> dict:
 
 
 # --- the Gemma base LM (phase 32) --------------------------------------------
+
+
+# Phase 34: the drills' deadline, and the victim's poll for its file.
+RESUME_TIMEOUT_S = 300
+RESUME_POLL_S = 0.005
+# The MNIST drill's EMA decay: its 936 steps bring an EMA at 0.99 to the
+# trained weights (0.99^936 ~ 1e-4 of the initial ones are left; at 0.999,
+# 0.39), so phase 35 measures a trained model's samples.
+MNIST_RESUME_EMA = "0.99"
+
+
+def _resume_drill(what: str, cli: str, argv: list, env: dict, work: Path,
+                  deterministic: bool, best: bool) -> tuple[dict, dict]:
+    """Phase 34's three runs of one CLI in ``work``: (a) uninterrupted,
+    (b) killed by SIGKILL once its resume file exists, (c) resumed. Checks
+    (b)'s file holds epoch 1, (c)'s restore line, and (c)'s checkpoints
+    (final, best with ``best``, and the last resume file) bit-equal to
+    (a)'s. Returns (a)'s and (c)'s records."""
+    import signal
+
+    from tinydiffusionmodels_torch.io import load_checkpoint
+
+    deadline = time.monotonic() + RESUME_TIMEOUT_S
+    files = {}
+    for tag in ("whole", "cut"):
+        ckpt = work / f"{tag}.pth"
+        files[tag] = [ckpt, work / f"{tag}_state.pth"]
+        if best:
+            files[tag].append(work / f"{tag}_best.pth")
+        for old in files[tag]:
+            old.unlink(missing_ok=True)
+
+    def start(tag, log):
+        return _start_cli(cli, [*argv, "--ckpt", str(work / f"{tag}.pth")],
+                          torchrun=False, workdir=work, log=work / log,
+                          env=env, deterministic=deterministic)
+
+    whole = _finish_cli(start("whole", "whole.log"), deadline)
+    proc, _, victim_log = start("cut", "victim.log")
+    state = files["cut"][1]
+    while not state.exists():
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            raise AssertionError(f"{what}: the victim wrote no resume file "
+                                 f"(exit {proc.returncode}):\n"
+                                 f"{victim_log.read_text()[-4000:]}")
+        time.sleep(RESUME_POLL_S)
+    proc.send_signal(signal.SIGKILL)
+    proc.wait()
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"{what}: the victim exited {proc.returncode} "
+                             "before the SIGKILL")
+    if int(load_checkpoint(state)["epoch"]) != 1:
+        raise AssertionError(f"{what}: killed after its epoch-2 resume file")
+    resumed_run = start("cut", "resumed.log")
+    resumed = _finish_cli(resumed_run, deadline)
+    log = resumed_run[2].read_text()
+    if "[resume] restored epoch 1" not in log:
+        raise AssertionError(f"{what}: no restore line:\n{log[-4000:]}")
+    diff = []
+    for a, b in zip(files["whole"], files["cut"]):
+        diff += [f"{b.name}: {k}" for k in _checkpoint_diff(a, b)]
+    if diff:
+        raise AssertionError(f"{what}: the resumed run differs from the "
+                             f"uninterrupted one in {diff[:8]}")
+
+    def timeless(r):
+        return {k: v for k, v in r.items() if k != "it_per_s"}
+
+    if [timeless(r) for r in resumed["epochs"]] != [
+            timeless(r) for r in whole["epochs"][1:]]:
+        raise AssertionError(f"{what}: epoch-2 records differ: "
+                             f"{resumed['epochs']} vs {whole['epochs'][1:]}")
+    print(f"{what}: killed during epoch 2, resumed from epoch 1; final"
+          f"{', best' if best else ''} and resume checkpoints and the epoch-2 "
+          f"record bit-equal to the uninterrupted run's; replayed it/s "
+          f"uninterrupted epoch 1 {whole['epochs'][0]['it_per_s']}, epoch 2 "
+          f"{whole['epochs'][1]['it_per_s']}; resumed epoch 2 "
+          f"{resumed['epochs'][0]['it_per_s']} (each epoch's first steps "
+          f"warm up and capture)")
+    return whole, resumed
+
+
+def _restore_seconds(state: Path, kind: str) -> tuple[float, float]:
+    """(seconds to read ``state``, seconds to restore it into a trainer's
+    tensors on the card), as the trainers do at start."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tinydiffusionmodels_torch.io import config_from_state_dict
+    from tinydiffusionmodels_torch.models import (
+        LearnedEmbedding,
+        LearnedRounding,
+        SimpleUNet,
+        TinyTransformer,
+        TransformerConfig,
+    )
+    from tinydiffusionmodels_torch.parallel import make_mesh
+    from tinydiffusionmodels_torch.train import state as train_state
+    from tinydiffusionmodels_torch.train.optim import adamw
+
+    t0 = time.perf_counter()
+    saved = train_state.read(str(state))
+    read_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda")
+    if kind == "text":
+        cfg = config_from_state_dict(saved["diffusion_model"],
+                                     TransformerConfig(dim=DIM, n_heads=HEADS))
+        vocab = np.shape(saved["rounding_fn"]["decoder.weight"])[0]
+        model = torch.nn.ModuleDict({
+            "diffusion_model": TinyTransformer(cfg),
+            "rounding_fn": LearnedRounding(DIM, vocab),
+            "embedding_fn": LearnedEmbedding(vocab, DIM)}).cuda()
+    else:
+        model = SimpleUNet().cuda()
+    ema = copy.deepcopy(model).requires_grad_(False)
+    optimizer = adamw(model.parameters(), 1e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if kind == "text":
+        train_state.restore_text(saved, model, optimizer, ema,
+                                 mesh=make_mesh(), gen=gen,
+                                 coin_rng=np.random.default_rng(0))
+    else:
+        train_state.restore_mnist(saved, model, optimizer, ema,
+                                  mesh=make_mesh(), gen=gen)
+    torch.cuda.synchronize()
+    return read_s, time.perf_counter() - t0
+
+
+def resume_on_card(card: str) -> tuple[list, Path]:
+    """Phase 34: the SIGKILL drills of both CLIs on the card (see the
+    module docstring). Returns the launches of the uninterrupted and
+    resumed runs (main paths) and the MNIST checkpoint."""
+    from tinydiffusionmodels_torch.data import (
+        CharTokenizer,
+        load_text_corpus,
+        num_batches,
+        tokenize_corpus,
+    )
+    from tinydiffusionmodels_torch.data.mnist import load_mnist
+
+    phase("--resume on the card: each CLI killed during epoch 2 and resumed "
+          "against its uninterrupted run")
+    t0 = time.perf_counter()
+    _prepare_workdir(TRAIN_CHARS)
+    work = WORK / "resume"
+    work.mkdir(parents=True, exist_ok=True)
+    corpus, _ = load_text_corpus(WORK / "data")
+    corpus = corpus[:TRAIN_CHARS]
+    train_chunks, val_chunks = tokenize_corpus(corpus, CharTokenizer(corpus),
+                                               SEQ, 0.1)
+    steps = num_batches(len(train_chunks), BATCH)
+    val_batches = num_batches(len(val_chunks), BATCH)
+    text_argv = ["--train", "--epochs", "2", "--batch_size", str(BATCH),
+                 "--seq_len", str(SEQ), "--embed_dim", str(DIM), "--depth",
+                 str(DEPTH), "--dropout", str(DROPOUT), "--model_id", "char",
+                 "--use_learned_embeddings", "--data_root",
+                 str(WORK / "data"), "--ema_decay", "0.999", "--resume",
+                 "--resume_every", "1"]
+    text_env = {"TDM_PLATFORM": "cuda", "TDM_DATA_LIMIT": str(TRAIN_CHARS)}
+    (work / "text").mkdir(exist_ok=True)
+    whole, resumed = _resume_drill("text", "shakespeare", text_argv,
+                                   text_env, work / "text", False, True)
+    per_epoch = {"flash_attention_fwd": (steps + val_batches) * DEPTH,
+                 "flash_attention_bwd_dq": steps * DEPTH,
+                 "flash_attention_bwd_dkv": steps * DEPTH}
+    runs = []
+    for rec, epochs in ((whole, 2), (resumed, 1)):
+        counts = {k: v for k, v in rec["counts"].items() if v}
+        if counts != {k: v * epochs for k, v in per_epoch.items()}:
+            raise AssertionError(f"text resume: launches {counts} over "
+                                 f"{epochs} epoch(s), expected {per_epoch} "
+                                 "an epoch")
+        runs.append(rec["counts"])
+    read_s, restore_s = _restore_seconds(work / "text" / "cut_state.pth",
+                                         "text")
+    size = (work / "text" / "cut_state.pth").stat().st_size
+    print(f"text restore: read {read_s:.4f} s ({size} bytes) + restore "
+          f"{restore_s:.4f} s, on {card}")
+
+    mnist_data = WORK / "mnist" / "data"
+    sys.modules["torchvision"] = None
+    load_mnist(mnist_data)
+    mnist_argv = ["--train", "--epochs", "2", "--batch_size",
+                  str(MNIST_BATCH), "--no_epoch_samples", "--data_root",
+                  str(mnist_data), "--ema_decay", MNIST_RESUME_EMA, "--resume",
+                  "--resume_every", "1"]
+    (work / "mnist").mkdir(exist_ok=True)
+    whole, resumed = _resume_drill(
+        "MNIST (cudnn.deterministic)", "mnist", mnist_argv,
+        {"TDM_PLATFORM": "cuda"}, work / "mnist", True, False)
+    mnist_steps = MNIST_IMAGES // MNIST_BATCH
+    for rec, epochs in ((whole, 2), (resumed, 1)):
+        counts = {k: v for k, v in rec["counts"].items() if v}
+        if counts != {"fused_resblock": mnist_steps * 4 * epochs}:
+            raise AssertionError(f"MNIST resume: launches {counts} over "
+                                 f"{epochs} epoch(s)")
+        runs.append(rec["counts"])
+    read_s, restore_s = _restore_seconds(work / "mnist" / "cut_state.pth",
+                                         "mnist")
+    size = (work / "mnist" / "cut_state.pth").stat().st_size
+    print(f"MNIST restore: read {read_s:.4f} s ({size} bytes) + restore "
+          f"{restore_s:.4f} s, on {card}")
+    print(f"phase: {time.perf_counter() - t0:.1f} s for the six runs, on "
+          f"{card}")
+    return runs, work / "mnist" / "whole.pth"
+
+
+# Phase 35: the JAX tools' JSON keys (tools/fidelity.py, and
+# tools/text_fidelity.py at --seeds 1, plus the port's data_source).
+FIDELITY_KEYS = {
+    "data_source", "classifier_accuracy_on_data", "n_samples",
+    "mean_max_prob", "inception_score", "fid", "fid_real_floor",
+    "nn_train_dist_mean", "nn_train_dist_p05", "nn_train_dist_real_mean",
+    "nn_train_dist_real_p05", "class_histogram", "dtype"}
+TEXT_FIDELITY_KEYS = {
+    "mode", "guidance_norm", "n_samples", "n_seeds", "corpus_perplexity",
+    "uniform_perplexity", "lm_perplexity", "distinct_1", "distinct_2",
+    "dup_8gram_rate", "corpus_8gram_overlap", "corpus_distinct_1",
+    "corpus_distinct_2", "corpus_dup_8gram_rate", "data_source"}
+FIDELITY_N, TEXT_FIDELITY_N = 256, 16
+# The f32 samples' floor: every class of digit among them, and an FID
+# within this multiple of the real digits' own small-sample FID
+# (fid_real_floor). A trained model's samples read about 6x; a sampler or
+# resblock that has gone wrong (a model left near its random weights read
+# 335x, with three classes empty) fails.
+FID_FLOOR_MULTIPLE = 10.0
+
+
+@contextlib.contextmanager
+def _plain_resblocks():
+    """The UNet's residual blocks through their plain PyTorch version
+    (``reference.fused_resblock``: cuDNN convs and elementwise ops) inside,
+    not the fused kernel."""
+    from tinydiffusionmodels_torch import ops
+    from tinydiffusionmodels_torch.ops import reference
+
+    fused = ops.fused_resblock
+    ops.fused_resblock = reference.fused_resblock
+    try:
+        yield
+    finally:
+        ops.fused_resblock = fused
+
+
+def _finite_record(what: str, rec: dict, keys: set, source: str) -> None:
+    import math
+
+    if set(rec) != keys:
+        raise AssertionError(f"{what}: keys {sorted(set(rec) ^ keys)} differ "
+                             "from the JAX tool's")
+    bad = [k for k, v in rec.items() if isinstance(v, (int, float))
+           and not isinstance(v, bool) and not math.isfinite(v)]
+    if bad or rec["data_source"] != source:
+        raise AssertionError(f"{what}: not finite {bad}, data_source "
+                             f"{rec['data_source']}")
+
+
+def _mnist_fidelity(card: str, mnist_ckpt: Path) -> list:
+    """Phase 35's MNIST part: ``fidelity.main`` on ``mnist_ckpt``, f32 and
+    bf16 on the kernel, then the plain-resblock bf16 witness; the floors of
+    the module docstring. Returns the kernel runs' launches."""
+    import torch
+
+    from tinydiffusionmodels_torch import fidelity
+
+    runs, recs = [], {}
+    work = _prepare_mnist_workdir()
+    # The kernel's f32 and bf16 runs, then the witness: bf16 through the
+    # plain resblock, same seed (outside the counted runs).
+    for dtype, plain in (("f32", False), ("bf16", False), ("bf16", True)):
+        what = f"fidelity {dtype}" + (" plain resblock" if plain else "")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _plain_resblocks() if plain else contextlib.nullcontext():
+            rec = fidelity.main([
+                "--ckpt", str(mnist_ckpt), "--n", str(FIDELITY_N),
+                "--sampler", "ddim", "--steps", str(MNIST_DDIM_STEPS),
+                "--data_root", str(work / "data"), "--dtype", dtype])
+        torch.cuda.synchronize()
+        counts = _counts()
+        _finite_record(what, rec, FIDELITY_KEYS, "synthetic")
+        want = {} if plain else {"fused_resblock": MNIST_DDIM_STEPS * 4}
+        if {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"{what}: launches {counts}")
+        if not all(rec["class_histogram"]):
+            raise AssertionError(f"{what}: a class of digit is missing from "
+                                 f"the samples, {rec['class_histogram']}")
+        if not plain:
+            runs.append(counts)
+        recs[what] = rec
+        print(f"{what}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{_nonzero(counts)}, on {card}")
+    f32 = recs["fidelity f32"]
+    if not f32["fid"] <= FID_FLOOR_MULTIPLE * f32["fid_real_floor"]:
+        raise AssertionError(
+            f"fidelity f32: FID {f32['fid']} above {FID_FLOOR_MULTIPLE} x the "
+            f"real digits' floor {f32['fid_real_floor']}")
+    print(f"MNIST FID (n {FIDELITY_N}, DDIM {MNIST_DDIM_STEPS}): f32 kernel "
+          f"{f32['fid']}, bf16 kernel {recs['fidelity bf16']['fid']}, bf16 "
+          f"plain resblock {recs['fidelity bf16 plain resblock']['fid']}; "
+          f"real floor {f32['fid_real_floor']} (f32 limit "
+          f"{FID_FLOOR_MULTIPLE}x); on {card}")
+    return runs
+
+
+def fidelity_on_card(card: str, mnist_ckpt: Path, text_ckpt: Path,
+                     lm_ckpt: Path) -> list:
+    """Phase 35: both fidelity tools' ``main`` on the card (see the module
+    docstring). Returns their launches (main paths)."""
+    import torch
+
+    from tinydiffusionmodels_torch import text_fidelity
+
+    phase("the fidelity tools on the card: fidelity (MNIST, n 256, DDIM 50, "
+          "f32 and bf16) and text_fidelity (n 16, pure and guided)")
+    runs = _mnist_fidelity(card, mnist_ckpt)
+    _prepare_workdir(TRAIN_CHARS)
+    for mode in ("pure", "guided"):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        rec = text_fidelity.main(["--ckpt", str(text_ckpt), "--lm_ckpt",
+                                  str(lm_ckpt), "--n", str(TEXT_FIDELITY_N),
+                                  "--seq_len", str(SEQ), "--mode", mode])
+        torch.cuda.synchronize()
+        counts = _counts()
+        _finite_record(f"text_fidelity {mode}", rec, TEXT_FIDELITY_KEYS,
+                       "builtin")
+        if counts["flash_attention_fwd"] < STEPS * DEPTH or any(
+                v for k, v in counts.items() if k != "flash_attention_fwd"):
+            raise AssertionError(f"text_fidelity {mode}: launches {counts}")
+        runs.append(counts)
+        print(f"text_fidelity {mode}: {time.perf_counter() - t0:.1f} s, "
+              f"launches {_nonzero(counts)}, on {card}")
+    return runs
 
 
 def _random_gemma(depth: int, seed: int, device="cuda"):
@@ -4137,6 +4551,10 @@ def main() -> None:
                   f"{r['device_us']:.1f} | {r['busy']:.3f} | "
                   f"{r['kernels']:.1f}")
     suite_counts = main_path_bench(card)
+    # After every in-process profile: once phase 34's CLI runs had run
+    # before them, torch.profiler here recorded no device time.
+    resume_counts, resume_mnist_ckpt = resume_on_card(card)
+    fidelity_counts = fidelity_on_card(card, resume_mnist_ckpt, ckpt, lm_ckpt)
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib",
                                              "tinydiffusionmodels_tpu"))
@@ -4171,13 +4589,11 @@ def main() -> None:
     timings["fused_resblock"] = {
         **{k: n25[k] for k in (*sums, "bound_by")}, "library_ms": None,
         "at": "sum of the four blocks of one UNet forward, n 25, f32",
-        "cudnn_kernels_ms": n25["library_ms"],
-        "n128": {k: n128[k] for k in (*sums, "bound_by", "library_ms")},
+        "n128": {k: n128[k] for k in (*sums, "bound_by")},
         "bf16_n25": n25["bf16"], "bf16_n128": n128["bf16"],
         "blocks_n25": n25["blocks"], "blocks_n128": n128["blocks"],
         "plain": "cuDNN convs, TF32 off; no single PyTorch call computes "
-                 "the block, so library_ms is null and cudnn_kernels_ms "
-                 "is the plain version's kernels' profiler time",
+                 "the block, so library_ms is null",
         "max_abs_err_bf16": resblock_bf16_error,
     }
     paths = (train_counts, sample_counts, narrow_train_counts,
@@ -4186,7 +4602,7 @@ def main() -> None:
              exact_counts, decoder_counts, gemma_counts, gemma_hf_counts,
              mnist_train_counts, *mnist_sample_counts, bench_counts,
              bf16_text_counts, bf16_mnist_counts, suite_counts,
-             *torchrun_counts)
+             *torchrun_counts, *resume_counts, *fidelity_counts)
     record = []
     for name, (source, replaces) in KERNELS.items():
         entry = {

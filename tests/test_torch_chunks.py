@@ -518,6 +518,32 @@ def test_a_failed_capture_raises_and_counts_nothing(fake_cuda):
     assert resblock.launches == 4
 
 
+def test_no_garbage_collection_inside_a_capture(fake_cuda):
+    """The cycle collector is off while a step is captured (it could free
+    another step's graph there, which CUDA refuses mid-capture) and on
+    again after the capture, whether it succeeds or fails."""
+    import gc
+
+    seen = []
+
+    def step():
+        seen.append(gc.isenabled())
+        if fake_cuda.capturing and len(seen) == 2:
+            raise RuntimeError("failed capture")
+
+    assert gc.isenabled()
+    failing = graphs.Step(step, "cuda", warmup=1)
+    failing()
+    with pytest.raises(RuntimeError, match="failed capture"):
+        failing()
+    assert seen == [True, False] and gc.isenabled()
+    seen.clear()
+    s = graphs.Step(lambda: seen.append(gc.isenabled()), "cuda", warmup=1)
+    for _ in range(3):
+        s()
+    assert seen == [True, False] and gc.isenabled()
+
+
 def test_eager_step_and_cpu_step_never_capture(fake_cuda):
     """``eager=True`` and CPU devices run the function on every call."""
     for kw in ({"device": "cuda", "eager": True}, {"device": "cpu"}):

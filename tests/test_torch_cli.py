@@ -197,12 +197,7 @@ def test_port_rope_checkpoint_round_trip(workdir, capsys):
     torch.testing.assert_close(z, want, rtol=0, atol=0)
 
 
-UNPORTED = "not yet ported to the torch package"
-
-
 @pytest.mark.parametrize("argv, match", [
-    # --train itself is ported; its resume state (optax's pytree) is not.
-    pytest.param(["--train", "--resume"], UNPORTED, id="--train"),
     # --seq_parallel is ported: a seq_len the ring does not divide exits with
     # the JAX CLI's message (a ring of 2 laid out without processes).
     pytest.param(["--train", "--seq_parallel", "--seq_len", "9"],
@@ -720,16 +715,6 @@ def test_mnist_train_bf16_writes_f32_checkpoint(workdir, monkeypatch):
     x = port_mnist.main(["--sample", "--ckpt", "m.pth", "--sampler", "ddim",
                          "--steps", "2"])
     assert tuple(x.shape) == (25, 28, 28, 1) and torch.isfinite(x).all()
-
-
-@pytest.mark.parametrize("argv", [
-    pytest.param(["--train", "--resume"], id="--resume"),
-])
-def test_mnist_unported_modes_exit_nonzero(workdir, argv):
-    from tinydiffusionmodels_torch import mnist as port_mnist
-
-    with pytest.raises(SystemExit, match="not yet ported to the torch package"):
-        port_mnist.main([*argv, "--ckpt", "m.pth"])
 
 
 def test_profile_dir_traces_the_mnist_cli(workdir):

@@ -26,6 +26,12 @@ draws from the generator's current offset and advances it as the eager
 step does: replays and eager steps give the same numbers in the same
 order.
 
+Garbage collection: Python's cycle collector is off while a step is
+captured. Run there, it could free an unreachable ``CUDAGraph`` of an
+earlier step, and destroying a graph is an operation CUDA refuses during a
+capture: this capture would fail ("operation not permitted when stream is
+capturing"). The garbage is freed by the next collection after it.
+
 Launch counters: capturing runs the kernel wrappers once, which count
 launches that did not happen. ``Step`` takes them back and adds the
 capture's counts again on every replay, so the counters keep counting
@@ -33,6 +39,8 @@ launches on the card.
 """
 
 from __future__ import annotations
+
+import gc
 
 import torch
 
@@ -139,10 +147,14 @@ class Step:
                 raise
             graph.capture_end()
 
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             self._on_side_stream(capture)
             self.delta = [a - b for a, b in zip(counts(), before)]
         finally:
+            if collecting:
+                gc.enable()
             # Capturing launched nothing.
             _add_counts([b - a for a, b in zip(counts(), before)])
         self.graph = graph

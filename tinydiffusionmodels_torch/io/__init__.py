@@ -7,6 +7,9 @@ modules; ``images`` is the port's copy of the PNG grid writer.
 """
 
 from tinydiffusionmodels_torch.io.convert import (
+    adamw_state_from_jax,
+    adamw_state_to_jax,
+    classifier_state_from_jax,
     config_from_state_dict,
     embedding_state_from_jax,
     gemma_state_from_jax,
@@ -30,6 +33,9 @@ from tinydiffusionmodels_torch.io.storage import (
 )
 
 __all__ = [
+    "adamw_state_from_jax",
+    "adamw_state_to_jax",
+    "classifier_state_from_jax",
     "config_from_state_dict",
     "embedding_state_from_jax",
     "gemma_state_from_jax",

@@ -19,6 +19,13 @@ text maps in ``io/checkpoint.py``, which imports jax and so is not imported).
   state dict both CLIs save as the MNIST ``.pth``.
 - ``state_from_checkpoint`` / ``config_from_state_dict``: a loaded
   checkpoint's numpy state dict -> tensors, and the model shape it implies.
+- ``params_tree`` / ``state_from_tree``: a trainer's model (the text
+  trainer's joint ``ModuleDict``, or the UNet) <-> the JAX package's
+  parameter tree of it; ``adamw_state_to_jax`` / ``adamw_state_from_jax``
+  move AdamW's moments and step through them to and from optax
+  ``adamw``'s state leaves, the ``opt_state_leaves`` of a resume file.
+- ``classifier_state_from_jax``: the fidelity classifier's JAX tree ->
+  the port's ``DigitClassifier`` state dict.
 """
 
 from __future__ import annotations
@@ -185,7 +192,11 @@ def unet_params_dict(module: torch.nn.Module) -> dict[str, Any]:
     """The inverse of ``unet_state_from_jax``: a SimpleUNet -> the JAX
     parameter tree with float32 numpy leaves (HWIO kernels; ``skip`` None
     for the identity skip)."""
-    sd = _numpy_state(module)
+    return _unet_tree(_numpy_state(module))
+
+
+def _unet_tree(sd: dict) -> dict[str, Any]:
+    """``unet_params_dict`` of a SimpleUNet state dict (numpy leaves)."""
 
     def conv(name):
         return {"w": np.ascontiguousarray(
@@ -212,6 +223,166 @@ def unet_checkpoint_dict(module: torch.nn.Module) -> "OrderedDict[str, np.ndarra
     the reference's format (src/mnist.py:165) that the JAX CLI writes with
     ``unet_to_state_dict``."""
     return _numpy_state(module)
+
+
+def _transformer_tree(sd: dict) -> dict[str, Any]:
+    """The inverse of ``transformer_state_from_jax``: a TinyTransformer
+    state dict (numpy leaves) -> the JAX parameter tree (``layers`` a
+    tuple, as ``io/checkpoint.transformer_from_state_dict`` builds it)."""
+
+    def lin(name):
+        return {"w": np.ascontiguousarray(np.asarray(sd[f"{name}.weight"]).T),
+                "b": np.asarray(sd[f"{name}.bias"])}
+
+    layers = []
+    while f"encoder.layers.{len(layers)}.self_attn.in_proj_weight" in sd:
+        pre = f"encoder.layers.{len(layers)}"
+        layers.append({
+            "self_attn": {
+                "in_proj": {
+                    "w": np.ascontiguousarray(
+                        np.asarray(sd[f"{pre}.self_attn.in_proj_weight"]).T),
+                    "b": np.asarray(sd[f"{pre}.self_attn.in_proj_bias"])},
+                "out_proj": lin(f"{pre}.self_attn.out_proj"),
+            },
+            "linear1": lin(f"{pre}.linear1"),
+            "linear2": lin(f"{pre}.linear2"),
+            **{norm: {"scale": np.asarray(sd[f"{pre}.{norm}.weight"]),
+                      "bias": np.asarray(sd[f"{pre}.{norm}.bias"])}
+               for norm in ("norm1", "norm2")},
+        })
+    tree: dict[str, Any] = {"time_emb": lin("time_emb"),
+                            "layers": tuple(layers)}
+    if "pos_emb.weight" in sd:
+        tree["pos_emb"] = np.asarray(sd["pos_emb.weight"])
+    if "selfcond_proj.weight" in sd:
+        tree["selfcond_proj"] = lin("selfcond_proj")
+    return tree
+
+
+# The text trainer's joint model: key -> (state dict -> JAX tree, JAX tree
+# -> state dict).
+_JOINT = {
+    "diffusion_model": (_transformer_tree, transformer_state_from_jax),
+    "rounding_fn": (
+        lambda sd: {"decoder": {
+            "w": np.ascontiguousarray(np.asarray(sd["decoder.weight"]).T),
+            "b": np.asarray(sd["decoder.bias"])}},
+        rounding_state_from_jax),
+    "embedding_fn": (lambda sd: {"weight": np.asarray(sd["embeddings.weight"])},
+                     embedding_state_from_jax),
+}
+
+
+def params_tree(module: torch.nn.Module, sd: dict | None = None) -> dict:
+    """The JAX package's parameter tree of a trainer's model: the text
+    trainer's joint ``ModuleDict`` ({'diffusion_model', 'rounding_fn'[,
+    'embedding_fn']}) or a SimpleUNet. ``sd`` (parameter name -> array)
+    replaces the parameters' values, e.g. with AdamW's moments."""
+    sd = _numpy_state(module) if sd is None else sd
+    if not isinstance(module, torch.nn.ModuleDict):
+        return _unet_tree(sd)
+    return {key: _JOINT[key][0]({k[len(key) + 1:]: v for k, v in sd.items()
+                                 if k.startswith(key + ".")})
+            for key in module}
+
+
+def state_from_tree(module: torch.nn.Module,
+                    tree: dict) -> "OrderedDict[str, torch.Tensor]":
+    """The inverse of ``params_tree``: a JAX parameter tree -> ``module``'s
+    state dict (float32 tensors)."""
+    if not isinstance(module, torch.nn.ModuleDict):
+        return unet_state_from_jax(tree)
+    return OrderedDict((f"{key}.{k}", v) for key in module
+                       for k, v in _JOINT[key][1](tree[key]).items())
+
+
+def _tree_leaves(tree) -> list:
+    """The leaves of a parameter tree in ``jax.tree_util``'s order: a
+    dict's values by sorted key, a list's or tuple's in order, None
+    holding none."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def _tree_fill(tree, leaves):
+    """``tree`` with its leaves taken in turn from the iterator
+    ``leaves``, in ``_tree_leaves``' order."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_fill(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)([_tree_fill(v, leaves) for v in tree])
+    return next(leaves)
+
+
+def adamw_state_to_jax(optimizer: torch.optim.Optimizer,
+                       params: torch.nn.Module, *,
+                       schedule: bool) -> list[np.ndarray]:
+    """AdamW's state of ``params`` as optax ``adamw``'s state leaves:
+    ``[count, *mu, *nu]``, and the schedule's count after them when the
+    learning rate is ``schedule``d; ``mu`` and ``nu`` are the moments laid
+    out as the JAX parameter tree (``params_tree``: linear weights
+    transposed as the parameters are) in its sorted-key leaf order, and
+    the counts are int32 (torch's ``state["step"]``). A parameter the
+    optimizer does not step (``--freeze_embeddings``' table) gets zero
+    moments, as JAX's zero-gradient ones are."""
+    step = 0
+    mu: dict = {}
+    nu: dict = {}
+    for name, p in params.named_parameters():
+        state = optimizer.state.get(p, {})
+        if "exp_avg" in state:
+            mu[name] = state["exp_avg"].detach().cpu().numpy()
+            nu[name] = state["exp_avg_sq"].detach().cpu().numpy()
+            step = int(state["step"].item())
+        else:
+            mu[name] = nu[name] = np.zeros(tuple(p.shape), np.float32)
+    count = np.asarray(step, np.int32)
+    leaves = [count, *_tree_leaves(params_tree(params, mu)),
+              *_tree_leaves(params_tree(params, nu))]
+    if schedule:
+        leaves.append(count.copy())
+    return leaves
+
+
+def adamw_state_from_jax(opt_state_leaves: list, params: torch.nn.Module):
+    """The inverse of ``adamw_state_to_jax`` (with or without the
+    schedule's count): (step, exp_avg, exp_avg_sq), the moments as
+    ``params``' state dicts of float32 tensors. Raises ValueError when the
+    leaves are not those of ``params``."""
+    tree = params_tree(params)
+    n = len(_tree_leaves(tree))
+    if len(opt_state_leaves) not in (1 + 2 * n, 2 + 2 * n):
+        raise ValueError(f"{len(opt_state_leaves)} optimizer leaves for a "
+                         f"model of {n} parameters")
+    # A saved 0-d count comes back with shape (1,) (both packages' writers).
+    step = int(np.asarray(opt_state_leaves[0]).reshape(-1)[0])
+    mu, nu = (state_from_tree(params, _tree_fill(tree, iter(leaves)))
+              for leaves in (opt_state_leaves[1:1 + n],
+                             opt_state_leaves[1 + n:1 + 2 * n]))
+    return step, mu, nu
+
+
+def classifier_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX classifier params (``models/classifier.init_classifier``'s tree)
+    -> ``DigitClassifier`` state dict. JAX flattens the (B, 7, 7, 32) map
+    in HWC order and the port's NCHW map flattens in CHW order, so
+    ``fc1``'s 1568 input rows are permuted from HWC to CHW."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _conv(params["conv1"], "conv1", sd)
+    _conv(params["conv2"], "conv2", sd)
+    w1 = np.asarray(params["fc1"]["w"])              # (7*7*32, 128), HWC rows
+    w1 = w1.reshape(7, 7, 32, -1).transpose(2, 0, 1, 3).reshape(w1.shape)
+    _lin({"w": w1, "b": params["fc1"]["b"]}, "fc1", sd)
+    _lin(params["fc2"], "fc2", sd)
+    return sd
 
 
 def state_from_checkpoint(sd: dict) -> "OrderedDict[str, torch.Tensor]":

@@ -15,8 +15,11 @@ kernel there. ``--train --dtype bf16`` trains in bf16
 (``train/precision.py``: the parameters are cast inside the loss, the
 weights, AdamW's state and the checkpoint stay f32). ``--profile_dir
 DIR`` profiles the run with ``torch.profiler`` (``runtime.profile_trace``:
-``DIR/trace.json`` and the per-op table ``DIR/ops.txt``). ``--resume`` is
-not yet ported and exits non-zero. Under ``torchrun`` (``python -m
+``DIR/trace.json`` and the per-op table ``DIR/ops.txt``). ``--train
+--resume`` writes the whole train state to ``<ckpt>_state.pth`` every
+``--resume_every`` epochs and resumes from it when it is there
+(``train/state.py``): the JAX CLI's file, so either CLI resumes a run the
+other wrote. Under ``torchrun`` (``python -m
 torch.distributed.run --nproc_per_node N -m tinydiffusionmodels_torch.mnist
 --train``) each process takes one GPU and ``--train`` is data-parallel over
 all of them, ``--batch_size`` the global batch; rank 0 writes the
@@ -27,10 +30,6 @@ from __future__ import annotations
 
 import argparse
 import os
-
-_NOT_PORTED = "is not yet ported to the torch package; use python -m " \
-    "tinydiffusionmodels_tpu.mnist"
-
 
 def build_parser() -> argparse.ArgumentParser:
     from tinydiffusionmodels_torch.io import get_vertex_checkpoint_path
@@ -94,8 +93,6 @@ def main(argv=None):
     """Run the CLI. Returns the ``mnist_train.TrainResult`` of ``--train``,
     the (25, 28, 28, 1) samples of ``--sample``, or both as a pair."""
     args = build_parser().parse_args(argv)
-    if args.resume:
-        raise SystemExit(f"--resume {_NOT_PORTED}")
     if not args.train and not args.sample:
         print("Nothing to do. Pass --train or --sample.")
         return None
@@ -128,6 +125,8 @@ def _run(args):
             compute_dtype=resolve_compute_dtype(args.dtype),
             device=dev,
             mesh=mesh,
+            resume=args.resume,
+            resume_every=args.resume_every,
         )
     if args.sample and (mesh is None or mesh.rank == 0):
         samples = mnist_train.sample(

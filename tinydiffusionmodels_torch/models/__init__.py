@@ -1,8 +1,10 @@
 """Models of the port: the text denoiser, the embedding/rounding heads, the
 guided sampler's base LMs (TinyGPT, and Gemma for a Hugging Face Gemma
-checkpoint) and the MNIST UNet."""
+checkpoint), the MNIST UNet and the digit classifier that measures its
+samples."""
 
 from tinydiffusionmodels_torch.models.ar_lm import TinyGPT, TinyGPTConfig
+from tinydiffusionmodels_torch.models.classifier import DigitClassifier
 from tinydiffusionmodels_torch.models.embedding import (
     LearnedEmbedding,
     LearnedRounding,
@@ -18,6 +20,7 @@ from tinydiffusionmodels_torch.models.transformer import (
 from tinydiffusionmodels_torch.models.unet import SimpleUNet
 
 __all__ = [
+    "DigitClassifier",
     "Gemma",
     "GemmaConfig",
     "LearnedEmbedding",

@@ -1,0 +1,62 @@
+"""The small CNN digit classifier that measures MNIST sample fidelity (port
+of ``models/classifier.py``).
+
+conv 1 -> 16 and 16 -> 32 (3x3, same padding), each followed by ReLU and a
+2x2 max-pool, then fc 1568 -> 128 (ReLU; the 128-d features are the FID
+space) and fc 128 -> 10. Inputs are NHWC (B, 28, 28, 1) in [-1, 1], as the
+UNet's samples are. The feature map is flattened in the module's NCHW
+(CHW) order, where the JAX package flattens NHWC (HWC); the weight bridge
+(``io.convert.classifier_state_from_jax``) permutes ``fc1``'s input rows
+to match. Plain PyTorch convolutions and matmuls: the JAX classifier runs
+no Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tinydiffusionmodels_torch.models.embedding import (
+    _default_generator,
+    init_linear_,
+)
+from tinydiffusionmodels_torch.models.unet import _conv
+
+
+class DigitClassifier(nn.Module):
+    """``init_classifier``'s network; torch's default init from
+    ``generator``."""
+
+    def __init__(self, n_classes: int = 10, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        g = _default_generator(generator)
+        self.conv1 = _conv(1, 16, 3, g)
+        self.conv2 = _conv(16, 32, 3, g)
+        self.fc1 = nn.utils.skip_init(nn.Linear, 7 * 7 * 32, 128)
+        init_linear_(self.fc1, g)
+        self.fc2 = nn.utils.skip_init(nn.Linear, 128, n_classes)
+        init_linear_(self.fc2, g)
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 28, 28, 1) -> the penultimate features (B, 128)."""
+        h = x.permute(0, 3, 1, 2)
+        h = F.max_pool2d(F.relu(self.conv1(h)), 2)       # (B, 16, 14, 14)
+        h = F.max_pool2d(F.relu(self.conv2(h)), 2)       # (B, 32, 7, 7)
+        return F.relu(self.fc1(h.flatten(1)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 28, 28, 1) -> logits (B, 10)."""
+        return self.fc2(self.features(x))
+
+
+def classifier_features(model: DigitClassifier,
+                        x: torch.Tensor) -> torch.Tensor:
+    """``classifier_features``: x (B, 28, 28, 1) in [-1, 1] -> (B, 128)."""
+    return model.features(x)
+
+
+def classifier_apply(model: DigitClassifier, x: torch.Tensor) -> torch.Tensor:
+    """``classifier_apply``: x (B, 28, 28, 1) in [-1, 1] -> logits (B, 10)."""
+    return model(x)

@@ -36,7 +36,10 @@ of TinyGPT or Gemma runs through a ``sample.guided.GuidedDecoder``
 (``guided_decode``): on the card its whole scan is one CUDA graph,
 replayed. ``--profile_dir DIR`` profiles the run with ``torch.profiler``
 (``runtime.profile_trace``: ``DIR/trace.json`` and the per-op table
-``DIR/ops.txt``). ``--resume`` is not yet ported and exits non-zero.
+``DIR/ops.txt``). ``--train --resume`` writes the whole train state to
+``<ckpt>_state.pth`` every ``--resume_every`` epochs and resumes from it
+when it is there (``train/state.py``): the JAX CLI's file, so either CLI
+resumes a run the other wrote.
 
 Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N
 -m tinydiffusionmodels_torch.shakespeare --train ...``) each process takes
@@ -57,10 +60,6 @@ import os
 
 import numpy as np
 import torch
-
-_NOT_PORTED = "is not yet ported to the torch package; use python -m " \
-    "tinydiffusionmodels_tpu.shakespeare"
-
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
@@ -297,8 +296,6 @@ def main(argv=None):
     if not (args.train or args.sample or args.guided_sample):
         print("Nothing to do. Try --train or --guided_sample.")
         return None
-    if args.resume:
-        raise SystemExit(f"--resume {_NOT_PORTED}")
     from tinydiffusionmodels_torch.runtime import profile_trace
 
     with profile_trace(args.profile_dir):
@@ -449,6 +446,8 @@ def _run(args):
             anchor_ce=args.anchor_ce,
             compute_dtype=resolve_compute_dtype(args.dtype),
             mesh=train_mesh,
+            resume=args.resume,
+            resume_every=args.resume_every,
         )
         model = result.joint["diffusion_model"]
         rounding = result.joint["rounding_fn"]

@@ -24,6 +24,11 @@ averages the gradients and the loss over the ranks
 (``parallel/data_parallel.py``); ``batch_size`` stays the global batch,
 and only rank 0 samples the epoch grids and writes the checkpoint and
 metrics.
+
+``resume`` (``train/state.py``) writes the whole train state every
+``resume_every`` epochs and restores it at the start: weights, AdamW, EMA
+and the generator's state, so that a resumed run is the uninterrupted
+one, bit for bit where the step is deterministic.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from tinydiffusionmodels_torch.io import (
     state_from_checkpoint,
     unet_checkpoint_dict,
 )
+from tinydiffusionmodels_torch.io.storage import is_gcs_path
 from tinydiffusionmodels_torch.models import SimpleUNet
 from tinydiffusionmodels_torch.parallel import (
     average_gradients,
@@ -65,6 +71,7 @@ from tinydiffusionmodels_torch.parallel import (
 from tinydiffusionmodels_torch.runtime import device as runtime_device
 from tinydiffusionmodels_torch.sample.ancestral import sample_loop
 from tinydiffusionmodels_torch.train import chunks
+from tinydiffusionmodels_torch.train import state as train_state
 from tinydiffusionmodels_torch.train.metrics import MetricsLogger
 from tinydiffusionmodels_torch.train.optim import adamw
 from tinydiffusionmodels_torch.train.precision import in_dtype
@@ -225,6 +232,9 @@ def train(
     compute_dtype=None,
     device=None,
     mesh=None,
+    resume: bool = False,
+    resume_path: str | None = None,
+    resume_every: int = 1,
     log_fn=print,
 ) -> TrainResult:
     """Full training run (reference src/mnist.py:128-165 surface) on
@@ -239,7 +249,13 @@ def train(
     the weights, AdamW's state, the EMA, the sample grids and the
     checkpoint stay f32. ``mesh`` (default: every rank of the process
     group on 'data', or one rank without one) makes the run data-parallel
-    over its 'data' axis; ``batch_size`` is the global batch."""
+    over its 'data' axis; ``batch_size`` is the global batch.
+
+    ``resume=True`` (the JAX trainer's): the train state goes to
+    ``resume_path`` (default ``ckpt_path`` with ``.pth`` -> ``_state.pth``)
+    every ``resume_every`` epochs, after the epoch's sample grid, and a run
+    that finds the file starts from it (``train/state.py``; not on a GCS
+    path; a file that cannot be read starts fresh)."""
     dev = runtime_device() if device is None else torch.device(device)
     if mesh is None:
         mesh = make_mesh()
@@ -283,9 +299,18 @@ def train(
                        mesh=mesh)
     chunk, progress_every = chunks.scan_chunk(), chunks.progress_every()
 
+    start_epoch, global_step = 0, 0
+    resume_path = resume_path or str(ckpt_path).replace(".pth", "_state.pth")
+    saved = (train_state.read(resume_path, log_fn)
+             if resume and not is_gcs_path(resume_path) else None)
+    if saved is not None:
+        start_epoch, global_step = train_state.restore_mnist(
+            saved, model, optimizer, ema, mesh=mesh, gen=gen, log_fn=log_fn)
+        log_fn(f"[resume] restored epoch {start_epoch}, step {global_step} "
+               f"from {resume_path}")
     history, records = [], []
     steps_done, loop_seconds = 0, 0.0
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         order = epoch_order(data.shape[0], batch_size, seed=seed,
                             epoch=epoch, device="cpu")
         if epoch_steps:
@@ -306,6 +331,7 @@ def train(
         n = len(epoch_losses)
         dt = time.perf_counter() - t0
         steps_done += n
+        global_step += n
         loop_seconds += dt
         history.append(epoch_losses)
         # The JAX trainer's ``float(loss)``: the last chunk's mean (0 when
@@ -325,6 +351,14 @@ def train(
             sample_path = _sample_path("samples", f"epoch_{epoch + 1:03d}.png")
             save_samples(png, sample_path, mode="wb")
             log_fn(f"[epoch {epoch + 1}] saved samples to {sample_path}")
+        if resume and (epoch + 1) % max(1, resume_every) == 0:
+            generators = train_state.generator_states(mesh, gen)
+            if main:
+                save_checkpoint(
+                    train_state.mnist_state(model, optimizer, ema,
+                                            epoch=epoch + 1, step=global_step,
+                                            generators=generators),
+                    resume_path)
 
     final = ema if ema is not None else model
     if main:

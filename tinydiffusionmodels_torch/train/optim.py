@@ -67,6 +67,39 @@ def adamw(
     )
 
 
+def load_adamw_state(optimizer: torch.optim.AdamW, params: nn.Module,
+                     step: int, exp_avg: dict, exp_avg_sq: dict) -> None:
+    """Set AdamW's state of every parameter of ``params`` it steps: its
+    step count and moments (``exp_avg``, ``exp_avg_sq``: parameter name ->
+    tensor), for resuming a run.
+
+    AdamW creates its state lazily, in its first step; this creates it as
+    that step would (``step`` a float32 scalar on the parameter's device
+    when capturable or fused, on the CPU otherwise; the moments shaped as
+    the parameter) and copies the values into it, so that a step warmed up
+    or captured afterwards (``graphs.Step``) finds it and keeps its
+    addresses. Parameters the optimizer does not step are skipped."""
+    group_of = {p: g for g in optimizer.param_groups for p in g["params"]}
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            group = group_of.get(p)
+            if group is None:
+                continue
+            state = optimizer.state[p]
+            if not state:
+                on_device = group["capturable"] or group["fused"]
+                state["step"] = torch.zeros(
+                    (), dtype=torch.float32,
+                    device=p.device if on_device else "cpu")
+                state["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            state["step"].fill_(float(step))
+            state["exp_avg"].copy_(exp_avg[name])
+            state["exp_avg_sq"].copy_(exp_avg_sq[name])
+
+
 def freeze_subtree(joint: nn.ModuleDict, name: str) -> list[nn.Parameter]:
     """The parameters of ``joint`` outside its module ``name``.
 

@@ -32,6 +32,11 @@ stays the global batch. Dropout draws from a generator of its own for
 each data shard, shared by the ranks of a sequence ring; validation
 losses are the global mean, so every rank stops early alike; only rank 0
 writes checkpoints and metrics.
+
+``resume`` (``train/state.py``) writes the whole train state every
+``resume_every`` epochs and restores it at the start: weights, AdamW, EMA,
+the early-stopping counters and the generators' states, so that a resumed
+run is the uninterrupted one, bit for bit.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from tinydiffusionmodels_torch.parallel import (
     shard_batch,
 )
 from tinydiffusionmodels_torch.train import chunks
+from tinydiffusionmodels_torch.train import state as train_state
 from tinydiffusionmodels_torch.train.metrics import MetricsLogger
 from tinydiffusionmodels_torch.train.optim import (
     adamw,
@@ -389,6 +395,9 @@ def train(
     anchor_ce: float = 0.0,
     compute_dtype=None,
     mesh=None,
+    resume: bool = False,
+    resume_path: str | None = None,
+    resume_every: int = 1,
     log_fn=print,
 ) -> TrainResult:
     """Epoch loop with validation + early stopping
@@ -407,7 +416,13 @@ def train(
     group on 'data', or one rank without one) makes the run data-parallel
     over its 'data' axis and, with ``cfg.seq_axis``, sequence-parallel over
     that axis (registered here for ``ops.attention``); ``batch_size`` is
-    the global batch."""
+    the global batch.
+
+    ``resume=True`` adds the JAX trainer's mid-training resume: the train
+    state goes to ``resume_path`` (default ``ckpt_path`` with ``.pth`` ->
+    ``_state.pth``) every ``resume_every`` epochs, after the best-checkpoint
+    and early-stopping checks, and a run that finds the file starts from
+    it (``train/state.py``; a file that cannot be read starts fresh)."""
     if clamp_train and parameterization != "x0":
         raise ValueError(
             "clamp_train requires --parameterization x0 (the clamp operates "
@@ -487,15 +502,24 @@ def train(
         metrics.path = None
     best_val_loss = float("inf")
     patience_counter = 0
+    start_epoch, global_step = 0, 0
+    resume_path = resume_path or str(ckpt_path).replace(".pth", "_state.pth")
+    saved = train_state.read(resume_path, log_fn) if resume else None
+    if saved is not None:
+        start_epoch, global_step, best_val_loss, patience_counter = \
+            train_state.restore_text(saved, joint, optimizer, ema, mesh=mesh,
+                                     gen=gen, drop_gen=drop_gen,
+                                     coin_rng=coin_rng, log_fn=log_fn)
+        log_fn(f"[resume] restored epoch {start_epoch} from {resume_path}")
     history, records = [], []
     steps_done, loop_seconds = 0, 0.0
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         w = dynamic_rounding_weight_schedule(epoch, epochs, rounding_weight)
         # The batch order of data.loader.batch_iterator, as index rows.
         order = list(batch_iterator(np.arange(train_chunks.shape[0]),
                                     batch_size, seed=seed, epoch=epoch))
         if order:
-            steps.start(np.stack(order), w, epoch * steps_per_epoch)
+            steps.start(np.stack(order), w, global_step)
         t0 = time.perf_counter()
         losses, n = [], 0
         for c, k in enumerate(chunks.chunk_lengths(len(order), chunk)):
@@ -510,6 +534,7 @@ def train(
                         else np.zeros((0, 3), np.float32))
         dt = time.perf_counter() - t0
         steps_done += n
+        global_step += n
         loop_seconds += dt
         history.append(epoch_losses)
         train_losses = epoch_losses.mean(0) if n else np.zeros(3)
@@ -563,6 +588,19 @@ def train(
                 log_fn(f"  Early stopping triggered after {patience} epochs "
                        "without improvement")
                 break
+
+        if resume and (epoch + 1) % max(1, resume_every) == 0:
+            generators = train_state.generator_states(mesh, gen, drop_gen,
+                                                      coin_rng)
+            if main:
+                save_checkpoint(
+                    train_state.text_state(
+                        joint, optimizer, ema, epoch=epoch + 1,
+                        step=global_step, best_val_loss=best_val_loss,
+                        patience_counter=patience_counter,
+                        schedule=use_lr_scheduling, generators=generators,
+                        tokenizer_state=tokenizer_state),
+                    resume_path)
 
     final = ema if ema is not None else joint
     final_ckpt_path = (
