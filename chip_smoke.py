@@ -51,10 +51,11 @@ no result line) on any error; no phase catches its own failure.
    bench's headline width (dim 256, 4 heads, depth 3, FFN 2048, dropout
    0.1, batch 8, seq 64, f32, eps, learned embeddings and rounding, AdamW
    with cosine warmup), one epoch of the built-in corpus cut to
-   TRAIN_CHARS characters. Asserts forward launches = (training + validation
-   batches) x depth, dq and dkv launches = training steps x depth, finite
-   losses, a lower mean loss over the last 50 steps than over the first 50,
-   and the checkpoints written. Prints training steps/s.
+   TRAIN_CHARS characters. Asserts forward launches = (training +
+   validation batches + 1, the validation graph's prime) x depth, dq and
+   dkv launches = training steps x depth, finite losses, a lower mean
+   loss over the last 50 steps than over the first 50, and the
+   checkpoints written. Prints training steps/s.
 6. Main path, sampling: ``shakespeare.main(["--sample", ...])`` from the
    trained checkpoint: 1000 ancestral steps, n 8, seq 64. Asserts 3000
    forward launches and no backward launch, finite embeddings and 8 sample
@@ -234,7 +235,8 @@ count replays.
 25. The kernels inside the graphs: torch.profiler over one replay of each
    training graph must list the flash forward, dq and dk/dv kernels and
    the resblock kernel as many times as the capture counted; over a
-   captured 10-step sampler loop, ten steps' worth. Where the profiler
+   second call of a captured 10-step sampler loop (ten replays), ten
+   steps' worth. Where the profiler
    lists no kernel of a replay, that is printed, and the counters' deltas
    are the evidence.
 26. Timing (phases 13 and 17's profiles): for the text step at bs 8 f32,
@@ -337,19 +339,21 @@ The Gemma base LM (after phase 27).
 Resume and the fidelity tools (after the bench, phase c).
 
 34. ``--resume`` on the card, a ``SIGKILL`` drill of each CLI as a
-   subprocess: (a) the uninterrupted run, (b) the same command killed as
-   soon as its ``_state.pth`` lands (during epoch 2; the file must say
-   epoch 1), (c) the command again, which must log ``[resume] restored
-   epoch 1`` and finish. The text CLI at the headline width (bs 8, seq 64,
-   dim 256, depth 3, dropout 0.1, f32, ``--ema_decay 0.999``) for two
-   epochs of TRAIN_CHARS characters: (c)'s final and best checkpoints and
-   last resume file bit-equal to (a)'s, and its epoch-2 record equal but
-   for the rate, through the replayed graphs. The MNIST CLI (bs 128, two
-   epochs of the 60 000 digits, ``--ema_decay 0.99``) likewise, under
-   ``cudnn.deterministic``. Prints the restore time (reading the file and
-   copying it into a trainer's tensors on the card, in this process) and
-   the replayed epochs' it/s before and after the restart. (a)'s and
-   (c)'s launches count with the main paths'.
+   subprocess, the two drills side by side: (a) the uninterrupted run,
+   (b) the same command killed as soon as its ``_state.pth`` lands
+   (during epoch 2; the file must say epoch 1), (c) the command again,
+   which must log ``[resume] restored epoch 1`` and finish. The text CLI
+   at the headline width (bs 8, seq 64, dim 256, depth 3, dropout 0.1,
+   f32, ``--ema_decay 0.999``) for two epochs of TRAIN_CHARS characters:
+   (c)'s final and best checkpoints and last resume file bit-equal to
+   (a)'s, and its epoch-2 record equal but for the rate, through the
+   replayed graphs, the validation graph included (captured in (c) after
+   the restore). The MNIST CLI (bs 128, two epochs of the 60 000 digits,
+   ``--ema_decay 0.99``) likewise, under ``cudnn.deterministic``. Prints
+   the restore time (reading the file and copying it into a trainer's
+   tensors on the card, in this process) and the replayed epochs' it/s
+   before and after the restart (each drill's with the other running
+   beside it). (a)'s and (c)'s launches count with the main paths'.
 35. The fidelity tools on the card: ``python -m tinydiffusionmodels_torch.
    fidelity`` (its ``main``) on phase 34's MNIST checkpoint, n 256, DDIM
    50, f32 and bf16 (200 resblock launches each), then bf16 again with
@@ -362,6 +366,39 @@ Resume and the fidelity tools (after the bench, phase c).
    and the TinyGPT judge on the flash forward). Asserts the JAX tools'
    JSON keys, finite values and the synthetic digits and built-in corpus,
    and prints the JSON lines. Their launches count with the main paths'.
+
+The modules ported last (the validation graph, tensor parallelism, the
+op table tool), in main()'s order among the phases above:
+
+36. (after phase 4) The three flash kernels on a slice of a layer's heads,
+   as a tensor-parallel rank runs them: heads 0-1 and 2-3 of 4 at the
+   training shape (B 8, L 64, Dh 64, the rank's own fused QKV tensor),
+   dropout 0.1, f32 and bf16, against the plain version of the whole
+   layer sliced (O and lse at phase 3's limits, dq, dk, dv at phase 4's);
+   the realised masks (v = I, dO = I) bit-equal to ``dropout_scale`` at
+   the layer's heads b * 4 + h0 + h; offset 0 of the layer's 4 heads
+   bit-equal to the call without an offset.
+37. (after phase 6) The validation pass as one CUDA graph
+   (``text_train.EvalPass``) at the headline width on phase 5's
+   validation batches, for phase 5's weights and an EMA-like second set:
+   replayed against eager against the plain loop (``eval_losses``), bit
+   for bit, over VALIDATION_EPOCHS epochs of one re-seeded generator;
+   the launches (depth a batch; the prime's depth once); the wall time of
+   a pass both ways. Its replays count with the main paths'.
+38. (after phase 31) Tensor parallelism on the card: two processes
+   (``chip_smoke.py --tp RANK STORE``) joined by gloo on the one H100
+   (NCCL refuses two ranks on one card), a 'model' axis of 2, the
+   headline text step (``dryrun.text_step``) against the same step in one
+   process within 1e-5, each rank's flash launches on its head slice.
+   Its launches count with the main paths'.
+39. (after the bench, phase c) ``python -m tinydiffusionmodels_torch.
+   xprof_ops`` in a fresh process: the per-op tables of the headline text
+   step and of the bf16 MNIST step at bs 512 and 2048, and
+   its coverage asserted: the kernels recorded a replay at least 0.99 of
+   the replay's launches and no more than all of them (the graph's kernel
+   nodes, and the two generator fills ``CUDAGraph.replay`` launches
+   outside it for each registered generator), the profiled device time no
+   more than 1.05 x the CUDA event time.
 
 The peaks, the bound and the timer are ``tinydiffusionmodels_torch.perf``'s.
 The line before the last is the kernels' JSON record; the last line is
@@ -527,8 +564,12 @@ BENCH_MFU_METRICS = {
     "mnist_train_bs512_bf16_it_s", "shakespeare_train_bs512_bf16_it_s"}
 
 
+_START = time.monotonic()
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    """A phase's header, with the seconds since the script started."""
+    print(f"\n== {name} (at {time.monotonic() - _START:.1f} s)", flush=True)
 
 
 def environment():
@@ -1128,7 +1169,8 @@ def main_path_train(card: str, dim: int = DIM, chars: int = TRAIN_CHARS,
     cli_s = time.perf_counter() - t0
     counts = _counts()
 
-    expect = {"flash_attention_fwd": (steps + val_batches) * depth,
+    # + 1: the validation graph's prime, one batch's forward.
+    expect = {"flash_attention_fwd": (steps + val_batches + 1) * depth,
               "flash_attention_bwd_dq": steps * depth,
               "flash_attention_bwd_dkv": steps * depth, "guided_decode": 0,
               "fused_resblock": 0, **_SINGLE_BLOCK_IDLE}
@@ -3336,15 +3378,16 @@ def kernels_in_graphs(runners: dict, models) -> None:
     """Phase 25: torch.profiler over one replay of each training graph must
     list the flash forward, dq and dk/dv kernels (text) and the resblock
     kernel (MNIST) as many times as the capture counted them (one eager
-    step's launches); over a captured 10-step sampler loop, 10 steps'
-    worth. Where the profiler lists none from a replay, that is printed and
-    the launch counters' deltas are what remains."""
+    step's launches); over a second call of a captured 10-step sampler
+    loop (ten replays), 10 steps' worth. Where the profiler lists none
+    from a replay, that is printed and the launch counters' deltas are
+    what remains."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tinydiffusionmodels_torch import graphs
     from tinydiffusionmodels_torch.core import make_schedule
-    from tinydiffusionmodels_torch.sample.ancestral import sample_loop
+    from tinydiffusionmodels_torch.sample.ancestral import Sampler
 
     phase("CUDA graphs: the kernels inside the replays (torch.profiler)")
     names = [f"{m.__name__.split('.')[-1]}.{a}" for m, a in graphs.COUNTERS]
@@ -3379,16 +3422,21 @@ def kernels_in_graphs(runners: dict, models) -> None:
             (f"MNIST sampler n {MNIST_N}", unet, (MNIST_N, 28, 28, 1),
              "fused_resblock", 4)):
         gen = torch.Generator(device="cuda").manual_seed(1)
+        # The first call runs a step eagerly and captures; the profiled
+        # second call is ten replays (the profiler misses eager launches
+        # on the card: 38 of 40 listed once when the eager step was in).
+        sampler = Sampler(model, sched, shape, generator=gen)
+        sampler()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof, \
                 torch.inference_mode():
-            sample_loop(model, sched, shape, generator=gen)
+            sampler()
             torch.cuda.synchronize()
         seen = _kernel_counts(prof)[counter]
-        print(f"{what}, a captured 10-step loop (1 eager step, 9 replays): "
+        print(f"{what}, a captured 10-step loop called again (10 replays): "
               f"the profiler lists {seen} {GRAPH_KERNEL_NAMES[counter]}, "
               f"{10 * per_step} launched")
-        if seen == per_step:
+        if seen == 0:
             blind.append(what)
         elif seen != 10 * per_step:
             raise AssertionError(f"{what}: {seen} kernels listed, "
@@ -3658,7 +3706,8 @@ def torchrun_paths(card: str) -> list:
     mnist_argv = ["--train", "--epochs", "1", "--batch_size",
                   str(MNIST_BATCH), "--no_epoch_samples", "--data_root",
                   str(mnist_data)]
-    text_launches = {"flash_attention_fwd": (steps + val_batches) * DEPTH,
+    # + 1: the validation graph's prime, one batch's forward.
+    text_launches = {"flash_attention_fwd": (steps + val_batches + 1) * DEPTH,
                      "flash_attention_bwd_dq": steps * DEPTH,
                      "flash_attention_bwd_dkv": steps * DEPTH}
     cases = (("text", "shakespeare", text_argv, text_env, False,
@@ -3857,7 +3906,8 @@ def _resume_drill(what: str, cli: str, argv: list, env: dict, work: Path,
           f"uninterrupted epoch 1 {whole['epochs'][0]['it_per_s']}, epoch 2 "
           f"{whole['epochs'][1]['it_per_s']}; resumed epoch 2 "
           f"{resumed['epochs'][0]['it_per_s']} (each epoch's first steps "
-          f"warm up and capture)")
+          f"warm up and capture; the other CLI's drill runs beside it)",
+          flush=True)
     return whole, resumed
 
 
@@ -3911,9 +3961,11 @@ def _restore_seconds(state: Path, kind: str) -> tuple[float, float]:
 
 
 def resume_on_card(card: str) -> tuple[list, Path]:
-    """Phase 34: the SIGKILL drills of both CLIs on the card (see the
-    module docstring). Returns the launches of the uninterrupted and
-    resumed runs (main paths) and the MNIST checkpoint."""
+    """Phase 34: the SIGKILL drills of both CLIs on the card, side by side
+    (see the module docstring). Returns the launches of the uninterrupted
+    and resumed runs (main paths) and the MNIST checkpoint."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from tinydiffusionmodels_torch.data import (
         CharTokenizer,
         load_text_corpus,
@@ -3923,7 +3975,7 @@ def resume_on_card(card: str) -> tuple[list, Path]:
     from tinydiffusionmodels_torch.data.mnist import load_mnist
 
     phase("--resume on the card: each CLI killed during epoch 2 and resumed "
-          "against its uninterrupted run")
+          "against its uninterrupted run, the two drills side by side")
     t0 = time.perf_counter()
     _prepare_workdir(TRAIN_CHARS)
     work = WORK / "resume"
@@ -3942,25 +3994,6 @@ def resume_on_card(card: str) -> tuple[list, Path]:
                  "--resume_every", "1"]
     text_env = {"TDM_PLATFORM": "cuda", "TDM_DATA_LIMIT": str(TRAIN_CHARS)}
     (work / "text").mkdir(exist_ok=True)
-    whole, resumed = _resume_drill("text", "shakespeare", text_argv,
-                                   text_env, work / "text", False, True)
-    per_epoch = {"flash_attention_fwd": (steps + val_batches) * DEPTH,
-                 "flash_attention_bwd_dq": steps * DEPTH,
-                 "flash_attention_bwd_dkv": steps * DEPTH}
-    runs = []
-    for rec, epochs in ((whole, 2), (resumed, 1)):
-        counts = {k: v for k, v in rec["counts"].items() if v}
-        if counts != {k: v * epochs for k, v in per_epoch.items()}:
-            raise AssertionError(f"text resume: launches {counts} over "
-                                 f"{epochs} epoch(s), expected {per_epoch} "
-                                 "an epoch")
-        runs.append(rec["counts"])
-    read_s, restore_s = _restore_seconds(work / "text" / "cut_state.pth",
-                                         "text")
-    size = (work / "text" / "cut_state.pth").stat().st_size
-    print(f"text restore: read {read_s:.4f} s ({size} bytes) + restore "
-          f"{restore_s:.4f} s, on {card}")
-
     mnist_data = WORK / "mnist" / "data"
     sys.modules["torchvision"] = None
     load_mnist(mnist_data)
@@ -3969,21 +4002,41 @@ def resume_on_card(card: str) -> tuple[list, Path]:
                   str(mnist_data), "--ema_decay", MNIST_RESUME_EMA, "--resume",
                   "--resume_every", "1"]
     (work / "mnist").mkdir(exist_ok=True)
-    whole, resumed = _resume_drill(
-        "MNIST (cudnn.deterministic)", "mnist", mnist_argv,
-        {"TDM_PLATFORM": "cuda"}, work / "mnist", True, False)
+    # The drills are subprocesses that share nothing: they run side by
+    # side, so the phase takes about the longer drill's time.
+    with ThreadPoolExecutor(2) as pool:
+        text_drill = pool.submit(_resume_drill, "text", "shakespeare",
+                                 text_argv, text_env, work / "text", False,
+                                 True)
+        mnist_drill = pool.submit(
+            _resume_drill, "MNIST (cudnn.deterministic)", "mnist",
+            mnist_argv, {"TDM_PLATFORM": "cuda"}, work / "mnist", True,
+            False)
+        drills = {"text": text_drill.result(), "mnist": mnist_drill.result()}
+    # Each run validates every epoch, after the one prime of its
+    # validation graph (a batch's forward at depth DEPTH).
+    per_epoch = {"flash_attention_fwd": (steps + val_batches) * DEPTH,
+                 "flash_attention_bwd_dq": steps * DEPTH,
+                 "flash_attention_bwd_dkv": steps * DEPTH}
     mnist_steps = MNIST_IMAGES // MNIST_BATCH
-    for rec, epochs in ((whole, 2), (resumed, 1)):
-        counts = {k: v for k, v in rec["counts"].items() if v}
-        if counts != {"fused_resblock": mnist_steps * 4 * epochs}:
-            raise AssertionError(f"MNIST resume: launches {counts} over "
-                                 f"{epochs} epoch(s)")
-        runs.append(rec["counts"])
-    read_s, restore_s = _restore_seconds(work / "mnist" / "cut_state.pth",
-                                         "mnist")
-    size = (work / "mnist" / "cut_state.pth").stat().st_size
-    print(f"MNIST restore: read {read_s:.4f} s ({size} bytes) + restore "
-          f"{restore_s:.4f} s, on {card}")
+    runs = []
+    for kind, (whole, resumed) in drills.items():
+        for rec, epochs in ((whole, 2), (resumed, 1)):
+            counts = {k: v for k, v in rec["counts"].items() if v}
+            if kind == "text":
+                want = {k: v * epochs for k, v in per_epoch.items()}
+                want["flash_attention_fwd"] += DEPTH
+            else:
+                want = {"fused_resblock": mnist_steps * 4 * epochs}
+            if counts != want:
+                raise AssertionError(f"{kind} resume: launches {counts} over "
+                                     f"{epochs} epoch(s), expected {want}")
+            runs.append(rec["counts"])
+        state = work / kind / "cut_state.pth"
+        read_s, restore_s = _restore_seconds(state, kind)
+        print(f"{kind} restore: read {read_s:.4f} s "
+              f"({state.stat().st_size} bytes) + restore {restore_s:.4f} s, "
+              f"on {card}")
     print(f"phase: {time.perf_counter() - t0:.1f} s for the six runs, on "
           f"{card}")
     return runs, work / "mnist" / "whole.pth"
@@ -4433,8 +4486,10 @@ def gemma_hf_cli(card: str) -> dict:
     finally:
         text.diffusion_position_logits = plain_logits
         shakespeare._load_hf = load_hf
-    expect = {"flash_attention_fwd": steps + val_batches + GEMMA_DDIM_STEPS
-              + GEMMA_CPU_DEPTH * (SEQ + 1),
+    # steps + val_batches + 1: training, validation and its graph's prime
+    # (depth 1).
+    expect = {"flash_attention_fwd": steps + val_batches + 1
+              + GEMMA_DDIM_STEPS + GEMMA_CPU_DEPTH * (SEQ + 1),
               "flash_attention_bwd_dq": steps,
               "flash_attention_bwd_dkv": steps, "guided_decode": 0,
               "fused_resblock": 0, **_SINGLE_BLOCK_IDLE}
@@ -4482,6 +4537,412 @@ def gemma_hf_cli(card: str) -> dict:
     return counts
 
 
+# Phase 36: the flash kernels on a slice of a layer's heads, as a rank of
+# a tensor-parallel 'model' axis of 2 runs them (heads h0, h0 + 1 of 4).
+HEAD_OFFSETS = (0, 2)
+TP_HEADS = 2
+
+
+def flash_head_offsets() -> dict:
+    """Phase 36: the forward with dropout and both backward kernels on
+    heads h0..h0+1 of a layer of 4 (the rank's slice of the fused QKV
+    projection, as ``parallel.tp`` lays it out), against the plain version
+    of the whole layer, sliced: O and lse at phase 3's limits, dq, dk, dv
+    at phase 4's; then the realised mask of the slice (v = I, dO = I)
+    against ``dropout_scale`` at the layer's heads b * 4 + h0 + h, and
+    offset 0 of 4 heads bit-equal to the call without an offset. Returns
+    the largest f32 errors."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import reference
+
+    phase(f"flash kernels at head offsets {HEAD_OFFSETS} ({TP_HEADS} of "
+          f"{HEADS} heads), dropout {DROPOUT}, f32 and bf16 (TF32 off)")
+    seed = _seed(-987_654_321)
+    worst = {"out": 0.0, "dq": 0.0, "dkv": 0.0}
+    dh = DIM // HEADS
+    for dtype in (torch.float32, torch.bfloat16):
+        for h0 in HEAD_OFFSETS:
+            g = torch.Generator(device="cuda").manual_seed(300 + h0)
+            qkv = torch.randn(BATCH, SEQ, 3, HEADS, dh, generator=g,
+                              device="cuda").to(dtype)
+            g_out = torch.randn(BATCH, SEQ, HEADS, dh, generator=g,
+                                device="cuda").to(dtype)
+            g_lse = torch.randn(BATCH, HEADS, SEQ, generator=g,
+                                device="cuda")
+            cut = slice(h0, h0 + TP_HEADS)
+            kw = dict(layout="blhd", dropout_rate=DROPOUT, dropout_seed=seed)
+            whole = qkv.clone().requires_grad_()
+            r_out, r_lse = reference.attention(*whole.unbind(2), **kw)
+            (r_grad,) = torch.autograd.grad((r_out, r_lse), whole,
+                                            (g_out, g_lse))
+            part = qkv[:, :, :, cut].contiguous().requires_grad_()
+            out, lse = fa.flash_attention_with_lse(
+                *part.unbind(2), head_offset=h0, total_heads=HEADS, **kw)
+            (grad,) = torch.autograd.grad(
+                (out, lse), part, (g_out[:, :, cut].contiguous(),
+                                   g_lse[:, cut].contiguous()))
+            torch.cuda.synchronize()
+            bf = dtype == torch.bfloat16
+            tol_o, tol_l, tol_g = ((2e-2, 1e-2, 2e-2) if bf
+                                   else (1e-4, 1e-4, 2e-4))
+            torch.testing.assert_close(out, r_out[:, :, cut], atol=tol_o,
+                                       rtol=tol_o)
+            torch.testing.assert_close(lse, r_lse[:, cut], atol=tol_l,
+                                       rtol=tol_l)
+            want = r_grad[:, :, :, cut]
+            errs = []
+            for i, name in enumerate(("dq", "dk", "dv")):
+                torch.testing.assert_close(grad[:, :, i], want[:, :, i],
+                                           atol=tol_g, rtol=tol_g)
+                errs.append(_max_err(grad[:, :, i], want[:, :, i]))
+            e_out = _max_err(out, r_out[:, :, cut])
+            print(f"heads {h0}-{h0 + TP_HEADS - 1} of {HEADS} "
+                  f"{str(dtype)[6:]:8s} max|dO| {e_out:.3e} max|dlse| "
+                  f"{_max_err(lse, r_lse[:, cut]):.3e} (tol {tol_o:g}/"
+                  f"{tol_l:g})  max|ddq| {errs[0]:.3e} max|ddk| "
+                  f"{errs[1]:.3e} max|ddv| {errs[2]:.3e} (tol {tol_g:g})")
+            if not bf:
+                worst["out"] = max(worst["out"], e_out)
+                worst["dq"] = max(worst["dq"], errs[0])
+                worst["dkv"] = max(worst["dkv"], errs[1], errs[2])
+            if h0 == 0:
+                views = qkv.unbind(2)
+                same = torch.equal(
+                    fa.flash_attention(*views, head_offset=0,
+                                       total_heads=HEADS, **kw),
+                    fa.flash_attention(*views, **kw))
+                if not same:
+                    raise AssertionError("offset 0 of the layer's heads is "
+                                         "not the call without an offset")
+    _offset_mask_probes(seed)
+    return worst
+
+
+def _offset_mask_probes(seed) -> None:
+    """The forward's and the dkv kernel's realised masks on heads h0..h0+1
+    of 4 against ``dropout_scale`` at the layer's heads."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import reference
+
+    b, l = 2, 64
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q = 0.3 * torch.randn(b, TP_HEADS, l, 64, generator=g, device="cuda")
+    k = 0.3 * torch.randn(b, TP_HEADS, l, 64, generator=g, device="cuda")
+    eye = torch.eye(l, device="cuda").expand(b, TP_HEADS, l, l).contiguous()
+    p = torch.softmax(q @ k.transpose(-1, -2) / 8.0, dim=-1)
+    keep_scale = 1.0 / (1.0 - DROPOUT)
+    for h0 in HEAD_OFFSETS:
+        bh = reference._hashed_heads(b, TP_HEADS, h0, HEADS, "cuda")
+        want = reference.dropout_scale(
+            seed, bh, torch.arange(l, device="cuda")[:, None],
+            torch.arange(l, device="cuda")[None, :], DROPOUT) > 0
+        kw = dict(dropout_rate=DROPOUT, dropout_seed=seed, head_offset=h0,
+                  total_heads=HEADS)
+        fwd = fa.flash_attention(q, k, eye, **kw) / p
+        v = eye.clone().requires_grad_()
+        (dv,) = torch.autograd.grad(fa.flash_attention(q, k, v, **kw), v,
+                                    eye)
+        for what, ratio in (("forward", fwd),
+                            ("dkv", dv.transpose(-1, -2) / p)):
+            got = ratio > keep_scale / 2
+            torch.testing.assert_close(ratio, got * keep_scale, atol=1e-4,
+                                       rtol=1e-4)
+            bad = int((got != want).sum())
+            print(f"mask probe at head offset {h0} ({what}): {bad} of "
+                  f"{want.numel()} keep/drop decisions differ from "
+                  f"dropout_scale at the layer's heads")
+            if bad:
+                raise AssertionError(f"{bad} dropout decisions differ at "
+                                     f"head offset {h0}")
+
+
+VALIDATION_EPOCHS = 3
+
+
+def validation_replay(card: str, joint) -> dict:
+    """Phase 37: the validation pass as one CUDA graph
+    (``text_train.EvalPass``) at the headline width, on phase 5's corpus
+    split (its validation batches), for the trained weights (live) and an
+    EMA-like second set (the live weights halfway to a fresh init, not
+    trainable): the replayed pass against the eager one and against the
+    plain loop (``eval_losses`` with the epoch's fresh generator), bit for
+    bit, over VALIDATION_EPOCHS epochs (the generator re-seeded before each
+    replay), and its launches (depth per batch, replayed; the prime's
+    depth). Prints the wall time of a pass each way. Returns the
+    launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.data import (
+        CharTokenizer,
+        batch_iterator,
+        load_text_corpus,
+        tokenize_corpus,
+    )
+    from tinydiffusionmodels_torch.train import text_train
+
+    phase("validation as one CUDA graph (EvalPass) against the eager pass "
+          "and the plain loop, live and EMA weights")
+    start = time.perf_counter()
+    corpus, _ = load_text_corpus(WORK / "data")
+    corpus = corpus[:TRAIN_CHARS]
+    _, val_chunks = tokenize_corpus(corpus, CharTokenizer(corpus), SEQ, 0.1)
+    val_dev = torch.as_tensor(np.stack(list(batch_iterator(
+        val_chunks, BATCH, shuffle=False))), dtype=torch.long, device="cuda")
+    k = val_dev.shape[0]
+    sched = make_schedule(device="cuda")
+    kw = dict(sched=sched, use_learned_embeddings=True,
+              pretrained_matrix=None)
+    ema = copy.deepcopy(joint).requires_grad_(False)
+    fresh = copy.deepcopy(joint).cpu()
+    fresh["diffusion_model"].reset_parameters(
+        torch.Generator().manual_seed(61))
+    fresh.cuda()
+    with torch.no_grad():
+        for p, f in zip(ema.parameters(), fresh.parameters()):
+            p.lerp_(f, 0.5)
+    del fresh
+    launches = {}
+    for what, weights in (("live", joint), ("EMA", ema)):
+        depth = weights["diffusion_model"].cfg.depth
+        eager = text_train.EvalPass(weights, val_dev, seed=0, eager=True,
+                                    **kw)
+        replayed = text_train.EvalPass(weights, val_dev, seed=0, **kw)
+        walls = {"eager": [], "replayed": []}
+        for epoch in range(VALIDATION_EPOCHS):
+            w = 1.0 - 0.1 * epoch
+            plain = text_train.eval_losses(
+                weights, val_dev, w, text_train._generator("cuda", 0, 1,
+                                                           epoch), **kw)
+            got = {}
+            for mode, fn in (("eager", eager), ("replayed", replayed)):
+                torch.cuda.synchronize()
+                _reset_counts()
+                t0 = time.perf_counter()
+                got[mode] = fn(epoch, w)
+                walls[mode].append(time.perf_counter() - t0)
+                counts = _counts()
+                # The first replayed call primes its graph: one batch.
+                batches = k + (1 if mode == "replayed" and epoch == 0
+                               else 0)
+                want = {n: 0 for n in counts}
+                want["flash_attention_fwd"] = batches * depth
+                if counts != want:
+                    raise AssertionError(f"{what} {mode} validation, epoch "
+                                         f"{epoch}: launches {counts}, "
+                                         f"expected {want}")
+                if mode == "replayed" and epoch > 0:
+                    launches = {n: launches.get(n, 0) + c
+                                for n, c in counts.items()}
+            if not (np.array_equal(got["eager"], got["replayed"])
+                    and np.array_equal(got["eager"], plain)):
+                raise AssertionError(
+                    f"{what} validation, epoch {epoch}: replayed "
+                    f"{got['replayed']}, eager {got['eager']}, plain loop "
+                    f"{plain}: not bit-equal")
+            print(f"{what} epoch {epoch}: (diff, round, total) "
+                  f"{got['replayed'].tolist()} bit-equal replayed, eager "
+                  f"and plain")
+        if np.array_equal(replayed(0, 1.0), replayed(1, 1.0)):
+            raise AssertionError("the replay after a re-seed drew the "
+                                 "previous epoch's stream")
+        print(f"{what} validation ({k} batches of {BATCH} x {SEQ}, depth "
+              f"{depth}): wall ms a pass, eager "
+              f"{[round(1e3 * s, 3) for s in walls['eager']]}, replayed "
+              f"{[round(1e3 * s, 3) for s in walls['replayed']]} (the "
+              f"first replayed pass primes and captures), on {card}")
+    print(f"phase: {time.perf_counter() - start:.1f} s")
+    return launches
+
+
+TP_TIMEOUT_S = 300
+TP_MARK = "CHIP_SMOKE_TP "
+
+
+def _tp_child(rank: int, store: str) -> None:
+    """``chip_smoke.py --tp RANK STORE``: one rank of a gloo group of two
+    on the one card, both on cuda:0 (gloo moves CUDA tensors through the
+    host). Runs the text step of the dry run at the headline width
+    (``dryrun.text_step``: one SGD step at learning rate 1) over a 'model'
+    axis of 2 and in one process, and prints TP_MARK and a JSON object:
+    the largest difference, the TP step's launches and its wall time."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tinydiffusionmodels_torch import dryrun
+    from tinydiffusionmodels_torch.models import TransformerConfig
+    from tinydiffusionmodels_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        cfg = TransformerConfig(dim=DIM, n_heads=HEADS, depth=DEPTH,
+                                dropout=DROPOUT, timesteps=1000)
+        tokens = torch.as_tensor(np.random.default_rng(6).integers(
+            0, dryrun.VOCAB, (BATCH, SEQ)), device=dev)
+        mesh = make_mesh({"data": 1, "model": 2})
+        dryrun.text_step(cfg, tokens, mesh, dev)   # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        got = dryrun.text_step(cfg, tokens, mesh, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        want = dryrun.text_step(cfg, tokens, None, dev)
+        err = dryrun._worst("TP step on the card", got, want)
+        print(TP_MARK + json.dumps({"rank": rank, "max_abs_err": err,
+                                    "counts": counts, "wall_s": wall}),
+              flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_on_card(card: str) -> dict:
+    """Phase 38: tensor parallelism on the card. NCCL refuses two ranks on
+    one GPU, so the two ranks of a 'model' axis of 2 are two processes
+    joined by gloo on the one H100 (gloo stages the CUDA all-reduces
+    through the host): the headline text step (dim 256, 4 heads, depth 3,
+    FFN 2048, dropout 0.1, bs 8, seq 64) with each rank's 2 heads on the
+    flash kernels at head offsets 0 and 2, held within 1e-5 (losses, and
+    every parameter after one SGD step at learning rate 1, gathered whole)
+    of the same step in one process; eager (gloo does not capture).
+    Returns the TP steps' launches (both ranks)."""
+    phase("tensor parallelism on the card: 2 ranks (gloo) on one H100 "
+          "against the one-process step")
+    t0 = time.perf_counter()
+    work = WORK / "tp"
+    work.mkdir(parents=True, exist_ok=True)
+    store = work / "store"
+    store.unlink(missing_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    env["PYTHONPATH"] = str(REPO)
+    procs = []
+    for rank in range(2):
+        log = work / f"rank{rank}.log"
+        with open(log, "w") as out:
+            procs.append((subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--tp",
+                 str(rank), str(store)], cwd=work, env=env, stdout=out,
+                stderr=subprocess.STDOUT, text=True), log))
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    records = []
+    for proc, log in procs:
+        try:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            for p, _ in procs:
+                p.kill()
+                p.wait()
+            raise AssertionError(f"the TP ranks did not finish in "
+                                 f"{TP_TIMEOUT_S} s") from None
+        text = log.read_text()
+        lines = [ln for ln in text.splitlines() if ln.startswith(TP_MARK)]
+        if proc.returncode or not lines:
+            raise AssertionError(f"TP rank exited {proc.returncode}:\n"
+                                 f"{text[-4000:]}")
+        records.append(json.loads(lines[-1][len(TP_MARK):]))
+    counts = {}
+    for rec in records:
+        expect = {n: 0 for n in rec["counts"]}
+        expect.update({"flash_attention_fwd": DEPTH,
+                       "flash_attention_bwd_dq": DEPTH,
+                       "flash_attention_bwd_dkv": DEPTH})
+        if rec["counts"] != expect:
+            raise AssertionError(f"TP rank {rec['rank']}: launches "
+                                 f"{rec['counts']}, expected {expect}")
+        counts = {n: counts.get(n, 0) + c for n, c in rec["counts"].items()}
+        print(f"TP rank {rec['rank']} (heads {TP_HEADS * rec['rank']}-"
+              f"{TP_HEADS * rec['rank'] + TP_HEADS - 1}): max |diff| from "
+              f"the one-process step {rec['max_abs_err']:.3e} (tol 1e-5); "
+              f"launches {_nonzero(rec['counts'])}; eager TP step "
+              f"{rec['wall_s'] * 1e3:.1f} ms wall")
+    print(f"tensor parallelism ran 2 ranks (gloo, one card) on {card}; "
+          f"NCCL at world > 1 is not verified (one card); phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+XPROF_TIMEOUT_S = 400
+# The headline text step and the JAX tool's own question, bf16 MNIST at
+# bs 2048 against 512 (every step: ``python -m
+# tinydiffusionmodels_torch.xprof_ops`` alone).
+XPROF_STEPS = "text_f32,mnist_bf16"
+# The share of a replay's launches the profiler must record: a table that
+# missed kernels (as the profiler once missed 12 of 20 eager SDPA
+# launches) would read low.
+XPROF_MIN_COVERAGE = 0.99
+
+
+def xprof_on_card(card: str) -> list:
+    """Phase 39: ``python -m tinydiffusionmodels_torch.xprof_ops`` in a
+    fresh process (XPROF_STEPS: text f32 at bs 8, MNIST bf16 at 512 and
+    2048):
+    its tables printed here, and each step's coverage asserted: the
+    kernels the profiler recorded a replay between XPROF_MIN_COVERAGE of
+    the replay's launches and all of them (the graph's kernel nodes, and
+    two fills of each registered generator that ``CUDAGraph.replay``
+    launches outside the graph), and the profiled device time no more
+    than 1.05 x the CUDA-event time.
+    Returns the records."""
+    import torch
+
+    phase("the per-op device table tool (xprof_ops) in a fresh process")
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(REPO), TDM_PLATFORM="cuda")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "tinydiffusionmodels_torch.xprof_ops",
+         "--steps", XPROF_STEPS, "--batches", "512,2048"],
+        cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=XPROF_TIMEOUT_S)
+    print(out.stdout)
+    if out.returncode:
+        raise AssertionError(f"xprof_ops exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    records = [json.loads(ln[len("XPROF "):]) for ln in
+               out.stdout.splitlines() if ln.startswith("XPROF ")]
+    names = [r["step"] for r in records]
+    for want in ("text_f32_bs8", "mnist_bf16_bs512", "mnist_bf16_bs2048"):
+        if want not in names:
+            raise AssertionError(f"xprof_ops printed no {want}: {names}")
+    for r in records:
+        if r["platform"] != "cuda" or r["timer"] != "cuda events":
+            raise AssertionError(f"{r['step']}: not a card reading: {r}")
+        launched = r["replay_launches"]
+        if not XPROF_MIN_COVERAGE * launched <= r["recorded_kernels"] <= (
+                launched):
+            raise AssertionError(
+                f"{r['step']}: {r['recorded_kernels']} kernels recorded, "
+                f"{launched} launched a replay (at least "
+                f"{XPROF_MIN_COVERAGE} of them must be recorded)")
+        if not 0 < r["profiled_us"] <= 1.05 * r["timer_us"]:
+            raise AssertionError(
+                f"{r['step']}: profiled {r['profiled_us']} us against "
+                f"{r['timer_us']} us by CUDA events")
+        print(f"xprof coverage {r['step']}: {r['recorded_kernels']:.2f} of "
+              f"{r['replay_launches']:.2f} kernels, "
+              f"{r['profiled_us']:.2f} of {r['timer_us']:.2f} us per "
+              f"{r['unit']}")
+    print(f"xprof_ops: {time.perf_counter() - t0:.1f} s, on {card}")
+    return records
+
+
 def main() -> None:
     import torch
 
@@ -4490,11 +4951,13 @@ def main() -> None:
     build()
     fwd_errors = kernel_vs_plain()
     train_errors, mask_mismatches = training_kernels()
+    offset_errors = flash_head_offsets()
     resblock_error, resblock_bf16_error = resblock_kernel_vs_plain()
     single_block_errors = single_block_kernel_vs_plain()
     result, ckpt, train_counts, _ = main_path_train(card)
     model = result.joint["diffusion_model"].eval()
     sample_counts, _, z = main_path_sample(card, ckpt, model)
+    validation_counts = validation_replay(card, result.joint)
     _, narrow_ckpt, narrow_train_counts, _ = main_path_train(
         card, NARROW_DIM, NARROW_CHARS, NARROW_TRAIN_ARGS, "narrow_ckpt")
     narrow_sample_counts = main_path_sample_ddim(card, narrow_ckpt,
@@ -4528,6 +4991,7 @@ def main() -> None:
     ring_errors = ring_on_card(card)
     torchrun_counts = torchrun_paths(card)
     replayed_step_with_group(card)
+    tp_counts = tp_on_card(card)
     device_vs_cpu(model)
     timings = kernel_timing(card)
     decode_times = decode_timing(card)
@@ -4551,6 +5015,7 @@ def main() -> None:
                   f"{r['device_us']:.1f} | {r['busy']:.3f} | "
                   f"{r['kernels']:.1f}")
     suite_counts = main_path_bench(card)
+    xprof_on_card(card)
     # After every in-process profile: once phase 34's CLI runs had run
     # before them, torch.profiler here recorded no device time.
     resume_counts, resume_mnist_ckpt = resume_on_card(card)
@@ -4602,7 +5067,8 @@ def main() -> None:
              exact_counts, decoder_counts, gemma_counts, gemma_hf_counts,
              mnist_train_counts, *mnist_sample_counts, bench_counts,
              bf16_text_counts, bf16_mnist_counts, suite_counts,
-             *torchrun_counts, *resume_counts, *fidelity_counts)
+             *torchrun_counts, *resume_counts, *fidelity_counts,
+             validation_counts, tp_counts)
     record = []
     for name, (source, replaces) in KERNELS.items():
         entry = {
@@ -4618,6 +5084,9 @@ def main() -> None:
             entry["gemma_2b_guided_decode"] = gemma_row
         if name.startswith("flash"):
             entry["ring_max_abs_err_f32"] = ring_errors[
+                {"flash_attention_fwd": "out", "flash_attention_bwd_dq": "dq",
+                 "flash_attention_bwd_dkv": "dkv"}[name]]
+            entry["head_offset_max_abs_err_f32"] = offset_errors[
                 {"flash_attention_fwd": "out", "flash_attention_bwd_dq": "dq",
                  "flash_attention_bwd_dkv": "dkv"}[name]]
             entry["dropout_hash"] = {"source": DROPOUT_HASH[0],
@@ -4638,5 +5107,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli"]:
         _cli_child(sys.argv[2:])
+    elif sys.argv[1:2] == ["--tp"]:
+        _tp_child(int(sys.argv[2]), sys.argv[3])
     else:
         main()

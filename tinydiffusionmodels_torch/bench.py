@@ -131,12 +131,22 @@ def _seed(seed: int, device=None) -> torch.Generator:
 
 
 # --- the suite --------------------------------------------------------------
+#
+# Each metric's builder makes what the metric times (a chunk runner, a
+# sampler, a decoder) at the metric's shapes, which are the builders'
+# defaults and the suite's arguments; ``xprof_ops`` builds its steps
+# through the same builders.
 
-def bench_mnist_train(batch_size: int = 128, chunk: int = F32_CHUNK,
-                      compute_dtype=None, *, device=None,
-                      windows: int = WINDOWS):
-    """(optimizer steps/s of the trainer's chunk runner,
-    ``mnist_train.MnistSteps``, in chunks of ``chunk`` steps; FLOPs per
+TEXT_BATCH = 8         # the reference's text config: bs 8, seq 64, dim 256
+MNIST_BATCH = 128
+BF16_BATCH = 512       # the large-batch bf16 training metrics
+TEXT_N, MNIST_N, GUIDED_N = 8, 256, 8
+
+
+def mnist_train_steps(batch_size: int = MNIST_BATCH, chunk: int = F32_CHUNK,
+                      compute_dtype=None, *, device=None):
+    """(the MNIST training metrics' chunk runner, ``mnist_train.
+    MnistSteps`` over ``chunk`` steps; its chunk's batch order; FLOPs per
     step)."""
     from tinydiffusionmodels_torch.core import make_schedule
     from tinydiffusionmodels_torch.models import SimpleUNet
@@ -157,23 +167,33 @@ def bench_mnist_train(batch_size: int = 128, chunk: int = F32_CHUNK,
         model, optimizer, images, sched, batch_size=batch_size, steps=chunk,
         generator=gen, compute_dtype=compute_dtype)
     order = torch.arange(chunk * batch_size).reshape(chunk, batch_size)
+    return steps, order.numpy(), flops
+
+
+def _bench_chunks(build, args, kw, windows: int):
+    """(steps/s of ``build(*args, **kw)``'s chunk runner in chunks of its
+    whole order, after a warm-up chunk; FLOPs per step)."""
+    kw["device"] = _device(kw.get("device"))
+    steps, order, flops = build(*args, **kw)
 
     def run_chunk():
-        steps.start(order.numpy())
-        steps.run(chunk)
+        steps.start(order)
+        steps.run(len(order))
 
-    return _chunk_windows(run_chunk, chunk, device, windows), flops
+    return _chunk_windows(run_chunk, len(order), kw["device"], windows), flops
 
 
-def bench_mnist_sample(n_samples: int = 256, quick: bool = False,
-                       method: str = "ancestral",
-                       num_steps: int | None = None, *,
-                       timesteps: int = 1000, device=None,
-                       windows: int = WINDOWS):
-    """(samples/s of the MNIST reverse loop, FLOPs per sample). The loop is
-    ``mnist_train.sample_images``'s, kept as one ``Sampler`` across the
-    calls (its graphs captured once, as the JAX bench's program is
-    compiled once)."""
+def bench_mnist_train(*args, windows: int = WINDOWS, **kw):
+    """(optimizer steps/s of ``mnist_train_steps``'s runner, in chunks of
+    its ``chunk`` steps; FLOPs per step)."""
+    return _bench_chunks(mnist_train_steps, args, kw, windows)
+
+
+def mnist_sampler(n_samples: int = MNIST_N, method: str = "ancestral",
+                  num_steps: int | None = None, *, timesteps: int = 1000,
+                  device=None):
+    """(the MNIST sampling metrics' ``Sampler``, ``mnist_train.
+    sample_images``'s loop; FLOPs per sample)."""
     from tinydiffusionmodels_torch.core import make_schedule, p_sample
     from tinydiffusionmodels_torch.models import SimpleUNet
     from tinydiffusionmodels_torch.sample.ancestral import Sampler
@@ -196,9 +216,18 @@ def bench_mnist_sample(n_samples: int = 256, quick: bool = False,
     flops = step_flops * nsteps / n_samples if step_flops else None
     sampler = Sampler(model, sched, shape, method=method,
                       num_steps=num_steps, generator=gen)
-    secs = _timeit(sampler, device, iters=1 if quick else 3,
+    return sampler, flops
+
+
+def bench_mnist_sample(*args, quick: bool = False, windows: int = WINDOWS,
+                       **kw):
+    """(samples/s of the MNIST reverse loop, FLOPs per sample): one
+    ``mnist_sampler`` across the calls (its graphs captured once, as the
+    JAX bench's program is compiled once)."""
+    sampler, flops = mnist_sampler(*args, **kw)
+    secs = _timeit(sampler, sampler.device, iters=1 if quick else 3,
                    windows=windows)
-    return [n_samples / s for s in secs], flops
+    return [sampler.shape[0] / s for s in secs], flops
 
 
 def _text_setup(batch_size, seq_len, dim, *, depth, vocab, device):
@@ -225,14 +254,14 @@ def _text_setup(batch_size, seq_len, dim, *, depth, vocab, device):
     return sched, joint, adamw(joint.parameters(), 1e-4)
 
 
-def bench_text_train(batch_size: int = 8, seq_len: int = 64, dim: int = 256,
-                     chunk: int = F32_CHUNK, compute_dtype=None, *,
-                     depth: int = 3, vocab: int = 4096, device=None,
-                     windows: int = WINDOWS):
-    """(joint 3-model optimizer steps/s of the trainer's chunk runner,
-    ``text_train.TextSteps``, in chunks of ``chunk`` steps; FLOPs per
-    step). The reference's config is bs 8, seq 64, dim 256 (T4: 25 it/s);
-    vocab 4096 is the JAX bench's stand-in."""
+def text_train_steps(batch_size: int = TEXT_BATCH, seq_len: int = 64,
+                     dim: int = 256, chunk: int = F32_CHUNK,
+                     compute_dtype=None, *, depth: int = 3,
+                     vocab: int = 4096, device=None):
+    """(the text training metrics' chunk runner, ``text_train.TextSteps``
+    over ``chunk`` steps of the joint 3-model step; its chunk's batch
+    order; FLOPs per step). The reference's config is bs 8, seq 64, dim
+    256 (T4: 25 it/s); vocab 4096 is the JAX bench's stand-in."""
     from tinydiffusionmodels_torch.train import text_train
 
     device = _device(device)
@@ -250,20 +279,18 @@ def bench_text_train(batch_size: int = 8, seq_len: int = 64, dim: int = 256,
                                  batch_size=batch_size, steps=chunk,
                                  generator=gen, **kw)
     order = torch.arange(chunk * batch_size).reshape(chunk, batch_size)
-
-    def run_chunk():
-        steps.start(order.numpy())
-        steps.run(chunk)
-
-    return _chunk_windows(run_chunk, chunk, device, windows), flops
+    return steps, order.numpy(), flops
 
 
-def bench_text_sample(n: int = 8, seq_len: int = 64, dim: int = 256,
-                      quick: bool = False, *, depth: int = 3,
-                      timesteps: int = 1000, device=None,
-                      windows: int = WINDOWS):
-    """(reverse-diffusion steps/s, the reference's tqdm it/s unit; FLOPs
-    per reverse step), of one ``Sampler`` kept across the calls."""
+def bench_text_train(*args, windows: int = WINDOWS, **kw):
+    """(joint 3-model optimizer steps/s of ``text_train_steps``'s runner,
+    in chunks of its ``chunk`` steps; FLOPs per step)."""
+    return _bench_chunks(text_train_steps, args, kw, windows)
+
+
+def text_sampler(n: int = TEXT_N, seq_len: int = 64, dim: int = 256, *,
+                 depth: int = 3, timesteps: int = 1000, device=None):
+    """(the text sampling metric's ``Sampler``; FLOPs per reverse step)."""
     from tinydiffusionmodels_torch.core import make_schedule, p_sample
     from tinydiffusionmodels_torch.models import (
         TinyTransformer,
@@ -285,18 +312,27 @@ def bench_text_sample(n: int = 8, seq_len: int = 64, dim: int = 256,
         with torch.inference_mode():
             p_sample(sched, x, t, model(x, t), x)
 
-    step_flops = perf.compiled_flops(one_step)
-
-    secs = _timeit(Sampler(model, sched, shape, generator=gen), device,
-                   iters=1 if quick else 3, windows=windows)
-    return [timesteps / s for s in secs], step_flops
+    return Sampler(model, sched, shape, generator=gen), perf.compiled_flops(
+        one_step)
 
 
-def _tiny_gpt(n, seq_len, vocab, dim, depth, device):
+def bench_text_sample(*args, quick: bool = False, windows: int = WINDOWS,
+                      **kw):
+    """(reverse-diffusion steps/s, the reference's tqdm it/s unit; FLOPs
+    per reverse step), of one ``text_sampler`` kept across the calls."""
+    sampler, step_flops = text_sampler(*args, **kw)
+    secs = _timeit(sampler, sampler.device, iters=1 if quick else 3,
+                   windows=windows)
+    return [sampler.sched.timesteps / s for s in secs], step_flops
+
+
+def _tiny_gpt(n: int = GUIDED_N, seq_len: int = 64, *, vocab: int = 4096,
+              dim: int = 256, depth: int = 4, device=None):
     """TinyGPT at the JAX bench's guided shape (4 heads, max_len L + 1),
     random weights, and (n, L, V) N(0, 1) diffusion logits."""
     from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
 
+    device = _device(device)
     cfg = TinyGPTConfig(vocab_size=vocab, dim=dim, n_heads=4, depth=depth,
                         max_len=seq_len + 1)
     model = TinyGPT(cfg, generator=_seed(0)).to(device).eval()
@@ -305,21 +341,29 @@ def _tiny_gpt(n, seq_len, vocab, dim, depth, device):
     return model, diff
 
 
+def guided_decoder(*args, draft: str = "plain", **kw):
+    """(a ``GuidedDecoder`` with ``draft`` on ``_tiny_gpt``'s TinyGPT, its
+    diffusion logits)."""
+    from tinydiffusionmodels_torch.sample.guided import GuidedDecoder
+
+    model, diff = _tiny_gpt(*args, **kw)
+    n, seq_len = diff.shape[:2]
+    return GuidedDecoder(model, n, seq_len, 0, alpha=ALPHA,
+                         draft=draft), diff
+
+
 def _min_window_s(n: int) -> float:
     # Latency-bound at n <= 8: longer windows average out the host clock.
     return 2.5 if n <= 8 else 0.6
 
 
-def bench_guided(n: int = 8, seq_len: int = 64, *, vocab: int = 4096,
-                 dim: int = 256, depth: int = 4, device=None,
-                 windows: int = WINDOWS):
+def bench_guided(*args, windows: int = WINDOWS, **kw):
     """(guided decode tokens/s of the KV-cached plain f32 scan,
     ``GuidedDecoder(draft="plain")``, one decoder across warm-up and
     windows (on the card, one replayed graph a decode); FLOPs per token)."""
-    from tinydiffusionmodels_torch.sample.guided import GuidedDecoder
-
-    device = _device(device)
-    model, diff = _tiny_gpt(n, seq_len, vocab, dim, depth, device)
+    decoder, diff = guided_decoder(*args, **kw)
+    model, device = decoder.model, decoder.device
+    n, seq_len = diff.shape[:2]
     tok0 = torch.zeros((n,), dtype=torch.long, device=device)
 
     def one_step():
@@ -328,15 +372,12 @@ def bench_guided(n: int = 8, seq_len: int = 64, *, vocab: int = 4096,
 
     step_flops = perf.compiled_flops(one_step)
     flops = step_flops / n if step_flops else None
-    decoder = GuidedDecoder(model, n, seq_len, 0, alpha=ALPHA, draft="plain")
     secs = _decode_windows(lambda: decoder(diff), device, _min_window_s(n),
                            windows)
     return [n * seq_len / s for s in secs], flops
 
 
-def bench_guided_fused(n: int = 8, seq_len: int = 64, *, vocab: int = 4096,
-                       dim: int = 256, depth: int = 4, device=None,
-                       windows: int = WINDOWS):
+def bench_guided_fused(*args, windows: int = WINDOWS, **kw):
     """Tokens/s of the persistent guided-decode kernel
     (``ops.decode_kernel.fused_guided_decode``): the whole decode in one
     launch, the weights packed once beforehand."""
@@ -345,11 +386,11 @@ def bench_guided_fused(n: int = 8, seq_len: int = 64, *, vocab: int = 4096,
         pack_weights,
     )
 
-    device = _device(device)
-    model, diff = _tiny_gpt(n, seq_len, vocab, dim, depth, device)
+    model, diff = _tiny_gpt(*args, **kw)
+    n, seq_len = diff.shape[:2]
     w = pack_weights(model)
     secs = _decode_windows(
-        lambda: fused_guided_decode(w, diff, 0, alpha=ALPHA), device,
+        lambda: fused_guided_decode(w, diff, 0, alpha=ALPHA), diff.device,
         _min_window_s(n), windows)
     return [n * seq_len / s for s in secs], None
 
@@ -357,23 +398,20 @@ def bench_guided_fused(n: int = 8, seq_len: int = 64, *, vocab: int = 4096,
 VERIFY_ROUNDS = 20     # timed Jacobi rounds for a verified metric's notes
 
 
-def bench_guided_verified(n: int = 256, seq_len: int = 64,
-                          draft: str = "auto", *, vocab: int = 4096,
-                          dim: int = 256, depth: int = 4, device=None,
-                          windows: int = WINDOWS, notes: dict | None = None):
+def bench_guided_verified(n: int = 256, *args, draft: str = "auto",
+                          windows: int = WINDOWS, notes: dict | None = None,
+                          **kw):
     """Tokens/s of the exact greedy guided decode: ``draft="auto"`` the
     routed entry point, ``"scan_bf16"`` the speculative bf16-scan draft,
-    each refined by Jacobi verification; one ``GuidedDecoder`` across
+    each refined by Jacobi verification; one ``guided_decoder`` across
     warm-up and windows (on the card its draft and rounds replayed).
     ``notes``, when given, gets the draft ``auto`` resolved to, the Jacobi
     rounds of one decode and the verifier's host-clock ms a round (a
     round's replay and its flag read, over VERIFY_ROUNDS rounds; None
     without rounds)."""
-    from tinydiffusionmodels_torch.sample.guided import GuidedDecoder
-
-    device = _device(device)
-    model, diff = _tiny_gpt(n, seq_len, vocab, dim, depth, device)
-    decoder = GuidedDecoder(model, n, seq_len, 0, alpha=ALPHA, draft=draft)
+    decoder, diff = guided_decoder(n, *args, draft=draft, **kw)
+    device = decoder.device
+    seq_len = diff.shape[1]
     secs = _decode_windows(lambda: decoder(diff), device, _min_window_s(n),
                            windows)
     if notes is not None:
@@ -622,10 +660,10 @@ def suite(quick: bool, device, bf16_chunk: int,
         # Large-batch bf16 training, where the kernels rather than the
         # host should set the rate.
         ("mnist_train_bs512_bf16_it_s",
-         lambda: bench_mnist_train(batch_size=512, chunk=bf16_chunk,
+         lambda: bench_mnist_train(batch_size=BF16_BATCH, chunk=bf16_chunk,
                                    compute_dtype=bf16, **kw)),
         ("shakespeare_train_bs512_bf16_it_s",
-         lambda: bench_text_train(batch_size=512, chunk=bf16_chunk,
+         lambda: bench_text_train(batch_size=BF16_BATCH, chunk=bf16_chunk,
                                   compute_dtype=bf16, **kw)),
     ]
 

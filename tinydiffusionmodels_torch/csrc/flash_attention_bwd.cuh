@@ -60,6 +60,7 @@ struct BwdParams {
   int heads, lq, lk, dh, dv_dim;
   int vec;  // bytes per copy of q, k, v and dO into shared memory
   int q_off, k_off;
+  int head_off, heads_total;  // the hashed head: b * heads_total + head_off + h
   int causal;
   float scale;
   const int* seed;  // null: no dropout
@@ -97,11 +98,12 @@ inline bool make_params(BwdParams& p, const void* q, const void* k,
                         int dtype, int batch, int heads, int lq, int lk,
                         int dh, int dv_dim, int vec, const long long* strides,
                         float scale, int causal, int q_off, int k_off,
-                        const void* seed, unsigned drop_thresh,
-                        float drop_scale) {
+                        int head_off, int heads_total, const void* seed,
+                        unsigned drop_thresh, float drop_scale) {
   const int min_vec = dtype == 1 ? 2 : 4;
   if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || dh <= 0 ||
-      dv_dim <= 0 || (dtype != 0 && dtype != 1) ||
+      dv_dim <= 0 || (dtype != 0 && dtype != 1) || head_off < 0 ||
+      heads_total < head_off + heads ||
       vec < min_vec || vec > 16 || (vec & (vec - 1)) != 0) {
     return false;
   }
@@ -127,6 +129,8 @@ inline bool make_params(BwdParams& p, const void* q, const void* k,
   p.vec = vec;
   p.q_off = q_off;
   p.k_off = k_off;
+  p.head_off = head_off;
+  p.heads_total = heads_total;
   p.causal = causal;
   p.scale = scale;
   p.seed = static_cast<const int*>(seed);
@@ -143,7 +147,9 @@ inline bool make_params(BwdParams& p, const void* q, const void* k,
 // addresses and strides must be multiples of.
 // `strides` holds 21 element strides, (batch, head, row) for q, k, v, dO,
 // dq, dk, dv in that order. lse and delta are contiguous (batch*heads, lq)
-// float32. `seed` is a device int32 (null: no dropout). The dq kernel writes
+// float32. head_off and heads_total place the launch's heads among the heads
+// the dropout mask is hashed over, as in the forward.
+// `seed` is a device int32 (null: no dropout). The dq kernel writes
 // dq only; the dkv kernel writes dk and dv only. Returns the launch's
 // cudaError_t (0 on success); the kernels run on `stream` and allocate
 // nothing.
@@ -152,10 +158,10 @@ inline bool make_params(BwdParams& p, const void* q, const void* k,
       const void *lse, const void *delta, void *dq, void *dk, void *dv,     \
       int dtype, int batch, int heads, int lq, int lk, int dh, int dv_dim,  \
       int vec, const long long *strides, float scale, int causal,           \
-      int q_off, int k_off, const void *seed, unsigned drop_thresh,         \
-      float drop_scale, void *stream
+      int q_off, int k_off, int head_off, int heads_total,                  \
+      const void *seed, unsigned drop_thresh, float drop_scale, void *stream
 #define TDM_BWD_PARAMS(p)                                                   \
   flash_bwd::make_params(p, q, k, v, dout, lse, delta, dq, dk, dv, dtype,   \
                          batch, heads, lq, lk, dh, dv_dim, vec, strides,    \
-                         scale, causal, q_off, k_off, seed, drop_thresh,    \
-                         drop_scale)
+                         scale, causal, q_off, k_off, head_off,             \
+                         heads_total, seed, drop_thresh, drop_scale)

@@ -172,6 +172,7 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   const float inv_lk = 1.f / float(p.lk);
   const bool dropout = p.seed != nullptr;
   const uint32_t seed = dropout ? uint32_t(*p.seed) : 0u;
+  const uint32_t drop_bh = uint32_t(b * p.heads_total + p.head_off + h);
 
   float acc_k[kOutBlocks][4], acc_v[kOutBlocks][4];
 #pragma unroll
@@ -261,7 +262,7 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
           }
           float factor = 1.f;
           if (dropout) {
-            factor = dropout_factor(dropout_row_base(seed, uint32_t(bh), q_pos),
+            factor = dropout_factor(dropout_row_base(seed, drop_bh, q_pos),
                                     k_pos, p.drop_thresh, p.drop_scale);
           }
           st[j][c] = pij * factor;

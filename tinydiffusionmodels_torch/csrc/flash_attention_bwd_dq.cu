@@ -162,7 +162,9 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     lse[r] = in ? p.lse[int64_t(bh) * p.lq + q_row[r]] : 0.f;
     delta[r] = in ? p.delta[int64_t(bh) * p.lq + q_row[r]] : 0.f;
     if (dropout) {
-      drop_row[r] = dropout_row_base(uint32_t(*p.seed), uint32_t(bh), q_pos[r]);
+      drop_row[r] = dropout_row_base(
+          uint32_t(*p.seed), uint32_t(b * p.heads_total + p.head_off + h),
+          q_pos[r]);
     }
   }
 

@@ -36,10 +36,15 @@ Launch counters: capturing runs the kernel wrappers once, which count
 launches that did not happen. ``Step`` takes them back and adds the
 capture's counts again on every replay, so the counters keep counting
 launches on the card.
+
+Inspection: with ``Step.keep_graph`` set (the per-op table tool,
+``xprof_ops``, sets it in its own process) a capture keeps its
+``cudaGraph_t`` and ``kernel_nodes()`` counts the kernels it holds.
 """
 
 from __future__ import annotations
 
+import ctypes
 import gc
 
 import torch
@@ -87,6 +92,9 @@ class Step:
     capture: work that sets up what ``fn`` needs lazily and leaves no
     state that ``fn``'s results depend on."""
 
+    # Keep each capture's cudaGraph_t, for ``kernel_nodes``.
+    keep_graph = False
+
     def __init__(self, fn, device, *, generators=(), warmup: int = 1,
                  eager: bool = False, prime=None):
         self.fn = fn
@@ -125,10 +133,19 @@ class Step:
             fn()
         main.wait_stream(self.stream)
 
+    def kernel_nodes(self) -> int:
+        """The kernel nodes of the captured graph (``keep_graph`` must have
+        been set before the capture), read through libcuda."""
+        if self.graph is None or not self.keep_graph:
+            raise RuntimeError("no kept graph: set Step.keep_graph before "
+                               "the capture")
+        return kernel_nodes(self.graph.raw_cuda_graph())
+
     def _capture(self) -> None:
         if self.prime is not None:
             self._on_side_stream(self.prime)
-        graph = torch.cuda.CUDAGraph()
+        graph = (torch.cuda.CUDAGraph(keep_graph=True) if self.keep_graph
+                 else torch.cuda.CUDAGraph())
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = counts()
@@ -146,6 +163,8 @@ class Step:
                     pass
                 raise
             graph.capture_end()
+            if self.keep_graph:
+                graph.instantiate()
 
         collecting = gc.isenabled()
         gc.disable()
@@ -158,3 +177,27 @@ class Step:
             # Capturing launched nothing.
             _add_counts([b - a for a, b in zip(counts(), before)])
         self.graph = graph
+
+
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def kernel_nodes(raw_graph: int) -> int:
+    """The kernel nodes of a ``cudaGraph_t`` (``CUDAGraph.raw_cuda_graph()``),
+    through libcuda's ``cuGraphGetNodes`` and ``cuGraphNodeGetType``
+    (memset, memcpy and empty nodes are not kernels)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    count = ctypes.c_size_t(0)
+    graph = ctypes.c_void_p(raw_graph)
+    if cuda.cuGraphGetNodes(graph, None, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind = ctypes.c_int()
+    kernels = 0
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == _CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels

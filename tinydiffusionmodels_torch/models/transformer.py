@@ -24,6 +24,14 @@ angles and the absolute table start at the shard's offset, and each
 dropout mask is drawn for the whole sequence and cut to the shard, so a
 ring drops what one device drops for the same generator. (The JAX package
 gets global positions from GSPMD's global arrays.)
+
+Tensor parallelism (``parallel.tp.shard_transformer``): a layer whose
+``tp`` is set holds its rank's heads of the attention and columns of the
+FFN, runs the Megatron column and row products with their all-reduces,
+draws every dropout mask at the whole layer's width (the FFN's feature
+mask cut to its columns) and hashes the layer's head index in the
+attention kernels, so it computes what one device computes. ``tp`` is
+None on one device.
 """
 
 from __future__ import annotations
@@ -39,6 +47,10 @@ from tinydiffusionmodels_torch import ops
 from tinydiffusionmodels_torch.models.embedding import (
     _default_generator,
     init_linear_,
+)
+from tinydiffusionmodels_torch.parallel.tp import (
+    copy_to_model,
+    reduce_from_model,
 )
 
 # torch nn.TransformerEncoderLayer default feed-forward width.
@@ -80,24 +92,27 @@ def _linear(in_dim: int, out_dim: int) -> nn.Linear:
 
 def dropout(
     x: torch.Tensor, rate: float, generator: torch.Generator | None,
-    shard: tuple[int, int] = (0, 1),
+    shard: tuple[int, int] = (0, 1), features: tuple[int, int] = (0, 1),
 ) -> torch.Tensor:
     """Inverted dropout with torch nn.Dropout semantics (JAX:
     ``torch_init.dropout``), its mask drawn from ``generator``; no generator
     (eval mode) or rate 0 returns ``x``. ``shard`` = (index, n): ``x`` is
     shard ``index`` of n along dim 1 (a sequence ring), and the mask is
-    drawn for all n shards and cut to this one."""
+    drawn for all n shards and cut to this one; ``features`` the same along
+    the last dim (a tensor-parallel rank's columns)."""
     if generator is None or rate == 0.0:
         return x
-    index, n = shard
-    if n == 1:
+    (index, n), (col, cols) = shard, features
+    if n == 1 and cols == 1:
         keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
     else:
         shape = list(x.shape)
         shape[1] *= n
+        shape[-1] *= cols
         keep = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
             1.0 - rate, generator=generator).narrow(
-                1, index * x.shape[1], x.shape[1])
+                1, index * x.shape[1], x.shape[1]).narrow(
+                    -1, col * x.shape[-1], x.shape[-1])
     return x * keep / (1.0 - rate)
 
 
@@ -134,17 +149,24 @@ class SelfAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d, d))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d))
         self.out_proj = _linear(d, d)
+        self.tp = None   # parallel.tp.TensorSplit: this rank's heads
 
     def forward(
         self, x: torch.Tensor, generator: torch.Generator | None = None
     ) -> torch.Tensor:
         """``generator`` (training) seeds the attention-weight dropout."""
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         b, l, d = x.shape
         dh = d // cfg.n_heads
+        heads, heads_kw = cfg.n_heads, {}
+        if tp is not None:
+            heads = cfg.n_heads // tp.size
+            heads_kw = dict(head_offset=tp.index * heads,
+                            total_heads=cfg.n_heads)
+            x = copy_to_model(x, tp)
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (
-            a.reshape(b, l, cfg.n_heads, dh) for a in qkv.split(d, dim=-1)
+            a.reshape(b, l, heads, dh) for a in qkv.split(heads * dh, dim=-1)
         )
         if cfg.pos_kind == "rope":
             offset = ops.sequence_shard(cfg.seq_axis)[0] * l
@@ -158,8 +180,14 @@ class SelfAttention(nn.Module):
             seed = torch.randint(-2**31, 2**31, (1,), generator=generator,
                                  device=x.device, dtype=torch.int32)
         out = ops.attention(q, k, v, layout="blhd", dropout_rate=rate,
-                            dropout_seed=seed, seq_axis=cfg.seq_axis)
-        return self.out_proj(out.reshape(b, l, d))
+                            dropout_seed=seed, seq_axis=cfg.seq_axis,
+                            **heads_kw)
+        out = out.reshape(b, l, heads * dh)
+        if tp is None:
+            return self.out_proj(out)
+        # Row-parallel: the partial products summed, the bias added once.
+        return reduce_from_model(F.linear(out, self.out_proj.weight),
+                                 tp) + self.out_proj.bias
 
 
 class EncoderLayer(nn.Module):
@@ -174,6 +202,7 @@ class EncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(cfg.dim, eps=1e-5)
         self.rate = cfg.dropout
         self.seq_axis = cfg.seq_axis
+        self.tp = None   # parallel.tp.TensorSplit: this rank's FFN columns
 
     def forward(
         self, x: torch.Tensor, generator: torch.Generator | None = None
@@ -181,12 +210,19 @@ class EncoderLayer(nn.Module):
         """``generator`` (training) draws the dropout masks: dropout1 on the
         attention output, dropout_ffn after the ReLU, dropout2 after
         linear2."""
-        g, rate = generator, self.rate
+        g, rate, tp = generator, self.rate, self.tp
         shard = ops.sequence_shard(self.seq_axis)
         sa = dropout(self.self_attn(x, g), rate, g, shard)
         x = self.norm1(x + sa)
-        ff = dropout(F.relu(self.linear1(x)), rate, g, shard)
-        ff = dropout(self.linear2(ff), rate, g, shard)
+        if tp is None:
+            ff = dropout(F.relu(self.linear1(x)), rate, g, shard)
+            ff = dropout(self.linear2(ff), rate, g, shard)
+        else:
+            ff = dropout(F.relu(self.linear1(copy_to_model(x, tp))), rate, g,
+                         shard, features=(tp.index, tp.size))
+            ff = reduce_from_model(F.linear(ff, self.linear2.weight),
+                                   tp) + self.linear2.bias
+            ff = dropout(ff, rate, g, shard)
         return self.norm2(x + ff)
 
 

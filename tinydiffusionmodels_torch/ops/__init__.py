@@ -73,6 +73,8 @@ def attention(
     dropout_rate: float = 0.0,
     dropout_seed=None,
     seq_axis: str | None = None,
+    head_offset: int = 0,
+    total_heads: int | None = None,
 ):
     """Attention over (B, H, L, Dh) or, with ``layout='blhd'``,
     (B, L, H, Dh) tensors; returns the output in the same layout.
@@ -80,6 +82,10 @@ def attention(
     ``dropout_rate`` > 0 (training) drops attention weights with the flash
     kernels' coordinate-hash mask, seeded by ``dropout_seed`` (a one-element
     int32 tensor on the operands' device).
+
+    ``head_offset`` and ``total_heads``: the operands hold heads
+    ``head_offset`` on of a layer's ``total_heads`` (a tensor-parallel
+    rank's), and the dropout mask is that slice of the layer's.
 
     ``seq_axis``: the operands are this rank's shard of the sequence, and
     attention is the ring over the mesh registered for that axis (every
@@ -92,6 +98,10 @@ def attention(
         )
 
         mesh = sequence_mesh(seq_axis)
+        if head_offset or total_heads is not None:
+            raise NotImplementedError(
+                "ring attention over a slice of the heads (sequence and "
+                "tensor parallelism together) is not ported")
         if mask is not None:
             raise NotImplementedError(
                 "ring attention supports causal=True or unmasked; arbitrary "
@@ -107,7 +117,8 @@ def attention(
         )
     return flash_attention.flash_attention(
         q, k, v, causal=causal, layout=layout, dropout_rate=dropout_rate,
-        dropout_seed=dropout_seed,
+        dropout_seed=dropout_seed, head_offset=head_offset,
+        total_heads=total_heads,
     )
 
 

@@ -60,16 +60,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-_FWD_ARGTYPES = (
-    [_PTR] * 5 + [_INT] * 8 + [ctypes.c_longlong] * 12
-    + [ctypes.c_float, _INT, _INT, _INT, _PTR, ctypes.c_uint, ctypes.c_float,
-       _PTR]
-)
-_BWD_ARGTYPES = (
-    [_PTR] * 9 + [_INT] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
-    + [ctypes.c_float, _INT, _INT, _INT, _PTR, ctypes.c_uint, ctypes.c_float,
-       _PTR]
-)
+# ... scale, causal, q_off, k_off, head_off, heads_total, seed, threshold,
+# keep scale, stream.
+_TAIL_ARGTYPES = [ctypes.c_float, _INT, _INT, _INT, _INT, _INT, _PTR,
+                  ctypes.c_uint, ctypes.c_float, _PTR]
+_FWD_ARGTYPES = [_PTR] * 5 + [_INT] * 8 + [ctypes.c_longlong] * 12 + \
+    _TAIL_ARGTYPES
+_BWD_ARGTYPES = [_PTR] * 9 + [_INT] * 8 + \
+    [ctypes.POINTER(ctypes.c_longlong)] + _TAIL_ARGTYPES
 
 
 def _bhl_strides(x: torch.Tensor, layout: str) -> tuple[int, int, int]:
@@ -199,15 +197,23 @@ def _check_seed(seed, q: torch.Tensor) -> None:
         )
 
 
-def _dropout_args(rate: float, seed) -> tuple[int | None, int, float]:
-    """(seed pointer or None, uint32 threshold, float32 keep scale)."""
+def _dropout_args(rate: float, seed, heads: int, head_offset: int,
+                  total_heads: int | None) -> tuple:
+    """(head offset, hashed heads, seed pointer or None, uint32 threshold,
+    float32 keep scale)."""
+    total = heads if total_heads is None else int(total_heads)
+    if head_offset < 0 or total < head_offset + heads:
+        raise ValueError(f"heads {head_offset}..{head_offset + heads} are "
+                         f"not among {total}")
     if rate <= 0.0:
-        return None, 0, 0.0
-    return seed.data_ptr(), reference.dropout_threshold(rate), 1.0 / (1.0 - rate)
+        return int(head_offset), total, None, 0, 0.0
+    return (int(head_offset), total, seed.data_ptr(),
+            reference.dropout_threshold(rate), 1.0 / (1.0 - rate))
 
 
 def forward(q, k, v, *, causal, layout, q_offset, k_offset, dropout_rate,
-            dropout_seed) -> tuple[torch.Tensor, torch.Tensor]:
+            dropout_seed, head_offset=0,
+            total_heads=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch of the forward kernel on checked CUDA operands."""
     global launches
     b, h, lq, lk, dh, dv = _dims(q, k, v, layout)
@@ -220,7 +226,8 @@ def forward(q, k, v, *, causal, layout, q_offset, k_offset, dropout_rate,
         vector_bytes(q, k, v), *_bhl_strides(q, layout), *_bhl_strides(k, layout),
         *_bhl_strides(v, layout), *_bhl_strides(out, layout),
         1.0 / math.sqrt(dh), int(causal), int(q_offset), int(k_offset),
-        *_dropout_args(dropout_rate, dropout_seed),
+        *_dropout_args(dropout_rate, dropout_seed, h, head_offset,
+                       total_heads),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.raise_on(err, "flash attention forward")
@@ -240,7 +247,8 @@ def backward_delta(out, g_out, g_lse, layout: str) -> torch.Tensor:
 
 
 def _backward_call(name: str, q, k, v, g_out, lse, delta, grads, *, causal,
-                   layout, q_offset, k_offset, dropout_rate, dropout_seed):
+                   layout, q_offset, k_offset, dropout_rate, dropout_seed,
+                   head_offset=0, total_heads=None):
     b, h, lq, lk, dh, dv = _dims(q, k, v, layout)
     strides = []
     for x in (q, k, v, g_out, *grads):
@@ -252,7 +260,8 @@ def _backward_call(name: str, q, k, v, g_out, lse, delta, grads, *, causal,
         vector_bytes(q, k, v, g_out),
         (ctypes.c_longlong * len(strides))(*strides),
         1.0 / math.sqrt(dh), int(causal), int(q_offset), int(k_offset),
-        *_dropout_args(dropout_rate, dropout_seed),
+        *_dropout_args(dropout_rate, dropout_seed, h, head_offset,
+                       total_heads),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.raise_on(err, name)
@@ -379,6 +388,8 @@ def flash_attention_with_lse(
     k_offset: int = 0,
     dropout_rate: float = 0.0,
     dropout_seed: torch.Tensor | None = None,
+    head_offset: int = 0,
+    total_heads: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Attention and its per-row logsumexp, as ``reference.attention``,
     differentiable in q, k and v through both outputs.
@@ -389,11 +400,14 @@ def flash_attention_with_lse(
     and any strides whose last dim is contiguous. ``dropout_rate`` > 0
     needs ``dropout_seed``: on the card a one-element int32 tensor on the
     same device, which the kernels read there (no host sync); on the CPU
-    also an int.
+    also an int. ``head_offset`` and ``total_heads`` say which of a layer's
+    heads the operands hold (a tensor-parallel rank's slice), so that the
+    dropout mask is that slice of the whole layer's.
     """
     return _attention(q, k, v, with_lse=True, dropout_seed=dropout_seed,
                       causal=causal, layout=layout, q_offset=int(q_offset),
-                      k_offset=int(k_offset), dropout_rate=float(dropout_rate))
+                      k_offset=int(k_offset), dropout_rate=float(dropout_rate),
+                      head_offset=int(head_offset), total_heads=total_heads)
 
 
 def flash_attention(
@@ -405,8 +419,11 @@ def flash_attention(
     layout: str = "bhld",
     dropout_rate: float = 0.0,
     dropout_seed: torch.Tensor | None = None,
+    head_offset: int = 0,
+    total_heads: int | None = None,
 ) -> torch.Tensor:
     """``flash_attention_with_lse`` without the logsumexp."""
     return _attention(q, k, v, with_lse=False, dropout_seed=dropout_seed,
                       causal=causal, layout=layout, q_offset=0, k_offset=0,
-                      dropout_rate=float(dropout_rate))
+                      dropout_rate=float(dropout_rate),
+                      head_offset=int(head_offset), total_heads=total_heads)

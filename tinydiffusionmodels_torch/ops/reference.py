@@ -83,6 +83,8 @@ def attention(
     k_offset: int = 0,
     dropout_rate: float = 0.0,
     dropout_seed: torch.Tensor | int | None = None,
+    head_offset: int = 0,
+    total_heads: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """softmax(q k^T / sqrt(Dh)) v, and its logsumexp.
 
@@ -99,6 +101,9 @@ def attention(
     does (torch semantics): after the softmax, so the normalizer and the
     lse are those of the undropped weights, with the mask
     ``dropout_scale(dropout_seed, b * H + h, q_offset + i, k_offset + j)``.
+    On a slice of a layer's heads (a tensor-parallel rank's), heads
+    ``head_offset`` on of ``total_heads`` (default: the operands' H), the
+    mask hashes the layer's head, ``b * total_heads + head_offset + h``.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"unknown attention layout: {layout!r}")
@@ -117,7 +122,7 @@ def attention(
     lse = torch.logsumexp(scores, dim=-1)
     weights = torch.softmax(scores, dim=-1)
     if dropout_rate > 0.0:
-        bh = torch.arange(b * h, device=q.device).reshape(b, h, 1, 1)
+        bh = _hashed_heads(b, h, head_offset, total_heads, q.device)
         weights = weights * dropout_scale(
             dropout_seed, bh, q_pos[:, None], k_pos[None, :], dropout_rate
         )
@@ -125,6 +130,17 @@ def attention(
     if layout == "blhd":
         out = out.transpose(1, 2)
     return out, lse
+
+
+def _hashed_heads(b: int, h: int, head_offset: int, total_heads, device):
+    """(B, H, 1, 1) head indices the dropout mask hashes:
+    ``b * total_heads + head_offset + h`` (``b * H + h`` by default)."""
+    total = h if total_heads is None else total_heads
+    if head_offset < 0 or total < head_offset + h:
+        raise ValueError(f"heads {head_offset}..{head_offset + h} are not "
+                         f"among {total}")
+    return (torch.arange(b, device=device).reshape(b, 1, 1, 1) * total
+            + head_offset + torch.arange(h, device=device).reshape(1, h, 1, 1))
 
 
 def _bwd_probs(q, k, lse, *, causal, q_offset, k_offset):
@@ -145,7 +161,8 @@ def _bwd_probs(q, k, lse, *, causal, q_offset, k_offset):
 
 
 def _attention_bwd(q, k, v, g_out, lse, delta, *, causal, layout, q_offset,
-                   k_offset, dropout_rate, dropout_seed, want):
+                   k_offset, dropout_rate, dropout_seed, want, head_offset=0,
+                   total_heads=None):
     """dq (``want`` 'dq') or (dk, dv) ('dkv') of ``attention`` as the flash
     backward kernels compute them: P recomputed from q, k and the forward's
     lse, dP = (dO V^T) * mask, dS = P (dP - D) zeroed where the causal
@@ -159,7 +176,7 @@ def _attention_bwd(q, k, v, g_out, lse, delta, *, causal, layout, q_offset,
                                        q_offset=q_offset, k_offset=k_offset)
     mask = None
     if dropout_rate > 0.0:
-        bh = torch.arange(b * h, device=q.device).reshape(b, h, 1, 1)
+        bh = _hashed_heads(b, h, head_offset, total_heads, q.device)
         mask = dropout_scale(dropout_seed, bh, q_pos[:, None],
                              k_pos[None, :], dropout_rate)
     g = g_out.float()

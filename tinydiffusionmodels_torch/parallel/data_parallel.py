@@ -18,7 +18,10 @@ their gradients is its gradient. On a sequence ring the backward of the
 ring's rotations has already returned to each rank the cotangents of its
 keys and values from the other ranks' queries, so the sum over all ranks
 is again the whole gradient: one reduction over the world serves data,
-sequence and combined meshes.
+sequence and combined meshes. With a tensor-parallel 'model' axis
+(``parallel/tp.py``) the ranks of that axis hold different slices of the
+split parameters and the same whole gradient of the replicated ones, so
+the reduction runs over the 'data' axis's group alone.
 """
 
 from __future__ import annotations
@@ -29,18 +32,29 @@ import torch.distributed as dist
 from tinydiffusionmodels_torch.parallel.mesh import Mesh
 
 
-def all_reduce_mean(tensors: list[torch.Tensor],
-                    world: int) -> list[torch.Tensor]:
+def all_reduce_mean(tensors: list[torch.Tensor], world: int,
+                    group=None) -> list[torch.Tensor]:
     """The mean of each tensor (float32, one device) over the ``world``
-    ranks of the process group, as views of one flat buffer that one
-    all-reduce sums: one kernel packs the tensors and one divides (none at
-    world 1, where the sum is the tensor)."""
+    ranks of ``group`` (default: the process group), as views of one flat
+    buffer that one all-reduce sums: one kernel packs the tensors and one
+    divides (none at world 1, where the sum is the tensor)."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     if world > 1:
         flat.div_(world)
     parts = flat.split([t.numel() for t in tensors])
     return [part.view_as(t) for part, t in zip(parts, tensors)]
+
+
+def reduction(mesh: Mesh) -> tuple[int, object]:
+    """(ranks, group) a step's means run over: the world, or with a
+    tensor-parallel 'model' axis the 'data' axis's group."""
+    if mesh.axis_size("model") == 1:
+        return mesh.size, None
+    if mesh.size != mesh.axis_size("model") * mesh.axis_size("data"):
+        raise NotImplementedError(
+            f"a 'model' axis with axes other than 'data': {dict(mesh.shape)}")
+    return mesh.axis_size("data"), mesh.groups.get("data")
 
 
 def average_gradients(optimizer, losses: torch.Tensor,
@@ -57,7 +71,7 @@ def average_gradients(optimizer, losses: torch.Tensor,
     params = [p for group in optimizer.param_groups
               for p in group["params"] if p.grad is not None]
     *grads, mean = all_reduce_mean([*(p.grad for p in params), losses],
-                                   mesh.size)
+                                   *reduction(mesh))
     for p, g in zip(params, grads):
         p.grad = g
     losses.copy_(mean)

@@ -107,6 +107,7 @@ class Sampler:
         self.device = device = sched.betas.device
         self.eager = eager or device.type != "cuda"
         self.noise_fn = None
+        self.steps = []   # the graphs.Step of each kind of step, on the card
         with torch.inference_mode():
             self.x = torch.empty(shape, device=device)
             self.sc = torch.zeros(shape, device=device) if self_cond else None
@@ -176,6 +177,7 @@ class Sampler:
             return step
         graph = graphs.Step(lambda: step(None), self.device,
                             generators=(self.generator,), warmup=WARMUP)
+        self.steps.append(graph)
         return lambda k: graph()
 
     def _ancestral(self, num_steps, eta, temperature) -> list:

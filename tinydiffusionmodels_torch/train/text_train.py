@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tinydiffusionmodels_torch import ops
+from tinydiffusionmodels_torch import graphs, ops
 from tinydiffusionmodels_torch.core.diffusion import _bcast, q_sample
 from tinydiffusionmodels_torch.core.schedule import DiffusionSchedule
 from tinydiffusionmodels_torch.data.loader import batch_iterator, num_batches
@@ -262,7 +262,8 @@ def eval_losses(joint, batches, rounding_weight, generator, *, sched,
     """Mean (diff, round, total) over ``batches`` (K, B, L) on the device,
     without dropout; one host read at the end. With ``mesh`` each rank
     evaluates its share of every batch and the means are averaged over
-    the ranks (the global mean, the same on every rank)."""
+    the ranks (the global mean, the same on every rank). The plain eager
+    loop that ``EvalPass`` replays as one CUDA graph."""
     sums = torch.zeros(3, device=batches.device)
     for token_ids in batches:
         t, noise = _draw_t_noise(joint, token_ids, sched.timesteps, generator)
@@ -278,10 +279,82 @@ def eval_losses(joint, batches, rounding_weight, generator, *, sched,
     return means.cpu().numpy()
 
 
+def _seed_of(seed: int, *words: int) -> int:
+    """The 32-bit seed of the stream named by ``words``."""
+    return int(np.random.SeedSequence([seed, *words]).generate_state(1)[0])
+
+
 def _generator(device, seed: int, *words: int) -> torch.Generator:
     """A generator on ``device`` for the stream named by ``words``."""
-    state = np.random.SeedSequence([seed, *words]).generate_state(1)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
+    return torch.Generator(device=device).manual_seed(_seed_of(seed, *words))
+
+
+class EvalPass:
+    """A run's validation pass as one ``graphs.Step``: the counterpart of
+    ``make_text_eval_multi``, the JAX package's K validation batches in one
+    dispatch.
+
+    One pass draws every batch's timesteps and noise from one generator,
+    re-seeded each epoch to the stream ``_generator(dev, seed, 1, epoch)``
+    starts (so the numbers are ``eval_losses``'s with that generator), and
+    walks the (K, B, L) ``val_dev`` batches with a device cursor, adding
+    each batch's (diff, round, total) into a device buffer; the rounding
+    weight is a device scalar. The weights are those of ``joint`` (the EMA
+    or the live model), fixed for the run, so one graph serves every
+    epoch. On the card the step is primed with one batch's forward at
+    t = 0 and zero noise (no draw from the generator), captured at the
+    first call and replayed, one host read an epoch; with a process group
+    the means are all-reduced after the replay. On the CPU, or with
+    ``eager``, every call runs the loop eagerly."""
+
+    def __init__(self, joint, val_dev, *, seed: int, sched, mesh=None,
+                 eager: bool = False, **loss_kwargs):
+        dev = val_dev.device
+        self.seed = seed
+        self.mesh = mesh
+        self.batches = val_dev.shape[0]
+        self.generator = torch.Generator(device=dev)
+        self.rounding_weight = torch.zeros((), device=dev)
+        self.cursor = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.sums = torch.zeros(3, device=dev)
+        kw = dict(sched=sched, deterministic=True, **loss_kwargs)
+
+        @torch.no_grad()
+        def run():
+            self.cursor.zero_()
+            self.sums.zero_()
+            for _ in range(self.batches):
+                token_ids = val_dev.index_select(0, self.cursor).squeeze(0)
+                t, noise = _draw_t_noise(joint, token_ids, sched.timesteps,
+                                         self.generator)
+                token_ids, t, noise = _local(joint, mesh, token_ids, t, noise)
+                total, (diff, round_) = _losses(
+                    joint, token_ids, t, noise, self.rounding_weight, **kw)
+                self.sums += torch.stack([diff, round_, total])
+                self.cursor.add_(1)
+
+        @torch.no_grad()
+        def prime():
+            token_ids = val_dev[0]
+            b, length = token_ids.shape
+            t = torch.zeros((b,), dtype=torch.long, device=dev)
+            noise = torch.zeros((b, length, joint["diffusion_model"].cfg.dim),
+                                device=dev)
+            token_ids, t, noise = _local(joint, mesh, token_ids, t, noise)
+            _losses(joint, token_ids, t, noise, self.rounding_weight, **kw)
+
+        self.step = graphs.Step(run, dev, generators=(self.generator,),
+                                warmup=0, eager=eager, prime=prime)
+
+    def __call__(self, epoch: int, rounding_weight: float) -> np.ndarray:
+        """Epoch ``epoch``'s mean (diff, round, total), as numpy."""
+        self.generator.manual_seed(_seed_of(self.seed, 1, epoch))
+        self.rounding_weight.fill_(rounding_weight)
+        self.step()
+        means = self.sums / max(self.batches, 1)
+        if self.mesh is not None and self.mesh.distributed:
+            means = all_reduce_mean([means], self.mesh.size)[0]
+        return means.cpu().numpy()
 
 
 class TextSteps(chunks.EpochSteps):
@@ -481,6 +554,9 @@ def train(
     val_batches = list(batch_iterator(val_chunks, batch_size, shuffle=False))
     val_dev = (torch.as_tensor(np.stack(val_batches), dtype=torch.long,
                                device=dev) if val_batches else None)
+    eval_joint = ema if ema is not None else joint
+    val_pass = (EvalPass(eval_joint, val_dev, seed=seed, mesh=mesh,
+                         **loss_kwargs) if val_batches else None)
     gen = _generator(dev, seed, 0)            # t, noise and dropout
     # With several data shards each draws its own dropout masks.
     drop_gen = (None if dp == 1
@@ -539,13 +615,8 @@ def train(
         history.append(epoch_losses)
         train_losses = epoch_losses.mean(0) if n else np.zeros(3)
 
-        eval_joint = ema if ema is not None else joint
         vn = len(val_batches)
-        val_losses = (
-            eval_losses(eval_joint, val_dev, w, _generator(dev, seed, 1, epoch),
-                        mesh=mesh, **loss_kwargs)
-            if vn else np.zeros(3)
-        )
+        val_losses = val_pass(epoch, w) if vn else np.zeros(3)
         record = {
             "workload": "shakespeare",
             "epoch": epoch + 1,
