@@ -233,12 +233,12 @@ count replays.
    DDIM 50 with self-conditioning, MNIST ancestral, DDIM 50 and DPM++ 20
    at n 25.
 25. The kernels inside the graphs: torch.profiler over one replay of each
-   training graph must list the flash forward, dq and dk/dv kernels and
-   the resblock kernel as many times as the capture counted; over a
-   second call of a captured 10-step sampler loop (ten replays), ten
-   steps' worth. Where the profiler
-   lists no kernel of a replay, that is printed, and the counters' deltas
-   are the evidence.
+   training graph (the second of two) must list the flash
+   forward, dq and dk/dv kernels, the resblock kernel and the draw kernel
+   as many times as the capture counted; over a second call of a
+   captured 10-step sampler loop (ten replays), ten steps' worth. Where
+   the profiler lists no kernel of a replay, that is printed, and the
+   counters' deltas are the evidence.
 26. Timing (phases 13 and 17's profiles): for the text step at bs 8 f32,
    the text sampler at n 8, the MNIST sampler at n 25, the MNIST step at
    bs 128 f32 and both steps at bs 512 bf16, eager and replayed: the wall
@@ -290,8 +290,9 @@ processes on the card; the CPU tests do (``tests/test_torch_parallel.py``,
    ``--seq_parallel`` (a ring of one), and the MNIST CLI on
    TORCHRUN_MNIST_IMAGES digits under ``cudnn.deterministic``. The final
    (and best) checkpoints must be bit-equal, the launches as phase 5's and
-   15's. The six runs share the card at once. Their launches count with
-   the main paths'.
+   15's, the draws as ``_text_train_draws`` counts them (MNIST: t and
+   noise a step). The six runs share the card at once. Their launches
+   count with the main paths'.
 31. The replayed text step (headline shape, f32) with a world-1 NCCL group
    created in this process and without one, from one seed: bit-equal
    after 3 steps, then the wall per replayed step over GROUP_WALL_STEPS
@@ -382,9 +383,10 @@ op table tool), in main()'s order among the phases above:
    (``text_train.EvalPass``) at the headline width on phase 5's
    validation batches, for phase 5's weights and an EMA-like second set:
    replayed against eager against the plain loop (``eval_losses``), bit
-   for bit, over VALIDATION_EPOCHS epochs of one re-seeded generator;
-   the launches (depth a batch; the prime's depth once); the wall time of
-   a pass both ways. Its replays count with the main paths'.
+   for bit, over VALIDATION_EPOCHS epochs, each its own validation key in
+   one device buffer; the launches (depth a batch, the prime's depth
+   once; two draws a batch); the wall time of a pass both ways. Its
+   replays count with the main paths'.
 38. (after phase 31) Tensor parallelism on the card: two processes
    (``chip_smoke.py --tp RANK STORE``) joined by gloo on the one H100
    (NCCL refuses two ranks on one card), a 'model' axis of 2, the
@@ -399,6 +401,33 @@ op table tool), in main()'s order among the phases above:
    nodes, and the two generator fills ``CUDAGraph.replay`` launches
    outside it for each registered generator), the profiled device time no
    more than 1.05 x the CUDA event time.
+
+The key tree (``core/rng.py``) and its draw kernel (``csrc/rng.cu``):
+
+40. (after phase 36) The three flash kernels on a data-parallel rank's
+   rows: rows 0-3 and 4-7 of a batch of 8 at ``batch_offset`` 0 and 4
+   (B 8, L 64, Dh 64), dropout 0.1, f32 and bf16, against the plain
+   version of the whole batch sliced (phase 36's limits); offset 0
+   bit-equal to the call without one; the realised masks at offsets 0
+   and 6 bit-equal to ``dropout_scale`` at the global rows.
+41. (after phase 40) The draw kernel against ``core/rng.py``'s plain
+   versions run on the card, from a key path with a device counter (the
+   train key, step 12345 on the device, the step's substreams): the text
+   step's noise (8 x 64 x 256; whole, rows 4-7, positions 32-63) and the
+   MNIST step's (128 x 28 x 28), stock and counter normals within
+   RNG_ULPS float32 spacings; the timesteps (B 8 and 128) and three
+   layers' attention seeds bit-equal; the bf16 bs-512 step's FFN dropout
+   (512 x 64 x 2048, and columns 1024-2047), stock and counter masks, f32
+   and bf16, forward and backward bit-equal. Then CUDA-event times at the
+   text noise and that mask beside the plain version, torch's own draw
+   of the shape (another stream: not the same function, so
+   ``library_ms`` is null) and the bound (bytes written, and read for a
+   mask, at 3.35 TB/s). Every main path's draw launches are counted
+   (``rng_draw``), and the text and MNIST training and sampling paths
+   assert theirs: a text step 2 + (1 + 4 depth) + (1 + 3 depth), a
+   validation batch 2, a sampler x_T 1 and an ancestral step 1, an MNIST
+   step 2. Since the draws moved to the key tree no graph registers a
+   generator, so phase 39 counts no fills.
 
 The peaks, the bound and the timer are ``tinydiffusionmodels_torch.perf``'s.
 The line before the last is the kernels' JSON record; the last line is
@@ -521,6 +550,9 @@ KERNELS["attention_single_block_fwd"] = (_CSRC + "attention_single_block.cu",
                                          _PALLAS + ":49")
 KERNELS["attention_single_block_bwd"] = (_CSRC + "attention_single_block.cu",
                                          _PALLAS + ":91")
+# The draws have no Pallas kernel: the JAX package's are XLA code
+# (core/rng.py's counter draws from :35 on, and jax.random).
+KERNELS["rng_draw"] = (_CSRC + "rng.cu", "tinydiffusionmodels_tpu/core/rng.py:35")
 # Paths other than the kernel bench launch no single-block kernel.
 _SINGLE_BLOCK_IDLE = {"attention_single_block_fwd": 0,
                       "attention_single_block_bwd": 0}
@@ -1088,16 +1120,19 @@ def _reset_counts():
     from tinydiffusionmodels_torch.ops import decode_kernel as dk
     from tinydiffusionmodels_torch.ops import flash_attention as fa
     from tinydiffusionmodels_torch.ops import resblock as rb
+    from tinydiffusionmodels_torch.ops import rng
     from tinydiffusionmodels_torch.ops import single_block as sb
 
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
     dk.launches = rb.launches = sb.launches = sb.bwd_launches = 0
+    rng.launches = 0
 
 
 def _counts() -> dict:
     from tinydiffusionmodels_torch.ops import decode_kernel as dk
     from tinydiffusionmodels_torch.ops import flash_attention as fa
     from tinydiffusionmodels_torch.ops import resblock as rb
+    from tinydiffusionmodels_torch.ops import rng
     from tinydiffusionmodels_torch.ops import single_block as sb
 
     return {"flash_attention_fwd": fa.launches,
@@ -1106,7 +1141,35 @@ def _counts() -> dict:
             "guided_decode": dk.launches,
             "fused_resblock": rb.launches,
             "attention_single_block_fwd": sb.launches,
-            "attention_single_block_bwd": sb.bwd_launches}
+            "attention_single_block_bwd": sb.bwd_launches,
+            "rng_draw": rng.launches}
+
+
+def _others(counts: dict) -> dict:
+    """The launch counts without the random draws' (which the main paths'
+    own checks count: ``_text_train_draws`` and the sampler's)."""
+    return {k: v for k, v in counts.items() if k != "rng_draw"}
+
+
+def _text_train_draws(steps: int, depth: int, val_batches: int) -> int:
+    """Draw launches of ``steps`` text training steps and a validation
+    pass of ``val_batches``: each step's t and noise, the input mask and,
+    per layer, the attention seed and three masks, and the backward's mask
+    launch of every mask; each validation batch's t and noise."""
+    return steps * (2 + (1 + 4 * depth) + (1 + 3 * depth)) + 2 * val_batches
+
+
+def _check_draws(counts: dict, want: int, what: str) -> None:
+    if counts["rng_draw"] != want:
+        raise AssertionError(f"{counts['rng_draw']} draw launches on {what}, "
+                             f"expected {want}")
+
+
+def _key(seed: int):
+    """``PRNGKey(seed)`` (the port's ``core.rng``) on the card."""
+    from tinydiffusionmodels_torch.core import rng
+
+    return rng.prng_key(seed).cuda()
 
 
 def _prepare_workdir(chars: int = TRAIN_CHARS):
@@ -1174,9 +1237,11 @@ def main_path_train(card: str, dim: int = DIM, chars: int = TRAIN_CHARS,
               "flash_attention_bwd_dq": steps * depth,
               "flash_attention_bwd_dkv": steps * depth, "guided_decode": 0,
               "fused_resblock": 0, **_SINGLE_BLOCK_IDLE}
-    if counts != expect:
+    if _others(counts) != expect:
         raise AssertionError(f"launches {counts} on the training path, "
                              f"expected {expect}")
+    _check_draws(counts, _text_train_draws(steps, depth, val_batches),
+                 "the training path")
     losses = result.step_losses
     if losses.shape != (steps, 3) or result.steps != steps:
         raise AssertionError(f"{losses.shape} step losses, {result.steps} "
@@ -1238,9 +1303,10 @@ def main_path_sample(card: str, ckpt: Path, model):
               "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
               "guided_decode": 0, "fused_resblock": 0,
               **_SINGLE_BLOCK_IDLE}
-    if counts != expect:
+    if _others(counts) != expect:
         raise AssertionError(f"launches {counts} on the sampling path, "
                              f"expected {expect}")
+    _check_draws(counts, 1 + STEPS, "the sampling path")   # x_T, each step
     if tuple(z.shape) != (N, SEQ, DIM) or z.device.type != "cuda":
         raise AssertionError(f"embeddings {tuple(z.shape)} on {z.device}")
     if not bool(torch.isfinite(z).all()):
@@ -1254,13 +1320,12 @@ def main_path_sample(card: str, ckpt: Path, model):
 
     # Steady-state sampler rate: the same loop again, model already built.
     sched = make_schedule(device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(1)
     times = []
-    for _ in range(RATE_RUNS):
+    for run in range(RATE_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sample_diffusion_embeddings(model, sched, n=N, seq_len=SEQ,
-                                    embed_dim=DIM, generator=gen)
+                                    embed_dim=DIM, key=_key(1 + run))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     rate = STEPS * len(times) / sum(times)
@@ -1296,9 +1361,10 @@ def main_path_sample_ddim(card: str, ckpt: Path, dim: int,
     expect = {"flash_attention_fwd": NARROW_SAMPLE_STEPS * depth,
               "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
               "guided_decode": 0, "fused_resblock": 0, **_SINGLE_BLOCK_IDLE}
-    if counts != expect:
+    if _others(counts) != expect:
         raise AssertionError(f"launches {counts} on the dim-{dim} sampling "
                              f"path, expected {expect}")
+    _check_draws(counts, 1, f"the dim-{dim} DDIM path")     # x_T alone
     if tuple(z.shape) != (N, SEQ, dim) or not bool(torch.isfinite(z).all()):
         raise AssertionError(f"embeddings {tuple(z.shape)}, finite: "
                              f"{bool(torch.isfinite(z).all())}")
@@ -1370,7 +1436,7 @@ def main_path_guided(card: str, ckpt: Path):
                   "flash_attention_bwd_dkv": steps * LM_DEPTH,
                   "guided_decode": 0, "fused_resblock": 0,
               **_SINGLE_BLOCK_IDLE}
-        if counts != expect:
+        if _others(counts) != expect:
             raise AssertionError(f"launches {counts} on the guided CLI path "
                                  f"(call {i + 1}), expected {expect}")
         if tuple(tokens.shape) != (N, SEQ) or tokens.device.type != "cuda":
@@ -1463,7 +1529,7 @@ def guided_exact(card: str, lm_ckpt: Path, ckpt: Path, z, rounding):
               "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
               "guided_decode": 2, "fused_resblock": 0,
               **_SINGLE_BLOCK_IDLE}
-    if counts != expect:
+    if _others(counts) != expect:
         raise AssertionError(f"launches {counts} on the exact guided path, "
                              f"expected {expect}")
     if not torch.equal(tokens, _fixpoint(lm, tokens, diff, bos)):
@@ -2082,13 +2148,12 @@ def _profile_sampler_modes(what: str, model, shape, card: str) -> dict:
     from tinydiffusionmodels_torch.sample.ancestral import sample_loop
 
     phase(f"profile: {what}, eager and replayed, under torch.profiler")
-    gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {}
     for mode in ("eager", "replayed"):
         def loop(steps):
             with torch.inference_mode():
                 sample_loop(model, make_schedule(steps, device="cuda"), shape,
-                            generator=gen, eager=mode == "eager")
+                            key=_key(3), eager=mode == "eager")
             torch.cuda.synchronize()
 
         loop(PROFILE_STEPS)
@@ -2295,9 +2360,11 @@ def main_path_mnist_train(card: str):
               "flash_attention_bwd_dkv": 0, "guided_decode": 0,
               "fused_resblock": steps * 4 + STEPS * 4,
               **_SINGLE_BLOCK_IDLE}
-    if counts != expect:
+    if _others(counts) != expect:
         raise AssertionError(f"launches {counts} on the MNIST training path, "
                              f"expected {expect}")
+    # t and noise a step; the epoch's sample grid: x_T and each step.
+    _check_draws(counts, 2 * steps + 1 + STEPS, "the MNIST training path")
     losses = result.step_losses
     if losses.shape != (steps,) or not np.isfinite(losses).all():
         raise AssertionError(f"{losses.shape} step losses, finite: "
@@ -2350,9 +2417,11 @@ def main_path_mnist_sample(card: str, ckpt: Path):
                   "flash_attention_bwd_dkv": 0, "guided_decode": 0,
                   "fused_resblock": expect_launches,
                   **_SINGLE_BLOCK_IDLE}
-        if counts != expect:
+        if _others(counts) != expect:
             raise AssertionError(f"launches {counts} on the MNIST sampling "
                                  f"path {extra}, expected {expect}")
+        _check_draws(counts, 1 + (0 if extra else STEPS),
+                     f"the MNIST sampling path {extra}")
         if tuple(x.shape) != (MNIST_N, 28, 28, 1) or x.device.type != "cuda":
             raise AssertionError(f"samples {tuple(x.shape)} on {x.device}")
         if not bool(torch.isfinite(x).all()) or not png.is_file():
@@ -2366,12 +2435,11 @@ def main_path_mnist_sample(card: str, ckpt: Path):
     # Steady state: the 1000-step loop again, model already loaded.
     model = load_unet(str(ckpt), "cuda")
     sched = make_schedule(device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(1)
     times = []
-    for _ in range(2):
+    for run in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sample_images(model, sched, n_samples=MNIST_N, generator=gen)
+        sample_images(model, sched, n_samples=MNIST_N, key=_key(1 + run))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     wall = min(times)
@@ -2640,7 +2708,7 @@ def main_path_kernel_bench(card: str):
         "attention_single_block_fwd": 2 * short * calls,
         "attention_single_block_bwd": short * calls,
     }
-    if counts != expect:
+    if _others(counts) != expect:
         raise AssertionError(f"launches {counts} on the kernel bench, "
                              f"expected {expect}")
     lines = (2 * len(kb.RESBLOCK_SHAPES) + 2 * (2 * n_att + short)
@@ -2802,6 +2870,7 @@ def main_path_bf16_train(card: str):
     mnist_counts = _counts()
     expect = {name: 0 for name in mnist_counts}
     expect["fused_resblock"] = MNIST_BF16_STEPS * 4
+    expect["rng_draw"] = MNIST_BF16_STEPS * 2    # t and noise
     if mnist_counts != expect or set(seen) != {
             ("fused_resblock", "bfloat16", "contiguous")}:
         raise AssertionError(f"launches {mnist_counts}, calls by dtype "
@@ -2986,7 +3055,7 @@ def main_path_bench(card: str) -> dict:
     launches = extra["provenance"]["kernels"]
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "fused_resblock",
-                 "guided_decode"):
+                 "guided_decode", "rng_draw"):
         if not launches[name] > 0:
             raise AssertionError(f"the bench launched no {name}: "
                                  f"{launches}")
@@ -3024,8 +3093,10 @@ MNIST_GRAPH_CASES = {"bs128_f32_ema": (MNIST_BATCH, None, 0.999),
 GRAPH_KERNEL_NAMES = {"flash_attention_fwd": "flash_fwd_kernel",
                       "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
                       "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel",
-                      "fused_resblock": "fused_resblock_kernel"}
+                      "fused_resblock": "fused_resblock_kernel",
+                      "rng_draw": "draw_kernel"}
 GRAPH_WALL_STEPS = 100  # steps a row's unprofiled wall time is taken over
+REPLAY_GAP_S = 0.01     # the card idles between phase 25's two replays
 # Where two eager runs differ (a nondeterministic op: the MNIST f32 step's
 # weight-gradient convolutions sum in an order cuDNN picks per run), the
 # replay's distance to the nearer eager run, after GRAPH_STEPS AdamW steps
@@ -3089,9 +3160,7 @@ def _text_runner(*, batch=BATCH, dtype=None, self_cond=False,
                            .manual_seed(seed + 1), device="cuda")
     runner = text_train.TextSteps(
         joint, optimizer, tokens, batch_size=batch, steps=steps,
-        generator=torch.Generator(device="cuda").manual_seed(seed + 2),
-        coin_rng=np.random.default_rng(seed + 3), ema=ema,
-        ema_decay=ema_decay, lr_at=lambda s: GRAPH_LR * lam(s), eager=eager,
+        key=_key(seed + 2), ema=ema, ema_decay=ema_decay, lr_at=lambda s: GRAPH_LR * lam(s), eager=eager,
         mesh=mesh, sched=sched, use_learned_embeddings=True,
         pretrained_matrix=None,
         compute_dtype=resolve_compute_dtype(dtype))
@@ -3131,8 +3200,7 @@ def _mnist_runner(*, batch=MNIST_BATCH, dtype=None, ema_decay=None,
                         .manual_seed(seed + 1), device="cuda") * 2 - 1
     runner = mnist_train.MnistSteps(
         model, optimizer, images, sched, batch_size=batch, steps=steps,
-        generator=torch.Generator(device="cuda").manual_seed(seed + 2),
-        ema=ema, ema_decay=ema_decay,
+        key=_key(seed + 2), ema=ema, ema_decay=ema_decay,
         compute_dtype=resolve_compute_dtype(dtype), eager=eager)
     order = np.random.default_rng(seed + 3).permutation(steps * batch)
     runner.start(order.reshape(steps, batch))
@@ -3316,14 +3384,12 @@ def _sample(case, sched, eager: bool, seed: int = 51) -> list:
 
     denoise, shape, method, steps, self_cond = case
     sampler = Sampler(denoise, sched, shape, method=method, num_steps=steps,
-                      self_cond=self_cond, eager=eager,
-                      generator=torch.Generator(device="cuda")
-                      .manual_seed(seed))
+                      self_cond=self_cond, eager=eager)
     calls = []
-    for _ in range(2):
+    for call in range(2):
         torch.cuda.synchronize()
         _reset_counts()
-        x = sampler()
+        x = sampler(_key(seed + call))
         torch.cuda.synchronize()
         calls.append((x, _counts()))
     return calls
@@ -3374,12 +3440,50 @@ def _kernel_counts(prof) -> dict:
     return counts
 
 
+def _last_replay_kernels(prof) -> list:
+    """The names of the kernels of the last profiled replay: the device
+    events after the widest gap between two of them, where the replays
+    are REPLAY_GAP_S apart and a replay's kernels microseconds (all of
+    them when no gap is that wide)."""
+    from torch.autograd import DeviceType
+
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    gaps = [b.time_range.start - a.time_range.end
+            for a, b in zip(events, events[1:])]
+    cut = 0
+    if gaps and max(gaps) >= REPLAY_GAP_S * 1e6 / 2:
+        cut = gaps.index(max(gaps)) + 1
+    return [e.name for e in events[cut:]]
+
+
+def _named_counts(names: list) -> dict:
+    counts = dict.fromkeys(GRAPH_KERNEL_NAMES, 0)
+    for name in names:
+        for counter, kernel in GRAPH_KERNEL_NAMES.items():
+            if kernel in name:
+                counts[counter] += 1
+    return counts
+
+
+def _draw_kinds(names: list) -> dict:
+    """Draw kernels among ``names``, by template instance."""
+    kinds = {}
+    for name in names:
+        if "draw_kernel" in name:
+            kind = name[name.find("draw_kernel"):].split("(")[0]
+            kinds[kind] = kinds.get(kind, 0) + 1
+    return kinds
+
+
 def kernels_in_graphs(runners: dict, models) -> None:
-    """Phase 25: torch.profiler over one replay of each training graph must
-    list the flash forward, dq and dk/dv kernels (text) and the resblock
-    kernel (MNIST) as many times as the capture counted them (one eager
-    step's launches); over a second call of a captured 10-step sampler
-    loop (ten replays), 10 steps' worth. Where the profiler lists none
+    """Phase 25: torch.profiler over one replay of each training graph (the
+    second of two, told apart by the idle gap between them) must list
+    the flash forward, dq and dk/dv kernels (text), the resblock kernel
+    (MNIST) and the draw kernel as many times as the capture counted them
+    (one eager step's launches); over a second call of a captured 10-step
+    sampler loop (ten replays), 10 steps' worth. Where the profiler lists none
     from a replay, that is printed and the launch counters' deltas are
     what remains."""
     import torch
@@ -3398,22 +3502,33 @@ def kernels_in_graphs(runners: dict, models) -> None:
             if not step.captured:
                 continue
             # COUNTERS begins with the flash and resblock counters, in
-            # GRAPH_KERNEL_NAMES' order.
-            want = dict(zip(GRAPH_KERNEL_NAMES, step.delta))
-            runner.cursor.zero_()   # the epoch's first step again
-            torch.cuda.synchronize()
+            # GRAPH_KERNEL_NAMES' order, and ends with the draws'.
+            want = dict(zip(list(GRAPH_KERNEL_NAMES)[:4], step.delta))
+            want["rng_draw"] = step.delta[-1]
+            # Two replays, REPLAY_GAP_S apart, and the second counted: a
+            # profile has missed the first kernels it saw on the H100 (a
+            # text step's first draw; the self-conditioning step's first
+            # three flash forwards; an MNIST step's two draws), also
+            # after a profiler warm-up step.
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                step.graph.replay()
-                torch.cuda.synchronize()
-            seen = _kernel_counts(prof)
+                for i in range(2):
+                    if i:
+                        time.sleep(REPLAY_GAP_S)
+                    runner.cursor.zero_()   # the epoch's first step again
+                    step.graph.replay()
+                    torch.cuda.synchronize()
+            names = _last_replay_kernels(prof)
+            seen = _named_counts(names)
             if not any(seen.values()):
                 blind.append(what)
             elif seen != want:
                 raise AssertionError(f"{what} (step {variant}): the "
-                                     f"profiler lists {seen} in one replay, "
-                                     f"the capture counted {want}")
-            print(f"{what} (step {variant}): one replay lists {seen}; the "
-                  f"capture counted {step.delta}")
+                                     f"profiler lists {seen} in one replay "
+                                     f"(draws {_draw_kinds(names)}), the "
+                                     f"capture counted {want}")
+            print(f"{what} (step {variant}): one replay lists {seen}, the "
+                  f"draws by instance {_draw_kinds(names)}; the capture "
+                  f"counted {step.delta}")
     sched = make_schedule(10, device="cuda")
     text, _, unet = models
     for what, model, shape, counter, per_step in (
@@ -3421,11 +3536,10 @@ def kernels_in_graphs(runners: dict, models) -> None:
              "flash_attention_fwd", DEPTH),
             (f"MNIST sampler n {MNIST_N}", unet, (MNIST_N, 28, 28, 1),
              "fused_resblock", 4)):
-        gen = torch.Generator(device="cuda").manual_seed(1)
         # The first call runs a step eagerly and captures; the profiled
         # second call is ten replays (the profiler misses eager launches
         # on the card: 38 of 40 listed once when the eager step was in).
-        sampler = Sampler(model, sched, shape, generator=gen)
+        sampler = Sampler(model, sched, shape, key=_key(1))
         sampler()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof, \
@@ -3668,8 +3782,8 @@ def torchrun_paths(card: str) -> list:
     ``--seq_parallel`` (a ring of one), and the MNIST CLI under
     ``cudnn.deterministic``. The six runs share the card at once (their
     step times are phase 31's to measure). The checkpoints must be
-    bit-equal and the launches as counted. Returns the launches of the
-    runs (main paths)."""
+    bit-equal and the launches and draws as counted. Returns the launches
+    of the runs (main paths)."""
     from tinydiffusionmodels_torch.data import (
         CharTokenizer,
         load_text_corpus,
@@ -3710,16 +3824,17 @@ def torchrun_paths(card: str) -> list:
     text_launches = {"flash_attention_fwd": (steps + val_batches + 1) * DEPTH,
                      "flash_attention_bwd_dq": steps * DEPTH,
                      "flash_attention_bwd_dkv": steps * DEPTH}
+    text_draws = _text_train_draws(steps, DEPTH, val_batches)
+    mnist_steps = TORCHRUN_MNIST_IMAGES // MNIST_BATCH
     cases = (("text", "shakespeare", text_argv, text_env, False,
-              text_launches),
+              text_launches, text_draws),
              ("text --seq_parallel", "shakespeare",
               [*text_argv, "--seq_parallel"], text_env, False,
-              text_launches),
+              text_launches, text_draws),
              ("MNIST (cudnn.deterministic)", "mnist", mnist_argv, mnist_env,
-              True, {"fused_resblock":
-                     (TORCHRUN_MNIST_IMAGES // MNIST_BATCH) * 4}))
+              True, {"fused_resblock": mnist_steps * 4}, 2 * mnist_steps))
     started = {}
-    for i, (what, cli, argv, env, det, _) in enumerate(cases):
+    for i, (what, cli, argv, env, det, _, _) in enumerate(cases):
         for torchrun in (True, False):
             name = f"case{i}_{'torchrun' if torchrun else 'plain'}"
             ckpt = work / f"{name}.pth"
@@ -3733,7 +3848,7 @@ def torchrun_paths(card: str) -> list:
     records = {key: _finish_cli(run, deadline)
                for key, (_, run) in started.items()}
     runs = []
-    for i, (what, cli, _, _, _, expect) in enumerate(cases):
+    for i, (what, cli, _, _, _, expect, draws) in enumerate(cases):
         for torchrun in (True, False):
             rec = records[i, torchrun]
             if rec["world"] != (1 if torchrun else 0):
@@ -3741,9 +3856,11 @@ def torchrun_paths(card: str) -> list:
                                      f"({'with' if torchrun else 'without'} "
                                      "torchrun)")
             counts = {k: v for k, v in rec["counts"].items() if v}
-            if counts != expect:
+            if _others(counts) != expect:
                 raise AssertionError(f"{what}: launches {counts}, expected "
                                      f"{expect}")
+            _check_draws(rec["counts"], draws, f"{what} "
+                         f"({'with' if torchrun else 'without'} torchrun)")
             runs.append(rec["counts"])
         a, b = started[i, True][0], started[i, False][0]
         diff = _checkpoint_diff(a, b)
@@ -3754,8 +3871,8 @@ def torchrun_paths(card: str) -> list:
             raise AssertionError(f"{what}: the torchrun checkpoint differs "
                                  f"from the plain one in {diff[:8]}")
         print(f"{what}: checkpoints bit-equal with and without torchrun "
-              f"(a NCCL group of one); launches {expect} each; "
-              f"{records[i, True]['steps']} steps")
+              f"(a NCCL group of one); launches {expect} and {draws} "
+              f"draws each; {records[i, True]['steps']} steps")
     print(f"phase: {time.perf_counter() - t0:.1f} s for the six runs, on "
           f"{card}")
     return runs
@@ -3927,14 +4044,12 @@ def _restore_seconds(state: Path, kind: str) -> tuple[float, float]:
         TinyTransformer,
         TransformerConfig,
     )
-    from tinydiffusionmodels_torch.parallel import make_mesh
     from tinydiffusionmodels_torch.train import state as train_state
     from tinydiffusionmodels_torch.train.optim import adamw
 
     t0 = time.perf_counter()
     saved = train_state.read(str(state))
     read_s = time.perf_counter() - t0
-    gen = torch.Generator(device="cuda")
     if kind == "text":
         cfg = config_from_state_dict(saved["diffusion_model"],
                                      TransformerConfig(dim=DIM, n_heads=HEADS))
@@ -3950,12 +4065,9 @@ def _restore_seconds(state: Path, kind: str) -> tuple[float, float]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if kind == "text":
-        train_state.restore_text(saved, model, optimizer, ema,
-                                 mesh=make_mesh(), gen=gen,
-                                 coin_rng=np.random.default_rng(0))
+        train_state.restore_text(saved, model, optimizer, ema)
     else:
-        train_state.restore_mnist(saved, model, optimizer, ema,
-                                  mesh=make_mesh(), gen=gen)
+        train_state.restore_mnist(saved, model, optimizer, ema)
     torch.cuda.synchronize()
     return read_s, time.perf_counter() - t0
 
@@ -4022,7 +4134,7 @@ def resume_on_card(card: str) -> tuple[list, Path]:
     runs = []
     for kind, (whole, resumed) in drills.items():
         for rec, epochs in ((whole, 2), (resumed, 1)):
-            counts = {k: v for k, v in rec["counts"].items() if v}
+            counts = {k: v for k, v in _others(rec["counts"]).items() if v}
             if kind == "text":
                 want = {k: v * epochs for k, v in per_epoch.items()}
                 want["flash_attention_fwd"] += DEPTH
@@ -4118,7 +4230,7 @@ def _mnist_fidelity(card: str, mnist_ckpt: Path) -> list:
         counts = _counts()
         _finite_record(what, rec, FIDELITY_KEYS, "synthetic")
         want = {} if plain else {"fused_resblock": MNIST_DDIM_STEPS * 4}
-        if {k: v for k, v in counts.items() if v} != want:
+        if {k: v for k, v in _others(counts).items() if v} != want:
             raise AssertionError(f"{what}: launches {counts}")
         if not all(rec["class_histogram"]):
             raise AssertionError(f"{what}: a class of digit is missing from "
@@ -4165,7 +4277,8 @@ def fidelity_on_card(card: str, mnist_ckpt: Path, text_ckpt: Path,
         _finite_record(f"text_fidelity {mode}", rec, TEXT_FIDELITY_KEYS,
                        "builtin")
         if counts["flash_attention_fwd"] < STEPS * DEPTH or any(
-                v for k, v in counts.items() if k != "flash_attention_fwd"):
+                v for k, v in _others(counts).items()
+                if k != "flash_attention_fwd"):
             raise AssertionError(f"text_fidelity {mode}: launches {counts}")
         runs.append(counts)
         print(f"text_fidelity {mode}: {time.perf_counter() - t0:.1f} s, "
@@ -4277,11 +4390,11 @@ def gemma_guided_decode(card: str):
     _reset_counts()
     z = sample_diffusion_embeddings(
         denoiser, sched, n=GEMMA_N, seq_len=SEQ, embed_dim=GEMMA_DIM,
-        method="ddim", num_steps=GEMMA_DDIM_STEPS,
-        generator=torch.Generator(device="cuda").manual_seed(9))
+        method="ddim", num_steps=GEMMA_DDIM_STEPS, key=_key(9))
     torch.cuda.synchronize()
     sampler = _counts()
-    expect = dict(idle, flash_attention_fwd=GEMMA_DDIM_STEPS * DEPTH)
+    expect = dict(idle, flash_attention_fwd=GEMMA_DDIM_STEPS * DEPTH,
+                  rng_draw=1)        # x_T
     if sampler != expect or not bool(torch.isfinite(z).all()):
         raise AssertionError(f"the sampler launched {sampler}, expected "
                              f"{expect}; finite: {torch.isfinite(z).all()}")
@@ -4493,7 +4606,7 @@ def gemma_hf_cli(card: str) -> dict:
               "flash_attention_bwd_dq": steps,
               "flash_attention_bwd_dkv": steps, "guided_decode": 0,
               "fused_resblock": 0, **_SINGLE_BLOCK_IDLE}
-    if counts != expect:
+    if _others(counts) != expect:
         raise AssertionError(f"launches {counts} on the HF route, expected "
                              f"{expect}")
     written = sorted((work / "samples").glob("guided_sample_*.txt"))
@@ -4660,6 +4773,295 @@ def _offset_mask_probes(seed) -> None:
                                      f"head offset {h0}")
 
 
+# Phase 40: the flash kernels on a data-parallel rank's rows: rows
+# b0..b0 + BATCH_ROWS of a global batch of BATCH.
+BATCH_OFFSETS = (0, 4)
+BATCH_ROWS = 4
+
+
+def flash_batch_offsets() -> dict:
+    """Phase 40: the forward with dropout and both backward kernels on rows
+    b0..b0+3 of a global batch of 8 (``batch_offset``: a data-parallel
+    rank's rows, whose mask hashes their global index), against the plain
+    version of the whole batch, sliced: O and lse at phase 3's limits, dq,
+    dk, dv at phase 4's; offset 0 bit-equal to the call without one; then
+    the realised mask (v = I, dO = I) at the offset against
+    ``dropout_scale`` at the global rows. Returns the largest f32 errors."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import flash_attention as fa
+    from tinydiffusionmodels_torch.ops import reference
+
+    phase(f"flash kernels at batch offsets {BATCH_OFFSETS} ({BATCH_ROWS} of "
+          f"{BATCH} rows), dropout {DROPOUT}, f32 and bf16 (TF32 off)")
+    seed = _seed(135_792_468)
+    worst = {"out": 0.0, "dq": 0.0, "dkv": 0.0}
+    dh = DIM // HEADS
+    for dtype in (torch.float32, torch.bfloat16):
+        for b0 in BATCH_OFFSETS:
+            g = torch.Generator(device="cuda").manual_seed(400 + b0)
+            qkv = torch.randn(BATCH, SEQ, 3, HEADS, dh, generator=g,
+                              device="cuda").to(dtype)
+            g_out = torch.randn(BATCH, SEQ, HEADS, dh, generator=g,
+                                device="cuda").to(dtype)
+            g_lse = torch.randn(BATCH, HEADS, SEQ, generator=g,
+                                device="cuda")
+            rows = slice(b0, b0 + BATCH_ROWS)
+            kw = dict(layout="blhd", dropout_rate=DROPOUT, dropout_seed=seed)
+            whole = qkv.clone().requires_grad_()
+            r_out, r_lse = reference.attention(*whole.unbind(2), **kw)
+            (r_grad,) = torch.autograd.grad((r_out, r_lse), whole,
+                                            (g_out, g_lse))
+            part = qkv[rows].contiguous().requires_grad_()
+            out, lse = fa.flash_attention_with_lse(
+                *part.unbind(2), batch_offset=b0, **kw)
+            (grad,) = torch.autograd.grad(
+                (out, lse), part, (g_out[rows].contiguous(),
+                                   g_lse[rows].contiguous()))
+            torch.cuda.synchronize()
+            bf = dtype == torch.bfloat16
+            tol_o, tol_l, tol_g = ((2e-2, 1e-2, 2e-2) if bf
+                                   else (1e-4, 1e-4, 2e-4))
+            torch.testing.assert_close(out, r_out[rows], atol=tol_o,
+                                       rtol=tol_o)
+            torch.testing.assert_close(lse, r_lse[rows], atol=tol_l,
+                                       rtol=tol_l)
+            errs = []
+            for i in range(3):
+                torch.testing.assert_close(grad[:, :, i], r_grad[rows, :, i],
+                                           atol=tol_g, rtol=tol_g)
+                errs.append(_max_err(grad[:, :, i], r_grad[rows, :, i]))
+            e_out = _max_err(out, r_out[rows])
+            print(f"rows {b0}-{b0 + BATCH_ROWS - 1} of {BATCH} "
+                  f"{str(dtype)[6:]:8s} max|dO| {e_out:.3e} max|dlse| "
+                  f"{_max_err(lse, r_lse[rows]):.3e} (tol {tol_o:g}/"
+                  f"{tol_l:g})  max|ddq| {errs[0]:.3e} max|ddk| "
+                  f"{errs[1]:.3e} max|ddv| {errs[2]:.3e} (tol {tol_g:g})")
+            if not bf:
+                worst["out"] = max(worst["out"], e_out)
+                worst["dq"] = max(worst["dq"], errs[0])
+                worst["dkv"] = max(worst["dkv"], errs[1], errs[2])
+            if b0 == 0:
+                views = qkv.unbind(2)
+                if not torch.equal(
+                        fa.flash_attention(*views, batch_offset=0, **kw),
+                        fa.flash_attention(*views, **kw)):
+                    raise AssertionError("batch offset 0 is not the call "
+                                         "without an offset")
+    b, l = 2, 64
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q = 0.3 * torch.randn(b, HEADS, l, 64, generator=g, device="cuda")
+    k = 0.3 * torch.randn(b, HEADS, l, 64, generator=g, device="cuda")
+    eye = torch.eye(l, device="cuda").expand(b, HEADS, l, l).contiguous()
+    p = torch.softmax(q @ k.transpose(-1, -2) / 8.0, dim=-1)
+    keep_scale = 1.0 / (1.0 - DROPOUT)
+    for b0 in (0, 6):
+        bh = reference._hashed_heads(b, HEADS, 0, HEADS, "cuda", b0)
+        want = reference.dropout_scale(
+            seed, bh, torch.arange(l, device="cuda")[:, None],
+            torch.arange(l, device="cuda")[None, :], DROPOUT) > 0
+        kw = dict(dropout_rate=DROPOUT, dropout_seed=seed, batch_offset=b0)
+        fwd = fa.flash_attention(q, k, eye, **kw) / p
+        v = eye.clone().requires_grad_()
+        (dv,) = torch.autograd.grad(fa.flash_attention(q, k, v, **kw), v,
+                                    eye)
+        for what, ratio in (("forward", fwd),
+                            ("dkv", dv.transpose(-1, -2) / p)):
+            got = ratio > keep_scale / 2
+            torch.testing.assert_close(ratio, got * keep_scale, atol=1e-4,
+                                       rtol=1e-4)
+            bad = int((got != want).sum())
+            print(f"mask probe at batch offset {b0} ({what}): {bad} of "
+                  f"{want.numel()} keep/drop decisions differ from "
+                  f"dropout_scale at the global rows")
+            if bad:
+                raise AssertionError(f"{bad} dropout decisions differ at "
+                                     f"batch offset {b0}")
+    return worst
+
+
+# Phase 41: the draw kernel at the training steps' full sizes. Each case:
+# (what, global shape, window or None). The text step's noise (and a
+# data-parallel rank's rows and a sequence shard's positions of it), the
+# MNIST step's noise, and the bf16 bs-512 text step's FFN feature mask
+# (and a tensor-parallel rank's columns of it).
+RNG_NOISE = (("text noise", (BATCH, SEQ, DIM), None),
+             ("text noise, rows 4-7", (BATCH, SEQ, DIM),
+              ((4, 4), (0, SEQ), (0, DIM))),
+             ("text noise, positions 32-63", (BATCH, SEQ, DIM),
+              ((0, BATCH), (32, 32), (0, DIM))),
+             ("MNIST noise", (MNIST_BATCH, 28, 28, 1), None))
+RNG_MASKS = (("bf16 text step FFN mask", (512, SEQ, FFN), None),
+             ("its columns 1024-2047", (512, SEQ, FFN),
+              ((0, 512), (0, SEQ), (1024, 1024))))
+RNG_ULPS = 2.0
+
+
+def _ulps(a, b) -> float:
+    """Largest |a - b| in float32 spacings at the larger magnitude."""
+    import torch
+
+    a, b = a.double(), b.double()
+    mag = torch.maximum(a.abs(), b.abs()).float()
+    spacing = (torch.nextafter(mag, torch.full_like(mag, float("inf")))
+               - mag).double()
+    return float(((a - b).abs() / spacing).max())
+
+
+def rng_kernel_vs_plain(card: str) -> tuple[float, dict]:
+    """Phase 41: ``csrc/rng.cu`` (``ops.rng``) against ``core/rng.py``'s
+    plain versions run on the card, from a key path with a device counter
+    (the train key, step 12345 read from the device, then the step's
+    substreams, as a replayed step derives them): normals (stock and
+    counter) within RNG_ULPS float32 spacings, integers (the timesteps at
+    B 8 and 128, the flash kernels' int32 seed) and the dropout outputs
+    (stock and counter masks, f32 and bf16, and their backward) bit-equal.
+    Then CUDA-event times at the text step's noise and the bf16 step's
+    feature mask, beside the plain version, torch's own draw of the shape
+    (another stream, so not the same function: ``library_ms`` is null) and
+    the bound (bytes written, and read for a mask, at the HBM rate).
+    Returns (largest error, timing row)."""
+    import torch
+
+    from tinydiffusionmodels_torch import perf
+    from tinydiffusionmodels_torch.core import rng
+    from tinydiffusionmodels_torch.ops import rng as ops_rng
+
+    phase("random draws kernel vs plain (csrc/rng.cu against core/rng.py "
+          "on the card, full sizes)")
+    root = rng.substream(rng.prng_key(2026), "train")
+    counter = torch.tensor([12345], device="cuda")
+    step = rng.KeyPath(root.cuda(), counter)
+    host = rng.fold_in(root, 12345)
+    env = os.environ.get("TDM_FAST_NOISE")
+    worst_ulps, bad = 0.0, 0
+    try:
+        for what, shape, window in RNG_NOISE:
+            key, hkey = (rng.substream(k, "noise") for k in (step, host))
+            for kind, kernel, plain in (
+                    ("normal", ops_rng.normal, rng.normal),
+                    ("counter", ops_rng.counter_normal, rng.counter_normal)):
+                got = kernel(key, shape, window=window)
+                want = plain(hkey, shape, window=window, device="cuda")
+                u = _ulps(got, want)
+                worst_ulps = max(worst_ulps, u)
+                print(f"{what} {kind}: {tuple(got.shape)}, "
+                      f"{int((got != want).sum())} elements differ, max "
+                      f"{u:.1f} ulp (tol {RNG_ULPS:g})")
+        for b in (BATCH, MNIST_BATCH):
+            key, hkey = (rng.substream(k, "timesteps") for k in (step, host))
+            got = ops_rng.randint(key, (b,), 0, STEPS)
+            want = rng.randint(hkey, (b,), 0, STEPS, device="cuda").long()
+            bad += int((got != want).sum())
+        for layer in range(3):
+            key, hkey = (rng.substream(rng.fold_in(rng.substream(
+                k, "dropout"), layer), "attn_weights") for k in (step, host))
+            got = ops_rng.attention_seed(key)
+            want = rng.randint(hkey, (1,), -2**31, 2**31 - 1, device="cuda")
+            bad += int((got != want).sum())
+        print(f"timesteps (B {BATCH}, {MNIST_BATCH}) and 3 attention seeds: "
+              f"{bad} integers differ")
+        for mode in ("0", "1"):
+            os.environ["TDM_FAST_NOISE"] = mode
+            for what, shape, window in RNG_MASKS:
+                key, hkey = (rng.substream(k, "dropout_ffn") for k in
+                             (step, host))
+                size = tuple(n for _, n in rng.window_of(shape, window))
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn(size, device="cuda").to(dtype)
+                    x.requires_grad_()
+                    got = ops_rng.dropout(x, key, DROPOUT, shape=shape,
+                                          window=window)
+                    (grad,) = torch.autograd.grad(got, x, x.detach())
+                    keep = rng.draw_keep(hkey, 1.0 - DROPOUT, shape, window,
+                                         device="cuda")
+                    div = torch.tensor(1.0 - DROPOUT, dtype=dtype,
+                                       device="cuda")
+                    want = torch.where(keep, x.detach() / div,
+                                       torch.zeros((), dtype=dtype,
+                                                   device="cuda"))
+                    n = int((got != want).sum()) + int((grad != want).sum())
+                    bad += n
+                    print(f"{what} ({'counter' if mode == '1' else 'stock'}"
+                          f", {str(dtype)[6:]}): kept "
+                          f"{float(keep.float().mean()):.4f}, {n} elements "
+                          f"differ (forward and backward)")
+    finally:
+        if env is None:
+            os.environ.pop("TDM_FAST_NOISE", None)
+        else:
+            os.environ["TDM_FAST_NOISE"] = env
+    if worst_ulps > RNG_ULPS or bad:
+        raise AssertionError(f"draws: {worst_ulps} ulp (tol {RNG_ULPS}), "
+                             f"{bad} integers or mask elements differ")
+
+    # Timing under the card's default (the counter draws), and the stock
+    # draws beside them.
+    key = rng.substream(step, "noise")
+    hkey = rng.substream(host, "noise")
+    text = (BATCH, SEQ, DIM)
+    mask_shape = RNG_MASKS[0][1]
+    x16 = torch.randn(mask_shape, device="cuda").bfloat16()
+    hbm = perf.device_hbm_bandwidth()
+    rows = {}
+    for what, kernel, plain, torch_draw, nbytes in (
+            (f"counter noise {text}",
+             lambda: ops_rng.counter_normal(key, text),
+             lambda: rng.counter_normal(hkey, text, device="cuda"),
+             lambda: torch.randn(text, device="cuda"),
+             4 * BATCH * SEQ * DIM),
+            (f"stock noise {text}",
+             lambda: ops_rng.normal(key, text),
+             lambda: rng.normal(hkey, text, device="cuda"),
+             lambda: torch.randn(text, device="cuda"),
+             4 * BATCH * SEQ * DIM),
+            (f"counter mask {mask_shape} bf16",
+             lambda: ops_rng.dropout(x16, key, DROPOUT),
+             lambda: torch.where(rng.counter_bernoulli(
+                 hkey, 1.0 - DROPOUT, mask_shape, device="cuda"),
+                 x16 / 0.8984375, 0.0),
+             lambda: torch.empty_like(x16).bernoulli_(0.9).mul_(x16),
+             2 * 2 * x16.numel()),
+            (f"stock mask {mask_shape} bf16",
+             lambda: ops_rng.dropout(x16, key, DROPOUT),
+             lambda: torch.where(rng.bernoulli(
+                 hkey, 1.0 - DROPOUT, mask_shape, device="cuda"),
+                 x16 / 0.8984375, 0.0),
+             lambda: torch.empty_like(x16).bernoulli_(0.9).mul_(x16),
+             2 * 2 * x16.numel())):
+        stock = what.startswith("stock")
+        os.environ["TDM_FAST_NOISE"] = "0" if stock else "1"
+        try:
+            iters = 50 if "mask" in what else 200
+            p_ms = [perf.device_ms(plain, max(5, iters // 10))]
+            k_ms = [perf.device_ms(kernel, iters),
+                    perf.device_ms(kernel, iters)]
+            p_ms.append(perf.device_ms(plain, max(5, iters // 10)))
+            t_ms = perf.device_ms(torch_draw, iters)
+        finally:
+            if env is None:
+                os.environ.pop("TDM_FAST_NOISE", None)
+            else:
+                os.environ["TDM_FAST_NOISE"] = env
+        bound = nbytes / hbm * 1e3
+        rows[what] = dict(ms=sum(k_ms) / 2, plain_ms=sum(p_ms) / 2,
+                          bound_ms=bound, bound_by="bytes", library_ms=None,
+                          torch_draw_ms=t_ms)
+        print(f"{what}: kernel {k_ms} ms, plain {p_ms} ms, torch's own draw "
+              f"(another stream) {t_ms} ms; bound {bound} ms ({nbytes} B at "
+              f"{hbm / 1e12:.2f} TB/s), {sum(k_ms) / 2 / bound:.1f}x; on "
+              f"{card}")
+    head = rows[f"counter noise {text}"]
+    timing = {**head, "at": f"counter noise {text} f32 (the text step's, "
+                            f"TDM_FAST_NOISE auto on the card)",
+              "library": "none: torch draws another stream; torch_draw_ms "
+                         "is torch.randn or bernoulli_ + mul_ of the shape",
+              "shapes": {k: v for k, v in rows.items()
+                         if k != f"counter noise {text}"},
+              "max_ulp_normals": worst_ulps}
+    return worst_ulps, timing
+
+
 VALIDATION_EPOCHS = 3
 
 
@@ -4719,8 +5121,7 @@ def validation_replay(card: str, joint) -> dict:
         for epoch in range(VALIDATION_EPOCHS):
             w = 1.0 - 0.1 * epoch
             plain = text_train.eval_losses(
-                weights, val_dev, w, text_train._generator("cuda", 0, 1,
-                                                           epoch), **kw)
+                weights, val_dev, w, text_train.val_key(0, epoch), **kw)
             got = {}
             for mode, fn in (("eager", eager), ("replayed", replayed)):
                 torch.cuda.synchronize()
@@ -4734,6 +5135,7 @@ def validation_replay(card: str, joint) -> dict:
                                else 0)
                 want = {n: 0 for n in counts}
                 want["flash_attention_fwd"] = batches * depth
+                want["rng_draw"] = 2 * k     # each batch's t and noise
                 if counts != want:
                     raise AssertionError(f"{what} {mode} validation, epoch "
                                          f"{epoch}: launches {counts}, "
@@ -4859,11 +5261,11 @@ def tp_on_card(card: str) -> dict:
         records.append(json.loads(lines[-1][len(TP_MARK):]))
     counts = {}
     for rec in records:
-        expect = {n: 0 for n in rec["counts"]}
+        expect = {n: 0 for n in _others(rec["counts"])}
         expect.update({"flash_attention_fwd": DEPTH,
                        "flash_attention_bwd_dq": DEPTH,
                        "flash_attention_bwd_dkv": DEPTH})
-        if rec["counts"] != expect:
+        if _others(rec["counts"]) != expect:
             raise AssertionError(f"TP rank {rec['rank']}: launches "
                                  f"{rec['counts']}, expected {expect}")
         counts = {n: counts.get(n, 0) + c for n, c in rec["counts"].items()}
@@ -4943,6 +5345,18 @@ def xprof_on_card(card: str) -> list:
     return records
 
 
+# PERF.md §5's replayed steps before the draws moved to the key tree
+# (xprof_ops on the bench's steps): profiled device us and kernels a step,
+# printed beside phase 13's rows.
+PERF5_STEPS = {
+    f"text train bs {BATCH} f32": (1372.8, 244),
+    f"MNIST train bs {MNIST_BATCH} f32": (4426.5, 268),
+    f"text train bs {BF16_BATCH} bf16 (vocab {GRAPH_VOCAB})": (10823.6, 326),
+    f"MNIST train bs {BF16_BATCH} bf16": (4682.3, 258),
+    f"text sampler n {N}": (364.4, 60),
+}
+
+
 def main() -> None:
     import torch
 
@@ -4952,6 +5366,8 @@ def main() -> None:
     fwd_errors = kernel_vs_plain()
     train_errors, mask_mismatches = training_kernels()
     offset_errors = flash_head_offsets()
+    batch_offset_errors = flash_batch_offsets()
+    rng_error, rng_timing = rng_kernel_vs_plain(card)
     resblock_error, resblock_bf16_error = resblock_kernel_vs_plain()
     single_block_errors = single_block_kernel_vs_plain()
     result, ckpt, train_counts, _ = main_path_train(card)
@@ -5007,13 +5423,18 @@ def main() -> None:
                 profile_training(card, BF16_BATCH, bf16),
             f"MNIST train bs {BF16_BATCH} bf16":
                 profile_mnist_training(card, BF16_BATCH, bf16)}
-    print(f"\nsteps eager and replayed, on {card}:")
-    print("step | mode | wall us | device us | busy | kernels")
+    print(f"\nsteps eager and replayed, on {card}; the last column is "
+          f"PERF.md §5's replayed row before the draws moved to the key "
+          f"tree (xprof_ops: profiled device us / kernels; the bench's "
+          f"steps, which phase 39 prints again):")
+    print("step | mode | wall us | device us | busy | kernels | PERF.md §5")
     for what, modes in rows.items():
         for mode, r in modes.items():
+            before = PERF5_STEPS.get(what) if mode == "replayed" else None
             print(f"{what} | {mode} | {r['wall_us']:.1f} | "
                   f"{r['device_us']:.1f} | {r['busy']:.3f} | "
-                  f"{r['kernels']:.1f}")
+                  f"{r['kernels']:.1f} | "
+                  f"{'-' if before is None else '%.1f / %d' % before}")
     suite_counts = main_path_bench(card)
     xprof_on_card(card)
     # After every in-process profile: once phase 34's CLI runs had run
@@ -5032,7 +5453,9 @@ def main() -> None:
               "guided_decode": max(decode_worst_gap, exact_gap),
               "fused_resblock": resblock_error,
               "attention_single_block_fwd": single_block_errors["fwd"],
-              "attention_single_block_bwd": single_block_errors["bwd"]}
+              "attention_single_block_bwd": single_block_errors["bwd"],
+              "rng_draw": rng_error}
+    timings["rng_draw"] = rng_timing
     bs8, bs256 = (decode_times[b] for b in DECODE_BATCHES)
     timings["guided_decode"] = {
         **{k: bs8[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -5086,12 +5509,17 @@ def main() -> None:
             entry["ring_max_abs_err_f32"] = ring_errors[
                 {"flash_attention_fwd": "out", "flash_attention_bwd_dq": "dq",
                  "flash_attention_bwd_dkv": "dkv"}[name]]
-            entry["head_offset_max_abs_err_f32"] = offset_errors[
-                {"flash_attention_fwd": "out", "flash_attention_bwd_dq": "dq",
-                 "flash_attention_bwd_dkv": "dkv"}[name]]
+            part = {"flash_attention_fwd": "out",
+                    "flash_attention_bwd_dq": "dq",
+                    "flash_attention_bwd_dkv": "dkv"}[name]
+            entry["head_offset_max_abs_err_f32"] = offset_errors[part]
+            entry["batch_offset_max_abs_err_f32"] = batch_offset_errors[part]
             entry["dropout_hash"] = {"source": DROPOUT_HASH[0],
                                      "replaces": DROPOUT_HASH[1],
                                      "mask_mismatches": mask_mismatches}
+        if name == "rng_draw":
+            entry["max_abs_err_unit"] = ("float32 spacings of the normals; "
+                                         "integers and masks bit-equal")
         record.append(entry)
     print(f"command time {time.perf_counter() - t_start:.1f} s, of which the "
           f"kernel bench {bench_seconds:.1f} s")

@@ -161,3 +161,35 @@ def test_ops_attention_rejects_unported(kwargs, error, match):
     q = torch.zeros(1, 1, 4, 32)
     with pytest.raises(error, match=match):
         ops.attention(q, q, q, **kwargs)
+
+
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("fast", ["0", "1"])
+def test_masked_attention_with_dropout_matches_xla_ref(layout, fast,
+                                                       monkeypatch):
+    """``ops.attention(mask=...)``, which the JAX package sends to
+    ``xla_ref.attention`` whatever the shape: the port's plain masked
+    attention, its weight dropout drawn from the same key by ``draw_keep``
+    (``TDM_FAST_NOISE`` 0 and 1), at dropout 0 and 0.1; f32 1e-5."""
+    import jax.numpy as jnp
+
+    from tinydiffusionmodels_tpu.ops import xla_ref
+    from tinydiffusionmodels_torch.core import rng
+
+    monkeypatch.setenv("TDM_FAST_NOISE", fast)
+    q, k, v = _inputs(2, 3, 24, 24, 16, 16, seed=4)
+    if layout == "blhd":
+        q, k, v = (np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+                   for a in (q, k, v))
+    mask = np.random.default_rng(5).random((2, 1, 24, 24)) > 0.3
+    mask[..., 0] = True
+    for rate in (0.0, 0.1):
+        want = np.asarray(xla_ref.attention(
+            *(jnp.asarray(a) for a in (q, k, v)), mask=jnp.asarray(mask),
+            dropout_rate=rate, dropout_key=jax.random.PRNGKey(6),
+            layout=layout))
+        got = ops.attention(
+            *(torch.from_numpy(a) for a in (q, k, v)),
+            mask=torch.from_numpy(mask), dropout_rate=rate,
+            dropout_key=rng.prng_key(6), layout=layout)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)

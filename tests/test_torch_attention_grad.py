@@ -168,3 +168,27 @@ def test_dropout_needs_a_seed():
         fa.flash_attention(q, q, q, dropout_rate=0.1)
     with pytest.raises(ValueError, match="requires dropout_seed"):
         reference.attention(q, q, q, dropout_rate=0.1)
+
+
+@pytest.mark.parametrize("batch_offset", [0, 2])
+def test_seed_from_the_key_and_batch_offset_match_pallas_flash(batch_offset):
+    """``pallas_kernels.flash_attention`` with a dropout key (interpret
+    mode) against the port given ``ops.rng.attention_seed`` of the same
+    key, as ``_pack_scalars`` draws it: the whole batch, and rows 2-3 of it
+    at ``batch_offset`` 2 (a data-parallel rank's), whose mask hashes the
+    rows' global index. Forward at FWD_TOL."""
+    from tinydiffusionmodels_torch import ops
+    from tinydiffusionmodels_torch.core import rng as port_rng
+
+    rs = np.random.default_rng(21)
+    q, k, v = (rs.standard_normal((4, 2, 40, 32), dtype=np.float32)
+               for _ in range(3))
+    want = np.asarray(pallas_kernels.flash_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), dropout_rate=0.1,
+        dropout_key=jax.random.PRNGKey(17)))
+    rows = slice(batch_offset, 4)
+    got = fa.flash_attention(
+        *(torch.from_numpy(a[rows]) for a in (q, k, v)), dropout_rate=0.1,
+        dropout_seed=ops.rng.attention_seed(port_rng.prng_key(17)),
+        batch_offset=batch_offset)
+    np.testing.assert_allclose(got.numpy(), want[rows], **FWD_TOL)

@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from tinydiffusionmodels_torch import graphs
-from tinydiffusionmodels_torch.core import make_schedule
+from tinydiffusionmodels_torch.core import make_schedule, rng
 from tinydiffusionmodels_torch.core.diffusion import ddim_step, p_sample
 from tinydiffusionmodels_torch.models import (
     LearnedEmbedding,
@@ -76,8 +76,7 @@ def _text_reference(joint, train_chunks, *, epochs, lr, warmup, ema_decay,
         import copy
 
         ema = copy.deepcopy(joint).requires_grad_(False)
-    gen = text_train._generator(torch.device("cpu"), seed, 0)
-    coin_rng = np.random.default_rng([seed, 2])
+    train_key = rng.substream(rng.prng_key(seed), "train")
     self_cond = joint["diffusion_model"].cfg.self_cond
     train_dev = torch.as_tensor(train_chunks, dtype=torch.long)
     losses = []
@@ -85,10 +84,12 @@ def _text_reference(joint, train_chunks, *, epochs, lr, warmup, ema_decay,
         w = dynamic_rounding_weight_schedule(epoch, epochs, 1.0)
         for rows in batch_iterator(np.arange(len(train_chunks)), B,
                                    seed=seed, epoch=epoch):
-            coin = bool(self_cond and coin_rng.random() < 0.5)
+            step = len(losses)
+            coin = self_cond and text_train.coin(train_key, step)
             losses.append(text_train.train_step(
-                joint, optimizer, train_dev[torch.as_tensor(rows)], w, gen,
-                self_cond_coin=coin, **loss_kwargs))
+                joint, optimizer, train_dev[torch.as_tensor(rows)], w,
+                rng.fold_in(train_key, step), self_cond_coin=coin,
+                **loss_kwargs))
             scheduler.step()
             if ema is not None:
                 with torch.no_grad():
@@ -248,15 +249,15 @@ def test_chunked_mnist_train_equals_single_steps(name, mnist_dir,
                        generator=torch.Generator().manual_seed(5))
     optimizer = adamw(model.parameters(), 1e-3, weight_decay=0.01)
     ema = copy.deepcopy(model).requires_grad_(False) if ema_decay else None
-    gen = text_train._generator(torch.device("cpu"), 5, 0)
+    train_key = rng.substream(rng.prng_key(5), "train")
     want = []
     for epoch in range(2):
         order = mnist_train.epoch_order(88, 8, seed=5, epoch=epoch,
                                         device="cpu")
         for rows in order:
-            want.append(mnist_train.train_step(model, optimizer, data[rows],
-                                               sched, gen,
-                                               compute_dtype=dtype))
+            want.append(mnist_train.train_step(
+                model, optimizer, data[rows], sched,
+                rng.fold_in(train_key, len(want)), compute_dtype=dtype))
             if ema is not None:
                 mnist_train.ema_update(ema, model, ema_decay)
     np.testing.assert_array_equal(result.step_losses,
@@ -300,17 +301,20 @@ def test_mnist_record_loss_is_the_last_chunks_mean(chunk, lengths, mnist_dir,
 
 
 def _old_sample_loop(denoise_fn, sched, shape, *, method, num_steps=None,
-                     eta=0.0, self_cond=False, generator=None, x_T=None,
+                     eta=0.0, self_cond=False, key=None, x_T=None,
                      noise_fn=None):
     """The reverse loop over host timesteps that ``sample_loop`` replaced
-    (temperature 1)."""
+    (temperature 1), drawing as the JAX sampler does: x_T from
+    ``split(key)[0]``, step t's noise from ``fold_in(split(key)[1], t)``."""
     device = sched.betas.device
+    if key is not None:
+        init_key, loop_key = rng.split(key)
 
-    def normal(_t=None):
-        return torch.randn(shape, generator=generator, device=device)
+    def normal(t):
+        return rng.normal(rng.fold_in(loop_key, t), shape)
 
-    x = normal() if x_T is None else x_T.to(device=device,
-                                            dtype=torch.float32)
+    x = (rng.normal(init_key, shape) if x_T is None
+         else x_T.to(device=device, dtype=torch.float32))
     noise_fn = noise_fn or normal
     batch = shape[0]
     sc = torch.zeros(shape, device=device) if self_cond else None
@@ -370,8 +374,8 @@ SAMPLER_CASES = [("ancestral", None, 0.0), ("ddim", 7, 0.0),
 def test_sample_loop_gives_the_host_loops_results(method, steps, eta,
                                                   denoiser):
     """``sample_loop`` on device tables and a step index equals the loop
-    over host timesteps bit for bit: from a generator, and from ``x_T``
-    and ``noise_fn`` (the parity tests' hooks)."""
+    over host timesteps bit for bit: from a key, and from ``x_T`` and
+    ``noise_fn`` (the parity tests' hooks)."""
     sched = make_schedule(40)
     if denoiser == "unet":
         fn = SimpleUNet(40, generator=torch.Generator().manual_seed(0)).eval()
@@ -389,10 +393,8 @@ def test_sample_loop_gives_the_host_loops_results(method, steps, eta,
         fn, shape = make_denoiser(model, sched), (2, L, DIM)
     kw = dict(method=method, num_steps=steps, eta=eta, self_cond=self_cond)
     with torch.inference_mode():
-        got = sample_loop(fn, sched, shape, generator=torch.Generator()
-                          .manual_seed(4), **kw)
-        want = _old_sample_loop(fn, sched, shape, generator=torch.Generator()
-                                .manual_seed(4), **kw)
+        got = sample_loop(fn, sched, shape, key=rng.prng_key(4), **kw)
+        want = _old_sample_loop(fn, sched, shape, key=rng.prng_key(4), **kw)
         assert torch.equal(got, want)
         x_T = torch.randn(shape, generator=torch.Generator().manual_seed(5))
 
@@ -407,8 +409,9 @@ def test_sample_loop_gives_the_host_loops_results(method, steps, eta,
 
 @pytest.mark.parametrize("method, steps, eta", SAMPLER_CASES)
 def test_a_sampler_called_again_continues_its_generator(method, steps, eta):
-    """A ``Sampler`` kept across calls (its state reset each call) gives
-    what as many ``sample_loop`` calls give on one generator."""
+    """A ``Sampler`` kept across calls (its state reset each call, its key
+    in a device buffer) gives what ``sample_loop`` gives for each call's
+    key, and by default draws from the key it was made with."""
     sched = make_schedule(30)
     model = TinyTransformer(
         TransformerConfig(dim=DIM, n_heads=2, depth=1, ffn_dim=32,
@@ -419,16 +422,15 @@ def test_a_sampler_called_again_continues_its_generator(method, steps, eta):
             0.0, 0.1, generator=torch.Generator().manual_seed(2))
     fn, shape = make_denoiser(model, sched), (2, L, DIM)
     kw = dict(method=method, num_steps=steps, eta=eta, self_cond=True)
-    gen = torch.Generator().manual_seed(3)
-    sampler = Sampler(fn, sched, shape, generator=gen, **kw)
-    got = [sampler() for _ in range(3)]
-    gen = torch.Generator().manual_seed(3)
+    keys = [rng.prng_key(s) for s in (3, 4, 3)]
+    sampler = Sampler(fn, sched, shape, key=keys[0], **kw)
+    got = [sampler(k) for k in keys] + [sampler()]
     with torch.inference_mode():
-        want = [sample_loop(fn, sched, shape, generator=gen, **kw)
-                for _ in range(3)]
+        want = [sample_loop(fn, sched, shape, key=k, **kw)
+                for k in keys + keys[:1]]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert not torch.equal(got[0], got[1])
+    assert not torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
 
 
 class _FakeCuda:
@@ -443,12 +445,8 @@ class _FakeCuda:
 
         class Graph:
             def __init__(self):
-                self.generators, self.replays = [], 0
+                self.replays = 0
                 cuda.graphs.append(self)
-
-            def register_generator_state(self, gen):
-                assert not cuda.capturing
-                self.generators.append(gen)
 
             def capture_begin(self):
                 cuda.capturing = True
@@ -478,23 +476,21 @@ def fake_cuda(monkeypatch):
 
 def test_step_warms_up_captures_once_and_counts_replays(fake_cuda):
     """``graphs.Step`` on a CUDA device: ``warmup`` eager calls, then one
-    capture with the step's generators registered, then a replay per call;
-    the launch counters count each replay's launches and none for the
-    capture itself."""
+    capture, then a replay per call; the launch counters count each
+    replay's launches and none for the capture itself."""
     ran = []
 
     def step():
         ran.append(fake_cuda.capturing)
         resblock.launches += 4      # a wrapper's count: four launches
 
-    gen = torch.Generator()
-    s = graphs.Step(step, "cuda", generators=(gen, None), warmup=2)
+    s = graphs.Step(step, "cuda", warmup=2)
     for _ in range(5):
         s()
     assert ran == [False, False, True]        # two eager, one captured
     assert s.captured and s.delta[3] == 4 and sum(s.delta) == 4
     (graph,) = fake_cuda.graphs
-    assert graph.generators == [gen] and graph.replays == 3
+    assert graph.replays == 3
     assert resblock.launches == 5 * 4
 
 

@@ -29,6 +29,7 @@ from tinydiffusionmodels_tpu.models.transformer import (  # noqa: E402
 )
 import tinydiffusionmodels_torch  # noqa: E402
 from tinydiffusionmodels_torch import shakespeare as port_cli  # noqa: E402
+from tinydiffusionmodels_torch.core import rng  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -87,6 +88,34 @@ def test_samples_jax_checkpoint(workdir, sampler):
     assert torch.isfinite(z).all()
     for i in range(2):
         assert (workdir / "samples" / f"sample_{i}.txt").exists()
+
+
+def test_sample_draws_the_jax_clis_noise(workdir):
+    """``--sample --seed 5`` (ancestral, 1000 steps) from a JAX-written
+    checkpoint draws the JAX CLI's x_T and every step's noise
+    (``substream(PRNGKey(seed), "sample")``): its embeddings are the JAX
+    sampler's from that key, within the sampling tolerance 1e-3."""
+    from tinydiffusionmodels_tpu.core import make_schedule as jax_schedule
+    from tinydiffusionmodels_tpu.core.rng import substream
+    from tinydiffusionmodels_tpu.io import load_checkpoint
+    from tinydiffusionmodels_tpu.io.checkpoint import (
+        transformer_from_state_dict,
+    )
+    from tinydiffusionmodels_tpu.sample.text import (
+        sample_diffusion_embeddings,
+    )
+
+    _write_jax_checkpoint(workdir / "ckpt.pth")
+    z = port_cli.main([*SAMPLE, "--ckpt", "ckpt.pth", "--seed", "5"])
+    cfg = JaxConfig(dim=32, n_heads=4, depth=2, ffn_dim=64)
+    params = transformer_from_state_dict(
+        load_checkpoint("ckpt.pth")["diffusion_model"])
+    want = sample_diffusion_embeddings(
+        params, cfg, jax_schedule(), substream(jax.random.PRNGKey(5),
+                                               "sample"),
+        n=2, seq_len=8, embed_dim=32)
+    np.testing.assert_allclose(z.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-3)
 
 
 def test_checkpoint_self_configuration(workdir, capsys):
@@ -192,7 +221,7 @@ def test_port_rope_checkpoint_round_trip(workdir, capsys):
     assert "[ckpt] self_cond=True (from checkpoint)" in out
     want = sample_diffusion_embeddings(
         model, make_schedule(), n=2, seq_len=8, embed_dim=32, method="ddim",
-        num_steps=3, generator=torch.Generator().manual_seed(3),
+        num_steps=3, key=rng.substream(rng.prng_key(3), "sample"),
     )
     torch.testing.assert_close(z, want, rtol=0, atol=0)
 
@@ -689,10 +718,29 @@ def test_mnist_samples_jax_checkpoint(workdir):
                          "dpm++", "--steps", "2", "--seed", "2"])
     want = mnist_train.sample_images(
         mnist_train.load_unet("jax.pth", "cpu"), make_schedule(),
-        method="dpm++", num_steps=2,
-        generator=torch.Generator().manual_seed(2))
+        method="dpm++", num_steps=2, key=rng.prng_key(2))
     torch.testing.assert_close(x, want, rtol=0, atol=0)
     assert (workdir / "samples" / "samples.png").exists()
+
+
+def test_mnist_sample_draws_the_jax_clis_x_T(workdir):
+    """``mnist --sample --seed 2 --sampler ddim`` from a JAX checkpoint
+    starts from the JAX CLI's x_T (``normal(split(PRNGKey(seed))[0])``):
+    its digits are the JAX sampler's from that key, within 1e-3."""
+    from tinydiffusionmodels_tpu.io.checkpoint import unet_to_state_dict
+    from tinydiffusionmodels_tpu.models import init_unet
+    from tinydiffusionmodels_tpu.train import mnist_train as jax_mnist
+    from tinydiffusionmodels_torch import mnist as port_mnist
+
+    params = init_unet(jax.random.PRNGKey(1))
+    save_checkpoint(unet_to_state_dict(params), "jax.pth")
+    x = port_mnist.main(["--sample", "--ckpt", "jax.pth", "--sampler",
+                         "ddim", "--steps", "3", "--seed", "2"])
+    want = jax_mnist._sample_batch(params, jax.random.PRNGKey(2),
+                                   n_samples=25, method="ddim", num_steps=3,
+                                   timesteps=1000)
+    np.testing.assert_allclose(x.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-3)
 
 
 def test_mnist_train_bf16_writes_f32_checkpoint(workdir, monkeypatch):

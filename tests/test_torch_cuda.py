@@ -1,7 +1,7 @@
 """The CUDA kernels and their wrappers, on an NVIDIA GPU: flash attention,
-the persistent guided-decode kernel, the fused UNet residual block and the
-single-block attention pair; and the CUDA graphs that replay them (the
-trainers' steps, the guided decoder) against eager runs.
+the persistent guided-decode kernel, the fused UNet residual block, the
+single-block attention pair and the random draws; and the CUDA graphs that
+replay them (the trainers' steps, the guided decoder) against eager runs.
 
 Every test here needs a card and ``nvcc``, carries the ``cuda`` marker and
 skips on a machine without a GPU. The file imports nothing of jax, so it runs
@@ -23,7 +23,8 @@ equals plain attention or its autograd (the rounding points). The decode
 kernel is a bf16 draft: scored by its plain version teacher-forced on the
 kernel's tokens, every position's token is within ``DECODE_RTOL`` of
 the best score (relative), and rows agree until a first divergence past L/2
-on average.
+on average. The draw kernel (``csrc/rng.cu``) is held to ``core/rng.py``
+run on the card: integers and masks bit-equal, normals within 2 ulp.
 """
 
 import numpy as np
@@ -36,6 +37,7 @@ from tinydiffusionmodels_torch.ops import decode_kernel as dk
 from tinydiffusionmodels_torch.ops import flash_attention as fa
 from tinydiffusionmodels_torch.ops import reference
 from tinydiffusionmodels_torch.ops import resblock as rb
+from tinydiffusionmodels_torch.ops import rng as rng_ops
 from tinydiffusionmodels_torch.ops import single_block as sb
 from tinydiffusionmodels_torch.sample.guided import guided_generate_verified
 
@@ -559,7 +561,7 @@ def _graph_step_runs(kind, eager, device):
 
     from torch import nn
 
-    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.core import make_schedule, rng
     from tinydiffusionmodels_torch.models import (
         LearnedEmbedding,
         LearnedRounding,
@@ -582,7 +584,7 @@ def _graph_step_runs(kind, eager, device):
         optimizer = adamw(model.parameters(), 1e-3)
         runner = mnist_train.MnistSteps(
             model, optimizer, images, sched, batch_size=batch, steps=steps,
-            generator=gen, eager=eager)
+            key=rng.prng_key(1), eager=eager)
         runner.start(order)
     else:
         cfg = TransformerConfig(dim=64, n_heads=4, depth=2, dropout=0.1,
@@ -598,15 +600,16 @@ def _graph_step_runs(kind, eager, device):
         optimizer = adamw(model.parameters(), 1e-3)
         runner = text_train.TextSteps(
             model, optimizer, tokens, batch_size=batch, steps=steps,
-            generator=gen, coin_rng=np.random.default_rng(3), ema=ema,
-            ema_decay=0.9, lr_at=lambda s: 1e-3 * min(1.0, (s + 1) / 4),
+            key=rng.prng_key(3), ema=ema, ema_decay=0.9, lr_at=lambda s: 1e-3 * min(1.0, (s + 1) / 4),
             eager=eager, sched=sched, use_learned_embeddings=True,
             pretrained_matrix=None)
         runner.start(order, 0.5)
         model = nn.ModuleList([model, ema])
-    before = (fa.launches, fa.dq_launches, fa.dkv_launches, rb.launches)
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches, rb.launches,
+              rng_ops.launches)
     losses = runner.run(steps)
-    after = (fa.launches, fa.dq_launches, fa.dkv_launches, rb.launches)
+    after = (fa.launches, fa.dq_launches, fa.dkv_launches, rb.launches,
+             rng_ops.launches)
     captured = any(s.captured for s in runner.kinds.values())
     return (losses, [p.detach().clone() for p in model.parameters()],
             [a - b for a, b in zip(after, before)], captured)
@@ -659,3 +662,81 @@ def test_guided_decoder_replays_equal_eager(cuda, draft, b):
     assert decoder.draft_step.captured
     scan = seq_len * depth if draft != "fused" else 0
     assert launched == (scan + rounds * depth, int(draft == "fused"))
+
+
+# --- the random draws (csrc/rng.cu) ------------------------------------------
+
+DRAW_WINDOWS = [None, ((2, 3), (0, 16), (0, 24)), ((0, 5), (8, 8), (0, 24)),
+                ((0, 5), (0, 16), (12, 12))]
+
+
+def _ulps(a, b) -> float:
+    a, b = a.double(), b.double()
+    mag = torch.maximum(a.abs(), b.abs()).float()
+    step = (torch.nextafter(mag, torch.full_like(mag, float("inf")))
+            - mag).double()
+    return float(((a - b).abs() / step).max())
+
+
+@pytest.mark.parametrize("window", range(len(DRAW_WINDOWS)))
+def test_draw_kernel_matches_plain(cuda, window, monkeypatch):
+    """Each kind of draw from a key path with a device counter, over the
+    whole shape and over rows, positions and columns of it, against
+    ``core/rng.py`` on the same device."""
+    from tinydiffusionmodels_torch.core import rng
+
+    win, shape = DRAW_WINDOWS[window], (5, 16, 24)
+    root = rng.substream(rng.prng_key(11), "train")
+    path = rng.substream(rng.KeyPath(root.to(cuda),
+                                     torch.tensor([77], device=cuda)), "x")
+    host = rng.substream(rng.fold_in(root, 77), "x")
+    for kernel, plain in ((rng_ops.normal, rng.normal),
+                          (rng_ops.counter_normal, rng.counter_normal)):
+        assert _ulps(kernel(path, shape, window=win),
+                     plain(host, shape, window=win, device=cuda)) <= 2
+    rows = (win[0],) if win else None
+    assert torch.equal(
+        rng_ops.randint(path, (5,), 0, 1000, window=rows),
+        rng.randint(host, (5,), 0, 1000, window=rows, device=cuda).long())
+    size = tuple(n for _, n in rng.window_of(shape, win))
+    for fast in ("0", "1"):
+        monkeypatch.setenv("TDM_FAST_NOISE", fast)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(size, device=cuda).to(dtype)
+            keep = rng.draw_keep(host, 0.9, shape, win, device=cuda)
+            want = torch.where(keep, x / torch.tensor(
+                0.9, dtype=dtype, device=cuda), torch.zeros(
+                    (), dtype=dtype, device=cuda))
+            got = rng_ops.dropout(x, path, 0.1, shape=shape, window=win)
+            assert torch.equal(got, want)
+
+
+def test_draw_kernel_counts_one_launch_per_draw(cuda):
+    from tinydiffusionmodels_torch.core import rng
+
+    key = rng.prng_key(1).to(cuda)
+    before = rng_ops.launches
+    rng_ops.normal(key, (4, 4))
+    rng_ops.attention_seed(key)
+    x = torch.ones(8, device=cuda, requires_grad=True)
+    rng_ops.dropout(x, key, 0.5).sum().backward()
+    assert rng_ops.launches - before == 4
+
+
+def test_flash_batch_offset_is_the_global_batchs_mask(cuda):
+    """Rows 2-3 of a batch of 4 at ``batch_offset`` 2, with dropout,
+    against the plain version of the whole batch, sliced (forward and
+    gradients)."""
+    q, k, v = _qkv(4, 2, 40, 40, 32, 32, cuda, seed=9)
+    seed = torch.tensor([123], dtype=torch.int32, device=cuda)
+    kw = dict(dropout_rate=0.1, dropout_seed=seed)
+    whole = [x.clone().requires_grad_() for x in (q, k, v)]
+    r_out, _ = reference.attention(*whole, **kw)
+    g = torch.randn_like(r_out)
+    r_grads = torch.autograd.grad(r_out, whole, g)
+    part = [x[2:].clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*part, batch_offset=2, **kw)
+    grads = torch.autograd.grad(out, part, g[2:].contiguous())
+    torch.testing.assert_close(out, r_out[2:], **TOL)
+    for a, b in zip(grads, r_grads):
+        torch.testing.assert_close(a, b[2:], **GRAD_TOL)

@@ -2,13 +2,14 @@
 counterpart of the JAX package's ``make_text_eval_multi``, on the CPU.
 
 - Its eager path (what the card's graph replays) against the plain loop
-  it replaced, ``eval_losses`` with the epoch's fresh generator
-  (``_generator(dev, seed, 1, epoch)``), bit for bit: several epochs (one
-  generator, re-seeded), self-conditioning, a non-trainable EMA copy, bf16
+  it replaced, ``eval_losses`` with the epoch's validation key
+  (``val_key(seed, epoch)``), bit for bit: several epochs (one key
+  buffer, rewritten), self-conditioning, a non-trainable EMA copy, bf16
   compute, and a run of ``text_train.train`` whose epoch records hold it.
 - Against ``make_text_eval_multi`` at dropout 0 on the same parameters and
-  the same (t, noise) (the JAX pass's own draws, fed to the port's pass),
-  within 1e-5: the sums over the K batches.
+  the same key (the JAX trainer's ``fold_in(substream(key, "val"),
+  epoch)``), so the same (t, noise), within 1e-5: the sums over the K
+  batches.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ torch = pytest.importorskip("torch")
 jnp = jax.numpy
 
 from tinydiffusionmodels_tpu.core import make_schedule as jax_schedule  # noqa: E402
-from tinydiffusionmodels_tpu.core.rng import draw_noise, substream  # noqa: E402
+from tinydiffusionmodels_tpu.core.rng import substream  # noqa: E402
 from tinydiffusionmodels_tpu.models.transformer import (  # noqa: E402
     TransformerConfig as JaxConfig,
 )
@@ -82,7 +83,7 @@ def test_eval_pass_equals_the_plain_loop(case):
     for epoch, w in ((0, 1.0), (1, 0.8333333), (2, 0.25), (0, 1.0)):
         got = eval_pass(epoch, w)
         want = text_train.eval_losses(
-            joint, val, w, text_train._generator("cpu", 5, 1, epoch),
+            joint, val, w, text_train.val_key(5, epoch),
             sched=sched, **kw)
         np.testing.assert_array_equal(got, want)
         seen.append(got)
@@ -120,7 +121,7 @@ def test_train_records_hold_the_eval_pass(tmp_path):
         val_chunks, 4, shuffle=False))))
     w = calls[-1][1]
     want = text_train.eval_losses(
-        result.joint, val, w, text_train._generator("cpu", 3, 1, 1),
+        result.joint, val, w, text_train.val_key(3, 1),
         sched=sched, **KW)
     rec = result.epochs[-1]
     np.testing.assert_array_equal(
@@ -128,32 +129,22 @@ def test_train_records_hold_the_eval_pass(tmp_path):
                  dtype=np.float32), want)
 
 
-def test_eval_pass_matches_make_text_eval_multi_at_dropout_0(monkeypatch):
-    """The port's pass on the JAX pass's own (t, noise): the K batches'
-    summed (diff, round, total) within 1e-5."""
+def test_eval_pass_matches_make_text_eval_multi_at_dropout_0():
+    """The port's pass and the JAX pass from one seed and epoch: the K
+    batches' summed (diff, round, total) within 1e-5."""
     joint = _joint(dropout=0.0)
     params = jax.tree_util.tree_map(jnp.asarray, convert.params_tree(joint))
     jcfg = JaxConfig(dim=DIM, n_heads=4, depth=DEPTH, ffn_dim=FFN,
                      dropout=0.0, timesteps=T)
     jsched = jax_schedule(T)
     val = _batches(3)
-    key = jax.random.PRNGKey(9)
+    epoch = 2
+    key = jax.random.fold_in(substream(jax.random.PRNGKey(9), "val"), epoch)
     w = 0.7
     eval_multi = jax_train.make_text_eval_multi(
         jsched, jcfg, use_learned_embeddings=True)
     want = np.asarray(eval_multi(params, jnp.asarray(val.numpy()),
                                  jnp.asarray(w), key))
-    # The JAX pass's draws, batch by batch (eval_step's substreams).
-    draws = []
-    for i in range(K):
-        k_i = jax.random.fold_in(key, i)
-        t = jax.random.randint(substream(k_i, "timesteps"), (B,), 0, T)
-        noise = draw_noise(substream(k_i, "noise"), (B, L, DIM))
-        draws.append((torch.as_tensor(np.array(t)),
-                       torch.as_tensor(np.array(noise))))
-    feed = iter(draws)
-    monkeypatch.setattr(text_train, "_draw_t_noise",
-                        lambda *args: next(feed))
-    got = text_train.EvalPass(joint, val, seed=0, sched=make_schedule(T),
-                              **KW)(0, w)
+    got = text_train.EvalPass(joint, val, seed=9, sched=make_schedule(T),
+                              **KW)(epoch, w)
     np.testing.assert_allclose(got * K, want, **TOL)

@@ -8,7 +8,12 @@ backward is autograd of the plain version, as the card's is. Tolerances:
 the block 2e-4 (``tests/test_ops.py``'s, float32 sums in another order);
 gradients, the UNet, the loss and an AdamW step 1e-4; EMA 1e-6; sampling on
 a 20-step schedule with the JAX draws replayed 1e-3 (each step's last-ulp
-differences compound).
+differences compound). Both packages draw from one key tree
+(``core/rng.py``): a step's timesteps are bit-equal to the JAX step's and
+its noise within 3 ulp; three chunked training steps equal
+``make_train_step_multi``'s (SGD, so AdamW's sign-like first steps do not
+hide the draws: mean loss and parameters 1e-5); and sampling from a key
+equals the JAX sampler from the same key at the replay's 1e-3.
 """
 
 import copy
@@ -37,7 +42,7 @@ from tinydiffusionmodels_tpu.ops import pallas_kernels, xla_ref  # noqa: E402
 from tinydiffusionmodels_tpu.train import mnist_train as jax_train  # noqa: E402
 from tinydiffusionmodels_tpu.train.optim import adamw as jax_adamw  # noqa: E402
 from tinydiffusionmodels_torch import ops  # noqa: E402
-from tinydiffusionmodels_torch.core import make_schedule  # noqa: E402
+from tinydiffusionmodels_torch.core import make_schedule, rng  # noqa: E402
 from tinydiffusionmodels_torch.io import (  # noqa: E402
     unet_checkpoint_dict,
     unet_params_dict,
@@ -317,3 +322,80 @@ def test_device_batch_order_is_batch_iterators():
         assert order.shape == (len(want), 8) == (4, 8)
         for i, batch in enumerate(want):
             np.testing.assert_array_equal(_t(data)[order[i]].numpy(), batch)
+
+
+@pytest.mark.parametrize("fast", ["0", "1"])
+def test_step_draws_equal_jax(fast, monkeypatch):
+    """A step's timesteps and noise from (seed, step), as the JAX step's
+    ``loss_fn`` draws them."""
+    from tinydiffusionmodels_tpu.core.rng import draw_noise, substream
+
+    monkeypatch.setenv("TDM_FAST_NOISE", fast)
+    shape = (4, 28, 28, 1)
+    jkey = substream(jax.random.PRNGKey(3), "train")
+    pkey = rng.substream(rng.prng_key(3), "train")
+    for step in (0, 5, 1234):
+        sk = jax.random.fold_in(jkey, step)
+        t, noise = mnist_train.draw_t_noise(rng.fold_in(pkey, step), shape,
+                                            1000)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(
+            jax.random.randint(substream(sk, "timesteps"), (4,), 0, 1000)))
+        np.testing.assert_allclose(
+            noise.numpy(), np.asarray(draw_noise(substream(sk, "noise"),
+                                                 shape)),
+            rtol=4e-7, atol=1e-7)
+
+
+def test_training_steps_equal_jax_steps(unet_pair):
+    """Three steps of ``MnistSteps`` (global steps 9..11) against
+    ``make_train_step_multi`` from the same state, images and train key:
+    the mean loss and the parameters within 1e-5 (SGD at lr 0.1)."""
+    import optax
+
+    from tinydiffusionmodels_tpu.core.rng import substream
+    from tinydiffusionmodels_tpu.train.state import TrainState
+
+    params, model = unet_pair
+    timesteps, k, b, lr = 20, 3, 2, 0.1
+    images = np.stack([_images(b, seed=10 + i) for i in range(k)])
+    tx = optax.sgd(lr)
+    state = TrainState.create(jax.tree_util.tree_map(jnp.copy, params), tx)
+    state = TrainState(state.params, state.opt_state, jnp.int32(9))
+    step = jax_train.make_train_step_multi(jax_make_schedule(timesteps), tx)
+    jkey = substream(jax.random.PRNGKey(6), "train")
+    state, loss = step(state, jnp.asarray(images), jkey)
+
+    unet = SimpleUNet(timesteps)
+    unet.load_state_dict(model.state_dict())
+    unet.train()
+    optimizer = torch.optim.SGD(unet.parameters(), lr=lr)
+    runner = mnist_train.MnistSteps(
+        unet, optimizer, _t(images.reshape(k * b, 28, 28, 1)),
+        make_schedule(timesteps), batch_size=b, steps=k,
+        key=rng.substream(rng.prng_key(6), "train"))
+    runner.start(np.arange(k * b).reshape(k, b), first_step=9)
+    losses = runner.run(k)
+    np.testing.assert_allclose(losses.mean(), float(loss), rtol=1e-5,
+                               atol=1e-6)
+    want = _state(state.params)
+    for name, p in unet.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name], rtol=0,
+                                   atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("method, steps", [("ancestral", None), ("ddim", 5)])
+def test_sampling_from_the_key_matches_jax(unet_pair, method, steps):
+    """``sample_images(key=PRNGKey(11))`` draws the JAX sampler's x_T and
+    step noise (within 3 ulp), so its samples are the JAX sampler's at the
+    replay test's 1e-3."""
+    params, model = unet_pair
+    timesteps, n = 20, 2
+    want = np.asarray(jax_train._sample_batch(
+        params, jax.random.PRNGKey(11), n_samples=n, method=method,
+        num_steps=steps, timesteps=timesteps))
+    unet = SimpleUNet(timesteps)
+    unet.load_state_dict(model.state_dict())
+    got = mnist_train.sample_images(
+        unet, make_schedule(timesteps), n_samples=n, method=method,
+        num_steps=steps, key=rng.prng_key(11))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)

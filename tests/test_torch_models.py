@@ -121,11 +121,11 @@ def test_self_cond_without_estimate_matches_jax():
 
 
 def test_transformer_rejects_training_dropout():
-    """Training mode draws every dropout mask from an explicit generator,
-    so it is refused without one."""
+    """Training mode draws every dropout mask from an explicit key, so it
+    is refused without one."""
     _, tcfg = _configs()
     model = TinyTransformer(tcfg)
-    with pytest.raises(ValueError, match="requires a torch.Generator"):
+    with pytest.raises(ValueError, match="requires a PRNG key"):
         model(torch.zeros(1, 4, DIM), torch.zeros(1, dtype=torch.long),
               deterministic=False)
 

@@ -17,8 +17,10 @@ parallelism); sequence-parallel text steps (a ring of 2, and data 2 x ring
 2 on 4 ranks) with absolute and rotary positions equal to world 1 after
 one SGD step, the counterparts of ``tests/test_seq_parallel.py``'s
 training equivalences (which use SGD too; ``text_step`` says why); the
-ring of 2 at dropout 0.1 too, since the ring draws each mask for the whole
-sequence; the routing of ``ops.attention``; and the text CLI with
+ring of 2 and data 2 at dropout 0.1 too (SGD), since each rank draws its
+part of the one-device masks, timesteps and noise (``core/rng.py``: a
+draw is a function of the key and the global index); the routing of
+``ops.attention``; and the text CLI with
 ``--seq_parallel`` under a process group (a ring of 2 writes the
 checkpoint one process writes).
 """
@@ -170,7 +172,7 @@ def text_step(axes=None, pos_emb="none", dropout=0.0, parallel=True,
     import torch
 
     from tinydiffusionmodels_torch import ops
-    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.core import make_schedule, rng
     from tinydiffusionmodels_torch.parallel import make_mesh
     from tinydiffusionmodels_torch.train import text_train
     from tinydiffusionmodels_torch.train.optim import adamw
@@ -185,7 +187,7 @@ def text_step(axes=None, pos_emb="none", dropout=0.0, parallel=True,
     tokens = torch.as_tensor(
         np.random.default_rng(1).integers(0, VOCAB, (B, L)))
     losses = text_train.train_step(
-        joint, optimizer, tokens, 0.5, torch.Generator().manual_seed(7),
+        joint, optimizer, tokens, 0.5, rng.prng_key(7),
         sched=make_schedule(100), mesh=mesh,
         use_learned_embeddings=True, pretrained_matrix=None)
     return {"losses": losses.numpy(),
@@ -197,7 +199,7 @@ def mnist_step(parallel=True):
     images: the loss and every parameter after it."""
     import torch
 
-    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.core import make_schedule, rng
     from tinydiffusionmodels_torch.models import SimpleUNet
     from tinydiffusionmodels_torch.parallel import make_mesh
     from tinydiffusionmodels_torch.train import mnist_train
@@ -211,8 +213,7 @@ def mnist_step(parallel=True):
     batch = torch.as_tensor(np.random.default_rng(2).uniform(
         -1, 1, (8, 28, 28, 1)).astype(np.float32))
     loss = mnist_train.train_step(model, optimizer, batch, sched,
-                                  torch.Generator().manual_seed(3),
-                                  mesh=mesh)
+                                  rng.prng_key(3), mesh=mesh)
     return {"losses": loss.reshape(1).numpy(),
             **{n: p.detach().numpy() for n, p in model.named_parameters()}}
 
@@ -302,6 +303,7 @@ def task_world2() -> dict:
     out = _prefixed("mesh", _mesh_facts())
     out.update(_prefixed("mnist", mnist_step()))
     out.update(_prefixed("dp", text_step()))
+    out.update(_prefixed("dp_dropout", text_step(dropout=0.1, sgd=True)))
     for pos in ("abs", "rope"):
         out.update(_prefixed(f"sp_{pos}", text_step({"seq": -1}, pos,
                                                     sgd=True)))
@@ -416,6 +418,14 @@ def test_data_parallel_mnist_step_equals_world1(world2, torch_cpu):
 
 def test_data_parallel_text_step_equals_world1(world2, torch_cpu):
     _assert_same_step(world2, "dp", text_step(parallel=False))
+
+
+def test_data_parallel_dropout_step_equals_world1(world2, torch_cpu):
+    """At dropout 0.1 two data shards drop what one device drops: each
+    draws its rows of the global masks, and the flash kernels hash the
+    rows' global batch index."""
+    _assert_same_step(world2, "dp_dropout",
+                      text_step(dropout=0.1, parallel=False, sgd=True))
 
 
 @pytest.mark.parametrize("pos_emb", ["abs", "rope"])

@@ -54,7 +54,7 @@ from tinydiffusionmodels_tpu.models.transformer import (  # noqa: E402
 from tinydiffusionmodels_tpu.train import precision as jax_precision  # noqa: E402
 from tinydiffusionmodels_tpu.train import text_train as jax_train  # noqa: E402
 from tinydiffusionmodels_tpu.train.optim import adamw as jax_adamw  # noqa: E402
-from tinydiffusionmodels_torch.core import make_schedule  # noqa: E402
+from tinydiffusionmodels_torch.core import make_schedule, rng  # noqa: E402
 from tinydiffusionmodels_torch.io import (  # noqa: E402
     convert,
     unet_state_from_jax,
@@ -272,7 +272,7 @@ def test_text_bf16_train_step_keeps_f32_and_moves_every_parameter():
     tokens = torch.randint(0, VOCAB, (B, L),
                            generator=torch.Generator().manual_seed(1))
     losses = text_train.train_step(
-        joint, optimizer, tokens, 1.0, torch.Generator().manual_seed(0),
+        joint, optimizer, tokens, 1.0, rng.prng_key(0),
         sched=make_schedule(), use_learned_embeddings=True,
         pretrained_matrix=None, compute_dtype=BF16)
     assert losses.dtype == torch.float32 and bool(torch.isfinite(

@@ -8,15 +8,23 @@
   cosine schedule; text with ``--freeze_embeddings`` at a constant
   learning rate; MNIST with an EMA. The stop is a ``log_fn`` that raises
   at ``Epoch 2/3``: after epoch 2's steps, before its resume file.
-- The same in a 2-process gloo data-parallel run, where each data shard
-  draws dropout from a generator of its own (rank 0 gathers them all); a
-  file restored on another data-parallel width raises.
+- The same in a 2-process gloo data-parallel run. Every draw is keyed on
+  (seed, step) (``core/rng.py``), so the file holds no generator state
+  and a run resumes at another data-parallel width: saved at width 2 and
+  resumed at 1, and saved at 1 and resumed at 2, the final weights equal
+  the uninterrupted run's at the new width up to the all-reduce's
+  rounding (AdamW at lr 1e-3: atol 1e-5, and 2 lr a step on the key
+  bias's slice, whose gradient is rounding noise that AdamW turns into
+  steps of up to lr). A file an earlier port wrote, with generator states,
+  still loads: that key is ignored with one log line.
 - The file is the JAX package's resume dict both ways: the port resumes a
   file the JAX trainers wrote, its weights equal to JAX's and its AdamW
   moments and step equal to optax's ``mu``, ``nu`` and ``count`` laid out
-  by the JAX package's own converters (tolerance 0, a layout move); the
-  JAX trainers resume a file the port wrote, their optimizer leaves equal
-  to the port's.
+  by the JAX package's own converters (tolerance 0, a layout move), and
+  carries the JAX run on: a JAX text run stopped after epoch 1 and
+  resumed by the port ends where the uninterrupted JAX run ends (dropout
+  0; the same tolerances); the JAX trainers resume a file the port wrote,
+  their optimizer leaves equal to the port's.
 - A corrupt file starts fresh, in both trainers.
 - A ``SIGKILL`` drill on the text CLI (``TDM_PLATFORM=cpu``) at the sizes
   of ``tests/test_fault_injection.py``'s: the resumed run restores an
@@ -200,61 +208,70 @@ def test_resumed_run_is_the_uninterrupted_run(name, mnist_env, monkeypatch):
 
 # --- data parallel: 2 gloo processes ------------------------------------------
 
+def _stop_at_epoch_2(monkeypatch_target):
+    """Make ``text_train.train`` raise ``Stop`` as epoch 2 starts, on every
+    rank alike (after epoch 1's resume file); returns the undo."""
+    real = monkeypatch_target.dynamic_rounding_weight_schedule
+
+    def stopping(epoch, *a, **k):
+        if epoch == 1:
+            raise Stop()
+        return real(epoch, *a, **k)
+
+    monkeypatch_target.dynamic_rounding_weight_schedule = stopping
+
+    def undo():
+        monkeypatch_target.dynamic_rounding_weight_schedule = real
+    return undo
+
+
+def _weights(result, prefix: str) -> dict:
+    return {f"{prefix}/{k}": v.numpy()
+            for k, v in result.joint.state_dict().items()}
+
+
 def _dp_task() -> dict:
     """Each rank: the uninterrupted data-parallel run and one stopped
-    before its epoch-2 resume file (every rank stops there alike) and
-    resumed; both runs' final weights."""
+    as its epoch 2 starts (every rank stops there alike) and resumed; both
+    runs' final weights."""
     import torch.distributed as dist
 
     from tinydiffusionmodels_torch.parallel import make_mesh
     from tinydiffusionmodels_torch.train import text_train
 
     here = Path.cwd()
-    out = {}
     for tag in ("whole", "cut"):
         (here / tag).mkdir(exist_ok=True)
     dist.barrier()
     want = _text_train(here / "whole", lambda *_: None, mesh=make_mesh(),
                        ema_decay=0.9)
-    writes = []
-    real = text_train.train_state.generator_states
-
-    def stop_at_second_write(*a, **k):
-        writes.append(1)
-        if len(writes) == 2:
-            raise Stop()
-        return real(*a, **k)
-
-    text_train.train_state.generator_states = stop_at_second_write
+    undo = _stop_at_epoch_2(text_train)
     try:
         _text_train(here / "cut", lambda *_: None, mesh=make_mesh(),
                     ema_decay=0.9)
     except Stop:
         pass
     finally:
-        text_train.train_state.generator_states = real
+        undo()
     dist.barrier()
     logs = []
     got = _text_train(here / "cut", lambda *a: logs.append(str(a[0])),
                       mesh=make_mesh(), ema_decay=0.9)
     dist.barrier()
-    for k, v in want.joint.state_dict().items():
-        out[f"want/{k}"] = v.numpy()
-    for k, v in got.joint.state_dict().items():
-        out[f"got/{k}"] = v.numpy()
+    out = {**_weights(want, "want"), **_weights(got, "got")}
     out["restored"] = np.array(any("restored epoch 1" in m for m in logs))
-    out["shards"] = np.array(len(_load(here / "cut" / "t_state.pth")
-                                 ["torch_generators"]["drop_gen"]))
+    out["generators"] = np.array("torch_generators" in _load(
+        here / "cut" / "t_state.pth"))
     return out
 
 
 def test_data_parallel_resume_is_the_uninterrupted_run(tmp_path):
     """World 2 (gloo), dropout 0.1, EMA: the resumed run's final weights
     equal the uninterrupted run's on both ranks, bit for bit; the resume
-    file holds both data shards' dropout streams."""
+    file holds no generator state."""
     ranks = spawn(2, "test_torch_resume", "dp_resume", tmp_path / "dp")
     assert bool(ranks[0]["restored"])
-    assert int(ranks[0]["shards"]) == 2
+    assert not bool(ranks[0]["generators"])
     for out in ranks:
         keys = [k[5:] for k in out if k.startswith("want/")]
         assert keys
@@ -266,32 +283,121 @@ def test_data_parallel_resume_is_the_uninterrupted_run(tmp_path):
             np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
 
 
+def _width_cut_task() -> dict:
+    """A data-parallel run at this world's width, stopped as epoch 2
+    starts (its epoch-1 resume file written) in ./run."""
+    from tinydiffusionmodels_torch.parallel import make_mesh
+    from tinydiffusionmodels_torch.train import text_train
+
+    (Path.cwd() / "run").mkdir(exist_ok=True)
+    undo = _stop_at_epoch_2(text_train)
+    try:
+        _text_train(Path.cwd() / "run", lambda *_: None, mesh=make_mesh())
+    except Stop:
+        pass
+    finally:
+        undo()
+    return {"cut": np.array(1)}
+
+
+def _width_resume_task() -> dict:
+    """Resume ./run at this world's width; its final weights and whether
+    it restored epoch 1."""
+    from tinydiffusionmodels_torch.parallel import make_mesh
+
+    logs = []
+    got = _text_train(Path.cwd() / "run", lambda *a: logs.append(str(a[0])),
+                      mesh=make_mesh())
+    out = _weights(got, "got")
+    out["restored"] = np.array(any("restored epoch 1" in m for m in logs))
+    return out
+
+
+def _width_whole_task() -> dict:
+    """The uninterrupted run at this world's width."""
+    from tinydiffusionmodels_torch.parallel import make_mesh
+
+    (Path.cwd() / "whole").mkdir(exist_ok=True)
+    return _weights(_text_train(Path.cwd() / "whole", lambda *_: None,
+                                mesh=make_mesh()), "got")
+
+
+def _assert_close_weights(got: dict, want: dict, steps: int) -> None:
+    """The all-reduce's rounding, through AdamW (lr 1e-3): 1e-5, and 2 lr
+    a step on the key bias's slice."""
+    lr = 1e-3
+    assert sorted(got) == sorted(want)
+    for k, g in got.items():
+        w = want[k]
+        if k.endswith("in_proj_bias"):
+            key = slice(DIM, 2 * DIM)
+            np.testing.assert_allclose(g[key], w[key], rtol=0,
+                                       atol=2 * lr * steps, err_msg=k)
+            g, w = np.delete(g, key), np.delete(w, key)
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, err_msg=k)
+
+
 @pytest.mark.parametrize("saved_shards,world", [(2, 1), (1, 2)])
-def test_resume_on_another_data_shard_count_raises(saved_shards, world):
-    """A port-written file restores only on the data-parallel width that
-    wrote it: each data shard's dropout stream is its own. Another width
-    raises, and no generator is touched."""
+def test_resume_at_another_data_shard_count(saved_shards, world, tmp_path):
+    """A run saved at one data-parallel width resumes at another: its final
+    weights equal the uninterrupted run's at the new width."""
+    from tinydiffusionmodels_torch.train import text_train
+
+    run = tmp_path / "run"
+    if saved_shards == 2:
+        spawn(2, "test_torch_resume", "width_cut", tmp_path)
+    else:
+        run.mkdir()
+        undo = _stop_at_epoch_2(text_train)
+        try:
+            with pytest.raises(Stop):
+                _text_train(run, lambda *_: None)
+        finally:
+            undo()
+    assert _load(run / "t_state.pth")["epoch"] == 1
+    if world == 1:
+        logs = []
+        got = _weights(_text_train(run, lambda *a: logs.append(str(a[0]))),
+                       "got")
+        assert any("restored epoch 1" in m for m in logs)
+        (tmp_path / "whole").mkdir()
+        want = _weights(_text_train(tmp_path / "whole", lambda *_: None),
+                        "got")
+        ranks = [got]
+    else:
+        ranks = spawn(2, "test_torch_resume", "width_resume", tmp_path)
+        # Rank 0 logs (the trainer silences the others).
+        assert [bool(r.pop("restored")) for r in ranks] == [True, False]
+        want = spawn(2, "test_torch_resume", "width_whole",
+                     tmp_path / "w2")[0]
+    for got in ranks:
+        _assert_close_weights(got, want, steps=EPOCHS * (TRAIN // B))
+
+
+def test_a_file_with_generator_states_loads(tmp_path):
+    """An earlier port's file (``torch_generators``) restores, with one log
+    line that the states are ignored."""
     import torch
 
-    from tinydiffusionmodels_torch.parallel import make_mesh
     from tinydiffusionmodels_torch.train import state as train_state
+    from tinydiffusionmodels_torch.train.optim import adamw
 
-    gen, drop_gen = torch.Generator(), torch.Generator()
-    saved = {train_state.GENERATORS: {
-        "gen": torch.Generator().manual_seed(1).get_state().numpy(),
-        "drop_gen": [torch.Generator().manual_seed(2 + i).get_state().numpy()
-                     for i in range(saved_shards)]}}
-    before = gen.get_state(), drop_gen.get_state()
-    with pytest.raises(ValueError, match="data-parallel width"):
-        train_state.restore_generators(saved, make_mesh(world=world), gen,
-                                       drop_gen)
-    assert torch.equal(gen.get_state(), before[0])
-    assert torch.equal(drop_gen.get_state(), before[1])
+    _text_train(tmp_path, lambda *_: None, epochs=1)
+    saved = _load(tmp_path / "t_state.pth")
+    saved[train_state.GENERATORS] = {
+        "gen": torch.Generator().manual_seed(1).get_state().numpy()}
+    joint = _joint()
+    logs = []
+    epoch, step, _, _ = train_state.restore_text(
+        saved, joint, adamw(joint.parameters(), 1e-3), None,
+        log_fn=logs.append)
+    assert (epoch, step) == (1, TRAIN // B)
+    assert sum("ignoring" in m for m in logs) == 1
 
 
 # --- the JAX package's files, both ways ----------------------------------------
 
-def _jax_text_setup():
+def _jax_text_setup(dropout=0.1):
     import jax
 
     from tinydiffusionmodels_tpu.core import make_schedule
@@ -304,7 +410,7 @@ def _jax_text_setup():
 
     sched = make_schedule(50)
     cfg = TransformerConfig(dim=DIM, n_heads=2, depth=1, ffn_dim=32,
-                            timesteps=50, self_cond=True)
+                            timesteps=50, self_cond=True, dropout=dropout)
     key = jax.random.PRNGKey(0)
     params = {
         "diffusion_model": init_tiny_transformer(key, cfg),
@@ -381,7 +487,6 @@ def test_port_resumes_a_jax_text_file(tmp_path, monkeypatch):
         rounding_to_state_dict,
         transformer_to_state_dict,
     )
-    from tinydiffusionmodels_torch.parallel import make_mesh
     from tinydiffusionmodels_torch.train import state as train_state
     from tinydiffusionmodels_torch.train.optim import adamw
 
@@ -409,10 +514,8 @@ def test_port_resumes_a_jax_text_file(tmp_path, monkeypatch):
 
     joint = _joint(self_cond=True)
     optimizer = adamw(joint.parameters(), 1e-3)
-    gen = __import__("torch").Generator()
     epoch, step, _, _ = train_state.restore_text(
-        saved, joint, optimizer, None, mesh=make_mesh(), gen=gen,
-        log_fn=lambda *_: None)
+        saved, joint, optimizer, None, log_fn=lambda *_: None)
     assert (epoch, step) == (1, TRAIN // B_JAX)
     for k, v in joint.state_dict().items():
         key, sub = k.split(".", 1)
@@ -420,6 +523,52 @@ def test_port_resumes_a_jax_text_file(tmp_path, monkeypatch):
     count, mu, nu = _jax_moments(saved, tree_to_sd)
     assert count == step and saved["opt_state_leaves"][-1].item() == step
     _check_moments(optimizer, joint, count, mu, nu)
+
+
+def test_port_carries_on_a_jax_runs_draws(tmp_path, monkeypatch):
+    """A JAX text run (self-conditioning, dropout 0, cosine schedule)
+    stopped after epoch 1 of 2 and finished by the port ends where the
+    uninterrupted JAX run ends: the port's epoch 2 draws the JAX run's
+    timesteps, noise and coins from the file's step."""
+    from tinydiffusionmodels_tpu.train import text_train as jax_text
+
+    monkeypatch.chdir(tmp_path)
+    train_chunks, val_chunks = _chunks()
+
+    def jax_run(workdir, log_fn):
+        params, cfg, sched = _jax_text_setup(dropout=0.0)
+        jax_text.train(params, train_chunks, val_chunks, cfg=cfg,
+                       sched=sched, ckpt_path=str(workdir / "t.pth"),
+                       epochs=2, batch_size=B_JAX, lr=1e-3, warmup_steps=4,
+                       patience=100, seed=3, resume=True, log_fn=log_fn)
+
+    def stop(msg, *_):
+        if str(msg).startswith("Epoch 2/2"):
+            raise Stop()
+
+    whole, cut = tmp_path / "whole", tmp_path / "cut"
+    whole.mkdir()
+    cut.mkdir()
+    jax_run(whole, lambda *_: None)
+    with pytest.raises(Stop):
+        jax_run(cut, stop)
+    assert _load(cut / "t_state.pth")["epoch"] == 1
+    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.train import text_train
+
+    logs = []
+    text_train.train(
+        _joint(self_cond=True, dropout=0.0), train_chunks, val_chunks,
+        sched=make_schedule(50), ckpt_path=str(cut / "t.pth"), epochs=2,
+        batch_size=B_JAX, lr=1e-3, warmup_steps=4, patience=100, seed=3,
+        resume=True, log_fn=lambda *a: logs.append(str(a[0])))
+    assert any("[resume] restored epoch 1" in m for m in logs)
+    got, want = _load(cut / "t.pth"), _load(whole / "t.pth")
+    for part in ("diffusion_model", "rounding_fn", "embedding_fn"):
+        _assert_close_weights(
+            {k: np.asarray(v) for k, v in got[part].items()},
+            {k: np.asarray(v) for k, v in want[part].items()},
+            steps=TRAIN // B_JAX)
 
 
 def test_jax_resumes_a_port_text_file(tmp_path, monkeypatch):
@@ -467,7 +616,6 @@ def test_mnist_files_resume_in_both_packages(mnist_env, monkeypatch):
     from tinydiffusionmodels_tpu.models import init_unet
     from tinydiffusionmodels_tpu.train import mnist_train as jax_mnist
     from tinydiffusionmodels_torch.models import SimpleUNet
-    from tinydiffusionmodels_torch.parallel import make_mesh
     from tinydiffusionmodels_torch.train import state as train_state
     from tinydiffusionmodels_torch.train.optim import adamw
 
@@ -490,8 +638,7 @@ def test_mnist_files_resume_in_both_packages(mnist_env, monkeypatch):
     model = SimpleUNet()
     optimizer = adamw(model.parameters(), 1e-3, weight_decay=0.01)
     epoch, step = train_state.restore_mnist(
-        saved, model, optimizer, None, mesh=make_mesh(),
-        gen=__import__("torch").Generator(), log_fn=lambda *_: None)
+        saved, model, optimizer, None, log_fn=lambda *_: None)
     assert (epoch, step) == (1, 5)
     count, mu, nu = _jax_moments(saved, tree_to_sd)
     assert count == step and len(saved["opt_state_leaves"]) == 1 + 2 * len(mu)
@@ -611,4 +758,6 @@ def test_sigkill_mid_training_then_resume(tmp_path):
 
 
 if __name__ == "__main__":
-    worker_main({"dp_resume": _dp_task})
+    worker_main({"dp_resume": _dp_task, "width_cut": _width_cut_task,
+                 "width_resume": _width_resume_task,
+                 "width_whole": _width_whole_task})

@@ -86,7 +86,6 @@ def _ring_task() -> dict:
         ring_attention_shard,
         shard_batch,
     )
-    from tinydiffusionmodels_torch.parallel.ring_attention import fold_seed
 
     q, k, v, g_out, g_lse = _inputs()
     out = {}
@@ -101,12 +100,13 @@ def _ring_task() -> dict:
             return np.ascontiguousarray(shard_batch(
                 mesh, x, axis=None, seq_axis="seq").transpose(1, 2).numpy())
 
+        rows = q.shape[0] // mesh.axis_size("data")
         for causal, bidir, rate in configs:
-            seed = fold_seed(_seed(torch), mesh.index("data"))
             res = _grads(torch, lambda a, b, c: ring_attention_shard(
                 a, b, c, mesh=mesh, axis="seq", causal=causal,
                 bidirectional=bidir, dropout_rate=rate,
-                dropout_seed=seed if rate else None, with_lse=True),
+                dropout_seed=_seed(torch) if rate else None,
+                batch_offset=mesh.index("data") * rows, with_lse=True),
                 *(local(x) for x in (q, k, v, g_out, g_lse)))
             key = f"{name}/{_cid((causal, bidir, rate))}"
             out.update({f"{key}/{k_}": v_ for k_, v_ in res.items()})
@@ -144,23 +144,19 @@ def rings(tmp_path_factory):
                             "ring") for n in (2, 4)}
 
 
-def _plain(torch, config, dp: int = 1) -> dict:
-    """Plain attention over the whole sequence (each data shard with its
-    folded seed)."""
+def _plain(torch, config) -> dict:
+    """Plain attention over the whole sequence and batch: each data shard
+    hashes its rows' global batch index, so the ring over any data shards
+    drops what one device drops (``dp`` is not needed)."""
     from tinydiffusionmodels_torch.ops import flash_attention as fa
-    from tinydiffusionmodels_torch.parallel.ring_attention import fold_seed
 
     causal, _, rate = config
     q, k, v, g_out, g_lse = _inputs()
 
     def fn(q, k, v):
-        parts = [fa.flash_attention_with_lse(
-            *xs, causal=causal, dropout_rate=rate,
-            dropout_seed=fold_seed(_seed(torch), d) if rate else None)
-            for d, xs in enumerate(zip(*(x.chunk(dp, 0)
-                                         for x in (q, k, v))))]
-        return (torch.cat([o for o, _ in parts]),
-                torch.cat([s for _, s in parts]))
+        return fa.flash_attention_with_lse(
+            q, k, v, causal=causal, dropout_rate=rate,
+            dropout_seed=_seed(torch) if rate else None)
 
     return _grads(torch, fn, q, k, v, g_out, g_lse)
 
@@ -197,7 +193,8 @@ def test_ring_in_one_process_equals_full_attention(n, config, torch_cpu):
 @pytest.mark.parametrize("config", DP_SP_CONFIGS, ids=_cid)
 def test_data_and_sequence_ring_of_processes(config, rings, torch_cpu):
     """Data 2 x ring 2 on 4 ranks: the in-process ring on the same mesh
-    and plain attention of each data shard with its folded seed."""
+    and plain attention over the whole batch (each shard hashes its rows'
+    global index)."""
     from tinydiffusionmodels_torch.parallel import ring_attention
 
     causal, bidir, rate = config
@@ -208,7 +205,7 @@ def test_data_and_sequence_ring_of_processes(config, rings, torch_cpu):
         dropout_rate=rate, dropout_seed=_seed(torch_cpu), with_lse=True),
         q, k, v, g_out, g_lse)
     _assert_close(got, in_process)
-    _assert_close(got, _plain(torch_cpu, config, dp=2))
+    _assert_close(got, _plain(torch_cpu, config))
 
 
 def test_ring_checks(torch_cpu):

@@ -33,6 +33,7 @@ from tinydiffusionmodels_tpu.models.transformer import (  # noqa: E402
 )
 from tinydiffusionmodels_tpu.sample import text as jax_text  # noqa: E402
 from tinydiffusionmodels_torch.core import diffusion as port_diff  # noqa: E402
+from tinydiffusionmodels_torch.core import rng  # noqa: E402
 from tinydiffusionmodels_torch.core.schedule import make_schedule  # noqa: E402
 from tinydiffusionmodels_torch.io import convert  # noqa: E402
 from tinydiffusionmodels_torch.models import (  # noqa: E402
@@ -269,13 +270,13 @@ def test_temperature_rejected_with_deterministic_solvers(slice_weights):
             port_text.sample_diffusion_embeddings(
                 model, make_schedule(), n=1, seq_len=4, embed_dim=DIM,
                 method=method, num_steps=4, temperature=1.1,
-                generator=torch.Generator().manual_seed(0),
+                key=rng.prng_key(0),
             )
 
 
 def test_sampler_needs_explicit_randomness(slice_weights):
     _, _, _, _, model, _ = slice_weights
-    with pytest.raises(ValueError, match="torch.Generator"):
+    with pytest.raises(ValueError, match="pass a key"):
         port_text.sample_diffusion_embeddings(
             model, make_schedule(), n=1, seq_len=4, embed_dim=DIM,
             method="ddim", num_steps=2,
@@ -283,13 +284,13 @@ def test_sampler_needs_explicit_randomness(slice_weights):
 
 
 def test_generator_sampling_is_reproducible(slice_weights):
+    """Sampling from a key is reproducible and differs between keys."""
     _, _, _, _, model, _ = slice_weights
 
     def draw(seed):
         return port_text.sample_diffusion_embeddings(
             model, make_schedule(), n=1, seq_len=4, embed_dim=DIM,
-            method="ddim", num_steps=3,
-            generator=torch.Generator().manual_seed(seed),
+            method="ddim", num_steps=3, key=rng.prng_key(seed),
         )
 
     torch.testing.assert_close(draw(1), draw(1), rtol=0, atol=0)

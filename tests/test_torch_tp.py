@@ -73,13 +73,12 @@ def tp_text_step(axes=None, dropout: float = 0.0) -> dict:
     global batch of B
     rows of L tokens over the mesh ``axes`` (None: one process, no mesh),
     the denoiser split over its 'model' axis: the losses and every
-    parameter after the step, gathered whole. As in the trainer, the
-    timesteps and noise come from one generator and, with more than one
-    data shard, each shard draws its dropout from a generator keyed on its
-    'data' index, shared by the ranks of its 'model' axis."""
+    parameter after the step, gathered whole. As in the trainer, every
+    rank draws its part of the one-device step's timesteps, noise and
+    masks from the same key."""
     import torch
 
-    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.core import make_schedule, rng
     from tinydiffusionmodels_torch.parallel import (
         gather_transformer,
         make_mesh,
@@ -89,18 +88,14 @@ def tp_text_step(axes=None, dropout: float = 0.0) -> dict:
 
     mesh = make_mesh(axes) if axes is not None else None
     joint = _joint(dropout)
-    drop_gen = None
     if mesh is not None:
         shard_transformer(joint["diffusion_model"], mesh)
-        if mesh.axis_size("data") > 1:
-            drop_gen = text_train._generator("cpu", 7, 0,
-                                             1 + mesh.index("data"))
     optimizer = torch.optim.SGD(joint.parameters(), lr=1.0)
     tokens = torch.as_tensor(
         np.random.default_rng(1).integers(0, VOCAB, (B, L)))
     losses = text_train.train_step(
-        joint, optimizer, tokens, 0.5, torch.Generator().manual_seed(7),
-        sched=make_schedule(100), mesh=mesh, dropout_generator=drop_gen,
+        joint, optimizer, tokens, 0.5, rng.prng_key(7),
+        sched=make_schedule(100), mesh=mesh,
         use_learned_embeddings=True, pretrained_matrix=None)
     if mesh is not None:
         gather_transformer(joint["diffusion_model"], mesh)
@@ -207,9 +202,9 @@ def _assert_same(ranks: list[dict], prefix: str, want: dict) -> None:
 
 
 def test_tp2_dropout_step_equals_world1(tp2, torch_cpu):
-    """tp 2 at dropout 0.1: the ranks draw the whole layer's masks from
-    the same generator and hash the layer's heads, so the step is one
-    process's."""
+    """tp 2 at dropout 0.1: the ranks draw their parts of the whole
+    layer's masks from the same key and hash the layer's heads, so the
+    step is one process's."""
     _assert_same(tp2, "tp_drop", tp_text_step(None, 0.1))
 
 

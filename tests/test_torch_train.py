@@ -14,8 +14,24 @@ order:
 - three AdamW steps under the cosine-warmup schedule against optax
   ``adamw``: updated parameters atol 1e-5.
 
-At dropout 0.1 the packages draw different streams, so those tests are
-distributional and each names the stream it holds against.
+Both packages draw from the same key tree (``core/rng.py``), so the
+training steps are also held together whole, from a seed and a step:
+- the step's timesteps, noise (``TDM_FAST_NOISE`` 0 and 1) and
+  self-conditioning coin: bit-equal (noise within 3 ulp, the bound of
+  ``tests/test_torch_rng.py``);
+- three chunked training steps (``TextSteps``; eps, x0, self-conditioning,
+  EMA) against ``make_text_train_step_multi[_ema]`` at dropout 0, with SGD
+  at lr 0.5 on both sides (AdamW's parity is the test above; its first
+  steps turn a gradient that is rounding noise into +-lr, which would hide
+  the draws under noise): the summed losses rtol 1e-5, updated parameters
+  (and the EMA) atol 1e-5;
+- the training-mode denoiser at dropout 0.1, with the JAX package's
+  attention sent to its flash kernels (interpret mode; at these shapes it
+  would take the XLA path, whose mask is another stream): output and
+  gradients atol 1e-4, as at dropout 0.
+
+The distributional tests at dropout 0.1 stay, each naming the stream it
+holds against.
 """
 
 import numpy as np
@@ -42,7 +58,7 @@ from tinydiffusionmodels_tpu.models.transformer import (  # noqa: E402
 from tinydiffusionmodels_tpu.ops import xla_ref  # noqa: E402
 from tinydiffusionmodels_tpu.train import optim as jax_optim  # noqa: E402
 from tinydiffusionmodels_tpu.train import text_train as jax_train  # noqa: E402
-from tinydiffusionmodels_torch.core import make_schedule  # noqa: E402
+from tinydiffusionmodels_torch.core import make_schedule, rng  # noqa: E402
 from tinydiffusionmodels_torch.io import convert  # noqa: E402
 from tinydiffusionmodels_torch.models import (  # noqa: E402
     LearnedEmbedding,
@@ -116,10 +132,10 @@ def _batch(seed=0, t_max=1000):
 def test_training_forward_and_grads_match_jax_at_dropout_0():
     jcfg, tcfg = _configs(pos_emb="abs")
     params = _jax_joint(jcfg)["diffusion_model"]
-    rng = np.random.default_rng(1)
-    x = rng.standard_normal((B, L, DIM), dtype=np.float32)
+    rs = np.random.default_rng(1)
+    x = rs.standard_normal((B, L, DIM), dtype=np.float32)
     t = np.array([0, 417, 999], dtype=np.int32)
-    g = rng.standard_normal((B, L, DIM), dtype=np.float32)
+    g = rs.standard_normal((B, L, DIM), dtype=np.float32)
 
     def loss(p):
         out = tiny_transformer_apply(p, jnp.asarray(x), jnp.asarray(t), jcfg,
@@ -131,7 +147,7 @@ def test_training_forward_and_grads_match_jax_at_dropout_0():
     model = TinyTransformer(tcfg)
     model.load_state_dict(convert.transformer_state_from_jax(params))
     out_t = model(torch.from_numpy(x), torch.from_numpy(t).long(),
-                  deterministic=False, generator=torch.Generator())
+                  deterministic=False, key=rng.prng_key(3))
     (out_t * torch.from_numpy(g)).sum().backward()
     np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
                                rtol=0, atol=1e-4)
@@ -187,7 +203,7 @@ def test_losses_match_jax(name):
         torch.from_numpy(noise), weight, sched=make_schedule(),
         use_learned_embeddings=True, pretrained_matrix=None,
         deterministic=deterministic,
-        generator=None if deterministic else torch.Generator(), **kwargs)
+        key=None if deterministic else rng.prng_key(5), **kwargs)
     for got, want in zip((total, diff, round_), ref):
         np.testing.assert_allclose(got.item(), float(want), rtol=0, atol=1e-5)
 
@@ -287,7 +303,7 @@ def test_train_step_runs_forward_backward_adamw():
     opt = optim.adamw(joint.parameters(), 1e-3)
     losses = text_train.train_step(
         joint, opt, torch.from_numpy(_batch()[0]), 1.0,
-        torch.Generator().manual_seed(0), sched=make_schedule(),
+        rng.prng_key(0), sched=make_schedule(),
         use_learned_embeddings=True, pretrained_matrix=None)
     assert losses.shape == (3,) and bool(torch.isfinite(losses).all())
     for name, p in joint.named_parameters():
@@ -301,11 +317,11 @@ RATE = 0.1
 
 def test_feature_dropout_rate_matches_jax_distribution():
     """Feature dropout (input, dropout1, dropout_ffn, dropout2): the port's
-    generator stream and the JAX package's ``torch_init.dropout``
-    (``draw_keep``) stream each drop RATE of the units, within 2 %, and
+    stream (here key 1) and the JAX package's ``torch_init.dropout``
+    (``draw_keep``, key 0) each drop RATE of the units, within 2 %, and
     both scale the kept ones by 1 / (1 - RATE)."""
     x = torch.ones(200_000)
-    port = dropout(x, RATE, torch.Generator().manual_seed(0))
+    port = dropout(x, RATE, rng.prng_key(1))
     ref = np.asarray(jax_dropout(jax.random.PRNGKey(0), jnp.ones(200_000),
                                  RATE, deterministic=False))
     for out in (port.numpy(), ref):
@@ -356,8 +372,7 @@ def test_training_mode_averages_toward_eval_mode():
     with torch.no_grad():
         evald = model(x, t)
         draws = torch.stack([
-            model(x, t, deterministic=False,
-                  generator=torch.Generator().manual_seed(s))
+            model(x, t, deterministic=False, key=rng.prng_key(s))
             for s in range(48)])
     assert bool(torch.isfinite(draws).all())
     assert not torch.equal(draws[0], draws[1])
@@ -384,3 +399,145 @@ def test_train_ema_tracks_the_live_weights(tmp_path, decay):
     for name, p in result.joint.named_parameters():
         assert p.grad_fn is None and not p.requires_grad, name
         torch.testing.assert_close(p, want[name].detach(), rtol=0, atol=0)
+
+
+# --- the key tree: the JAX step's own draws ---------------------------------
+
+SEED, STEP = 4, 7
+
+
+def _train_key(seed=SEED):
+    return (rng.substream(rng.prng_key(seed), "train"),
+            jax_train.substream(jax.random.PRNGKey(seed), "train"))
+
+
+@pytest.mark.parametrize("fast", ["0", "1"])
+def test_step_draws_equal_jax(fast, monkeypatch):
+    """The step's timesteps, noise and self-conditioning coin from (seed,
+    step), as ``make_text_train_step``'s ``loss_fn`` and ``_losses`` draw
+    them: t and the coin bit-equal, the noise within 3 ulp."""
+    from tinydiffusionmodels_tpu.core.rng import draw_noise, substream
+
+    monkeypatch.setenv("TDM_FAST_NOISE", fast)
+    _, tcfg = _configs()
+    joint = _port_joint(tcfg, _jax_joint(_configs()[0]))
+    tokens = torch.from_numpy(_batch()[0])
+    port_key, jax_key = _train_key()
+    for step in range(STEP, STEP + 4):
+        sk = jax.random.fold_in(jax_key, step)
+        t_j = jax.random.randint(substream(sk, "timesteps"), (B,), 0, 1000)
+        noise_j = draw_noise(substream(sk, "noise"), (B, L, DIM))
+        coin_j = jax.random.bernoulli(
+            substream(substream(sk, "dropout"), "selfcond_coin"))
+        t, noise = text_train.draw_t_noise(
+            joint, tokens, 1000, rng.fold_in(port_key, step))
+        np.testing.assert_array_equal(t.numpy(), np.asarray(t_j))
+        np.testing.assert_allclose(noise.numpy(), np.asarray(noise_j),
+                                   rtol=4e-7, atol=1e-7)
+        assert text_train.coin(port_key, step) == bool(coin_j)
+
+
+# name: (_losses keyword arguments, self-conditioned model, EMA decay)
+STEP_VARIANTS = {
+    "eps": (dict(), False, None),
+    "x0": (dict(parameterization="x0"), False, None),
+    "self_cond": (dict(), True, None),
+    "ema": (dict(), False, 0.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STEP_VARIANTS))
+def test_training_steps_equal_jax_steps(name):
+    """Three steps of the port's chunk runner (``TextSteps``, global steps
+    STEP..STEP+2) against ``make_text_train_step_multi[_ema]`` from the
+    same state, batches and train key, at dropout 0: every draw is the JAX
+    step's, so losses and parameters agree to float32 rounding."""
+    from tinydiffusionmodels_tpu.train.state import TrainState
+
+    kwargs, self_cond, decay = STEP_VARIANTS[name]
+    jcfg, tcfg = _configs(self_cond=self_cond)
+    params = _jax_joint(jcfg)
+    lr, k = 0.5, 3
+    tx = optax.sgd(lr)
+    tokens = np.random.default_rng(5).integers(0, VOCAB, (k, B, L))
+    port_key, jax_key = _train_key()
+    common = dict(use_learned_embeddings=True, **kwargs)
+    joint = _port_joint(tcfg, params)
+
+    def copy(tree):   # the JAX steps donate their state
+        return jax.tree_util.tree_map(jnp.copy, tree)
+
+    state = TrainState.create(copy(params), tx)
+    state = TrainState(state.params, state.opt_state, jnp.int32(STEP))
+    if decay is None:
+        step = jax_train.make_text_train_step_multi(
+            jax_schedule(), jcfg, tx, **common)
+        state, sums = step(state, jnp.asarray(tokens), jnp.float32(0.7),
+                           jax_key)
+        want = _jax_state(state.params)
+    else:
+        step = jax_train.make_text_train_step_multi_ema(
+            jax_schedule(), jcfg, tx, ema_decay=decay, **common)
+        state, ema_j, sums = step(state, copy(params), jnp.asarray(tokens),
+                                  jnp.float32(0.7), jax_key)
+        want = _jax_state(ema_j)
+
+    ema = None
+    if decay is not None:
+        import copy
+
+        ema = copy.deepcopy(joint).requires_grad_(False)
+    opt = torch.optim.SGD(joint.parameters(), lr=lr)
+    runner = text_train.TextSteps(
+        joint, opt, torch.from_numpy(tokens.reshape(k * B, L)),
+        batch_size=B, steps=k, key=port_key, ema=ema, ema_decay=decay,
+        sched=make_schedule(), pretrained_matrix=None, **common)
+    runner.start(np.arange(k * B).reshape(k, B), 0.7, first_step=STEP)
+    losses = runner.run(k)
+    np.testing.assert_allclose(losses.sum(0), np.asarray(sums), rtol=1e-5,
+                               atol=0)
+    got = (ema if ema is not None else joint).named_parameters()
+    for pname, p in got:
+        np.testing.assert_allclose(p.detach().numpy(), want[pname], rtol=0,
+                                   atol=1e-5, err_msg=pname)
+
+
+def test_training_forward_with_dropout_equals_jax_flash_path(monkeypatch):
+    """The denoiser in training mode at dropout 0.1 against
+    ``tiny_transformer_apply`` with its attention sent to the Pallas flash
+    kernels (interpret mode), whose mask the port's kernels hash: every
+    mask and seed is the JAX package's for the same key, so output and
+    gradients agree as at dropout 0 (atol 1e-4)."""
+    from tinydiffusionmodels_tpu.ops import pallas_kernels, registry
+
+    monkeypatch.setattr(registry, "_override", "pallas")
+    monkeypatch.setattr(pallas_kernels, "TRAIN_SPILL_BYTES", -1)
+    jcfg, tcfg = _configs(dropout=RATE, pos_emb="rope")
+    params = _jax_joint(jcfg)["diffusion_model"]
+    rs = np.random.default_rng(2)
+    x = rs.standard_normal((B, L, DIM), dtype=np.float32)
+    t = np.array([3, 500, 998], dtype=np.int32)
+    g = rs.standard_normal((B, L, DIM), dtype=np.float32)
+    key_j = jax_train.substream(jax.random.PRNGKey(8), "dropout")
+    key_t = rng.substream(rng.prng_key(8), "dropout")
+
+    def loss(p):
+        out = tiny_transformer_apply(p, jnp.asarray(x), jnp.asarray(t), jcfg,
+                                     deterministic=False, key=key_j)
+        return jnp.sum(out * g), out
+
+    grads, out_j = jax.grad(loss, has_aux=True)(params)
+    model = TinyTransformer(tcfg)
+    model.load_state_dict(convert.transformer_state_from_jax(params))
+    out_t = model(torch.from_numpy(x), torch.from_numpy(t).long(),
+                  deterministic=False, key=key_t)
+    (out_t * torch.from_numpy(g)).sum().backward()
+    # Dropout changed the output: the comparison is not a dropout-0 one.
+    assert (out_t == 0).any() or not torch.allclose(
+        out_t, model(torch.from_numpy(x), torch.from_numpy(t).long()))
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               rtol=0, atol=1e-4)
+    want = convert.transformer_state_from_jax(grads)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   rtol=0, atol=1e-4, err_msg=name)

@@ -130,6 +130,13 @@ def _seed(seed: int, device=None) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _key(seed: int, device=None) -> torch.Tensor:
+    """``PRNGKey(seed)`` on ``device``: the steps' and samplers' draws."""
+    from tinydiffusionmodels_torch.core import rng
+
+    return rng.prng_key(seed).to(device)
+
+
 # --- the suite --------------------------------------------------------------
 #
 # Each metric's builder makes what the metric times (a chunk runner, a
@@ -157,15 +164,14 @@ def mnist_train_steps(batch_size: int = MNIST_BATCH, chunk: int = F32_CHUNK,
     sched = make_schedule(device=device)
     model = SimpleUNet(sched.timesteps, generator=_seed(0)).to(device)
     optimizer = adamw(model.parameters(), 1e-3)
-    gen = _seed(2, device)
     images = torch.randn((chunk * batch_size, 28, 28, 1),
                          generator=_seed(1, device), device=device)
     flops = perf.compiled_flops(
         mnist_train.train_step, model, optimizer, images[:batch_size], sched,
-        gen, compute_dtype=compute_dtype)
+        _key(2, device), compute_dtype=compute_dtype)
     steps = mnist_train.MnistSteps(
         model, optimizer, images, sched, batch_size=batch_size, steps=chunk,
-        generator=gen, compute_dtype=compute_dtype)
+        key=_key(2), compute_dtype=compute_dtype)
     order = torch.arange(chunk * batch_size).reshape(chunk, batch_size)
     return steps, order.numpy(), flops
 
@@ -201,7 +207,6 @@ def mnist_sampler(n_samples: int = MNIST_N, method: str = "ancestral",
     device = _device(device)
     sched = make_schedule(timesteps, device=device)
     model = SimpleUNet(timesteps, generator=_seed(0)).to(device).eval()
-    gen = _seed(1, device)
     shape = (n_samples, 28, 28, 1)
 
     def one_step():
@@ -215,7 +220,7 @@ def mnist_sampler(n_samples: int = MNIST_N, method: str = "ancestral",
     nsteps = timesteps if method == "ancestral" else (num_steps or 20)
     flops = step_flops * nsteps / n_samples if step_flops else None
     sampler = Sampler(model, sched, shape, method=method,
-                      num_steps=num_steps, generator=gen)
+                      num_steps=num_steps, key=_key(1))
     return sampler, flops
 
 
@@ -270,14 +275,14 @@ def text_train_steps(batch_size: int = TEXT_BATCH, seq_len: int = 64,
                                           device=device)
     tokens = torch.randint(0, vocab, (chunk * batch_size, seq_len),
                            generator=_seed(3, device), device=device)
-    gen = _seed(4, device)
     kw = dict(sched=sched, use_learned_embeddings=True,
               pretrained_matrix=None, compute_dtype=compute_dtype)
     flops = perf.compiled_flops(text_train.train_step, joint, optimizer,
-                                tokens[:batch_size], 1.0, gen, **kw)
+                                tokens[:batch_size], 1.0, _key(4, device),
+                                **kw)
     steps = text_train.TextSteps(joint, optimizer, tokens,
                                  batch_size=batch_size, steps=chunk,
-                                 generator=gen, **kw)
+                                 key=_key(4), **kw)
     order = torch.arange(chunk * batch_size).reshape(chunk, batch_size)
     return steps, order.numpy(), flops
 
@@ -303,7 +308,6 @@ def text_sampler(n: int = TEXT_N, seq_len: int = 64, dim: int = 256, *,
     cfg = TransformerConfig(dim=dim, n_heads=4, depth=depth,
                             timesteps=timesteps)
     model = TinyTransformer(cfg, generator=_seed(0)).to(device).eval()
-    gen = _seed(1, device)
     shape = (n, seq_len, dim)
 
     def one_step():
@@ -312,7 +316,7 @@ def text_sampler(n: int = TEXT_N, seq_len: int = 64, dim: int = 256, *,
         with torch.inference_mode():
             p_sample(sched, x, t, model(x, t), x)
 
-    return Sampler(model, sched, shape, generator=gen), perf.compiled_flops(
+    return Sampler(model, sched, shape, key=_key(1)), perf.compiled_flops(
         one_step)
 
 
@@ -524,6 +528,7 @@ def _kernel_launches() -> dict:
     from tinydiffusionmodels_torch.ops import decode_kernel as dk
     from tinydiffusionmodels_torch.ops import flash_attention as fa
     from tinydiffusionmodels_torch.ops import resblock as rb
+    from tinydiffusionmodels_torch.ops import rng
     from tinydiffusionmodels_torch.ops import single_block as sb
 
     return {"flash_attention_fwd": fa.launches,
@@ -531,7 +536,8 @@ def _kernel_launches() -> dict:
             "flash_attention_bwd_dkv": fa.dkv_launches,
             "fused_resblock": rb.launches, "guided_decode": dk.launches,
             "attention_single_block_fwd": sb.launches,
-            "attention_single_block_bwd": sb.bwd_launches}
+            "attention_single_block_bwd": sb.bwd_launches,
+            "rng_draw": rng.launches}
 
 
 def _provenance(load_start, device, chunks: dict, launches: dict) -> dict:

@@ -3,8 +3,8 @@ loss (port of ``core/diffusion.py``).
 
 Rank-generic as in the JAX package: timesteps are a (B,) integer tensor and
 may differ per batch element. Noise is always an explicit tensor argument, so
-a caller decides where it comes from (a ``torch.Generator``, or draws replayed
-from the JAX package in the parity tests).
+a caller decides where it comes from (the JAX package's keys, drawn by
+``ops.rng``, or draws a test feeds both packages).
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@
 // tinydiffusionmodels_tpu/ops/pallas_kernels.py, which the TPU forward and
 // both recompute-backward kernels call. The mask is a pure function of
 // (seed, batch*head, global query position, global key position), where the
-// head is the layer's (b * heads_total + head_off + h for a launch on a slice
-// of the heads, as a tensor-parallel rank's): the
+// head is the layer's ((b + batch_off) * heads_total + head_off + h for a
+// launch on a slice of the heads, as a tensor-parallel rank's, or of the
+// batch, as a data-parallel rank's): the
 // murmur3 fmix32 mix of q*0x9E3779B9 + k*0x85EBCA6B + bh*0xC2B2AE35 + seed in
 // uint32 arithmetic, kept where the hash is >= a threshold. So the forward
 // and both backward kernels regenerate the identical mask from coordinates,

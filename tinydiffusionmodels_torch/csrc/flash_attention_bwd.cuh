@@ -60,7 +60,8 @@ struct BwdParams {
   int heads, lq, lk, dh, dv_dim;
   int vec;  // bytes per copy of q, k, v and dO into shared memory
   int q_off, k_off;
-  int head_off, heads_total;  // the hashed head: b * heads_total + head_off + h
+  // The hashed head: (b + batch_off) * heads_total + head_off + h.
+  int head_off, heads_total, batch_off;
   int causal;
   float scale;
   const int* seed;  // null: no dropout
@@ -98,12 +99,13 @@ inline bool make_params(BwdParams& p, const void* q, const void* k,
                         int dtype, int batch, int heads, int lq, int lk,
                         int dh, int dv_dim, int vec, const long long* strides,
                         float scale, int causal, int q_off, int k_off,
-                        int head_off, int heads_total, const void* seed,
+                        int head_off, int heads_total, int batch_off,
+                        const void* seed,
                         unsigned drop_thresh, float drop_scale) {
   const int min_vec = dtype == 1 ? 2 : 4;
   if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || dh <= 0 ||
       dv_dim <= 0 || (dtype != 0 && dtype != 1) || head_off < 0 ||
-      heads_total < head_off + heads ||
+      heads_total < head_off + heads || batch_off < 0 ||
       vec < min_vec || vec > 16 || (vec & (vec - 1)) != 0) {
     return false;
   }
@@ -131,6 +133,7 @@ inline bool make_params(BwdParams& p, const void* q, const void* k,
   p.k_off = k_off;
   p.head_off = head_off;
   p.heads_total = heads_total;
+  p.batch_off = batch_off;
   p.causal = causal;
   p.scale = scale;
   p.seed = static_cast<const int*>(seed);
@@ -147,8 +150,8 @@ inline bool make_params(BwdParams& p, const void* q, const void* k,
 // addresses and strides must be multiples of.
 // `strides` holds 21 element strides, (batch, head, row) for q, k, v, dO,
 // dq, dk, dv in that order. lse and delta are contiguous (batch*heads, lq)
-// float32. head_off and heads_total place the launch's heads among the heads
-// the dropout mask is hashed over, as in the forward.
+// float32. head_off, heads_total and batch_off place the launch's heads and
+// rows among those the dropout mask is hashed over, as in the forward.
 // `seed` is a device int32 (null: no dropout). The dq kernel writes
 // dq only; the dkv kernel writes dk and dv only. Returns the launch's
 // cudaError_t (0 on success); the kernels run on `stream` and allocate
@@ -158,10 +161,11 @@ inline bool make_params(BwdParams& p, const void* q, const void* k,
       const void *lse, const void *delta, void *dq, void *dk, void *dv,     \
       int dtype, int batch, int heads, int lq, int lk, int dh, int dv_dim,  \
       int vec, const long long *strides, float scale, int causal,           \
-      int q_off, int k_off, int head_off, int heads_total,                  \
+      int q_off, int k_off, int head_off, int heads_total, int batch_off,   \
       const void *seed, unsigned drop_thresh, float drop_scale, void *stream
 #define TDM_BWD_PARAMS(p)                                                   \
   flash_bwd::make_params(p, q, k, v, dout, lse, delta, dq, dk, dv, dtype,   \
                          batch, heads, lq, lk, dh, dv_dim, vec, strides,    \
                          scale, causal, q_off, k_off, head_off,             \
-                         heads_total, seed, drop_thresh, drop_scale)
+                         heads_total, batch_off, seed, drop_thresh,         \
+                         drop_scale)

@@ -172,7 +172,8 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   const float inv_lk = 1.f / float(p.lk);
   const bool dropout = p.seed != nullptr;
   const uint32_t seed = dropout ? uint32_t(*p.seed) : 0u;
-  const uint32_t drop_bh = uint32_t(b * p.heads_total + p.head_off + h);
+  const uint32_t drop_bh =
+      uint32_t((b + p.batch_off) * p.heads_total + p.head_off + h);
 
   float acc_k[kOutBlocks][4], acc_v[kOutBlocks][4];
 #pragma unroll

@@ -163,7 +163,8 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     delta[r] = in ? p.delta[int64_t(bh) * p.lq + q_row[r]] : 0.f;
     if (dropout) {
       drop_row[r] = dropout_row_base(
-          uint32_t(*p.seed), uint32_t(b * p.heads_total + p.head_off + h),
+          uint32_t(*p.seed),
+          uint32_t((b + p.batch_off) * p.heads_total + p.head_off + h),
           q_pos[r]);
     }
   }

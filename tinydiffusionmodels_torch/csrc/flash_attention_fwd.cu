@@ -17,9 +17,10 @@
 // the undropped weights and only the P*V accumulation sees the mask. The mask
 // is the coordinate hash of dropout_hash.cuh (seed, batch*head, global q,
 // global k), which the backward kernels regenerate; the hashed head is
-// b * heads_total + head_off + h, so a launch on a slice of the heads (a
-// tensor-parallel rank's) draws that slice of the whole mask (head_off 0
-// and heads_total = heads: b * heads + h, the launch's own); the seed is read from a
+// (b + batch_off) * heads_total + head_off + h, so a launch on a slice of
+// the heads (a tensor-parallel rank's) or of the batch (a data-parallel
+// rank's) draws that slice of the whole mask (batch_off 0, head_off 0 and
+// heads_total = heads: b * heads + h, the launch's own); the seed is read from a
 // device int32, so a launch needs no host value of it. In bf16, the dropped
 // weights are rounded to bf16 before P*V, where the TPU kernel rounds them
 // (`pv.astype(v.dtype)`).
@@ -108,7 +109,8 @@ struct Params {
   int heads, lq, lk, dh, dv;
   int vec;  // bytes per copy of q, k and v into shared memory
   int q_off, k_off;
-  int head_off, heads_total;  // the hashed head: b * heads_total + head_off + h
+  // The hashed head: (b + batch_off) * heads_total + head_off + h.
+  int head_off, heads_total, batch_off;
   int causal;
   float scale;
   // Dropout: off when seed is null; else keep where hash >= drop_thresh and
@@ -192,7 +194,8 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     q_pos[r] = p.q_off + q0 + group * 16 + g + 8 * r;
     if (dropout) {
       drop_row[r] = dropout_row_base(
-          uint32_t(*p.seed), uint32_t(b * p.heads_total + p.head_off + h),
+          uint32_t(*p.seed),
+          uint32_t((b + p.batch_off) * p.heads_total + p.head_off + h),
           q_pos[r]);
     }
   }
@@ -419,7 +422,8 @@ cudaError_t launch_width(const Params& p, int batch, cudaStream_t s) {
 // of q, k and v into shared memory (16, 8, 4; 2 for bf16 only), which their
 // addresses and (batch, head, row) strides must be multiples of. Strides are
 // in elements. head_off and heads_total place the launch's heads among the
-// heads the dropout mask is hashed over (0 and `heads` for a whole layer).
+// heads the dropout mask is hashed over (0 and `heads` for a whole layer),
+// batch_off its batch rows among the global batch's (0 for the whole).
 // `seed` is a device int32 (null: no dropout). Returns the
 // launch's cudaError_t (0 on success); the kernel runs on `stream` and
 // allocates nothing.
@@ -431,11 +435,12 @@ extern "C" int tdm_flash_attention_fwd(
     long long v_sb, long long v_sh, long long v_sl,
     long long o_sb, long long o_sh, long long o_sl,
     float scale, int causal, int q_off, int k_off, int head_off,
-    int heads_total, const void* seed, unsigned drop_thresh, float drop_scale,
+    int heads_total, int batch_off, const void* seed, unsigned drop_thresh,
+    float drop_scale,
     void* stream) {
   const int min_vec = dtype == 1 ? 2 : 4;
   if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || dh <= 0 || dv <= 0 ||
-      head_off < 0 || heads_total < head_off + heads ||
+      head_off < 0 || heads_total < head_off + heads || batch_off < 0 ||
       vec < min_vec || vec > 16 || (vec & (vec - 1)) != 0) {
     return int(cudaErrorInvalidValue);
   }
@@ -459,6 +464,7 @@ extern "C" int tdm_flash_attention_fwd(
   p.k_off = k_off;
   p.head_off = head_off;
   p.heads_total = heads_total;
+  p.batch_off = batch_off;
   p.causal = causal;
   p.scale = scale;
   p.seed = static_cast<const int*>(seed);

@@ -23,10 +23,10 @@ and runs the JAX dry run's five sections at its shapes, one training step
 Every rank also runs the section's step in one process, on the same
 inputs and weights, and the section fails unless every output (losses and
 every parameter after the step, or the attention output) is within 1e-5
-of it. The one-process text step draws each data shard's dropout from
-that shard's generator, as the trainer's shards do (``train/
-text_train.py``: a generator of its own for each data shard), and
-averages the shards' gradients. Every step is SGD at learning rate 1, so
+of it. Every rank draws its part of the one-process step's timesteps,
+noise and dropout masks (``core/rng.py``: a draw is a function of the
+key and the global index), so the one-process step is the trainer's step
+on the whole batch. Every step is SGD at learning rate 1, so
 the parameters after it differ from their start by the gradient itself:
 AdamW's first step turns a gradient that is zero up to rounding (the key
 bias's; at 8 ranks some of the UNet's) into +-lr whichever way the
@@ -59,6 +59,14 @@ def _params(module) -> dict:
     return {n: p.detach() for n, p in module.named_parameters()}
 
 
+def _step_key(device):
+    """The trainers' key of step 0 for ``SEED``, on ``device``."""
+    from tinydiffusionmodels_torch.core import rng
+
+    return rng.fold_in(rng.substream(rng.prng_key(SEED), "train"), 0).to(
+        device)
+
+
 def _worst(what: str, got: dict, want: dict) -> float:
     """The largest |got - want|; raises unless every pair is within TOL
     (relative and absolute)."""
@@ -76,7 +84,11 @@ def _worst(what: str, got: dict, want: dict) -> float:
 
 
 def mnist_dp(world: int, device) -> str:
-    """Section 1: one step of the MNIST UNet over ('data',) world."""
+    """Section 1: one step of the MNIST UNet over ('data',) world, against
+    the whole batch's step in one process. Both run in float64: in float32
+    the CPU convolutions round a batch of 2 rows and one of 16 apart, and a
+    ReLU near its kink turns that into a gradient 3e-5 apart at 8 ranks
+    (float64 agrees to 1e-15); the draws stay the trainer's float32."""
     from tinydiffusionmodels_torch.core import make_schedule
     from tinydiffusionmodels_torch.models import SimpleUNet
     from tinydiffusionmodels_torch.parallel import make_mesh
@@ -85,15 +97,14 @@ def mnist_dp(world: int, device) -> str:
     sched = make_schedule(10, device=device)
     mesh = make_mesh({"data": world})
     batch = torch.as_tensor(np.random.default_rng(1).uniform(
-        -1, 1, (2 * world, 28, 28, 1)).astype(np.float32), device=device)
+        -1, 1, (2 * world, 28, 28, 1)), device=device)
 
     def step(m) -> dict:
         model = SimpleUNet(sched.timesteps, generator=torch.Generator(
-        ).manual_seed(SEED)).to(device)
+        ).manual_seed(SEED)).to(device, torch.float64)
         optimizer = torch.optim.SGD(model.parameters(), lr=1.0)
-        loss = mnist_train.train_step(
-            model, optimizer, batch, sched,
-            torch.Generator(device=device).manual_seed(1), mesh=m)
+        loss = mnist_train.train_step(model, optimizer, batch, sched,
+                                      _step_key(device), mesh=m)
         return {"loss": loss.reshape(1).detach(), **_params(model)}
 
     got = step(mesh)
@@ -121,37 +132,12 @@ def _joint(cfg, device):
     }).to(device)
 
 
-def _one_process_step(joint, optimizer, tokens, gen, drop_gens, *, sched,
-                      **kw) -> torch.Tensor:
-    """The global text step in one process: the timesteps and noise of the
-    whole batch from ``gen``, then each data shard's rows with its own
-    dropout generator, the shards' losses and gradients averaged."""
-    from tinydiffusionmodels_torch.train import text_train
-
-    t, noise = text_train._draw_t_noise(joint, tokens, sched.timesteps, gen)
-    dp = len(drop_gens)
-    rows = tokens.shape[0] // dp
-    optimizer.zero_grad(set_to_none=True)
-    sums = torch.zeros(3, device=tokens.device)
-    for d, drop_gen in enumerate(drop_gens):
-        cut = slice(d * rows, (d + 1) * rows)
-        total, (diff, round_) = text_train._losses(
-            joint, tokens[cut], t[cut], noise[cut], 1.0, sched=sched,
-            deterministic=False, generator=drop_gen, **kw)
-        (total / dp).backward()
-        sums += torch.stack([diff, round_, total]).detach()
-    optimizer.step()
-    return sums / dp
-
-
-def text_step(cfg, tokens, mesh, device, seq_cfg=None,
-              shards: int = 1) -> dict:
+def text_step(cfg, tokens, mesh, device, seq_cfg=None) -> dict:
     """One SGD step (learning rate 1) of the text trainer's step on
     ``tokens``: over ``mesh`` (the denoiser split on its 'model' axis, the
     sequence on its 'seq' axis with ``seq_cfg``, the model configured for
-    it), or with ``mesh`` None in one process, as ``shards`` data shards
-    (``cfg``'s model). Returns the losses and every parameter after the
-    step, whole."""
+    it), or with ``mesh`` None in one process (``cfg``'s model). Returns
+    the losses and every parameter after the step, whole."""
     from tinydiffusionmodels_torch import ops
     from tinydiffusionmodels_torch.core import make_schedule
     from tinydiffusionmodels_torch.parallel import (
@@ -163,28 +149,16 @@ def text_step(cfg, tokens, mesh, device, seq_cfg=None,
     sched = make_schedule(cfg.timesteps, device=device)
     kw = dict(sched=sched, use_learned_embeddings=True,
               pretrained_matrix=None)
-    gen = text_train._generator(device, SEED, 0)
+    joint = _joint(seq_cfg or cfg if mesh is not None else cfg, device)
     if mesh is not None:
-        joint = _joint(seq_cfg or cfg, device)
         shard_transformer(joint["diffusion_model"], mesh)
         if "seq" in mesh.shape:
             ops.register_sequence_mesh(mesh, "seq")
-        dp = mesh.axis_size("data")
-        drop_gen = (text_train._generator(device, SEED, 0,
-                                          1 + mesh.index("data"))
-                    if dp > 1 else None)
-        optimizer = torch.optim.SGD(joint.parameters(), lr=1.0)
-        losses = text_train.train_step(
-            joint, optimizer, tokens, 1.0, gen, mesh=mesh,
-            dropout_generator=drop_gen, **kw)
+    optimizer = torch.optim.SGD(joint.parameters(), lr=1.0)
+    losses = text_train.train_step(joint, optimizer, tokens, 1.0,
+                                   _step_key(device), mesh=mesh, **kw)
+    if mesh is not None:
         gather_transformer(joint["diffusion_model"], mesh)
-    else:
-        joint = _joint(cfg, device)
-        optimizer = torch.optim.SGD(joint.parameters(), lr=1.0)
-        drop_gens = ([text_train._generator(device, SEED, 0, 1 + d)
-                      for d in range(shards)] if shards > 1 else [gen])
-        losses = _one_process_step(joint, optimizer, tokens, gen, drop_gens,
-                                   **kw)
     return {"losses": losses.detach(), **_params(joint)}
 
 
@@ -197,8 +171,7 @@ def _text_section(what: str, cfg, tokens, axes: dict, device,
     mesh = make_mesh(axes)
     seq_cfg = dataclasses.replace(cfg, seq_axis="seq") if seq else None
     got = text_step(cfg, tokens, mesh, device, seq_cfg)
-    want = text_step(cfg, tokens, None, device,
-                     shards=mesh.axis_size("data"))
+    want = text_step(cfg, tokens, None, device)
     return got, _worst(what, got, want)
 
 

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tinydiffusionmodels_torch.core import make_schedule
+from tinydiffusionmodels_torch.core import make_schedule, rng
 from tinydiffusionmodels_torch.data import load_mnist, normalize_mnist
 from tinydiffusionmodels_torch.models.classifier import (
     DigitClassifier,
@@ -163,7 +163,7 @@ def sample_digits(model, *, n: int, method: str = "ancestral",
     with torch.inference_mode():
         x = sample_loop(denoise, make_schedule(device=dev), (n, *IMAGE_SHAPE),
                         method=method, num_steps=num_steps,
-                        generator=torch.Generator(device=dev).manual_seed(seed))
+                        key=rng.prng_key(seed))
     return x.clamp(-1.0, 1.0)
 
 

@@ -20,11 +20,10 @@ side stream just before the capture, so that the first call already
 replays. A capture that fails raises; there is no eager fallback on the
 card.
 
-Randomness: each ``torch.Generator`` the step draws from is registered
-with the graph (``CUDAGraph.register_generator_state``), so a replay
-draws from the generator's current offset and advances it as the eager
-step does: replays and eager steps give the same numbers in the same
-order.
+Randomness: a step draws from the JAX package's key tree (``core/rng.py``,
+``ops.rng``), its key and counter read from device buffers like any other
+input, so a replay draws what the eager step draws; no generator is
+registered with a graph.
 
 Garbage collection: Python's cycle collector is off while a step is
 captured. Run there, it could free an unreachable ``CUDAGraph`` of an
@@ -53,6 +52,7 @@ from tinydiffusionmodels_torch.ops import (
     decode_kernel,
     flash_attention,
     resblock,
+    rng,
     single_block,
 )
 
@@ -65,6 +65,7 @@ COUNTERS = (
     (single_block, "launches"),
     (single_block, "bwd_launches"),
     (decode_kernel, "launches"),
+    (rng, "launches"),
 )
 
 
@@ -86,8 +87,7 @@ class Step:
     ``fn()`` must read every input that changes between calls from device
     tensors it does not reallocate, and write its results into such
     tensors: a replay repeats the captured launches on the captured
-    addresses. ``generators`` are the ``torch.Generator``s it draws from
-    (the default CUDA generator is registered by torch itself).
+    addresses, random draws included (their keys are such tensors).
     ``prime()``, with ``warmup=0``, runs on the side stream before the
     capture: work that sets up what ``fn`` needs lazily and leaves no
     state that ``fn``'s results depend on."""
@@ -95,11 +95,10 @@ class Step:
     # Keep each capture's cudaGraph_t, for ``kernel_nodes``.
     keep_graph = False
 
-    def __init__(self, fn, device, *, generators=(), warmup: int = 1,
-                 eager: bool = False, prime=None):
+    def __init__(self, fn, device, *, warmup: int = 1, eager: bool = False,
+                 prime=None):
         self.fn = fn
         self.device = torch.device(device)
-        self.generators = tuple(g for g in generators if g is not None)
         self.warmup = warmup
         self.prime = prime
         self.eager = eager or self.device.type != "cuda"
@@ -146,8 +145,6 @@ class Step:
             self._on_side_stream(self.prime)
         graph = (torch.cuda.CUDAGraph(keep_graph=True) if self.keep_graph
                  else torch.cuda.CUDAGraph())
-        for gen in self.generators:
-            graph.register_generator_state(gen)
         before = counts()
 
         def capture():

@@ -12,24 +12,35 @@ in_proj_weight`` ...), so a checkpoint the JAX CLI wrote loads with
 ``load_state_dict(strict=True)``.
 
 Training mode (``deterministic=False``) applies dropout at the JAX
-package's sites: the input, the attention weights (inside the flash kernels,
-seeded per layer), and ``dropout1``, ``dropout_ffn`` and ``dropout2`` of
-every layer. Every mask and seed is drawn from the ``torch.Generator`` the
-caller passes, on the model's device, so a training step needs no host sync.
+package's sites, from the JAX package's keys (``core/rng.py``): the input
+(``substream(key, "input_dropout")``), the attention weights (inside the
+flash kernels, seeded per layer by ``randint(substream(fold_in(key, i),
+"attn_weights"))``) and ``dropout1``, ``dropout_ffn`` and ``dropout2`` of
+layer i (``substream(fold_in(key, i), name)``). Every mask and seed is
+drawn on the model's device (``ops.rng``: one launch a draw on the card),
+so a training step needs no host sync. The masks are ``draw_keep``'s, so
+for the same key they equal the JAX package's; the attention-weight mask
+is the flash kernels' coordinate hash, which equals the JAX package's
+flash path (its XLA path, which it takes at the training shapes, drops a
+``draw_keep`` mask of the weights instead).
+
+Data parallelism (``batch_shard``, (index, count)): the model is called
+on this rank's rows of the global batch, and every mask is those rows of
+the global batch's (the flash kernels hash the rows' global index).
 
 Sequence parallelism (``cfg.seq_axis``): the model is called on this
 rank's shard of the sequence, attention is the ring over the axis's
 registered mesh (``ops.attention``), and positions are global: the rotary
 angles and the absolute table start at the shard's offset, and each
-dropout mask is drawn for the whole sequence and cut to the shard, so a
-ring drops what one device drops for the same generator. (The JAX package
+dropout mask is the shard's positions of the whole sequence's, so a
+ring drops what one device drops for the same key. (The JAX package
 gets global positions from GSPMD's global arrays.)
 
 Tensor parallelism (``parallel.tp.shard_transformer``): a layer whose
 ``tp`` is set holds its rank's heads of the attention and columns of the
 FFN, runs the Megatron column and row products with their all-reduces,
 draws every dropout mask at the whole layer's width (the FFN's feature
-mask cut to its columns) and hashes the layer's head index in the
+mask drawn at its columns) and hashes the layer's head index in the
 attention kernels, so it computes what one device computes. ``tp`` is
 None on one device.
 """
@@ -44,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tinydiffusionmodels_torch import ops
+from tinydiffusionmodels_torch.core.rng import fold_in, substream
 from tinydiffusionmodels_torch.models.embedding import (
     _default_generator,
     init_linear_,
@@ -91,29 +103,23 @@ def _linear(in_dim: int, out_dim: int) -> nn.Linear:
 
 
 def dropout(
-    x: torch.Tensor, rate: float, generator: torch.Generator | None,
+    x: torch.Tensor, rate: float, key, batch: tuple[int, int] = (0, 1),
     shard: tuple[int, int] = (0, 1), features: tuple[int, int] = (0, 1),
 ) -> torch.Tensor:
     """Inverted dropout with torch nn.Dropout semantics (JAX:
-    ``torch_init.dropout``), its mask drawn from ``generator``; no generator
-    (eval mode) or rate 0 returns ``x``. ``shard`` = (index, n): ``x`` is
-    shard ``index`` of n along dim 1 (a sequence ring), and the mask is
-    drawn for all n shards and cut to this one; ``features`` the same along
-    the last dim (a tensor-parallel rank's columns)."""
-    if generator is None or rate == 0.0:
+    ``torch_init.dropout``), its mask ``draw_keep(key, 1 - rate, shape)``
+    (``ops.rng.dropout``); no key (eval mode) or rate 0 returns ``x``.
+    ``batch``, ``shard`` and ``features`` = (index, n): ``x`` (B, L, D) is
+    part ``index`` of n along the batch, the sequence (a ring) and the last
+    dim (a tensor-parallel rank's columns), and its mask is that part of
+    the whole (n B, n L, n D) mask."""
+    if key is None or rate == 0.0:
         return x
-    (index, n), (col, cols) = shard, features
-    if n == 1 and cols == 1:
-        keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
-    else:
-        shape = list(x.shape)
-        shape[1] *= n
-        shape[-1] *= cols
-        keep = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
-            1.0 - rate, generator=generator).narrow(
-                1, index * x.shape[1], x.shape[1]).narrow(
-                    -1, col * x.shape[-1], x.shape[-1])
-    return x * keep / (1.0 - rate)
+    shape, window = [], []
+    for size, (index, n) in zip(x.shape, (batch, shard, features)):
+        shape.append(size * n)
+        window.append((index * size, size))
+    return ops.rng.dropout(x, key, rate, shape=shape, window=window)
 
 
 def _rope(x: torch.Tensor, base: float = 10000.0, *, l_axis: int = 2,
@@ -152,9 +158,10 @@ class SelfAttention(nn.Module):
         self.tp = None   # parallel.tp.TensorSplit: this rank's heads
 
     def forward(
-        self, x: torch.Tensor, generator: torch.Generator | None = None
+        self, x: torch.Tensor, key=None, batch: tuple[int, int] = (0, 1)
     ) -> torch.Tensor:
-        """``generator`` (training) seeds the attention-weight dropout."""
+        """``key`` (training; the layer's) seeds the attention-weight
+        dropout; ``batch`` places ``x``'s rows in the global batch."""
         cfg, tp = self.cfg, self.tp
         b, l, d = x.shape
         dh = d // cfg.n_heads
@@ -173,15 +180,15 @@ class SelfAttention(nn.Module):
             q = _rope(q, l_axis=1, offset=offset)
             k = _rope(k, l_axis=1, offset=offset)
         rate, seed = 0.0, None
-        if generator is not None and cfg.dropout > 0.0:
-            # One int32 seed per call, drawn on the device: the kernels read
-            # it there, as the TPU kernel reads its SMEM scalar.
+        if key is not None and cfg.dropout > 0.0:
+            # One int32 seed per call, drawn on the device as
+            # _pack_scalars draws it: the kernels read it there, as the TPU
+            # kernel reads its SMEM scalar.
             rate = cfg.dropout
-            seed = torch.randint(-2**31, 2**31, (1,), generator=generator,
-                                 device=x.device, dtype=torch.int32)
+            seed = ops.rng.attention_seed(substream(key, "attn_weights"))
         out = ops.attention(q, k, v, layout="blhd", dropout_rate=rate,
                             dropout_seed=seed, seq_axis=cfg.seq_axis,
-                            **heads_kw)
+                            batch_offset=batch[0] * b, **heads_kw)
         out = out.reshape(b, l, heads * dh)
         if tp is None:
             return self.out_proj(out)
@@ -205,24 +212,32 @@ class EncoderLayer(nn.Module):
         self.tp = None   # parallel.tp.TensorSplit: this rank's FFN columns
 
     def forward(
-        self, x: torch.Tensor, generator: torch.Generator | None = None
+        self, x: torch.Tensor, key=None, batch: tuple[int, int] = (0, 1)
     ) -> torch.Tensor:
-        """``generator`` (training) draws the dropout masks: dropout1 on the
-        attention output, dropout_ffn after the ReLU, dropout2 after
-        linear2."""
-        g, rate, tp = generator, self.rate, self.tp
+        """``key`` (training; the layer's, ``fold_in(key, i)``) draws the
+        dropout masks: dropout1 on the attention output, dropout_ffn after
+        the ReLU, dropout2 after linear2. ``batch`` places ``x``'s rows in
+        the global batch."""
+        rate, tp = self.rate, self.tp
         shard = ops.sequence_shard(self.seq_axis)
-        sa = dropout(self.self_attn(x, g), rate, g, shard)
+
+        def drop(y, name, features=(0, 1)):
+            if key is None:
+                return y
+            return dropout(y, rate, substream(key, name), batch, shard,
+                           features)
+
+        sa = drop(self.self_attn(x, key, batch), "dropout1")
         x = self.norm1(x + sa)
         if tp is None:
-            ff = dropout(F.relu(self.linear1(x)), rate, g, shard)
-            ff = dropout(self.linear2(ff), rate, g, shard)
+            ff = drop(F.relu(self.linear1(x)), "dropout_ffn")
+            ff = drop(self.linear2(ff), "dropout2")
         else:
-            ff = dropout(F.relu(self.linear1(copy_to_model(x, tp))), rate, g,
-                         shard, features=(tp.index, tp.size))
+            ff = drop(F.relu(self.linear1(copy_to_model(x, tp))),
+                      "dropout_ffn", features=(tp.index, tp.size))
             ff = reduce_from_model(F.linear(ff, self.linear2.weight),
                                    tp) + self.linear2.bias
-            ff = dropout(ff, rate, g, shard)
+            ff = drop(ff, "dropout2")
         return self.norm2(x + ff)
 
 
@@ -289,17 +304,22 @@ class TinyTransformer(nn.Module):
         *,
         x0_prev: torch.Tensor | None = None,
         deterministic: bool = True,
-        generator: torch.Generator | None = None,
+        key=None,
+        batch_shard: tuple[int, int] = (0, 1),
     ) -> torch.Tensor:
         """Additive time bias (and positions, and the self-conditioning
         input), input dropout, then the encoder stack. ``x0_prev`` is the
         previous clean estimate when ``cfg.self_cond``; None means no
-        estimate. ``deterministic=False`` (training) needs ``generator``, on
-        the device of ``x``, for every dropout mask and seed."""
+        estimate. ``deterministic=False`` (training) needs ``key`` (a key or
+        ``core.rng.KeyPath`` on the device of ``x``: the JAX package's
+        dropout key), from which every dropout mask and seed is drawn.
+        ``batch_shard`` = (index, n): ``x`` is the index-th of n equal row
+        blocks of the global batch (a data-parallel rank's), and the masks
+        are its rows of the global batch's."""
         cfg = self.cfg
-        if not deterministic and generator is None:
-            raise ValueError("training mode requires a torch.Generator")
-        g = None if deterministic else generator
+        if not deterministic and key is None:
+            raise ValueError("training mode requires a PRNG key")
+        key = None if deterministic else key
         shard = ops.sequence_shard(cfg.seq_axis)
         t_scaled = (t.to(x.dtype) / cfg.timesteps)[:, None]      # (B, 1)
         x = x + self.time_emb(t_scaled)[:, None, :]
@@ -320,7 +340,10 @@ class TinyTransformer(nn.Module):
                 x = x + self.selfcond_proj(x0_prev.to(x.dtype))
         elif x0_prev is not None:
             raise ValueError("x0_prev passed but cfg.self_cond is False")
-        x = dropout(x, cfg.dropout, g, shard)
-        for layer in self.encoder.layers:
-            x = layer(x, g)
+        if key is not None:
+            x = dropout(x, cfg.dropout, substream(key, "input_dropout"),
+                        batch_shard, shard)
+        for i, layer in enumerate(self.encoder.layers):
+            x = layer(x, None if key is None else fold_in(key, i),
+                      batch_shard)
         return x

@@ -4,7 +4,8 @@ Dispatch is on the tensor's device alone, inside each kernel's wrapper: a
 CUDA tensor runs the hand-written kernels (the flash-attention forward, in
 training its recompute backward, the persistent guided-decode kernel of
 ``decode_kernel``, the UNet residual block of ``resblock`` and the
-single-block attention pair of ``single_block``), a CPU tensor their plain
+single-block attention pair of ``single_block``, the random draws of
+``rng``), a CPU tensor their plain
 PyTorch version. There is no environment knob and no size threshold; the
 JAX package's routing rules (score-footprint thresholds between XLA and
 flash, the residual block sent to XLA) were TPU measurements and do not
@@ -26,6 +27,7 @@ from tinydiffusionmodels_torch.ops import (
     flash_attention,
     reference,
     resblock,
+    rng,
     single_block,
 )
 from tinydiffusionmodels_torch.ops.resblock import fused_resblock
@@ -72,9 +74,11 @@ def attention(
     layout: str = "bhld",
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    dropout_key=None,
     seq_axis: str | None = None,
     head_offset: int = 0,
     total_heads: int | None = None,
+    batch_offset: int = 0,
 ):
     """Attention over (B, H, L, Dh) or, with ``layout='blhd'``,
     (B, L, H, Dh) tensors; returns the output in the same layout.
@@ -85,13 +89,18 @@ def attention(
 
     ``head_offset`` and ``total_heads``: the operands hold heads
     ``head_offset`` on of a layer's ``total_heads`` (a tensor-parallel
-    rank's), and the dropout mask is that slice of the layer's.
+    rank's), and the dropout mask is that slice of the layer's;
+    ``batch_offset`` the same for the operands' rows in the global batch
+    (a data-parallel rank's).
 
     ``seq_axis``: the operands are this rank's shard of the sequence, and
     attention is the ring over the mesh registered for that axis (every
     block on the flash kernels; ValueError when none is registered).
-    ``mask``: the port's kernels take no arbitrary mask (``causal``
-    covers the models' one), so a mask raises NotImplementedError."""
+    ``mask``: an arbitrary boolean mask goes, as in the JAX package, to
+    the plain masked attention (``reference.masked_attention``, the
+    counterpart of ``xla_ref.attention``) on either device, its dropout
+    drawn from ``dropout_key`` (``core/rng.py``'s ``draw_keep``); the flash
+    kernels take ``causal`` or no mask."""
     if seq_axis is not None:
         from tinydiffusionmodels_torch.parallel.ring_attention import (
             ring_attention_shard,
@@ -109,19 +118,24 @@ def attention(
             )
         return ring_attention_shard(
             q, k, v, mesh=mesh, axis=seq_axis, causal=causal, layout=layout,
-            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+            batch_offset=batch_offset)
     if mask is not None:
-        raise NotImplementedError(
-            "the flash kernels take causal=True or no mask; an arbitrary "
-            "mask is not ported to the torch package"
-        )
+        if head_offset or total_heads is not None or batch_offset:
+            raise NotImplementedError(
+                "masked attention on a slice of the heads or rows is not "
+                "ported")
+        return reference.masked_attention(
+            q, k, v, mask, layout=layout, dropout_rate=dropout_rate,
+            dropout_key=dropout_key)
     return flash_attention.flash_attention(
         q, k, v, causal=causal, layout=layout, dropout_rate=dropout_rate,
         dropout_seed=dropout_seed, head_offset=head_offset,
-        total_heads=total_heads,
+        total_heads=total_heads, batch_offset=batch_offset,
     )
 
 
 __all__ = ["attention", "decode_kernel", "flash_attention", "fused_resblock",
-           "reference", "register_sequence_mesh", "resblock", "sequence_mesh",
+           "reference", "register_sequence_mesh", "resblock", "rng",
+           "sequence_mesh",
            "sequence_shard", "single_block", "single_block_attention"]

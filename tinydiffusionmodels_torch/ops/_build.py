@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels: one shared library from ``csrc/``.
 
-Every kernel wrapper (``ops/flash_attention.py``, ``ops/decode_kernel.py``)
-takes its C entry point from here. The kernels are compiled with ``nvcc`` at
+Every kernel wrapper (``ops/flash_attention.py``, ``ops/decode_kernel.py``,
+``ops/resblock.py``, ``ops/single_block.py``, ``ops/rng.py``) takes its C
+entry point from here. The kernels are compiled with ``nvcc`` at
 first use, from the sources in ``csrc/`` only, into ``build/kernels/`` beside
 the package: each ``.cu`` in its own ``nvcc``, all started together, then
 one link. The library's name carries a hash of every source (``.cu`` and

@@ -60,9 +60,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-# ... scale, causal, q_off, k_off, head_off, heads_total, seed, threshold,
-# keep scale, stream.
-_TAIL_ARGTYPES = [ctypes.c_float, _INT, _INT, _INT, _INT, _INT, _PTR,
+# ... scale, causal, q_off, k_off, head_off, heads_total, batch_off, seed,
+# threshold, keep scale, stream.
+_TAIL_ARGTYPES = [ctypes.c_float, _INT, _INT, _INT, _INT, _INT, _INT, _PTR,
                   ctypes.c_uint, ctypes.c_float, _PTR]
 _FWD_ARGTYPES = [_PTR] * 5 + [_INT] * 8 + [ctypes.c_longlong] * 12 + \
     _TAIL_ARGTYPES
@@ -198,22 +198,24 @@ def _check_seed(seed, q: torch.Tensor) -> None:
 
 
 def _dropout_args(rate: float, seed, heads: int, head_offset: int,
-                  total_heads: int | None) -> tuple:
-    """(head offset, hashed heads, seed pointer or None, uint32 threshold,
-    float32 keep scale)."""
+                  total_heads: int | None, batch_offset: int) -> tuple:
+    """(head offset, hashed heads, batch offset, seed pointer or None,
+    uint32 threshold, float32 keep scale)."""
     total = heads if total_heads is None else int(total_heads)
     if head_offset < 0 or total < head_offset + heads:
         raise ValueError(f"heads {head_offset}..{head_offset + heads} are "
                          f"not among {total}")
+    if batch_offset < 0:
+        raise ValueError(f"batch offset {batch_offset} < 0")
     if rate <= 0.0:
-        return int(head_offset), total, None, 0, 0.0
-    return (int(head_offset), total, seed.data_ptr(),
+        return int(head_offset), total, int(batch_offset), None, 0, 0.0
+    return (int(head_offset), total, int(batch_offset), seed.data_ptr(),
             reference.dropout_threshold(rate), 1.0 / (1.0 - rate))
 
 
 def forward(q, k, v, *, causal, layout, q_offset, k_offset, dropout_rate,
-            dropout_seed, head_offset=0,
-            total_heads=None) -> tuple[torch.Tensor, torch.Tensor]:
+            dropout_seed, head_offset=0, total_heads=None,
+            batch_offset=0) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch of the forward kernel on checked CUDA operands."""
     global launches
     b, h, lq, lk, dh, dv = _dims(q, k, v, layout)
@@ -227,7 +229,7 @@ def forward(q, k, v, *, causal, layout, q_offset, k_offset, dropout_rate,
         *_bhl_strides(v, layout), *_bhl_strides(out, layout),
         1.0 / math.sqrt(dh), int(causal), int(q_offset), int(k_offset),
         *_dropout_args(dropout_rate, dropout_seed, h, head_offset,
-                       total_heads),
+                       total_heads, batch_offset),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.raise_on(err, "flash attention forward")
@@ -248,7 +250,7 @@ def backward_delta(out, g_out, g_lse, layout: str) -> torch.Tensor:
 
 def _backward_call(name: str, q, k, v, g_out, lse, delta, grads, *, causal,
                    layout, q_offset, k_offset, dropout_rate, dropout_seed,
-                   head_offset=0, total_heads=None):
+                   head_offset=0, total_heads=None, batch_offset=0):
     b, h, lq, lk, dh, dv = _dims(q, k, v, layout)
     strides = []
     for x in (q, k, v, g_out, *grads):
@@ -261,7 +263,7 @@ def _backward_call(name: str, q, k, v, g_out, lse, delta, grads, *, causal,
         (ctypes.c_longlong * len(strides))(*strides),
         1.0 / math.sqrt(dh), int(causal), int(q_offset), int(k_offset),
         *_dropout_args(dropout_rate, dropout_seed, h, head_offset,
-                       total_heads),
+                       total_heads, batch_offset),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.raise_on(err, name)
@@ -390,6 +392,7 @@ def flash_attention_with_lse(
     dropout_seed: torch.Tensor | None = None,
     head_offset: int = 0,
     total_heads: int | None = None,
+    batch_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Attention and its per-row logsumexp, as ``reference.attention``,
     differentiable in q, k and v through both outputs.
@@ -401,13 +404,15 @@ def flash_attention_with_lse(
     needs ``dropout_seed``: on the card a one-element int32 tensor on the
     same device, which the kernels read there (no host sync); on the CPU
     also an int. ``head_offset`` and ``total_heads`` say which of a layer's
-    heads the operands hold (a tensor-parallel rank's slice), so that the
-    dropout mask is that slice of the whole layer's.
+    heads the operands hold (a tensor-parallel rank's slice), and
+    ``batch_offset`` which rows of the global batch (a data-parallel
+    rank's), so that the dropout mask is that slice of the whole one.
     """
     return _attention(q, k, v, with_lse=True, dropout_seed=dropout_seed,
                       causal=causal, layout=layout, q_offset=int(q_offset),
                       k_offset=int(k_offset), dropout_rate=float(dropout_rate),
-                      head_offset=int(head_offset), total_heads=total_heads)
+                      head_offset=int(head_offset), total_heads=total_heads,
+                      batch_offset=int(batch_offset))
 
 
 def flash_attention(
@@ -421,9 +426,11 @@ def flash_attention(
     dropout_seed: torch.Tensor | None = None,
     head_offset: int = 0,
     total_heads: int | None = None,
+    batch_offset: int = 0,
 ) -> torch.Tensor:
     """``flash_attention_with_lse`` without the logsumexp."""
     return _attention(q, k, v, with_lse=False, dropout_seed=dropout_seed,
                       causal=causal, layout=layout, q_offset=0, k_offset=0,
                       dropout_rate=float(dropout_rate),
-                      head_offset=int(head_offset), total_heads=total_heads)
+                      head_offset=int(head_offset), total_heads=total_heads,
+                      batch_offset=int(batch_offset))

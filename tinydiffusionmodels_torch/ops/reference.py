@@ -85,6 +85,7 @@ def attention(
     dropout_seed: torch.Tensor | int | None = None,
     head_offset: int = 0,
     total_heads: int | None = None,
+    batch_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """softmax(q k^T / sqrt(Dh)) v, and its logsumexp.
 
@@ -103,7 +104,9 @@ def attention(
     ``dropout_scale(dropout_seed, b * H + h, q_offset + i, k_offset + j)``.
     On a slice of a layer's heads (a tensor-parallel rank's), heads
     ``head_offset`` on of ``total_heads`` (default: the operands' H), the
-    mask hashes the layer's head, ``b * total_heads + head_offset + h``.
+    mask hashes the layer's head, ``b * total_heads + head_offset + h``;
+    on rows ``batch_offset`` on of a global batch (a data-parallel rank's),
+    ``b`` counts from there.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"unknown attention layout: {layout!r}")
@@ -122,7 +125,8 @@ def attention(
     lse = torch.logsumexp(scores, dim=-1)
     weights = torch.softmax(scores, dim=-1)
     if dropout_rate > 0.0:
-        bh = _hashed_heads(b, h, head_offset, total_heads, q.device)
+        bh = _hashed_heads(b, h, head_offset, total_heads, q.device,
+                           batch_offset)
         weights = weights * dropout_scale(
             dropout_seed, bh, q_pos[:, None], k_pos[None, :], dropout_rate
         )
@@ -132,14 +136,49 @@ def attention(
     return out, lse
 
 
-def _hashed_heads(b: int, h: int, head_offset: int, total_heads, device):
+def masked_attention(q, k, v, mask, *, layout: str = "bhld",
+                     dropout_rate: float = 0.0, dropout_key=None):
+    """Attention under an arbitrary boolean ``mask`` (broadcastable to (B,
+    H, Lq, Lk), True = keep), as the JAX package's ``xla_ref.attention``
+    computes it, which takes every masked call: float32 scores over
+    sqrt(Dh), masked scores at float32's lowest value, the softmax, then
+    (``dropout_rate`` > 0) the weights' dropout from ``dropout_key`` by
+    ``draw_keep`` over (B, H, Lq, Lk) in either layout (``ops.rng.dropout``:
+    the draw kernel on the card), the weights in v's dtype times v. Plain
+    PyTorch on both devices: the flash kernels take no arbitrary mask."""
+    from tinydiffusionmodels_torch.ops import rng as rng_ops
+
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown attention layout: {layout!r}")
+    if dropout_rate > 0.0 and dropout_key is None:
+        raise ValueError("dropout_rate > 0 requires dropout_key")
+    if layout == "blhd":
+        q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+    scale = torch.tensor(q.shape[-1], dtype=torch.float32).sqrt()
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / scale
+    scores = torch.where(torch.as_tensor(mask, device=scores.device), scores,
+                         torch.finfo(torch.float32).min)
+    weights = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0:
+        weights = rng_ops.dropout(weights.contiguous(), dropout_key,
+                                  dropout_rate)
+    out = torch.matmul(weights.to(v.dtype), v)
+    return out.transpose(1, 2) if layout == "blhd" else out
+
+
+def _hashed_heads(b: int, h: int, head_offset: int, total_heads, device,
+                  batch_offset: int = 0):
     """(B, H, 1, 1) head indices the dropout mask hashes:
-    ``b * total_heads + head_offset + h`` (``b * H + h`` by default)."""
+    ``(batch_offset + b) * total_heads + head_offset + h`` (``b * H + h``
+    by default)."""
     total = h if total_heads is None else total_heads
     if head_offset < 0 or total < head_offset + h:
         raise ValueError(f"heads {head_offset}..{head_offset + h} are not "
                          f"among {total}")
-    return (torch.arange(b, device=device).reshape(b, 1, 1, 1) * total
+    if batch_offset < 0:
+        raise ValueError(f"batch offset {batch_offset} < 0")
+    rows = torch.arange(batch_offset, batch_offset + b, device=device)
+    return (rows.reshape(b, 1, 1, 1) * total
             + head_offset + torch.arange(h, device=device).reshape(1, h, 1, 1))
 
 
@@ -162,7 +201,7 @@ def _bwd_probs(q, k, lse, *, causal, q_offset, k_offset):
 
 def _attention_bwd(q, k, v, g_out, lse, delta, *, causal, layout, q_offset,
                    k_offset, dropout_rate, dropout_seed, want, head_offset=0,
-                   total_heads=None):
+                   total_heads=None, batch_offset=0):
     """dq (``want`` 'dq') or (dk, dv) ('dkv') of ``attention`` as the flash
     backward kernels compute them: P recomputed from q, k and the forward's
     lse, dP = (dO V^T) * mask, dS = P (dP - D) zeroed where the causal
@@ -176,7 +215,8 @@ def _attention_bwd(q, k, v, g_out, lse, delta, *, causal, layout, q_offset,
                                        q_offset=q_offset, k_offset=k_offset)
     mask = None
     if dropout_rate > 0.0:
-        bh = _hashed_heads(b, h, head_offset, total_heads, q.device)
+        bh = _hashed_heads(b, h, head_offset, total_heads, q.device,
+                           batch_offset)
         mask = dropout_scale(dropout_seed, bh, q_pos[:, None],
                              k_pos[None, :], dropout_rate)
     g = g_out.float()

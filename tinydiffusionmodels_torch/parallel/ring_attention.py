@@ -52,18 +52,6 @@ from tinydiffusionmodels_torch.ops.flash_attention import (
 _LOWEST = torch.finfo(torch.float32).min
 
 
-def fold_seed(seed, index: int):
-    """A dropout seed for data shard ``index``: ``seed`` (an int32 tensor
-    or an int) XOR a hash of the index, 0 for index 0. Each shard of the
-    batch then draws its own mask, as the JAX package folds the batch-axis
-    index into the dropout key."""
-    if index == 0:
-        return seed
-    h = (index * 0x9E3779B9) & 0xFFFFFFFF
-    h = h - (1 << 32) if h >= 1 << 31 else h
-    return seed ^ h
-
-
 class _Rotate(torch.autograd.Function):
     """One step around the ring for each tensor: sent to the rank
     ``shift`` places on, received from the rank ``shift`` places back, all
@@ -109,11 +97,12 @@ def _rotate_shards(blocks: list, shifts: tuple) -> list:
 
 
 def _ring(qs, ks, vs, *, ranks, n, rotate, causal, bidirectional,
-          dropout_rate, seeds, layout):
+          dropout_rate, seed, batch_offset, layout):
     """The ring over the shards one process holds: ``qs``, ``ks`` and
-    ``vs`` list them, ``ranks`` their places on the ring of ``n``, ``seeds``
-    their dropout seeds; ``rotate(blocks, shifts)`` moves blocks around the
-    ring. Returns the (out, lse) of every shard."""
+    ``vs`` list them, ``ranks`` their places on the ring of ``n``, ``seed``
+    the dropout seed and ``batch_offset`` their first row in the global
+    batch; ``rotate(blocks, shifts)`` moves blocks around the ring.
+    Returns the (out, lse) of every shard."""
     ldim = 2 if layout == "bhld" else 1
     l_shard = ks[0].shape[ldim]
     states = [None] * len(qs)
@@ -122,7 +111,8 @@ def _ring(qs, ks, vs, *, ranks, n, rotate, causal, bidirectional,
         out_b, lse_b = flash_attention_with_lse(
             qs[j], k_blk, v_blk, causal=causal, layout=layout,
             q_offset=ranks[j] * l_shard, k_offset=k_offset,
-            dropout_rate=dropout_rate, dropout_seed=seeds[j])
+            dropout_rate=dropout_rate, dropout_seed=seed,
+            batch_offset=batch_offset)
         # lse (B, H, L) beside out's rows: (B, H, L, 1) or (B, L, H, 1).
         lse_b = (lse_b if layout == "bhld" else lse_b.transpose(1, 2))[
             ..., None]
@@ -182,14 +172,17 @@ def _check(dropout_rate, dropout_seed):
 def ring_attention_shard(q, k, v, *, mesh, axis: str, causal: bool = False,
                          bidirectional: bool = False,
                          dropout_rate: float = 0.0, dropout_seed=None,
-                         layout: str = "bhld", with_lse: bool = False):
+                         batch_offset: int = 0, layout: str = "bhld",
+                         with_lse: bool = False):
     """Per-rank ring attention over ``mesh``'s ``axis``.
 
     q, k, v: this rank's sequence shard, (B, H, L_shard, D) or, with
     ``layout='blhd'``, (B, L_shard, H, D). Returns this rank's output (and
     with ``with_lse`` its (B, H, L_shard) float32 logsumexp over the whole
     sequence). ``dropout_seed`` must be the same on every rank of the ring
-    (a one-element int32 tensor on the card). Without a process group the
+    (a one-element int32 tensor on the card); ``batch_offset`` is the
+    shard's first row in the global batch (a data-parallel rank's), which
+    the mask hashes. Without a process group the
     mesh's ring has one rank: one block, no rotation."""
     _check(dropout_rate, dropout_seed)
     n = mesh.axis_size(axis)
@@ -201,8 +194,8 @@ def ring_attention_shard(q, k, v, *, mesh, axis: str, causal: bool = False,
     (out, lse), = _ring(
         [q], [k], [v], ranks=[mesh.index(axis)], n=n, rotate=rotate,
         causal=causal, bidirectional=bidirectional,
-        dropout_rate=float(dropout_rate), seeds=[dropout_seed],
-        layout=layout)
+        dropout_rate=float(dropout_rate), seed=dropout_seed,
+        batch_offset=int(batch_offset), layout=layout)
     return (out, lse) if with_lse else out
 
 
@@ -213,9 +206,9 @@ def ring_attention(q, k, v, *, seq: int, data: int = 1,
     """Ring attention over global tensors in one process: the sequence cut
     into ``seq`` shards and the batch into ``data`` shards, each batch
     shard its own ring, as the JAX package's ``ring_attention`` runs on a
-    ('data', 'seq') mesh. Each data shard folds its index into the dropout
-    seed (``fold_seed``). Returns the (B, H, L, D) output (and its lse)
-    assembled from the shards."""
+    ('data', 'seq') mesh. Each data shard hashes its rows' global batch
+    index, so the dropout mask is the one-device mask. Returns the (B, H,
+    L, D) output (and its lse) assembled from the shards."""
     _check(dropout_rate, dropout_seed)
     ldim = 2 if layout == "bhld" else 1
     length, batch = q.shape[ldim], q.shape[0]
@@ -229,13 +222,11 @@ def ring_attention(q, k, v, *, seq: int, data: int = 1,
     for d, (qd, kd, vd) in enumerate(zip(*(x.chunk(data, 0)
                                            for x in (q, k, v)))):
         shards = [list(x.chunk(seq, ldim)) for x in (qd, kd, vd)]
-        seed = (fold_seed(dropout_seed, d) if dropout_rate > 0.0
-                else None)
         res = _ring(*shards, ranks=list(range(seq)), n=seq,
                     rotate=_rotate_shards, causal=causal,
                     bidirectional=bidirectional,
-                    dropout_rate=float(dropout_rate), seeds=[seed] * seq,
-                    layout=layout)
+                    dropout_rate=float(dropout_rate), seed=dropout_seed,
+                    batch_offset=d * (batch // data), layout=layout)
         outs.append(torch.cat([o for o, _ in res], ldim))
         lses.append(torch.cat([s for _, s in res], 2))
     out, lse = torch.cat(outs, 0), torch.cat(lses, 0)

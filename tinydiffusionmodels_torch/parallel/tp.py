@@ -24,11 +24,10 @@ on the output of a row-parallel one. Every replicated parameter then gets
 the same whole gradient on every rank of the axis, so the data-parallel
 reduction runs over the 'data' axis alone (``data_parallel``).
 
-Randomness matches one device for the same generator: the ranks of a data
-shard draw from the same generator state, every dropout mask is drawn at
-the whole layer's width (the FFN's feature mask cut to the rank's columns)
-and the attention kernels hash the layer's head index (``ops.attention``'s
-``head_offset``).
+Randomness matches one device for the same key: every dropout mask is the
+rank's part of the whole layer's (the FFN's feature mask drawn at the
+rank's columns, ``core/rng.py``'s windows) and the attention kernels hash
+the layer's head index (``ops.attention``'s ``head_offset``).
 
 As in the JAX package, no CLI flag reaches this: the dry run
 (``python -m tinydiffusionmodels_torch.dryrun``) and the tests do.

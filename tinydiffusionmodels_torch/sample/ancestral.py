@@ -8,17 +8,19 @@ from device tables by a device step index that it advances. Nothing in a
 step reads a device value on the host, so on the card each kind of step
 (the ancestral step, the DDIM step, DPM-Solver++'s first- and
 second-order steps) is captured as a CUDA graph and replayed
-(``graphs.py``), the per-step noise drawn inside the graph from the
-registered generator. A ``Sampler`` keeps its graphs, so calling it again
+(``graphs.py``), the per-step noise drawn inside the graph
+(``ops.rng``). A ``Sampler`` keeps its graphs, so calling it again
 replays every step; ``sample_loop`` is one call of a new one. On the CPU,
 or with ``eager=True``, the same steps run eagerly: that is the plain
 version a replay is held against.
 
-Randomness comes in as arguments: a ``torch.Generator``, or an explicit
-``x_T`` and a per-step ``noise_fn(t)`` (t is the timestep as a Python int,
-the index the JAX sampler folds into its key), which lets the parity tests
-replay the JAX package's draws. ``noise_fn`` is a host callback, which a
-graph cannot call: on the card it needs ``eager=True``.
+Randomness is the JAX sampler's (``core/rng.py``): a call's ``key`` splits
+into (init_key, loop_key), x_T is ``normal(init_key)`` and step t's noise
+``normal(fold_in(loop_key, t))``, t the timestep, which the step reads
+from its device table: the loop key lies in a device buffer, so one graph
+serves every call and key. An explicit ``x_T`` and a per-step
+``noise_fn(t)`` (a host callback, which a graph cannot call: on the card
+it needs ``eager=True``) replace the draws.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from tinydiffusionmodels_torch import graphs
+from tinydiffusionmodels_torch import graphs, ops
+from tinydiffusionmodels_torch.core import rng
 from tinydiffusionmodels_torch.core.diffusion import ddim_step, p_sample
 from tinydiffusionmodels_torch.core.schedule import DiffusionSchedule
 
@@ -50,7 +53,7 @@ def sample_loop(
     eta: float = 0.0,
     self_cond: bool = False,
     temperature: float = 1.0,
-    generator: torch.Generator | None = None,
+    key=None,
     x_T: torch.Tensor | None = None,
     noise_fn: NoiseFn | None = None,
     eager: bool = False,
@@ -61,8 +64,8 @@ def sample_loop(
     captured once."""
     return Sampler(denoise_fn, sched, shape, method=method,
                    num_steps=num_steps, eta=eta, self_cond=self_cond,
-                   temperature=temperature, generator=generator,
-                   eager=eager)(x_T=x_T, noise_fn=noise_fn)
+                   temperature=temperature, eager=eager)(
+                       key, x_T=x_T, noise_fn=noise_fn)
 
 
 class Sampler:
@@ -81,8 +84,8 @@ class Sampler:
     x0 and log-SNR step, the step index) and tables, and on the card one
     ``graphs.Step`` per kind of step: the first time a kind runs it runs
     eagerly, the next time it is captured, then replayed, so a second call
-    replays every step. Every call draws from ``generator`` (a graph replays
-    the draws of the generator it was captured with). ``eager=True`` runs
+    replays every step. Each call draws from its key (default: the
+    ``key`` the sampler was made with). ``eager=True`` runs
     every step eagerly on the card too, instead of replaying its graph.
     """
 
@@ -90,8 +93,7 @@ class Sampler:
                  shape: tuple[int, ...], *, method: str = "ancestral",
                  num_steps: int | None = None, eta: float = 0.0,
                  self_cond: bool = False, temperature: float = 1.0,
-                 generator: torch.Generator | None = None,
-                 eager: bool = False):
+                 key=None, eager: bool = False):
         if temperature != 1.0 and method != "ancestral":
             raise ValueError(
                 f"temperature={temperature} has no effect with method="
@@ -101,7 +103,7 @@ class Sampler:
         if method not in ("ancestral", "ddim", "dpm++"):
             raise ValueError(f"unknown sampling method: {method!r}")
         self.denoise_fn, self.sched, self.shape = denoise_fn, sched, shape
-        self.generator = generator
+        self.key = key
         self.draws_noise = method == "ancestral" or (
             method == "ddim" and eta > 0.0)
         self.device = device = sched.betas.device
@@ -112,19 +114,22 @@ class Sampler:
             self.x = torch.empty(shape, device=device)
             self.sc = torch.zeros(shape, device=device) if self_cond else None
             self.i = torch.zeros((1,), dtype=torch.long, device=device)
+            self.loop_key = torch.zeros((2,), dtype=torch.long,
+                                        device=device)
             # The step of each index, k -> run(k).
             self.schedule = getattr(self, f"_{method.replace('+', 'p')}")(
                 num_steps, eta, temperature)
 
-    def __call__(self, x_T: torch.Tensor | None = None,
+    def __call__(self, key=None, x_T: torch.Tensor | None = None,
                  noise_fn: NoiseFn | None = None) -> torch.Tensor:
-        """Samples from ``x_T`` (default: drawn from the generator), each
-        step's noise from ``noise_fn`` (eager only) or the generator."""
-        if self.generator is None and (
+        """Samples from ``x_T`` (default: ``normal(split(key)[0])``), each
+        step's noise from ``noise_fn`` (eager only) or the key."""
+        key = self.key if key is None else key
+        if key is None and (
                 x_T is None or (self.draws_noise and noise_fn is None)):
             raise ValueError(
-                "pass a torch.Generator, or x_T (and noise_fn for a "
-                "stochastic sampler): the sampler draws from no global RNG"
+                "pass a key, or x_T (and noise_fn for a stochastic "
+                "sampler): the sampler draws from no global RNG"
             )
         if noise_fn is not None and self.draws_noise and not self.eager:
             raise ValueError(
@@ -133,8 +138,13 @@ class Sampler:
             )
         with torch.inference_mode():
             self.noise_fn = noise_fn
-            self.x.copy_(self.normal() if x_T is None
-                         else x_T.to(device=self.device, dtype=torch.float32))
+            if key is not None:
+                init_key, loop_key = rng.split(rng.resolve(key))
+                self.loop_key.copy_(loop_key)
+            self.x.copy_(
+                ops.rng.normal(init_key.to(self.device), self.shape)
+                if x_T is None
+                else x_T.to(device=self.device, dtype=torch.float32))
             if self.sc is not None:
                 self.sc.zero_()
             self.i.zero_()
@@ -142,13 +152,13 @@ class Sampler:
                 run(k)
             return self.x.clone()
 
-    def normal(self) -> torch.Tensor:
-        return torch.randn(self.shape, generator=self.generator,
-                           device=self.device)
-
-    def noise(self, t: int | None) -> torch.Tensor:
-        """The step's noise: ``noise_fn(t)`` (eager only), else a draw."""
-        return self.noise_fn(t) if self.noise_fn is not None else self.normal()
+    def noise(self, t: int | None, t_b: torch.Tensor) -> torch.Tensor:
+        """The step's noise: ``noise_fn(t)`` (eager only), else
+        ``normal(fold_in(loop_key, t))`` with t read from ``t_b``."""
+        if self.noise_fn is not None:
+            return self.noise_fn(t)
+        return ops.rng.normal(rng.KeyPath(self.loop_key, t_b[:1]),
+                              self.shape)
 
     def rows(self, ts: np.ndarray) -> torch.Tensor:
         """(n,) host timesteps -> (n, batch) device rows, one per step."""
@@ -171,12 +181,10 @@ class Sampler:
 
     def runner(self, step):
         """``step(k)`` for host step ``k``: eagerly, or a graph of
-        ``step(None)`` replayed on the card (its noise from the
-        generator)."""
+        ``step(None)`` replayed on the card (its noise drawn there)."""
         if self.eager:
             return step
-        graph = graphs.Step(lambda: step(None), self.device,
-                            generators=(self.generator,), warmup=WARMUP)
+        graph = graphs.Step(lambda: step(None), self.device, warmup=WARMUP)
         self.steps.append(graph)
         return lambda k: graph()
 
@@ -188,7 +196,7 @@ class Sampler:
         def step(k):
             t_b = self.at(t_rows)
             eps = self.denoise(t_b)
-            noise = self.noise(None if k is None else int(ts[k]))
+            noise = self.noise(None if k is None else int(ts[k]), t_b)
             x.copy_(p_sample(sched, x, t_b, eps, noise,
                              noise_scale=temperature))
             self.i.add_(1)
@@ -243,7 +251,7 @@ class Sampler:
         def step(k):
             t_b = self.at(t_rows)
             eps = self.denoise(t_b)
-            noise = (self.noise(None if k is None else int(ts[k]))
+            noise = (self.noise(None if k is None else int(ts[k]), t_b)
                      if eta > 0.0 else None)
             x.copy_(ddim_step(sched, x, t_b, self.at(tp_rows), eps, eta=eta,
                               noise=noise))

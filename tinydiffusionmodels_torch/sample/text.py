@@ -92,12 +92,12 @@ def make_clamped_denoiser(
 
 
 def _sample(model, sched, denoise, shape, *, method, num_steps, temperature,
-            generator, x_T, noise_fn) -> torch.Tensor:
+            key, x_T, noise_fn) -> torch.Tensor:
     with torch.inference_mode():
         return sample_loop(
             denoise, sched, shape, method=method, num_steps=num_steps,
             self_cond=model.cfg.self_cond, temperature=temperature,
-            generator=generator, x_T=x_T, noise_fn=noise_fn,
+            key=key, x_T=x_T, noise_fn=noise_fn,
         )
 
 
@@ -112,7 +112,7 @@ def sample_diffusion_embeddings(
     num_steps: int | None = None,
     parameterization: str = "eps",
     temperature: float = 1.0,
-    generator: torch.Generator | None = None,
+    key=None,
     x_T: torch.Tensor | None = None,
     noise_fn: NoiseFn | None = None,
 ) -> torch.Tensor:
@@ -120,7 +120,7 @@ def sample_diffusion_embeddings(
     denoise = make_denoiser(model, sched, parameterization=parameterization)
     return _sample(
         model, sched, denoise, (n, seq_len, embed_dim), method=method,
-        num_steps=num_steps, temperature=temperature, generator=generator,
+        num_steps=num_steps, temperature=temperature, key=key,
         x_T=x_T, noise_fn=noise_fn,
     )
 
@@ -175,7 +175,7 @@ def sample_text(
     parameterization: str = "eps",
     temperature: float = 1.0,
     log_fn=print,
-    generator: torch.Generator | None = None,
+    key=None,
     x_T: torch.Tensor | None = None,
     noise_fn: NoiseFn | None = None,
     return_embeddings: bool = False,
@@ -196,7 +196,7 @@ def sample_text(
         )
         x = _sample(
             model, sched, denoise, shape, method=method, num_steps=num_steps,
-            temperature=temperature, generator=generator, x_T=x_T,
+            temperature=temperature, key=key, x_T=x_T,
             noise_fn=noise_fn,
         )
     else:
@@ -204,7 +204,7 @@ def sample_text(
             model, sched, n=n_samples, seq_len=seq_len, embed_dim=embed_dim,
             method=method, num_steps=num_steps,
             parameterization=parameterization, temperature=temperature,
-            generator=generator, x_T=x_T, noise_fn=noise_fn,
+            key=key, x_T=x_T, noise_fn=noise_fn,
         )
     tokens = decode_embeddings(
         x, rounding=rounding, embed_matrix=embed_matrix,

@@ -304,7 +304,7 @@ def main(argv=None):
 
 def _run(args):
     """``main`` past its argument checks."""
-    from tinydiffusionmodels_torch.core import make_schedule
+    from tinydiffusionmodels_torch.core import make_schedule, rng
     from tinydiffusionmodels_torch.core.schedule import DEFAULT_TIMESTEPS
     from tinydiffusionmodels_torch.data import (
         BPETokenizer,
@@ -333,7 +333,8 @@ def _run(args):
     dev = device()
     multihost.initialize()
     # Parameters are drawn on the CPU so a seed gives the same weights on
-    # every device; noise, masks and dropout seeds are drawn on the device.
+    # every device; noise, masks and dropout seeds are the JAX CLI's draws
+    # (core/rng.py), made on the device.
     init_gen = torch.Generator().manual_seed(args.seed)
 
     # --- tokenizer / pretrained-matrix resolution -------------------------
@@ -570,7 +571,6 @@ def _run(args):
     # --- plain sampling ---------------------------------------------------
     z = None
     if args.sample:
-        sample_gen = torch.Generator(device=dev).manual_seed(args.seed)
         _, z = sample_text(
             model, sched, tokenizer,
             rounding=rounding, embed_matrix=embed_matrix,
@@ -578,7 +578,8 @@ def _run(args):
             use_learned_rounding=not use_cosine_fallback,
             method=args.sampler, num_steps=args.steps, clamp=args.clamp,
             parameterization=args.parameterization,
-            generator=sample_gen, return_embeddings=True, save=main_rank,
+            key=rng.substream(rng.prng_key(args.seed), "sample"),
+            return_embeddings=True, save=main_rank,
         )
     if not args.guided_sample:
         return z
@@ -607,12 +608,12 @@ def _run(args):
         write_guided_samples,
     )
 
-    # Unclamped, as the JAX CLI's guided draw; from --seed.
+    # Unclamped, as the JAX CLI's guided draw; its key from --seed.
     z_guided = sample_diffusion_embeddings(
         model, sched, n=args.n, seq_len=args.seq_len, embed_dim=embed_dim,
         method=args.sampler, num_steps=args.steps,
         parameterization=args.parameterization,
-        generator=torch.Generator(device=dev).manual_seed(args.seed),
+        key=rng.substream(rng.prng_key(args.seed), "guided"),
     )
     heads = dict(rounding=rounding, embed_matrix=embed_matrix,
                  use_learned_rounding=not use_cosine_fallback)

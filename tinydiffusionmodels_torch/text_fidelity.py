@@ -23,8 +23,8 @@ keys:
 The judge is ``--lm_ckpt`` when it holds a TinyGPT of this vocabulary with
 a long enough position table (either package's ``{"params": ...}``), else
 one trained for ``--lm_epochs`` by ``train/lm_train.py`` and saved there.
-Replicate ``r`` draws from a generator seeded ``--seed + 1000 r`` (the JAX
-tool folds a key per seed instead).
+Replicate ``r`` draws from ``substream(PRNGKey(--seed + 1000 r),
+"sample")``, the JAX tool's key.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import sys
 import numpy as np
 import torch
 
+from tinydiffusionmodels_torch.core.rng import prng_key, substream
 from tinydiffusionmodels_torch.runtime import device as runtime_device
 
 
@@ -242,7 +243,7 @@ def main(argv=None) -> dict:
             alpha=args.alpha, normalize=args.guidance_norm)
 
     def generate(seed: int) -> list[str]:
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        key = substream(prng_key(seed), "sample")
         if args.mode == "pure":
             return sample_text(
                 model, sched, tokenizer, rounding=rounding,
@@ -251,13 +252,13 @@ def main(argv=None) -> dict:
                 use_learned_rounding=True, method=args.sampler,
                 num_steps=args.steps, clamp=args.clamp, save=False,
                 parameterization=parameterization,
-                temperature=args.temperature, generator=gen,
+                temperature=args.temperature, key=key,
                 log_fn=lambda *_: None)
         z = sample_diffusion_embeddings(
             model, sched, n=args.n, seq_len=args.seq_len,
             embed_dim=embed_dim, method=args.sampler, num_steps=args.steps,
             parameterization=parameterization,
-            temperature=args.temperature, generator=gen)
+            temperature=args.temperature, key=key)
         return guided_sample_text(
             decoder, None, z, tokenizer, rounding=rounding,
             embed_matrix=embed_matrix, use_learned_rounding=True,

@@ -12,7 +12,9 @@ losses. Progress is logged every ``TDM_PROGRESS_EVERY`` chunks (default
 ``EpochSteps`` holds what a step reads that the host used to pass it:
 the epoch's batch order, the learning rate of every step of the epoch (a
 table from the schedule, filled once an epoch) and a device step cursor
-into both, and the per-step losses the step writes. Each kind of step is
+into both, the global step number on the device (the counter each step's
+random draws fold into their key, ``core/rng.py``), and the per-step
+losses the step writes. Each kind of step is
 a ``graphs.Step``: on the card it is captured once and replayed, so a
 chunk is K graph launches and one read; on the CPU it runs eagerly, with
 the learning rate set on the host as ``LambdaLR`` sets it.
@@ -56,15 +58,15 @@ class EpochSteps:
     """Device state of one epoch's steps, read through a device cursor.
 
     ``step(variant)`` runs one step: it calls ``set_lr``, reads its batch
-    rows with ``rows``, and ends with ``finish`` on its losses;
+    rows with ``rows``, draws with keys folded from ``step`` (the global
+    step, a (1,) device tensor), and ends with ``finish`` on its losses;
     ``run_variants`` runs a chunk. Each variant (the self-conditioning coin
     of a text step, or None) is its own ``graphs.Step``. ``lr_at`` maps a
     global step to its learning rate (``base_lr * LambdaLR``'s lambda);
     None keeps the optimizer's."""
 
     def __init__(self, step: Callable, *, optimizer, steps: int,
-                 batch_size: int, loss_width: int, device,
-                 generators=(), variants=(None,),
+                 batch_size: int, loss_width: int, device, variants=(None,),
                  lr_at: Callable[[int], float] | None = None,
                  eager: bool = False):
         device = torch.device(device)
@@ -74,14 +76,17 @@ class EpochSteps:
                              for g in optimizer.param_groups)
         self.order = torch.zeros((steps, batch_size), dtype=torch.long,
                                  device=device)
-        self.cursor = torch.zeros((1,), dtype=torch.long, device=device)
+        # (cursor, global step): one add advances both.
+        self.counters = torch.zeros((2,), dtype=torch.long, device=device)
+        self.cursor = self.counters[0:1]
+        self.step = self.counters[1:2]
+        self.first_step = 0
         self.losses = torch.zeros((steps, loss_width), device=device)
         self.lrs = torch.zeros((steps,), device=device)
         self.lr_values: list = []
         self.done = 0
         self.kinds = {v: graphs.Step(lambda v=v: step(v), device,
-                                     generators=generators, warmup=WARMUP,
-                                     eager=eager)
+                                     warmup=WARMUP, eager=eager)
                       for v in variants}
 
     def start(self, order: np.ndarray, first_step: int = 0) -> None:
@@ -89,7 +94,8 @@ class EpochSteps:
         the learning rates of its global steps from ``first_step``."""
         n = len(order)
         self.order[:n].copy_(torch.as_tensor(np.asarray(order)))
-        self.cursor.zero_()
+        self.counters.copy_(torch.tensor([0, first_step]))
+        self.first_step = first_step
         self.done = 0
         if self.lr_at is not None:
             # Python floats, as LambdaLR computes them.
@@ -114,9 +120,10 @@ class EpochSteps:
                 group["lr"].copy_(lr)
 
     def finish(self, losses: torch.Tensor) -> None:
-        """Write the step's losses at the cursor and advance it."""
+        """Write the step's losses at the cursor and advance it and the
+        global step."""
         self.losses.index_copy_(0, self.cursor, losses.reshape(1, -1))
-        self.cursor.add_(1)
+        self.counters.add_(1)
 
     # --- on the host ---------------------------------------------------------
 

@@ -11,15 +11,18 @@ chunk (``train/chunks.py``), the counterpart of the JAX package's
 state. The dataset (60 000 images, 188 MB in float32) is put on the device
 once and each step gathers its batch there by a device step cursor, in
 ``batch_iterator``'s order (the JAX package's device-resident data path,
-without its knob); timesteps and noise are drawn on the device from one
-``torch.Generator``; the EMA update runs in the same step. On the card the
+without its knob); timesteps and noise are the JAX trainer's draws
+(``core/rng.py``): step s draws ``randint`` and ``draw_noise`` from the
+``"timesteps"`` and ``"noise"`` substreams of ``fold_in(substream(
+PRNGKey(seed), "train"), s)``, on the device (``ops.rng``), s read from
+the device's global step; the EMA update runs in the same step. On the card the
 step is captured once as a CUDA graph and replayed (``graphs.py``); on the
 CPU it runs eagerly. The metrics record's ``loss`` is the last chunk's
 mean step loss, as the JAX trainer logs it.
 
 Data parallelism (``mesh``, the JAX trainer's): every rank gathers the
-same global batch and draws its timesteps and noise from the same
-generator, trains on its rows, and one all-reduce inside the captured step
+same global batch and draws its rows of the global timesteps and noise,
+trains on its rows, and one all-reduce inside the captured step
 averages the gradients and the loss over the ranks
 (``parallel/data_parallel.py``); ``batch_size`` stays the global batch,
 and only rank 0 samples the epoch grids and writes the checkpoint and
@@ -27,8 +30,8 @@ metrics.
 
 ``resume`` (``train/state.py``) writes the whole train state every
 ``resume_every`` epochs and restores it at the start: weights, AdamW, EMA
-and the generator's state, so that a resumed run is the uninterrupted
-one, bit for bit where the step is deterministic.
+and the step, so that a resumed run is the uninterrupted one, bit for bit
+where the step is deterministic, at any data-parallel width.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from tinydiffusionmodels_torch.core import ddpm_loss, make_schedule
+from tinydiffusionmodels_torch import ops
+from tinydiffusionmodels_torch.core import ddpm_loss, make_schedule, rng
 from tinydiffusionmodels_torch.core.schedule import DiffusionSchedule
 from tinydiffusionmodels_torch.data import (
     batch_iterator,
@@ -75,7 +79,6 @@ from tinydiffusionmodels_torch.train import state as train_state
 from tinydiffusionmodels_torch.train.metrics import MetricsLogger
 from tinydiffusionmodels_torch.train.optim import adamw
 from tinydiffusionmodels_torch.train.precision import in_dtype
-from tinydiffusionmodels_torch.train.text_train import _generator
 
 IMAGE_SHAPE = (28, 28, 1)
 
@@ -100,17 +103,33 @@ def optimizer_step(model: nn.Module, optimizer, batch: torch.Tensor,
     return loss
 
 
-def train_step(model, optimizer, batch, sched, generator, *,
+def draw_t_noise(key, shape, timesteps: int, mesh=None):
+    """The JAX step's timesteps (B,) and noise ``shape`` (B, 28, 28, 1) for
+    step key ``key``: ``randint(substream(key, "timesteps"))`` and
+    ``draw_noise(substream(key, "noise"))`` on the key's device; with
+    ``mesh`` this rank's rows of them, drawn alone."""
+    b = shape[0]
+    index, n = (0, 1) if mesh is None else (mesh.index("data"),
+                                            mesh.axis_size("data"))
+    rows = b // n
+    window = ((index * rows, rows),) + tuple((0, d) for d in shape[1:])
+    t = ops.rng.randint(rng.substream(key, "timesteps"), (b,), 0, timesteps,
+                        window=window[:1])
+    noise = ops.rng.draw_noise(rng.substream(key, "noise"), tuple(shape),
+                               window=window)
+    return t, noise
+
+
+def train_step(model, optimizer, batch, sched, key, *,
                compute_dtype=None, mesh=None) -> torch.Tensor:
-    """``optimizer_step`` with timesteps and noise drawn on the batch's
-    device from ``generator``. ``batch`` is the global batch; with
-    ``mesh`` the step trains on this rank's rows of it and of the
-    timesteps and noise drawn for all of it."""
-    t = torch.randint(0, sched.timesteps, (batch.shape[0],),
-                      generator=generator, device=batch.device)
-    noise = torch.randn(batch.shape, generator=generator, device=batch.device)
+    """``optimizer_step`` with the JAX step's timesteps and noise, drawn
+    from the step key ``key`` (``fold_in(train_key, step)``, a key or
+    ``core.rng.KeyPath`` on the batch's device). ``batch`` is the global
+    batch; with ``mesh`` the step trains on this rank's rows of it and of
+    the draws."""
+    t, noise = draw_t_noise(key, batch.shape, sched.timesteps, mesh)
     if mesh is not None:
-        batch, t, noise = shard_batch(mesh, (batch, t, noise))
+        batch = shard_batch(mesh, batch)
     return optimizer_step(model, optimizer, batch, t, noise, sched,
                           compute_dtype=compute_dtype, mesh=mesh)
 
@@ -141,20 +160,23 @@ class MnistSteps(chunks.EpochSteps):
     """Optimizer steps of ``train_step`` on device state, in chunks: the
     counterpart of ``make_train_step_multi`` (and, with ``ema``, of
     ``make_train_step_multi_ema``). A step gathers its batch from ``data``
-    (N, 28, 28, 1) by the epoch's order at the device cursor, steps AdamW,
-    updates ``ema`` and writes its loss. ``eager`` runs every step eagerly
-    on the card too (the plain version a replay is held against)."""
+    (N, 28, 28, 1) by the epoch's order at the device cursor, draws from
+    ``fold_in(key, step)`` (``key``: the run's train key, held on the
+    device; the step from the device's global step), steps AdamW, updates
+    ``ema`` and writes its loss. ``eager`` runs every step eagerly on the
+    card too (the plain version a replay is held against)."""
 
     def __init__(self, model, optimizer, data, sched, *, batch_size: int,
-                 steps: int, generator, ema=None,
+                 steps: int, key, ema=None,
                  ema_decay: float | None = None, compute_dtype=None,
                  eager: bool = False, mesh=None):
+        self.key = key.to(data.device).clone()
 
         def step(_):
             loss = train_step(model, optimizer,
                               data.index_select(0, self.rows()), sched,
-                              generator, compute_dtype=compute_dtype,
-                              mesh=mesh)
+                              rng.KeyPath(self.key, self.step),
+                              compute_dtype=compute_dtype, mesh=mesh)
             if ema is not None:
                 ema_update(ema, model, ema_decay)
             optimizer.zero_grad(set_to_none=True)
@@ -162,8 +184,7 @@ class MnistSteps(chunks.EpochSteps):
 
         super().__init__(step, optimizer=optimizer, steps=steps,
                          batch_size=batch_size, loss_width=1,
-                         device=data.device, generators=(generator,),
-                         eager=eager)
+                         device=data.device, eager=eager)
 
     def run(self, n: int) -> np.ndarray:
         """The next ``n`` steps; their (n,) losses, one host read."""
@@ -175,7 +196,7 @@ def sample_images(model: nn.Module, sched: DiffusionSchedule, *,
                   num_steps: int | None = None, **randomness) -> torch.Tensor:
     """(n_samples, 28, 28, 1) digits in about [-1, 1] from the reverse
     process on ``sched``'s device. ``randomness`` is ``sample_loop``'s:
-    ``generator``, or ``x_T`` (and ``noise_fn``)."""
+    ``key``, or ``x_T`` (and ``noise_fn``)."""
     with torch.inference_mode():
         return sample_loop(model.eval(), sched, (n_samples, *IMAGE_SHAPE),
                            method=method, num_steps=num_steps, **randomness)
@@ -291,10 +312,11 @@ def train(
     ema = None
     if ema_decay is not None:
         ema = copy.deepcopy(model).requires_grad_(False)
-    gen = _generator(dev, seed, 0)
+    root = rng.prng_key(seed)
     epoch_steps = data.shape[0] // batch_size
     steps = MnistSteps(model, optimizer, data, sched, batch_size=batch_size,
-                       steps=epoch_steps, generator=gen, ema=ema,
+                       steps=epoch_steps, key=rng.substream(root, "train"),
+                       ema=ema,
                        ema_decay=ema_decay, compute_dtype=compute_dtype,
                        mesh=mesh)
     chunk, progress_every = chunks.scan_chunk(), chunks.progress_every()
@@ -305,7 +327,7 @@ def train(
              if resume and not is_gcs_path(resume_path) else None)
     if saved is not None:
         start_epoch, global_step = train_state.restore_mnist(
-            saved, model, optimizer, ema, mesh=mesh, gen=gen, log_fn=log_fn)
+            saved, model, optimizer, ema, log_fn=log_fn)
         log_fn(f"[resume] restored epoch {start_epoch}, step {global_step} "
                f"from {resume_path}")
     history, records = [], []
@@ -314,7 +336,7 @@ def train(
         order = epoch_order(data.shape[0], batch_size, seed=seed,
                             epoch=epoch, device="cpu")
         if epoch_steps:
-            steps.start(order.numpy())
+            steps.start(order.numpy(), global_step)
         model.train()
         t0 = time.perf_counter()
         losses = []
@@ -347,18 +369,15 @@ def train(
             png = sample_grid_png(
                 ema if ema is not None else model, sched,
                 n_samples=samples_per_epoch,
-                generator=_generator(dev, seed, 3, epoch))
+                key=rng.substream(rng.fold_in(root, epoch), "sample"))
             sample_path = _sample_path("samples", f"epoch_{epoch + 1:03d}.png")
             save_samples(png, sample_path, mode="wb")
             log_fn(f"[epoch {epoch + 1}] saved samples to {sample_path}")
-        if resume and (epoch + 1) % max(1, resume_every) == 0:
-            generators = train_state.generator_states(mesh, gen)
-            if main:
-                save_checkpoint(
-                    train_state.mnist_state(model, optimizer, ema,
-                                            epoch=epoch + 1, step=global_step,
-                                            generators=generators),
-                    resume_path)
+        if resume and (epoch + 1) % max(1, resume_every) == 0 and main:
+            save_checkpoint(
+                train_state.mnist_state(model, optimizer, ema,
+                                        epoch=epoch + 1, step=global_step),
+                resume_path)
 
     final = ema if ema is not None else model
     if main:
@@ -397,7 +416,7 @@ def sample(
     dev = next(model.parameters()).device
     x = sample_images(model, make_schedule(device=dev), n_samples=n_samples,
                       method=method, num_steps=num_steps,
-                      generator=torch.Generator(device=dev).manual_seed(seed))
+                      key=rng.prng_key(seed))
     sample_path = _sample_path(outdir, "samples.png")
     save_samples(_grid(x, n_samples), sample_path, mode="wb")
     log_fn(f"Saved samples to {sample_path}")

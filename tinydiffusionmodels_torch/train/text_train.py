@@ -16,27 +16,31 @@ chunk (``train/chunks.py``), the counterpart of the JAX package's
 ``make_text_train_step_multi[_ema]``: ``TextSteps`` is its step on device
 state. The batch is gathered on the device from the corpus held there by
 a device step cursor, the learning rate comes from a device table of the
-schedule, timesteps, noise, dropout masks and attention-dropout seeds are
-drawn on the device from one ``torch.Generator``, and the EMA update runs
-in the same step. On the card each kind of step (one per value of the
-self-conditioning coin, which the host draws) is captured once as a CUDA
-graph and replayed (``graphs.py``); on the CPU it runs eagerly.
+schedule, and the EMA update runs in the same step. Timesteps, noise,
+dropout masks and attention-dropout seeds are the JAX trainer's draws
+(``core/rng.py``): step s draws from ``fold_in(substream(PRNGKey(seed),
+"train"), s)``, its ``"timesteps"``, ``"noise"`` and ``"dropout"``
+substreams, on the device (``ops.rng``), with s read from the device's
+global step counter. On the card each kind of step (one per value of the
+self-conditioning coin, which the host computes from (seed, s) as the JAX
+step draws it) is captured once as a CUDA graph and replayed
+(``graphs.py``); on the CPU it runs eagerly.
 
 Data and sequence parallelism (``mesh``, the JAX trainer's): every rank
-gathers the same global batch and draws its timesteps and noise from the
-same generator, keeps its rows (the 'data' axis) and, with
-``cfg.seq_axis``, its token positions, and after the backward one
+gathers the same global batch, keeps its rows (the 'data' axis) and, with
+``cfg.seq_axis``, its token positions, and draws exactly its part of the
+global batch's timesteps, noise and dropout masks; after the backward one
 all-reduce averages the gradients and losses over the ranks
 (``parallel/data_parallel.py``), inside the captured step. ``batch_size``
-stays the global batch. Dropout draws from a generator of its own for
-each data shard, shared by the ranks of a sequence ring; validation
-losses are the global mean, so every rank stops early alike; only rank 0
-writes checkpoints and metrics.
+stays the global batch, so a run computes the one-device run at every
+width, up to the all-reduce's rounding. Validation losses are the global
+mean, so every rank stops early alike; only rank 0 writes checkpoints and
+metrics.
 
 ``resume`` (``train/state.py``) writes the whole train state every
 ``resume_every`` epochs and restores it at the start: weights, AdamW, EMA,
-the early-stopping counters and the generators' states, so that a resumed
-run is the uninterrupted one, bit for bit.
+the step and the early-stopping counters, so that a resumed run is the
+uninterrupted one, bit for bit, at any data-parallel width.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tinydiffusionmodels_torch import graphs, ops
+from tinydiffusionmodels_torch.core import rng
 from tinydiffusionmodels_torch.core.diffusion import _bcast, q_sample
 from tinydiffusionmodels_torch.core.schedule import DiffusionSchedule
 from tinydiffusionmodels_torch.data.loader import batch_iterator, num_batches
@@ -104,7 +109,8 @@ def _losses(
     use_learned_embeddings: bool,
     pretrained_matrix: torch.Tensor | None,
     deterministic: bool,
-    generator: torch.Generator | None = None,
+    key=None,
+    batch_shard: tuple[int, int] = (0, 1),
     self_cond_coin: bool = False,
     parameterization: str = "eps",
     clamp_train: bool = False,
@@ -124,15 +130,17 @@ def _losses(
 
     ``t`` (B,) and ``noise`` (B, L, dim) are arguments, as in the JAX
     package, so a test can feed both packages the same values.
-    ``deterministic=False`` (training) needs ``generator`` for the dropout
-    masks and seeds.
+    ``deterministic=False`` (training) needs ``key``, the JAX step's
+    dropout key (``substream(step_key, "dropout")``), for the dropout
+    masks and seeds; ``batch_shard`` places the rows in the global batch.
 
     ``parameterization``: "eps" (reference, predict the noise) or "x0"
     (Diffusion-LM: predict the clean embeddings).
 
     Self-conditioning (the model's ``cfg.self_cond``): in training,
-    ``self_cond_coin`` (a fair coin the caller draws on the host, the JAX
-    package's ``jax.random.bernoulli`` under ``lax.cond``) chooses between a
+    ``self_cond_coin`` (the JAX package's ``jax.random.bernoulli`` under
+    ``lax.cond``, which the caller computes on the host: ``coin``) chooses
+    between a
     gradient-free estimate pass fed back through the self-conditioning
     channel and the zeros channel; validation always feeds the estimate.
 
@@ -186,8 +194,9 @@ def _losses(
         else:
             x0_prev = torch.zeros(x_noisy.shape, device=x_noisy.device)
 
-    pred = denoise(x_noisy, t, deterministic=deterministic,
-                   generator=generator, x0_prev=x0_prev)
+    kw = {} if deterministic else dict(key=key, batch_shard=batch_shard)
+    pred = denoise(x_noisy, t, deterministic=deterministic, x0_prev=x0_prev,
+                   **kw)
     target = x0 if parameterization == "x0" else noise
     pred_f32 = pred.float()
     if clamp_train:
@@ -211,41 +220,76 @@ def _losses(
     return total, (diffusion_loss, rounding_loss)
 
 
-def _draw_t_noise(joint, token_ids, timesteps, generator):
-    """Timesteps (B,) and noise (B, L, dim) on the device of the tokens."""
+def shards(joint, mesh) -> tuple[tuple[int, int], tuple[int, int]]:
+    """This rank's (index, count) on the 'data' axis and on the model's
+    sequence axis ((0, 1) without a mesh or an axis)."""
+    seq_axis = joint["diffusion_model"].cfg.seq_axis
+    if mesh is None:
+        return (0, 1), (0, 1)
+    seq = ((mesh.index(seq_axis), mesh.axis_size(seq_axis))
+           if seq_axis is not None else (0, 1))
+    return (mesh.index("data"), mesh.axis_size("data")), seq
+
+
+def draw_t_noise(joint, token_ids, timesteps, key, mesh=None):
+    """The JAX step's timesteps (B,) and noise (B, L, dim) for the global
+    batch ``token_ids`` and step key ``key``: ``randint(substream(key,
+    "timesteps"))`` and ``draw_noise(substream(key, "noise"))``, on the
+    device of the key. With ``mesh``, this rank's rows (and positions) of
+    them, drawn alone."""
     b, length = token_ids.shape
     dim = joint["diffusion_model"].cfg.dim
-    dev = token_ids.device
-    t = torch.randint(0, timesteps, (b,), generator=generator, device=dev)
-    noise = torch.randn((b, length, dim), generator=generator, device=dev)
+    (bi, bn), (si, sn) = shards(joint, mesh)
+    rows, cols = b // bn, length // sn
+    t = ops.rng.randint(rng.substream(key, "timesteps"), (b,), 0, timesteps,
+                        window=((bi * rows, rows),))
+    noise = ops.rng.draw_noise(
+        rng.substream(key, "noise"), (b, length, dim),
+        window=((bi * rows, rows), (si * cols, cols), (0, dim)))
     return t, noise
 
 
-def _local(joint, mesh, token_ids, t, noise):
-    """This rank's rows (and positions) of a global batch's tokens,
-    timesteps and noise."""
+def _local(joint, mesh, token_ids):
+    """This rank's rows (and positions) of a global batch's tokens."""
     if mesh is None:
-        return token_ids, t, noise
-    return shard_batch(mesh, (token_ids, t, noise),
+        return token_ids
+    return shard_batch(mesh, token_ids,
                        seq_axis=joint["diffusion_model"].cfg.seq_axis)
 
 
-def train_step(joint, optimizer, token_ids, rounding_weight, generator, *,
-               sched, self_cond_coin=False, mesh=None,
-               dropout_generator=None, **loss_kwargs):
+_COIN_PATH = (rng.name_word("dropout"), rng.name_word("selfcond_coin"))
+
+
+def coin(key, step: int) -> bool:
+    """The self-conditioning coin of global step ``step`` under the train
+    key, on the host: ``bernoulli(substream(substream(fold_in(key, step),
+    "dropout"), "selfcond_coin"))``, as the JAX step draws it, in Python
+    ints (a chunk computes one a step before its replays). A scalar
+    bernoulli(0.5) is the uniform of element 0's bits below 0.5, that is
+    those bits below 2^31."""
+    k0, k1 = rng.key_words(key)
+    for word in (step & rng.M32, *_COIN_PATH):
+        k0, k1 = rng.threefry2x32(k0, k1, 0, word)
+    b0, b1 = rng.threefry2x32(k0, k1, 0, 0)
+    return (b0 ^ b1) < 2**31
+
+
+def train_step(joint, optimizer, token_ids, rounding_weight, key, *,
+               sched, self_cond_coin=False, mesh=None, **loss_kwargs):
     """One optimizer step: forward with dropout, backward, AdamW. Returns
     the (diff, round, total) losses as a (3,) tensor on the device.
 
-    ``token_ids`` is the global batch; with ``mesh`` the step trains on
-    this rank's share of it, the timesteps and noise drawn for the whole
-    batch from ``generator``, the dropout masks from ``dropout_generator``
-    (default ``generator``), and ``parallel.average_gradients`` averages
-    the gradients and losses over the ranks before AdamW."""
-    t, noise = _draw_t_noise(joint, token_ids, sched.timesteps, generator)
-    token_ids, t, noise = _local(joint, mesh, token_ids, t, noise)
+    ``key`` is the step's key (``fold_in(train_key, step)``, on the device:
+    a key or ``core.rng.KeyPath``). ``token_ids`` is the global batch; with
+    ``mesh`` the step trains on this rank's share of it with its share of
+    every draw, and ``parallel.average_gradients`` averages the gradients
+    and losses over the ranks before AdamW."""
+    t, noise = draw_t_noise(joint, token_ids, sched.timesteps, key, mesh)
     total, (diff, round_) = _losses(
-        joint, token_ids, t, noise, rounding_weight, sched=sched,
-        deterministic=False, generator=dropout_generator or generator,
+        joint, _local(joint, mesh, token_ids), t, noise, rounding_weight,
+        sched=sched, deterministic=False,
+        key=rng.substream(key, "dropout"),
+        batch_shard=shards(joint, mesh)[0],
         self_cond_coin=self_cond_coin, **loss_kwargs,
     )
     optimizer.zero_grad(set_to_none=True)
@@ -257,20 +301,22 @@ def train_step(joint, optimizer, token_ids, rounding_weight, generator, *,
 
 
 @torch.no_grad()
-def eval_losses(joint, batches, rounding_weight, generator, *, sched,
+def eval_losses(joint, batches, rounding_weight, key, *, sched,
                 mesh=None, **loss_kwargs):
     """Mean (diff, round, total) over ``batches`` (K, B, L) on the device,
-    without dropout; one host read at the end. With ``mesh`` each rank
-    evaluates its share of every batch and the means are averaged over
-    the ranks (the global mean, the same on every rank). The plain eager
-    loop that ``EvalPass`` replays as one CUDA graph."""
+    without dropout; one host read at the end. Batch i draws from
+    ``fold_in(key, i)`` (``key``: the epoch's validation key, on the CPU),
+    as ``make_text_eval_multi`` does. With ``mesh`` each rank evaluates its
+    share of every batch and the means are averaged over the ranks (the
+    global mean, the same on every rank). The plain eager loop that
+    ``EvalPass`` replays as one CUDA graph."""
     sums = torch.zeros(3, device=batches.device)
-    for token_ids in batches:
-        t, noise = _draw_t_noise(joint, token_ids, sched.timesteps, generator)
-        token_ids, t, noise = _local(joint, mesh, token_ids, t, noise)
+    for i, token_ids in enumerate(batches):
+        t, noise = draw_t_noise(joint, token_ids, sched.timesteps,
+                                rng.fold_in(key, i).to(batches.device), mesh)
         total, (diff, round_) = _losses(
-            joint, token_ids, t, noise, rounding_weight, sched=sched,
-            deterministic=True, **loss_kwargs,
+            joint, _local(joint, mesh, token_ids), t, noise, rounding_weight,
+            sched=sched, deterministic=True, **loss_kwargs,
         )
         sums += torch.stack([diff, round_, total])
     means = sums / max(len(batches), 1)
@@ -279,14 +325,10 @@ def eval_losses(joint, batches, rounding_weight, generator, *, sched,
     return means.cpu().numpy()
 
 
-def _seed_of(seed: int, *words: int) -> int:
-    """The 32-bit seed of the stream named by ``words``."""
-    return int(np.random.SeedSequence([seed, *words]).generate_state(1)[0])
-
-
-def _generator(device, seed: int, *words: int) -> torch.Generator:
-    """A generator on ``device`` for the stream named by ``words``."""
-    return torch.Generator(device=device).manual_seed(_seed_of(seed, *words))
+def val_key(seed: int, epoch: int) -> torch.Tensor:
+    """Epoch ``epoch``'s validation key: ``fold_in(substream(PRNGKey(seed),
+    "val"), epoch)``."""
+    return rng.fold_in(rng.substream(rng.prng_key(seed), "val"), epoch)
 
 
 class EvalPass:
@@ -294,18 +336,18 @@ class EvalPass:
     ``make_text_eval_multi``, the JAX package's K validation batches in one
     dispatch.
 
-    One pass draws every batch's timesteps and noise from one generator,
-    re-seeded each epoch to the stream ``_generator(dev, seed, 1, epoch)``
-    starts (so the numbers are ``eval_losses``'s with that generator), and
-    walks the (K, B, L) ``val_dev`` batches with a device cursor, adding
-    each batch's (diff, round, total) into a device buffer; the rounding
-    weight is a device scalar. The weights are those of ``joint`` (the EMA
-    or the live model), fixed for the run, so one graph serves every
-    epoch. On the card the step is primed with one batch's forward at
-    t = 0 and zero noise (no draw from the generator), captured at the
-    first call and replayed, one host read an epoch; with a process group
-    the means are all-reduced after the replay. On the CPU, or with
-    ``eager``, every call runs the loop eagerly."""
+    One pass walks the (K, B, L) ``val_dev`` batches with a device cursor,
+    batch i drawing its timesteps and noise from ``fold_in(key, i)`` with
+    the epoch's ``val_key`` in a device buffer and i the cursor (so the
+    numbers are ``eval_losses``'s with that key), and adds each batch's
+    (diff, round, total) into a device buffer; the rounding weight is a
+    device scalar. The weights are those of ``joint`` (the EMA or the live
+    model), fixed for the run, so one graph serves every epoch. On the
+    card the step is primed with one batch's forward at t = 0 and zero
+    noise (no draw), captured at the first call and replayed, one host
+    read an epoch; with a process group the means are all-reduced after
+    the replay. On the CPU, or with ``eager``, every call runs the loop
+    eagerly."""
 
     def __init__(self, joint, val_dev, *, seed: int, sched, mesh=None,
                  eager: bool = False, **loss_kwargs):
@@ -313,7 +355,7 @@ class EvalPass:
         self.seed = seed
         self.mesh = mesh
         self.batches = val_dev.shape[0]
-        self.generator = torch.Generator(device=dev)
+        self.key = torch.zeros((2,), dtype=torch.long, device=dev)
         self.rounding_weight = torch.zeros((), device=dev)
         self.cursor = torch.zeros((1,), dtype=torch.long, device=dev)
         self.sums = torch.zeros(3, device=dev)
@@ -325,11 +367,12 @@ class EvalPass:
             self.sums.zero_()
             for _ in range(self.batches):
                 token_ids = val_dev.index_select(0, self.cursor).squeeze(0)
-                t, noise = _draw_t_noise(joint, token_ids, sched.timesteps,
-                                         self.generator)
-                token_ids, t, noise = _local(joint, mesh, token_ids, t, noise)
+                t, noise = draw_t_noise(
+                    joint, token_ids, sched.timesteps,
+                    rng.KeyPath(self.key, self.cursor), mesh)
                 total, (diff, round_) = _losses(
-                    joint, token_ids, t, noise, self.rounding_weight, **kw)
+                    joint, _local(joint, mesh, token_ids), t, noise,
+                    self.rounding_weight, **kw)
                 self.sums += torch.stack([diff, round_, total])
                 self.cursor.add_(1)
 
@@ -340,15 +383,17 @@ class EvalPass:
             t = torch.zeros((b,), dtype=torch.long, device=dev)
             noise = torch.zeros((b, length, joint["diffusion_model"].cfg.dim),
                                 device=dev)
-            token_ids, t, noise = _local(joint, mesh, token_ids, t, noise)
-            _losses(joint, token_ids, t, noise, self.rounding_weight, **kw)
+            if mesh is not None:
+                t, noise = shard_batch(mesh, (t, noise), seq_axis=joint[
+                    "diffusion_model"].cfg.seq_axis)
+            _losses(joint, _local(joint, mesh, token_ids), t, noise,
+                    self.rounding_weight, **kw)
 
-        self.step = graphs.Step(run, dev, generators=(self.generator,),
-                                warmup=0, eager=eager, prime=prime)
+        self.step = graphs.Step(run, dev, warmup=0, eager=eager, prime=prime)
 
     def __call__(self, epoch: int, rounding_weight: float) -> np.ndarray:
         """Epoch ``epoch``'s mean (diff, round, total), as numpy."""
-        self.generator.manual_seed(_seed_of(self.seed, 1, epoch))
+        self.key.copy_(val_key(self.seed, epoch))
         self.rounding_weight.fill_(rounding_weight)
         self.step()
         means = self.sums / max(self.batches, 1)
@@ -365,21 +410,22 @@ class TextSteps(chunks.EpochSteps):
     A step gathers its batch from ``train_dev`` (N, L) by the epoch's order
     at the device cursor, takes its learning rate from the epoch's table
     (``lr_at``: global step -> lr) and the rounding weight from a device
-    scalar, steps AdamW, updates ``ema`` (ema <- d * ema + (1 - d) * live)
-    and writes its (diff, round, total) losses. With ``cfg.self_cond``,
-    ``run`` draws each step's coin from ``coin_rng`` on the host, in the
-    order the eager loop draws it, and runs that coin's step (a graph
-    each on the card). ``eager`` runs every step eagerly on the card too
-    (the plain version a replay is held against)."""
+    scalar, draws from ``fold_in(key, step)`` (``key``: the run's train
+    key, ``substream(PRNGKey(seed), "train")``, held on the device; the
+    step from the device's global step), steps AdamW, updates ``ema`` (ema
+    <- d * ema + (1 - d) * live) and writes its (diff, round, total)
+    losses. With ``cfg.self_cond``, ``run`` computes each step's coin on
+    the host (``coin``) and runs that coin's step (a graph each on the
+    card). ``eager`` runs every step eagerly on the card too (the plain
+    version a replay is held against)."""
 
     def __init__(self, joint, optimizer, train_dev, *, batch_size: int,
-                 steps: int, generator, coin_rng=None, ema=None,
-                 ema_decay: float | None = None, lr_at=None,
-                 eager: bool = False, mesh=None, dropout_generator=None,
-                 **loss_kwargs):
+                 steps: int, key, ema=None, ema_decay: float | None = None,
+                 lr_at=None, eager: bool = False, mesh=None, **loss_kwargs):
         dev = train_dev.device
         self.self_cond = joint["diffusion_model"].cfg.self_cond
-        self.coin_rng = coin_rng
+        self.train_key = key.cpu()
+        self.key = key.to(dev).clone()
         self.rounding_weight = torch.zeros((), device=dev)
         live = list(joint.parameters())
         shadow = list(ema.parameters()) if ema is not None else None
@@ -388,9 +434,8 @@ class TextSteps(chunks.EpochSteps):
             self.set_lr()
             losses = train_step(
                 joint, optimizer, train_dev.index_select(0, self.rows()),
-                self.rounding_weight, generator, self_cond_coin=coin,
-                mesh=mesh, dropout_generator=dropout_generator,
-                **loss_kwargs)
+                self.rounding_weight, rng.KeyPath(self.key, self.step),
+                self_cond_coin=coin, mesh=mesh, **loss_kwargs)
             if shadow is not None:
                 with torch.no_grad():
                     torch._foreach_mul_(shadow, ema_decay)
@@ -400,7 +445,6 @@ class TextSteps(chunks.EpochSteps):
 
         super().__init__(step, optimizer=optimizer, steps=steps,
                          batch_size=batch_size, loss_width=3, device=dev,
-                         generators=(generator, dropout_generator),
                          variants=(False, True) if self.self_cond else (False,),
                          lr_at=lr_at, eager=eager)
 
@@ -413,8 +457,9 @@ class TextSteps(chunks.EpochSteps):
 
     def run(self, n: int) -> np.ndarray:
         """The next ``n`` steps; their (n, 3) losses, one host read."""
-        coins = [bool(self.self_cond and self.coin_rng.random() < 0.5)
-                 for _ in range(n)]
+        first = self.first_step + self.done
+        coins = [self.self_cond and coin(self.train_key, first + i)
+                 for i in range(n)]
         return self.run_variants(coins)
 
 
@@ -557,15 +602,11 @@ def train(
     eval_joint = ema if ema is not None else joint
     val_pass = (EvalPass(eval_joint, val_dev, seed=seed, mesh=mesh,
                          **loss_kwargs) if val_batches else None)
-    gen = _generator(dev, seed, 0)            # t, noise and dropout
-    # With several data shards each draws its own dropout masks.
-    drop_gen = (None if dp == 1
-                else _generator(dev, seed, 0, 1 + mesh.index("data")))
-    coin_rng = np.random.default_rng([seed, 2])  # self-conditioning coin
+    train_key = rng.substream(rng.prng_key(seed), "train")
     steps = TextSteps(joint, optimizer, train_dev, batch_size=batch_size,
-                      steps=steps_per_epoch, generator=gen, coin_rng=coin_rng,
-                      ema=ema, ema_decay=ema_decay, lr_at=lr_at,
-                      mesh=mesh, dropout_generator=drop_gen, **loss_kwargs)
+                      steps=steps_per_epoch, key=train_key, ema=ema,
+                      ema_decay=ema_decay, lr_at=lr_at, mesh=mesh,
+                      **loss_kwargs)
     chunk, progress_every = chunks.scan_chunk(), chunks.progress_every()
 
     ckpt_meta = dict(
@@ -583,9 +624,8 @@ def train(
     saved = train_state.read(resume_path, log_fn) if resume else None
     if saved is not None:
         start_epoch, global_step, best_val_loss, patience_counter = \
-            train_state.restore_text(saved, joint, optimizer, ema, mesh=mesh,
-                                     gen=gen, drop_gen=drop_gen,
-                                     coin_rng=coin_rng, log_fn=log_fn)
+            train_state.restore_text(saved, joint, optimizer, ema,
+                                     log_fn=log_fn)
         log_fn(f"[resume] restored epoch {start_epoch} from {resume_path}")
     history, records = [], []
     steps_done, loop_seconds = 0, 0.0
@@ -661,15 +701,13 @@ def train(
                 break
 
         if resume and (epoch + 1) % max(1, resume_every) == 0:
-            generators = train_state.generator_states(mesh, gen, drop_gen,
-                                                      coin_rng)
             if main:
                 save_checkpoint(
                     train_state.text_state(
                         joint, optimizer, ema, epoch=epoch + 1,
                         step=global_step, best_val_loss=best_val_loss,
                         patience_counter=patience_counter,
-                        schedule=use_lr_scheduling, generators=generators,
+                        schedule=use_lr_scheduling,
                         tokenizer_state=tokenizer_state),
                     resume_path)
 

@@ -13,9 +13,9 @@ replays, and ``torch.profiler``. For each step it prints
 
 - its coverage: the kernels the profiler recorded per replay against the
   kernels a replay launches: the kernel nodes the captured graph holds
-  (``graphs.Step.keep_graph``, read through libcuda) and, outside
-  the graph, the two fills (seed and offset) ``CUDAGraph.replay`` launches
-  for each registered generator the graph draws from; and the profiled
+  (``graphs.Step.keep_graph``, read through libcuda; no generator is
+  registered, so ``CUDAGraph.replay`` launches nothing outside it); and
+  the profiled
   device time per replay against the CUDA-event time. The profiler is
   known to miss eager kernels on the card (it once recorded 8 of 20 SDPA
   forward launches), so a table says how much of the step it saw;
@@ -59,6 +59,7 @@ _KERNEL_RULES = (
     ("single_block_", "single-block attention"),
     ("fused_resblock_kernel", "resblock"),
     ("guided_decode_kernel", "decode"),
+    ("draw_kernel", "rng"),
     ("nccl", "collective"),
     ("memcpy", "copy (memcpy)"),
     ("memset", "memset"),
@@ -320,10 +321,9 @@ def measure(name: str, probe: Probe, *, replays: int, top: int,
     recorded = sum(n for key, _, n in rows if _is_kernel(key)) / units
     nodes = launches = None
     if cuda:
-        nodes = sum(s.kernel_nodes() for s in probe.steps) / probe.per
-        # CUDAGraph.replay fills each registered generator's seed and
-        # offset before the graph: two kernels a generator.
-        launches = nodes + sum(2 * len(s.generators)
+        # A replay launches the graph's kernel nodes and nothing else: no
+        # generator is registered, so CUDAGraph.replay fills none.
+        nodes = launches = sum(s.kernel_nodes()
                                for s in probe.steps) / probe.per
     cats: dict[str, list] = {}
     for key, us, n in rows:
@@ -336,8 +336,7 @@ def measure(name: str, probe: Probe, *, replays: int, top: int,
     if cuda:
         log(f"coverage {name}: the profiler recorded {recorded:.2f} kernels "
             f"per {unit} of the {launches:.2f} a replay launches "
-            f"({nodes:.2f} kernel nodes in the graph, "
-            f"{launches - nodes:.2f} generator fills outside it) "
+            f"(the graph's kernel nodes) "
             f"({recorded / launches:.3f}); profiled device "
             f"{profiled_us:.2f} us per {unit} against {timer_us:.2f} us by "
             f"CUDA events ({profiled_us / timer_us:.3f})")
