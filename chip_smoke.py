@@ -290,8 +290,8 @@ processes on the card; the CPU tests do (``tests/test_torch_parallel.py``,
    ``--seq_parallel`` (a ring of one), and the MNIST CLI on
    TORCHRUN_MNIST_IMAGES digits under ``cudnn.deterministic``. The final
    (and best) checkpoints must be bit-equal, the launches as phase 5's and
-   15's, the draws as ``_text_train_draws`` counts them (MNIST: t and
-   noise a step). The six runs share the card at once. Their launches
+   15's, the draws as ``_text_train_draws`` counts them (MNIST: the init,
+   then t and noise a step in one). The six runs share the card at once. Their launches
    count with the main paths'.
 31. The replayed text step (headline shape, f32) with a world-1 NCCL group
    created in this process and without one, from one seed: bit-equal
@@ -385,7 +385,7 @@ op table tool), in main()'s order among the phases above:
    replayed against eager against the plain loop (``eval_losses``), bit
    for bit, over VALIDATION_EPOCHS epochs, each its own validation key in
    one device buffer; the launches (depth a batch, the prime's depth
-   once; two draws a batch); the wall time of a pass both ways. Its
+   once; one draw launch a batch); the wall time of a pass both ways. Its
    replays count with the main paths'.
 38. (after phase 31) Tensor parallelism on the card: two processes
    (``chip_smoke.py --tp RANK STORE``) joined by gloo on the one H100
@@ -415,19 +415,27 @@ The key tree (``core/rng.py``) and its draw kernel (``csrc/rng.cu``):
    train key, step 12345 on the device, the step's substreams): the text
    step's noise (8 x 64 x 256; whole, rows 4-7, positions 32-63) and the
    MNIST step's (128 x 28 x 28), stock and counter normals within
-   RNG_ULPS float32 spacings; the timesteps (B 8 and 128) and three
-   layers' attention seeds bit-equal; the bf16 bs-512 step's FFN dropout
-   (512 x 64 x 2048, and columns 1024-2047), stock and counter masks, f32
-   and bf16, forward and backward bit-equal. Then CUDA-event times at the
-   text noise and that mask beside the plain version, torch's own draw
-   of the shape (another stream: not the same function, so
-   ``library_ms`` is null) and the bound (bytes written, and read for a
-   mask, at 3.35 TB/s). Every main path's draw launches are counted
+   RNG_ULPS float32 spacings; the timesteps (B 8 and 128), three layers'
+   attention seeds and an initialiser's uniform (2048 x 2048) bit-equal;
+   the bf16 bs-512 step's FFN dropout (512 x 64 x 2048, and columns
+   1024-2047), stock and counter masks, f32 and bf16, forward and
+   backward bit-equal; every kind on RNG_RAGGED's boxes (1001 elements,
+   an odd unaligned innermost run, a 3-D box) and the masks on unaligned
+   inputs; a text step's t, noise and seeds as one list launch; the
+   card's init of the width-2048 text denoiser (with its embedding and
+   rounding head) and of the UNet against the plain init on the card,
+   one launch a model. Then CUDA-event times beside the earlier design's
+   (PERF.md §6 row 8), the plain
+   version, torch's own draw of the shape (another stream: not the same
+   function, so ``library_ms`` is null) and the bound (bytes at 3.35
+   TB/s, or a stock draw's threefry integer operations at the INT32
+   pipes' rate, the larger). Every main path's draw launches are counted
    (``rng_draw``), and the text and MNIST training and sampling paths
-   assert theirs: a text step 2 + (1 + 4 depth) + (1 + 3 depth), a
-   validation batch 2, a sampler x_T 1 and an ancestral step 1, an MNIST
-   step 2. Since the draws moved to the key tree no graph registers a
-   generator, so phase 39 counts no fills.
+   assert theirs: a CLI's initialisation one a model (text 3, MNIST 1;
+   a text ``--sample`` draws the embedding table), a text step 1 + 2 (1
+   + 3 depth), a validation batch 1, a sampler x_T 1 and an ancestral
+   step 1, an MNIST step 1. Since the draws moved to the key tree no
+   graph registers a generator, so phase 39 counts no fills.
 
 The peaks, the bound and the timer are ``tinydiffusionmodels_torch.perf``'s.
 The line before the last is the kernels' JSON record; the last line is
@@ -437,8 +445,10 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib.metadata
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1008,8 +1018,7 @@ def _tiny_gpt(vocab: int, depth: int, seed: int, dim: int = DIM,
 
     cfg = TinyGPTConfig(vocab_size=vocab, dim=dim, n_heads=heads, depth=depth,
                         max_len=SEQ + 1)
-    return TinyGPT(cfg, generator=torch.Generator().manual_seed(seed)).to(
-        "cuda").eval()
+    return TinyGPT(cfg, key=_init_key(seed), device="cuda").eval()
 
 
 def _decode_agreement(tokens, w, diff, kw, bos: int = 0):
@@ -1151,12 +1160,21 @@ def _others(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if k != "rng_draw"}
 
 
+# Draw launches of a model's initialisation: one for all its weights.
+# The text CLI draws the embedding table, the denoiser and the rounding
+# head (the embedding also when it only samples, as the JAX CLI does);
+# the MNIST CLI its UNet.
+TEXT_INIT_DRAWS, MNIST_INIT_DRAWS = 3, 1
+
+
 def _text_train_draws(steps: int, depth: int, val_batches: int) -> int:
-    """Draw launches of ``steps`` text training steps and a validation
-    pass of ``val_batches``: each step's t and noise, the input mask and,
-    per layer, the attention seed and three masks, and the backward's mask
-    launch of every mask; each validation batch's t and noise."""
-    return steps * (2 + (1 + 4 * depth) + (1 + 3 * depth)) + 2 * val_batches
+    """Draw launches of a text CLI's training run of ``steps`` steps and a
+    validation pass of ``val_batches``: the initialisation; each step's t,
+    noise and the layers' attention seeds in one launch, the input mask
+    and the three masks of each layer, and the backward's launch of every
+    mask; each validation batch's t and noise in one."""
+    return (TEXT_INIT_DRAWS + steps * (1 + 2 * (1 + 3 * depth))
+            + val_batches)
 
 
 def _check_draws(counts: dict, want: int, what: str) -> None:
@@ -1170,6 +1188,15 @@ def _key(seed: int):
     from tinydiffusionmodels_torch.core import rng
 
     return rng.prng_key(seed).cuda()
+
+
+def _init_key(seed: int, name: str | None = None):
+    """A model's initialisation key on the host: ``PRNGKey(seed)``, or its
+    substream ``name`` (the CLIs' "diffusion", "rounding", "embedding")."""
+    from tinydiffusionmodels_torch.core import rng
+
+    key = rng.prng_key(seed)
+    return key if name is None else rng.substream(key, name)
 
 
 def _prepare_workdir(chars: int = TRAIN_CHARS):
@@ -1306,7 +1333,8 @@ def main_path_sample(card: str, ckpt: Path, model):
     if _others(counts) != expect:
         raise AssertionError(f"launches {counts} on the sampling path, "
                              f"expected {expect}")
-    _check_draws(counts, 1 + STEPS, "the sampling path")   # x_T, each step
+    # The embedding table, x_T, each step.
+    _check_draws(counts, 1 + 1 + STEPS, "the sampling path")
     if tuple(z.shape) != (N, SEQ, DIM) or z.device.type != "cuda":
         raise AssertionError(f"embeddings {tuple(z.shape)} on {z.device}")
     if not bool(torch.isfinite(z).all()):
@@ -1364,7 +1392,8 @@ def main_path_sample_ddim(card: str, ckpt: Path, dim: int,
     if _others(counts) != expect:
         raise AssertionError(f"launches {counts} on the dim-{dim} sampling "
                              f"path, expected {expect}")
-    _check_draws(counts, 1, f"the dim-{dim} DDIM path")     # x_T alone
+    # The embedding table and x_T.
+    _check_draws(counts, 1 + 1, f"the dim-{dim} DDIM path")
     if tuple(z.shape) != (N, SEQ, dim) or not bool(torch.isfinite(z).all()):
         raise AssertionError(f"embeddings {tuple(z.shape)}, finite: "
                              f"{bool(torch.isfinite(z).all())}")
@@ -2299,7 +2328,7 @@ def resblock_kernel_vs_plain():
         print(f"{name} backward through the Function vs plain autograd, "
               f"batch 3: worst of {len(leaves)} gradients {max(errs):.3e} "
               f"(tol 1e-4)")
-    model = SimpleUNet(generator=torch.Generator().manual_seed(4)).eval()
+    model = SimpleUNet(key=_init_key(4)).eval()
     x = torch.randn(2, 28, 28, 1, generator=torch.Generator().manual_seed(5))
     t = torch.tensor([10, 500])
     with torch.inference_mode():
@@ -2363,8 +2392,10 @@ def main_path_mnist_train(card: str):
     if _others(counts) != expect:
         raise AssertionError(f"launches {counts} on the MNIST training path, "
                              f"expected {expect}")
-    # t and noise a step; the epoch's sample grid: x_T and each step.
-    _check_draws(counts, 2 * steps + 1 + STEPS, "the MNIST training path")
+    # The UNet; t and noise a step in one launch; the epoch's sample grid:
+    # x_T and each step.
+    _check_draws(counts, MNIST_INIT_DRAWS + steps + 1 + STEPS,
+                 "the MNIST training path")
     losses = result.step_losses
     if losses.shape != (steps,) or not np.isfinite(losses).all():
         raise AssertionError(f"{losses.shape} step losses, finite: "
@@ -2870,7 +2901,8 @@ def main_path_bf16_train(card: str):
     mnist_counts = _counts()
     expect = {name: 0 for name in mnist_counts}
     expect["fused_resblock"] = MNIST_BF16_STEPS * 4
-    expect["rng_draw"] = MNIST_BF16_STEPS * 2    # t and noise
+    # The UNet, then t and noise a step in one launch.
+    expect["rng_draw"] = MNIST_INIT_DRAWS + MNIST_BF16_STEPS
     if mnist_counts != expect or set(seen) != {
             ("fused_resblock", "bfloat16", "contiguous")}:
         raise AssertionError(f"launches {mnist_counts}, calls by dtype "
@@ -2942,9 +2974,12 @@ def bf16_step_vs_cpu(card: str) -> None:
     g = torch.Generator().manual_seed(21)
     cfg = TransformerConfig(dim=DIM, n_heads=HEADS, depth=DEPTH, dropout=0.0)
     joint = nn.ModuleDict({
-        "diffusion_model": TinyTransformer(cfg, generator=g),
-        "rounding_fn": LearnedRounding(DIM, vocab, generator=g),
-        "embedding_fn": LearnedEmbedding(vocab, DIM, generator=g)})
+        "diffusion_model": TinyTransformer(cfg, key=_init_key(21,
+                                                              "diffusion")),
+        "rounding_fn": LearnedRounding(DIM, vocab,
+                                       key=_init_key(21, "rounding")),
+        "embedding_fn": LearnedEmbedding(vocab, DIM,
+                                         key=_init_key(21, "embedding"))})
     tokens = torch.randint(0, vocab, (b, SEQ), generator=g)
     t = torch.randint(0, STEPS, (b,), generator=g)
     noise = torch.randn(b, SEQ, DIM, generator=g)
@@ -2962,7 +2997,7 @@ def bf16_step_vs_cpu(card: str) -> None:
     x = torch.randn(32, 28, 28, 1, generator=g).clamp(-1, 1)
     t_img = torch.randint(0, STEPS, (32,), generator=g)
     noise_img = torch.randn(32, 28, 28, 1, generator=g)
-    unet = SimpleUNet(generator=g)
+    unet = SimpleUNet(key=_init_key(21, "init"))
 
     def mnist_step(model, dev, dtype):
         model.zero_grad(set_to_none=True)
@@ -3146,12 +3181,15 @@ def _text_runner(*, batch=BATCH, dtype=None, self_cond=False,
     cfg = TransformerConfig(dim=DIM, n_heads=HEADS, depth=DEPTH,
                             dropout=DROPOUT, timesteps=sched.timesteps,
                             self_cond=self_cond)
-    g = torch.Generator().manual_seed(seed)
     joint = nn.ModuleDict({
-        "diffusion_model": TinyTransformer(cfg, generator=g),
-        "rounding_fn": LearnedRounding(DIM, GRAPH_VOCAB, generator=g),
-        "embedding_fn": LearnedEmbedding(GRAPH_VOCAB, DIM, generator=g),
-    }).cuda()
+        "diffusion_model": TinyTransformer(
+            cfg, key=_init_key(seed, "diffusion"), device="cuda"),
+        "rounding_fn": LearnedRounding(
+            DIM, GRAPH_VOCAB, key=_init_key(seed, "rounding"), device="cuda"),
+        "embedding_fn": LearnedEmbedding(
+            GRAPH_VOCAB, DIM, key=_init_key(seed, "embedding"),
+            device="cuda"),
+    })
     ema = copy.deepcopy(joint).requires_grad_(False) if ema_decay else None
     optimizer = adamw(joint.parameters(), GRAPH_LR, weight_decay=1e-4)
     lam = cosine_warmup_lambda(GRAPH_WARMUP, 4 * steps)
@@ -3191,8 +3229,8 @@ def _mnist_runner(*, batch=MNIST_BATCH, dtype=None, ema_decay=None,
     )
 
     sched = make_schedule(device="cuda")
-    model = SimpleUNet(sched.timesteps,
-                       generator=torch.Generator().manual_seed(seed)).cuda()
+    model = SimpleUNet(sched.timesteps, key=_init_key(seed, "init"),
+                       device="cuda")
     ema = copy.deepcopy(model).requires_grad_(False) if ema_decay else None
     optimizer = adamw(model.parameters(), 1e-3, weight_decay=0.01)
     images = torch.rand((steps * batch, 28, 28, 1),
@@ -3341,14 +3379,17 @@ def _sampler_models(seed: int = 41):
 
     g = torch.Generator().manual_seed(seed)
     text = TinyTransformer(TransformerConfig(dim=DIM, n_heads=HEADS,
-                                             depth=DEPTH), generator=g)
+                                             depth=DEPTH),
+                           key=_init_key(seed, "diffusion"), device="cuda")
     text_sc = TinyTransformer(TransformerConfig(dim=DIM, n_heads=HEADS,
                                                 depth=DEPTH, self_cond=True),
-                              generator=g)
+                              key=_init_key(seed + 1, "diffusion"),
+                              device="cuda")
     with torch.no_grad():
-        text_sc.selfcond_proj.weight.normal_(0.0, 0.05, generator=g)
-    unet = SimpleUNet(generator=g)
-    return [m.cuda().eval() for m in (text, text_sc, unet)]
+        text_sc.selfcond_proj.weight.copy_(0.05 * torch.randn(
+            DIM, DIM, generator=g))
+    unet = SimpleUNet(key=_init_key(seed, "init"), device="cuda")
+    return [m.eval() for m in (text, text_sc, unet)]
 
 
 def _sampler_cases(models):
@@ -3832,7 +3873,8 @@ def torchrun_paths(card: str) -> list:
               [*text_argv, "--seq_parallel"], text_env, False,
               text_launches, text_draws),
              ("MNIST (cudnn.deterministic)", "mnist", mnist_argv, mnist_env,
-              True, {"fused_resblock": mnist_steps * 4}, 2 * mnist_steps))
+              True, {"fused_resblock": mnist_steps * 4},
+              MNIST_INIT_DRAWS + mnist_steps))
     started = {}
     for i, (what, cli, argv, env, det, _, _) in enumerate(cases):
         for torchrun in (True, False):
@@ -4374,11 +4416,11 @@ def gemma_guided_decode(card: str):
     layers, vocab = GEMMA_2B["num_layers"], GEMMA_2B["vocab_size"]
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in gemma.parameters())
-    g = torch.Generator().manual_seed(8)
     denoiser = TinyTransformer(TransformerConfig(
-        dim=GEMMA_DIM, n_heads=HEADS, depth=DEPTH), generator=g)
-    rounding = LearnedRounding(GEMMA_DIM, vocab, generator=g)
-    denoiser, rounding = denoiser.cuda().eval(), rounding.cuda().eval()
+        dim=GEMMA_DIM, n_heads=HEADS, depth=DEPTH),
+        key=_init_key(8, "diffusion"), device="cuda").eval()
+    rounding = LearnedRounding(GEMMA_DIM, vocab, key=_init_key(8, "rounding"),
+                               device="cuda").eval()
     sched = make_schedule(device="cuda")
     tok = _StandInTokenizer()
     torch.cuda.synchronize()
@@ -4894,7 +4936,27 @@ RNG_NOISE = (("text noise", (BATCH, SEQ, DIM), None),
 RNG_MASKS = (("bf16 text step FFN mask", (512, SEQ, FFN), None),
              ("its columns 1024-2047", (512, SEQ, FFN),
               ((0, 512), (0, SEQ), (1024, 1024))))
+# Boxes the vector path does not cover whole: a size that is no multiple
+# of any vector width, an innermost run of 13 starting at element 5 (odd
+# and not 16-byte aligned in the global shape), a 3-D box of a 3-D shape.
+# Each mask case also runs on an input that starts 4 bytes (f32) or 2
+# bytes (bf16) past a 16-byte boundary.
+RNG_RAGGED = (("1001 elements", (1001,), None),
+              ("an odd innermost run", (BATCH, SEQ, DIM),
+               ((1, 5), (3, 7), (5, 13))),
+              ("a 3-D box", (7, 9, 13), ((1, 3), (2, 5), (3, 7))))
+# Mask inputs outside the range where the kernel divides by a reciprocal:
+# zeros, subnormals, extremes, infinities.
+RNG_SPECIAL = (0.0, -0.0, 1e-40, -3e-39, 1e-30, 2.0**-100, 2.0**100, 3e38,
+               -3e38, float("inf"), -float("inf"))
 RNG_ULPS = 2.0
+# The uniform kind at an initialiser's bound: linear1 of a width-2048
+# denoiser, U(+-1/sqrt(2048)).
+RNG_UNIFORM = (GEMMA_DIM, FFN)
+# Integer operations of one threefry-2x32 (20 rounds of an add, a rotate
+# and an xor, 5 key injections of two adds, the input adds, the output
+# xor): the stock draws' cost an element, two for randint.
+THREEFRY_OPS = 73
 
 
 def _ulps(a, b) -> float:
@@ -4905,7 +4967,181 @@ def _ulps(a, b) -> float:
     mag = torch.maximum(a.abs(), b.abs()).float()
     spacing = (torch.nextafter(mag, torch.full_like(mag, float("inf")))
                - mag).double()
-    return float(((a - b).abs() / spacing).max())
+    return float(((a - b).abs() / spacing).max()) if a.numel() else 0.0
+
+
+@contextlib.contextmanager
+def _plain_draws():
+    """``ops.rng.draw_many`` as ``core/rng.py``'s plain versions on the
+    card (the initialisers' plain init), inside the block."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import rng as ops_rng
+
+    kernel = ops_rng.draw_many
+
+    def plain(draws, device=None):
+        device = torch.device("cuda" if device is None else device)
+        return [ops_rng._plain(d, device) for d in draws]
+
+    ops_rng.draw_many = plain
+    try:
+        yield
+    finally:
+        ops_rng.draw_many = kernel
+
+
+def _check_masks(key, hkey, shape, window, what, *, offset=False) -> int:
+    """The stock and counter dropout of ``window`` of ``shape``, f32 and
+    bf16, forward and backward, against the plain mask; the elements that
+    differ. ``offset``: the input starts one element past an aligned
+    address."""
+    import torch
+
+    from tinydiffusionmodels_torch.core import rng
+    from tinydiffusionmodels_torch.ops import rng as ops_rng
+
+    size = tuple(n for _, n in rng.window_of(shape, window))
+    bad = 0
+    for mode in ("0", "1"):
+        os.environ["TDM_FAST_NOISE"] = mode
+        for dtype in (torch.float32, torch.bfloat16):
+            n = math.prod(size)
+            buf = torch.randn(n + 1, device="cuda")
+            # Values the kernel's division takes the IEEE path for.
+            buf[1:len(RNG_SPECIAL) + 1] = torch.tensor(
+                RNG_SPECIAL, device="cuda")[:n]
+            buf = buf.to(dtype)
+            x = (buf[1:] if offset else buf[:n]).view(size)
+            x.requires_grad_()
+            got = ops_rng.dropout(x, key, DROPOUT, shape=shape,
+                                  window=window)
+            (grad,) = torch.autograd.grad(got, x, x.detach())
+            keep = rng.draw_keep(hkey, 1.0 - DROPOUT, shape, window,
+                                 device="cuda")
+            div = torch.tensor(1.0 - DROPOUT, dtype=dtype, device="cuda")
+            want = torch.where(keep, x.detach() / div,
+                               torch.zeros((), dtype=dtype, device="cuda"))
+            differ = int((got != want).sum()) + int((grad != want).sum())
+            bad += differ
+            print(f"{what} ({'counter' if mode == '1' else 'stock'}, "
+                  f"{str(dtype)[6:]}{', unaligned' if offset else ''}): "
+                  f"kept {float(keep.float().mean()):.4f}, {differ} "
+                  f"elements differ (forward and backward)")
+    return bad
+
+
+def _check_kinds(key, hkey, shape, window, what) -> tuple[float, int]:
+    """Normal, counter normal, uniform and randint of ``window`` of
+    ``shape`` against the plain versions: (worst ulp, integers and
+    uniforms that differ)."""
+    from tinydiffusionmodels_torch.core import rng
+    from tinydiffusionmodels_torch.ops import rng as ops_rng
+
+    bound = 1.0 / math.sqrt(GEMMA_DIM)
+    worst = 0.0
+    for kind, kernel, plain in (
+            ("normal", ops_rng.normal, rng.normal),
+            ("counter", ops_rng.counter_normal, rng.counter_normal)):
+        got = kernel(key, shape, window=window)
+        u = _ulps(got, plain(hkey, shape, window=window, device="cuda"))
+        worst = max(worst, u)
+        print(f"{what} {kind}: {tuple(got.shape)}, max {u:.1f} ulp")
+    got = ops_rng.uniform(key, shape, -bound, bound, window=window)
+    want = rng.uniform(hkey, shape, minval=-bound, maxval=bound,
+                       window=window, device="cuda")
+    differ = int((got != want).sum())
+    got = ops_rng.randint(key, shape, 0, STEPS, window=window)
+    want = rng.randint(hkey, shape, 0, STEPS, window=window,
+                       device="cuda").long()
+    differ += int((got != want).sum())
+    print(f"{what} uniform and randint: {differ} elements differ")
+    return worst, differ
+
+
+def _check_step_list(step, host) -> int:
+    """A text step's t, noise and three attention seeds as one
+    ``draw_many`` launch (``text_train.step_draws``' list) against the
+    plain draws; the elements that differ."""
+    import torch
+
+    from tinydiffusionmodels_torch.core import rng
+    from tinydiffusionmodels_torch.ops import rng as ops_rng
+
+    def draws(k):
+        seeds = [ops_rng.attention_seed_draw(rng.substream(rng.fold_in(
+            rng.substream(k, "dropout"), i), "attn_weights"))
+            for i in range(DEPTH)]
+        return [ops_rng.Draw("randint", rng.substream(k, "timesteps"),
+                             (BATCH,), None, 0, STEPS, dtype=torch.int64),
+                ops_rng.Draw("noise", rng.substream(k, "noise"),
+                             (BATCH, SEQ, DIM)), *seeds]
+
+    before = ops_rng.launches
+    got = ops_rng.draw_many(draws(step))
+    launched = ops_rng.launches - before
+    want = [ops_rng._plain(d, torch.device("cuda")) for d in draws(host)]
+    bad = sum(int((a != b).sum()) for a, b in zip(got, want))
+    print(f"the text step's {len(got)} draws in {launched} launch: {bad} "
+          f"elements differ")
+    if launched != 1:
+        raise AssertionError(f"the step's draws took {launched} launches")
+    return bad
+
+
+def _check_init_on_card() -> tuple[float, int]:
+    """The card's initialisation (one draw launch a model) against the
+    plain init on the card: the text denoiser at --embed_dim 2048 (depth
+    3, abs positions, self-conditioning), its embedding table and
+    rounding head (vocab 4096), and the UNet. Uniform-drawn weights and
+    zeros and ones bit-equal, the normal tables within RNG_ULPS. Returns
+    (worst ulp, elements that differ)."""
+    from tinydiffusionmodels_torch.core import rng
+    from tinydiffusionmodels_torch.models import (
+        LearnedEmbedding,
+        LearnedRounding,
+        SimpleUNet,
+        TinyTransformer,
+        TransformerConfig,
+    )
+    from tinydiffusionmodels_torch.ops import rng as ops_rng
+
+    root = rng.prng_key(2026)
+    cfg = TransformerConfig(dim=GEMMA_DIM, n_heads=HEADS, depth=DEPTH,
+                            pos_emb="abs", self_cond=True, max_len=512)
+    builds = (
+        (f"text denoiser, dim {GEMMA_DIM}", lambda: TinyTransformer(
+            cfg, key=rng.substream(root, "diffusion"), device="cuda")),
+        (f"embedding table {GRAPH_VOCAB} x {GEMMA_DIM}",
+         lambda: LearnedEmbedding(GRAPH_VOCAB, GEMMA_DIM, key=rng.substream(
+             root, "embedding"), device="cuda")),
+        (f"rounding head {GEMMA_DIM} -> {GRAPH_VOCAB}",
+         lambda: LearnedRounding(GEMMA_DIM, GRAPH_VOCAB, key=rng.substream(
+             root, "rounding"), device="cuda")),
+        ("UNet", lambda: SimpleUNet(key=rng.substream(root, "init"),
+                                    device="cuda")))
+    worst, bad = 0.0, 0
+    for what, build in builds:
+        before = ops_rng.launches
+        card = build().state_dict()
+        launched = ops_rng.launches - before
+        with _plain_draws():
+            plain = build().state_dict()
+        differ, ulps = 0, 0.0
+        for name, got in card.items():
+            if name in ("pos_emb.weight", "embeddings.weight"):
+                ulps = max(ulps, _ulps(got, plain[name]))
+            else:
+                differ += int((got != plain[name]).sum())
+        n = sum(t.numel() for t in card.values())
+        print(f"init of the {what}: {n} parameters in {launched} launch, "
+              f"{differ} uniform-drawn or constant elements differ, normals "
+              f"max {ulps:.1f} ulp")
+        if launched != 1:
+            raise AssertionError(f"the {what}'s init took {launched} "
+                                 "launches")
+        worst, bad = max(worst, ulps), bad + differ
+    return worst, bad
 
 
 def rng_kernel_vs_plain(card: str) -> tuple[float, dict]:
@@ -4914,13 +5150,20 @@ def rng_kernel_vs_plain(card: str) -> tuple[float, dict]:
     (the train key, step 12345 read from the device, then the step's
     substreams, as a replayed step derives them): normals (stock and
     counter) within RNG_ULPS float32 spacings, integers (the timesteps at
-    B 8 and 128, the flash kernels' int32 seed) and the dropout outputs
-    (stock and counter masks, f32 and bf16, and their backward) bit-equal.
-    Then CUDA-event times at the text step's noise and the bf16 step's
-    feature mask, beside the plain version, torch's own draw of the shape
-    (another stream, so not the same function: ``library_ms`` is null) and
-    the bound (bytes written, and read for a mask, at the HBM rate).
-    Returns (largest error, timing row)."""
+    B 8 and 128, the flash kernels' int32 seed), uniforms and the dropout
+    outputs (stock and counter masks, f32 and bf16, and their backward)
+    bit-equal; every kind again on the ragged boxes of RNG_RAGGED and on
+    unaligned mask inputs; a text step's draws as one list launch; the
+    card's initialisation of the width-2048 text model and of the UNet
+    against the plain init. Then CUDA-event times at the text step's
+    noise, FFN mask and list, the bf16 step's feature mask and an
+    initialiser's uniform, beside the earlier design's (PERF.md §6 row
+    8), the plain version, torch's own
+    draw of the shape (another stream, so not the same function:
+    ``library_ms`` is null) and the bound (the bytes written, and read
+    for a mask, at the HBM rate, or for a stock draw its threefry's
+    integer operations at the INT32 rate, the larger). Returns (largest
+    error, timing row)."""
     import torch
 
     from tinydiffusionmodels_torch import perf
@@ -4928,7 +5171,7 @@ def rng_kernel_vs_plain(card: str) -> tuple[float, dict]:
     from tinydiffusionmodels_torch.ops import rng as ops_rng
 
     phase("random draws kernel vs plain (csrc/rng.cu against core/rng.py "
-          "on the card, full sizes)")
+          "on the card, full sizes, ragged boxes, lists, initialisation)")
     root = rng.substream(rng.prng_key(2026), "train")
     counter = torch.tensor([12345], device="cuda")
     step = rng.KeyPath(root.cuda(), counter)
@@ -4961,31 +5204,29 @@ def rng_kernel_vs_plain(card: str) -> tuple[float, dict]:
             bad += int((got != want).sum())
         print(f"timesteps (B {BATCH}, {MNIST_BATCH}) and 3 attention seeds: "
               f"{bad} integers differ")
-        for mode in ("0", "1"):
-            os.environ["TDM_FAST_NOISE"] = mode
-            for what, shape, window in RNG_MASKS:
-                key, hkey = (rng.substream(k, "dropout_ffn") for k in
-                             (step, host))
-                size = tuple(n for _, n in rng.window_of(shape, window))
-                for dtype in (torch.float32, torch.bfloat16):
-                    x = torch.randn(size, device="cuda").to(dtype)
-                    x.requires_grad_()
-                    got = ops_rng.dropout(x, key, DROPOUT, shape=shape,
-                                          window=window)
-                    (grad,) = torch.autograd.grad(got, x, x.detach())
-                    keep = rng.draw_keep(hkey, 1.0 - DROPOUT, shape, window,
-                                         device="cuda")
-                    div = torch.tensor(1.0 - DROPOUT, dtype=dtype,
-                                       device="cuda")
-                    want = torch.where(keep, x.detach() / div,
-                                       torch.zeros((), dtype=dtype,
-                                                   device="cuda"))
-                    n = int((got != want).sum()) + int((grad != want).sum())
-                    bad += n
-                    print(f"{what} ({'counter' if mode == '1' else 'stock'}"
-                          f", {str(dtype)[6:]}): kept "
-                          f"{float(keep.float().mean()):.4f}, {n} elements "
-                          f"differ (forward and backward)")
+        key, hkey = (rng.substream(k, "init") for k in (step, host))
+        bound = 1.0 / math.sqrt(GEMMA_DIM)
+        got = ops_rng.uniform(key, RNG_UNIFORM, -bound, bound)
+        want = rng.uniform(hkey, RNG_UNIFORM, minval=-bound, maxval=bound,
+                           device="cuda")
+        differ = int((got != want).sum())
+        print(f"uniform {RNG_UNIFORM} on +-1/sqrt({GEMMA_DIM}): {differ} "
+              f"elements differ")
+        bad += differ
+        for what, shape, window in RNG_MASKS:
+            key, hkey = (rng.substream(k, "dropout_ffn") for k in
+                         (step, host))
+            bad += _check_masks(key, hkey, shape, window, what)
+        for what, shape, window in RNG_RAGGED:
+            key, hkey = (rng.substream(k, "ragged") for k in (step, host))
+            u, n = _check_kinds(key, hkey, shape, window, what)
+            worst_ulps, bad = max(worst_ulps, u), bad + n
+            for offset in (False, True):
+                bad += _check_masks(key, hkey, shape, window, what,
+                                    offset=offset)
+        bad += _check_step_list(step, host)
+        u, n = _check_init_on_card()
+        worst_ulps, bad = max(worst_ulps, u), bad + n
     finally:
         if env is None:
             os.environ.pop("TDM_FAST_NOISE", None)
@@ -4993,69 +5234,112 @@ def rng_kernel_vs_plain(card: str) -> tuple[float, dict]:
             os.environ["TDM_FAST_NOISE"] = env
     if worst_ulps > RNG_ULPS or bad:
         raise AssertionError(f"draws: {worst_ulps} ulp (tol {RNG_ULPS}), "
-                             f"{bad} integers or mask elements differ")
+                             f"{bad} integers, uniforms or mask elements "
+                             "differ")
 
-    # Timing under the card's default (the counter draws), and the stock
-    # draws beside them.
+    # Timing: each row under the draws it names (TDM_FAST_NOISE), the
+    # card's default being the counter draws.
     key = rng.substream(step, "noise")
     hkey = rng.substream(host, "noise")
     text = (BATCH, SEQ, DIM)
+    ffn = (BATCH, SEQ, FFN)
     mask_shape = RNG_MASKS[0][1]
     x16 = torch.randn(mask_shape, device="cuda").bfloat16()
-    hbm = perf.device_hbm_bandwidth()
+    x32 = torch.randn(ffn, device="cuda")
+    bound = 1.0 / math.sqrt(GEMMA_DIM)
+    n_uniform = math.prod(RNG_UNIFORM)
+    list_draws = [ops_rng.Draw("randint", rng.substream(step, "timesteps"),
+                               (BATCH,), None, 0, STEPS, dtype=torch.int64),
+                  ops_rng.Draw("noise", key, text)] + [
+        ops_rng.attention_seed_draw(rng.substream(step, f"seed{i}"))
+        for i in range(DEPTH)]
+    plain_list = [dataclasses.replace(d, key=rng.resolve(d.key))
+                  for d in list_draws]
+    text_bytes = 4 * math.prod(text)
     rows = {}
-    for what, kernel, plain, torch_draw, nbytes in (
+    # Each row: what, the kernel, the plain version, torch's own draw, the
+    # bytes, the stock draws' integer operations, and the kernel's time
+    # before its redesign (PERF.md §6 row 8; None: not timed then).
+    for what, kernel, plain, torch_draw, nbytes, ops, earlier in (
             (f"counter noise {text}",
              lambda: ops_rng.counter_normal(key, text),
              lambda: rng.counter_normal(hkey, text, device="cuda"),
-             lambda: torch.randn(text, device="cuda"),
-             4 * BATCH * SEQ * DIM),
+             lambda: torch.randn(text, device="cuda"), text_bytes, 0,
+             0.00461),
             (f"stock noise {text}",
              lambda: ops_rng.normal(key, text),
              lambda: rng.normal(hkey, text, device="cuda"),
-             lambda: torch.randn(text, device="cuda"),
-             4 * BATCH * SEQ * DIM),
+             lambda: torch.randn(text, device="cuda"), text_bytes,
+             THREEFRY_OPS * math.prod(text), 0.00486),
+            (f"counter mask {ffn} f32 (the text f32 step's FFN mask)",
+             lambda: ops_rng.dropout(x32, key, DROPOUT),
+             lambda: torch.where(rng.counter_bernoulli(
+                 hkey, 1.0 - DROPOUT, ffn, device="cuda"), x32 / 0.9, 0.0),
+             lambda: torch.empty_like(x32).bernoulli_(0.9).mul_(x32),
+             2 * 4 * x32.numel(), 0, None),
             (f"counter mask {mask_shape} bf16",
              lambda: ops_rng.dropout(x16, key, DROPOUT),
              lambda: torch.where(rng.counter_bernoulli(
                  hkey, 1.0 - DROPOUT, mask_shape, device="cuda"),
                  x16 / 0.8984375, 0.0),
              lambda: torch.empty_like(x16).bernoulli_(0.9).mul_(x16),
-             2 * 2 * x16.numel()),
+             2 * 2 * x16.numel(), 0, 0.2499),
             (f"stock mask {mask_shape} bf16",
              lambda: ops_rng.dropout(x16, key, DROPOUT),
              lambda: torch.where(rng.bernoulli(
                  hkey, 1.0 - DROPOUT, mask_shape, device="cuda"),
                  x16 / 0.8984375, 0.0),
              lambda: torch.empty_like(x16).bernoulli_(0.9).mul_(x16),
-             2 * 2 * x16.numel())):
+             2 * 2 * x16.numel(), THREEFRY_OPS * x16.numel(), 0.3973),
+            (f"text step list: t, noise {text}, {DEPTH} seeds, one launch",
+             lambda: ops_rng.draw_many(list_draws),
+             lambda: [ops_rng._plain(d, torch.device("cuda"))
+                      for d in plain_list],
+             lambda: (torch.randint(0, STEPS, (BATCH,), device="cuda"),
+                      torch.randn(text, device="cuda"),
+                      torch.randint(-2**31, 2**31 - 1, (DEPTH,),
+                                    device="cuda")),
+             text_bytes + 8 * BATCH + 4 * DEPTH, 0, None),
+            (f"uniform {RNG_UNIFORM} (an initialiser's)",
+             lambda: ops_rng.uniform(key, RNG_UNIFORM, -bound, bound),
+             lambda: rng.uniform(hkey, RNG_UNIFORM, minval=-bound,
+                                 maxval=bound, device="cuda"),
+             lambda: torch.empty(RNG_UNIFORM, device="cuda").uniform_(
+                 -bound, bound), 4 * n_uniform,
+             THREEFRY_OPS * n_uniform, None)):
         stock = what.startswith("stock")
         os.environ["TDM_FAST_NOISE"] = "0" if stock else "1"
         try:
-            iters = 50 if "mask" in what else 200
-            p_ms = [perf.device_ms(plain, max(5, iters // 10))]
+            iters = 50 if ("mask" in what or "uniform" in what) else 200
+            # The plain stock mask takes 77 ms a call: a short burst.
+            p_iters = 2 if "stock mask" in what else max(5, iters // 10)
+            p_ms = [perf.device_ms(plain, p_iters, warmup=1)]
             k_ms = [perf.device_ms(kernel, iters),
                     perf.device_ms(kernel, iters)]
-            p_ms.append(perf.device_ms(plain, max(5, iters // 10)))
+            p_ms.append(perf.device_ms(plain, p_iters, warmup=1))
             t_ms = perf.device_ms(torch_draw, iters)
         finally:
             if env is None:
                 os.environ.pop("TDM_FAST_NOISE", None)
             else:
                 os.environ["TDM_FAST_NOISE"] = env
-        bound = nbytes / hbm * 1e3
+        bound_ms, bound_by = perf.bound_ms(
+            nbytes, [(ops, "int32")] if ops else [])
         rows[what] = dict(ms=sum(k_ms) / 2, plain_ms=sum(p_ms) / 2,
-                          bound_ms=bound, bound_by="bytes", library_ms=None,
-                          torch_draw_ms=t_ms)
-        print(f"{what}: kernel {k_ms} ms, plain {p_ms} ms, torch's own draw "
-              f"(another stream) {t_ms} ms; bound {bound} ms ({nbytes} B at "
-              f"{hbm / 1e12:.2f} TB/s), {sum(k_ms) / 2 / bound:.1f}x; on "
-              f"{card}")
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None, torch_draw_ms=t_ms,
+                          earlier_ms=earlier, bytes=nbytes, int_ops=ops)
+        print(f"{what}: kernel {k_ms} ms (before the redesign: {earlier}), "
+              f"plain {p_ms} "
+              f"ms, torch's own draw (another stream) {t_ms} ms; bound "
+              f"{bound_ms} ms by {bound_by} ({nbytes} B, {ops} integer "
+              f"operations), {sum(k_ms) / 2 / bound_ms:.2f}x; on {card}")
     head = rows[f"counter noise {text}"]
     timing = {**head, "at": f"counter noise {text} f32 (the text step's, "
                             f"TDM_FAST_NOISE auto on the card)",
               "library": "none: torch draws another stream; torch_draw_ms "
-                         "is torch.randn or bernoulli_ + mul_ of the shape",
+                         "is torch.randn, randint, uniform_ or bernoulli_ + "
+                         "mul_ of the shape",
               "shapes": {k: v for k, v in rows.items()
                          if k != f"counter noise {text}"},
               "max_ulp_normals": worst_ulps}
@@ -5103,10 +5387,8 @@ def validation_replay(card: str, joint) -> dict:
     kw = dict(sched=sched, use_learned_embeddings=True,
               pretrained_matrix=None)
     ema = copy.deepcopy(joint).requires_grad_(False)
-    fresh = copy.deepcopy(joint).cpu()
-    fresh["diffusion_model"].reset_parameters(
-        torch.Generator().manual_seed(61))
-    fresh.cuda()
+    fresh = copy.deepcopy(joint)
+    fresh["diffusion_model"].reset_parameters(_init_key(61))
     with torch.no_grad():
         for p, f in zip(ema.parameters(), fresh.parameters()):
             p.lerp_(f, 0.5)
@@ -5135,7 +5417,7 @@ def validation_replay(card: str, joint) -> dict:
                                else 0)
                 want = {n: 0 for n in counts}
                 want["flash_attention_fwd"] = batches * depth
-                want["rng_draw"] = 2 * k     # each batch's t and noise
+                want["rng_draw"] = k     # each batch's t and noise
                 if counts != want:
                     raise AssertionError(f"{what} {mode} validation, epoch "
                                          f"{epoch}: launches {counts}, "

@@ -29,6 +29,7 @@ from tinydiffusionmodels_tpu.train.state import TrainState  # noqa: E402
 from tinydiffusionmodels_torch.io import convert  # noqa: E402
 from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig  # noqa: E402
 from tinydiffusionmodels_torch.train import lm_train, optim  # noqa: E402
+from tinydiffusionmodels_torch.core.rng import prng_key  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -110,7 +111,7 @@ def test_state_dict_round_trip_both_directions():
         np.testing.assert_array_equal(a, b, err_msg=str(path))
     # Port -> JAX tree -> port: the same state dict.
     model = TinyGPT(TinyGPTConfig(**CFG_KW),
-                    generator=torch.Generator().manual_seed(5))
+                    key=prng_key(5))
     again = convert.tiny_gpt_state_from_jax(convert.tiny_gpt_params_dict(model))
     for key, val in model.state_dict().items():
         torch.testing.assert_close(again[key], val, rtol=0, atol=0)
@@ -119,7 +120,7 @@ def test_state_dict_round_trip_both_directions():
 def test_init_follows_jax_distributions():
     model = TinyGPT(TinyGPTConfig(vocab_size=500, dim=128, depth=1,
                                   max_len=300),
-                    generator=torch.Generator().manual_seed(0))
+                    key=prng_key(0))
     sd = model.state_dict()
     assert abs(float(sd["tok_emb.weight"].std()) - 0.02) < 1e-3
     assert abs(float(sd["pos_emb.weight"].std()) - 0.01) < 1e-3

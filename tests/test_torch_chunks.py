@@ -43,6 +43,7 @@ from tinydiffusionmodels_torch.train.optim import (
     cosine_warmup_lambda,
     dynamic_rounding_weight_schedule,
 )
+from tinydiffusionmodels_torch.core.rng import prng_key, substream
 
 torch.set_num_threads(1)
 
@@ -53,11 +54,13 @@ TRAIN, VAL = 52, 8      # 13 steps an epoch at batch 4: a remainder for 7, 25
 def _joint(self_cond: bool) -> nn.ModuleDict:
     cfg = TransformerConfig(dim=DIM, n_heads=2, depth=1, dropout=0.1,
                             ffn_dim=32, timesteps=1000, self_cond=self_cond)
-    g = torch.Generator().manual_seed(0)
     return nn.ModuleDict({
-        "diffusion_model": TinyTransformer(cfg, generator=g),
-        "rounding_fn": LearnedRounding(DIM, VOCAB, generator=g),
-        "embedding_fn": LearnedEmbedding(VOCAB, DIM, generator=g),
+        "diffusion_model": TinyTransformer(
+            cfg, key=substream(prng_key(0), "diffusion")),
+        "rounding_fn": LearnedRounding(
+            DIM, VOCAB, key=substream(prng_key(0), "rounding")),
+        "embedding_fn": LearnedEmbedding(
+            VOCAB, DIM, key=substream(prng_key(0), "embedding")),
     })
 
 
@@ -245,8 +248,9 @@ def test_chunked_mnist_train_equals_single_steps(name, mnist_dir,
     images, _, _ = load_mnist("digits", train=True)
     data = torch.as_tensor(normalize_mnist(images[:88]))
     sched = make_schedule()
+    # The trainer's init: init_unet(substream(PRNGKey(seed), "init")).
     model = SimpleUNet(sched.timesteps,
-                       generator=torch.Generator().manual_seed(5))
+                       key=substream(prng_key(5), "init"))
     optimizer = adamw(model.parameters(), 1e-3, weight_decay=0.01)
     ema = copy.deepcopy(model).requires_grad_(False) if ema_decay else None
     train_key = rng.substream(rng.prng_key(5), "train")
@@ -378,14 +382,14 @@ def test_sample_loop_gives_the_host_loops_results(method, steps, eta,
     ``noise_fn`` (the parity tests' hooks)."""
     sched = make_schedule(40)
     if denoiser == "unet":
-        fn = SimpleUNet(40, generator=torch.Generator().manual_seed(0)).eval()
+        fn = SimpleUNet(40, key=prng_key(0)).eval()
         shape, self_cond = (2, 28, 28, 1), False
     else:
         self_cond = denoiser == "text_self_cond"
         model = TinyTransformer(
             TransformerConfig(dim=DIM, n_heads=2, depth=1, ffn_dim=32,
                               timesteps=40, self_cond=self_cond),
-            generator=torch.Generator().manual_seed(1)).eval()
+            key=prng_key(1)).eval()
         if self_cond:
             with torch.no_grad():
                 model.selfcond_proj.weight.normal_(
@@ -416,7 +420,7 @@ def test_a_sampler_called_again_continues_its_generator(method, steps, eta):
     model = TinyTransformer(
         TransformerConfig(dim=DIM, n_heads=2, depth=1, ffn_dim=32,
                           timesteps=30, self_cond=True),
-        generator=torch.Generator().manual_seed(1)).eval()
+        key=prng_key(1)).eval()
     with torch.no_grad():
         model.selfcond_proj.weight.normal_(
             0.0, 0.1, generator=torch.Generator().manual_seed(2))

@@ -163,13 +163,15 @@ def test_jax_cli_reads_port_checkpoint(workdir):
     )
 
     tok = CharTokenizer(CORPUS)
-    gen = torch.Generator().manual_seed(0)
+    root = rng.prng_key(0)
     model = TinyTransformer(
         TransformerConfig(dim=32, depth=2, ffn_dim=64, pos_emb="abs",
-                          max_len=16), generator=gen)
+                          max_len=16), key=rng.substream(root, "diffusion"))
     ckpt = text_checkpoint_dict(
-        model, LearnedRounding(32, tok.vocab_size, generator=gen),
-        LearnedEmbedding(tok.vocab_size, 32, generator=gen),
+        model, LearnedRounding(32, tok.vocab_size,
+                               key=rng.substream(root, "rounding")),
+        LearnedEmbedding(tok.vocab_size, 32,
+                         key=rng.substream(root, "embedding")),
         tokenizer_state=tok.state(),
     )
     assert ckpt["pos_emb"] == "abs"
@@ -201,15 +203,19 @@ def test_port_rope_checkpoint_round_trip(workdir, capsys):
 
     tok = CharTokenizer(CORPUS)
     gen = torch.Generator().manual_seed(0)
+    root = rng.prng_key(0)
     model = TinyTransformer(
         TransformerConfig(dim=32, depth=2, ffn_dim=64, pos_emb="rope",
-                          self_cond=True), generator=gen).eval()
+                          self_cond=True),
+        key=rng.substream(root, "diffusion")).eval()
     with torch.no_grad():  # a nonzero projection, so self_cond counts
         model.selfcond_proj.weight.normal_(0.0, 0.1, generator=gen)
     save_checkpoint(
         text_checkpoint_dict(
-            model, LearnedRounding(32, tok.vocab_size, generator=gen),
-            LearnedEmbedding(tok.vocab_size, 32, generator=gen),
+            model, LearnedRounding(32, tok.vocab_size,
+                                   key=rng.substream(root, "rounding")),
+            LearnedEmbedding(tok.vocab_size, 32,
+                             key=rng.substream(root, "embedding")),
             tokenizer_state=tok.state(),
         ),
         "port.pth",
@@ -475,7 +481,7 @@ def test_lm_ckpt_crosses_packages(workdir, capsys):
     assert "[lm] loaded TinyGPT from jax_lm.pth" in out
 
     model = TinyGPT(TinyGPTConfig(**kw),
-                    generator=torch.Generator().manual_seed(4))
+                    key=rng.prng_key(4))
     save_checkpoint({"params": tiny_gpt_params_dict(model)}, "port_lm.pth")
     jax_cli.main([*GUIDED, *common, "--lm_ckpt", "port_lm.pth"])
     out = capsys.readouterr().out

@@ -40,6 +40,7 @@ from tinydiffusionmodels_torch.ops import resblock as rb
 from tinydiffusionmodels_torch.ops import rng as rng_ops
 from tinydiffusionmodels_torch.ops import single_block as sb
 from tinydiffusionmodels_torch.sample.guided import guided_generate_verified
+from tinydiffusionmodels_torch.core.rng import prng_key, substream
 
 pytestmark = pytest.mark.cuda
 
@@ -347,7 +348,7 @@ DECODE_CASES = {
 def _gpt(vocab, dim, depth, max_len, seed, device, heads=4):
     cfg = TinyGPTConfig(vocab_size=vocab, dim=dim, n_heads=heads, depth=depth,
                         max_len=max_len)
-    return TinyGPT(cfg, generator=torch.Generator().manual_seed(seed)).to(
+    return TinyGPT(cfg, key=prng_key(seed)).to(
         device).eval()
 
 
@@ -573,12 +574,11 @@ def _graph_step_runs(kind, eager, device):
 
     steps, batch = 8, 16 if kind == "mnist" else 4
     sched = make_schedule(device=device)
-    g = torch.Generator().manual_seed(0)
     gen = torch.Generator(device=device).manual_seed(1)
     order = np.random.default_rng(2).permutation(steps * batch).reshape(
         steps, batch)
     if kind == "mnist":
-        model = SimpleUNet(generator=g).to(device)
+        model = SimpleUNet(key=substream(prng_key(0), "init")).to(device)
         images = torch.rand((steps * batch, 28, 28, 1), device=device,
                             generator=gen) * 2 - 1
         optimizer = adamw(model.parameters(), 1e-3)
@@ -590,9 +590,12 @@ def _graph_step_runs(kind, eager, device):
         cfg = TransformerConfig(dim=64, n_heads=4, depth=2, dropout=0.1,
                                 self_cond=True)
         model = nn.ModuleDict({
-            "diffusion_model": TinyTransformer(cfg, generator=g),
-            "rounding_fn": LearnedRounding(64, 50, generator=g),
-            "embedding_fn": LearnedEmbedding(50, 64, generator=g),
+            "diffusion_model": TinyTransformer(
+                cfg, key=substream(prng_key(0), "diffusion")),
+            "rounding_fn": LearnedRounding(
+                64, 50, key=substream(prng_key(0), "rounding")),
+            "embedding_fn": LearnedEmbedding(
+                50, 64, key=substream(prng_key(0), "embedding")),
         }).to(device)
         ema = copy.deepcopy(model).requires_grad_(False)
         tokens = torch.randint(0, 50, (steps * batch, 16), device=device,

@@ -20,6 +20,7 @@ import torch
 
 from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
 from tinydiffusionmodels_torch.ops import decode_kernel as dk
+from tinydiffusionmodels_torch.core.rng import prng_key
 
 # (K, N): the bench's matrices, the odd width D 72 (F 288), V 4097, and
 # degenerate sizes.
@@ -74,7 +75,7 @@ def test_pack_lanes_hold_mma_b_fragments(k, n):
 
 def test_pack_weights_packed_fields_are_the_weights():
     cfg = TinyGPTConfig(vocab_size=97, dim=72, n_heads=4, depth=2, max_len=9)
-    model = TinyGPT(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    model = TinyGPT(cfg, key=prng_key(0)).eval()
     w = dk.pack_weights(model)
     d, f, v = 72, 288, 97
     for i in range(2):

@@ -30,6 +30,7 @@ from tinydiffusionmodels_tpu.models.transformer import (  # noqa: E402
 )
 from tinydiffusionmodels_tpu.train import text_train as jax_train  # noqa: E402
 from tinydiffusionmodels_torch.core import make_schedule  # noqa: E402
+from tinydiffusionmodels_torch.core import rng as port_rng  # noqa: E402
 from tinydiffusionmodels_torch.data.loader import batch_iterator  # noqa: E402
 from tinydiffusionmodels_torch.io import convert  # noqa: E402
 from tinydiffusionmodels_torch.models import (  # noqa: E402
@@ -50,14 +51,17 @@ def _joint(dropout=0.1, self_cond=False, seed=0):
     cfg = TransformerConfig(dim=DIM, n_heads=4, depth=DEPTH, ffn_dim=FFN,
                             dropout=dropout, self_cond=self_cond, timesteps=T)
     g = torch.Generator().manual_seed(seed)
-    model = TinyTransformer(cfg, generator=g)
+    root = port_rng.prng_key(seed)
+    model = TinyTransformer(cfg, key=port_rng.substream(root, "diffusion"))
     if self_cond:   # its init is zero (a no-op); give it weights
         with torch.no_grad():
             model.selfcond_proj.weight.normal_(0.0, 0.1, generator=g)
     return torch.nn.ModuleDict({
         "diffusion_model": model,
-        "rounding_fn": LearnedRounding(DIM, VOCAB, generator=g),
-        "embedding_fn": LearnedEmbedding(VOCAB, DIM, generator=g),
+        "rounding_fn": LearnedRounding(
+            DIM, VOCAB, key=port_rng.substream(root, "rounding")),
+        "embedding_fn": LearnedEmbedding(
+            VOCAB, DIM, key=port_rng.substream(root, "embedding")),
     })
 
 

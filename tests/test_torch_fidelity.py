@@ -33,6 +33,7 @@ from tools import fidelity as jax_fidelity  # noqa: E402
 from tools import text_fidelity as jax_text_fidelity  # noqa: E402
 
 from tinydiffusionmodels_torch import fidelity, text_fidelity  # noqa: E402
+from tinydiffusionmodels_torch.core.rng import prng_key, substream  # noqa: E402
 
 # The JAX tools' JSON keys (tools/fidelity.py main, tools/text_fidelity.py
 # main at --seeds 1).
@@ -198,11 +199,12 @@ def test_text_fidelity_tool_end_to_end(mode, tmp_path, monkeypatch, capsys):
     tok = CharTokenizer(corpus[:3000])
     cfg = TransformerConfig(dim=16, n_heads=2, depth=1, ffn_dim=32,
                             self_cond=True)
-    g = torch.Generator().manual_seed(0)
     save_checkpoint(text_checkpoint_dict(
-        TinyTransformer(cfg, generator=g),
-        LearnedRounding(16, tok.vocab_size, generator=g),
-        LearnedEmbedding(tok.vocab_size, 16, generator=g),
+        TinyTransformer(cfg, key=substream(prng_key(0), "diffusion")),
+        LearnedRounding(
+            16, tok.vocab_size, key=substream(prng_key(0), "rounding")),
+        LearnedEmbedding(
+            tok.vocab_size, 16, key=substream(prng_key(0), "embedding")),
         tokenizer_state=tok.state()), "t.pth")
     argv = ["--ckpt", "t.pth", "--lm_ckpt", "lm.pth", "--n", "4",
             "--seq_len", "16", "--sampler", "ddim", "--steps", "3",

@@ -47,6 +47,7 @@ from tinydiffusionmodels_torch.ops import decode_kernel as dk  # noqa: E402
 from tinydiffusionmodels_torch.ops import reference  # noqa: E402
 from tinydiffusionmodels_torch.sample import guided  # noqa: E402
 from tinydiffusionmodels_torch.sample.text import guided_sample_text  # noqa: E402
+from tinydiffusionmodels_torch.core.rng import prng_key, substream  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -263,8 +264,10 @@ def test_guided_sample_text_writes_samples(tmp_path, monkeypatch, model):
     tok = CharTokenizer("abcdefghij klmnopqrstuvwxyz.,;:!?'\n" * 2)
     gen = torch.Generator().manual_seed(0)
     lm = TinyGPT(TinyGPTConfig(vocab_size=tok.vocab_size, dim=32, n_heads=2,
-                               depth=1, max_len=12), generator=gen).eval()
-    rounding = LearnedRounding(16, tok.vocab_size, generator=gen)
+                               depth=1, max_len=12),
+                 key=substream(prng_key(0), "lm_init")).eval()
+    rounding = LearnedRounding(
+        16, tok.vocab_size, key=substream(prng_key(0), "rounding"))
     z = torch.randn(3, 10, 16, generator=gen)
     texts, tokens = guided_sample_text(
         lm.decode_step, lm.init_cache(3), z, tok, rounding=rounding,

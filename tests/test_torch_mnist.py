@@ -52,6 +52,7 @@ from tinydiffusionmodels_torch.models import SimpleUNet  # noqa: E402
 from tinydiffusionmodels_torch.ops import reference  # noqa: E402
 from tinydiffusionmodels_torch.train import mnist_train  # noqa: E402
 from tinydiffusionmodels_torch.train.optim import adamw  # noqa: E402
+from tinydiffusionmodels_torch.core.rng import prng_key  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -222,7 +223,7 @@ def test_loss_and_adamw_step_match_jax(unet_pair):
 
 def test_ema_update_matches_jax(unet_pair):
     params, model = unet_pair
-    other = SimpleUNet(generator=torch.Generator().manual_seed(7))
+    other = SimpleUNet(key=prng_key(7))
     ema = copy.deepcopy(model)
     mnist_train.ema_update(ema, other, 0.9)
     want = _state(jax_train.ema_update(

@@ -32,6 +32,7 @@ from tinydiffusionmodels_torch.models import (  # noqa: E402
     TransformerConfig,
 )
 from tinydiffusionmodels_torch.models import embedding as port_emb  # noqa: E402
+from tinydiffusionmodels_torch.core.rng import prng_key  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -132,9 +133,9 @@ def test_transformer_rejects_training_dropout():
 
 def test_seeded_init_is_reproducible():
     _, tcfg = _configs("abs", True)
-    a = TinyTransformer(tcfg, generator=torch.Generator().manual_seed(3))
-    b = TinyTransformer(tcfg, generator=torch.Generator().manual_seed(3))
-    c = TinyTransformer(tcfg, generator=torch.Generator().manual_seed(4))
+    a = TinyTransformer(tcfg, key=prng_key(3))
+    b = TinyTransformer(tcfg, key=prng_key(3))
+    c = TinyTransformer(tcfg, key=prng_key(4))
     for key, val in a.state_dict().items():
         torch.testing.assert_close(val, b.state_dict()[key], rtol=0, atol=0)
     w = "encoder.layers.0.linear1.weight"

@@ -143,15 +143,19 @@ def _text_joint(pos_emb: str, dropout: float, seq_axis):
         TinyTransformer,
         TransformerConfig,
     )
+    from tinydiffusionmodels_torch.core.rng import prng_key, substream
 
     cfg = TransformerConfig(dim=DIM, n_heads=4, depth=2, dropout=dropout,
                             ffn_dim=64, timesteps=100, pos_emb=pos_emb,
                             max_len=64, seq_axis=seq_axis)
-    g = torch.Generator().manual_seed(0)
+    root = prng_key(0)
     return nn.ModuleDict({
-        "diffusion_model": TinyTransformer(cfg, generator=g),
-        "rounding_fn": LearnedRounding(DIM, VOCAB, generator=g),
-        "embedding_fn": LearnedEmbedding(VOCAB, DIM, generator=g),
+        "diffusion_model": TinyTransformer(
+            cfg, key=substream(root, "diffusion")),
+        "rounding_fn": LearnedRounding(
+            DIM, VOCAB, key=substream(root, "rounding")),
+        "embedding_fn": LearnedEmbedding(
+            VOCAB, DIM, key=substream(root, "embedding")),
     })
 
 
@@ -207,8 +211,7 @@ def mnist_step(parallel=True):
 
     mesh = make_mesh() if parallel else None
     sched = make_schedule(100)
-    model = SimpleUNet(sched.timesteps,
-                       generator=torch.Generator().manual_seed(0))
+    model = SimpleUNet(sched.timesteps, key=rng.prng_key(0))
     optimizer = adamw(model.parameters(), 1e-3, weight_decay=0.01)
     batch = torch.as_tensor(np.random.default_rng(2).uniform(
         -1, 1, (8, 28, 28, 1)).astype(np.float32))

@@ -80,15 +80,19 @@ def _joint(self_cond=False, dropout=0.1):
         TinyTransformer,
         TransformerConfig,
     )
+    from tinydiffusionmodels_torch.core.rng import prng_key, substream
 
     torch.set_num_threads(1)
     cfg = TransformerConfig(dim=DIM, n_heads=2, depth=1, dropout=dropout,
                             ffn_dim=32, timesteps=50, self_cond=self_cond)
-    g = torch.Generator().manual_seed(0)
+    root = prng_key(0)
     return nn.ModuleDict({
-        "diffusion_model": TinyTransformer(cfg, generator=g),
-        "rounding_fn": LearnedRounding(DIM, VOCAB, generator=g),
-        "embedding_fn": LearnedEmbedding(VOCAB, DIM, generator=g),
+        "diffusion_model": TinyTransformer(
+            cfg, key=substream(root, "diffusion")),
+        "rounding_fn": LearnedRounding(
+            DIM, VOCAB, key=substream(root, "rounding")),
+        "embedding_fn": LearnedEmbedding(
+            VOCAB, DIM, key=substream(root, "embedding")),
     })
 
 

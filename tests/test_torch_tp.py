@@ -57,14 +57,18 @@ def _joint(dropout: float):
         TinyTransformer,
         TransformerConfig,
     )
+    from tinydiffusionmodels_torch.core.rng import prng_key, substream
 
     cfg = TransformerConfig(dim=DIM, n_heads=HEADS, depth=2, dropout=dropout,
                             ffn_dim=64, timesteps=100)
-    g = torch.Generator().manual_seed(0)
+    root = prng_key(0)
     return nn.ModuleDict({
-        "diffusion_model": TinyTransformer(cfg, generator=g),
-        "rounding_fn": LearnedRounding(DIM, VOCAB, generator=g),
-        "embedding_fn": LearnedEmbedding(VOCAB, DIM, generator=g),
+        "diffusion_model": TinyTransformer(
+            cfg, key=substream(root, "diffusion")),
+        "rounding_fn": LearnedRounding(
+            DIM, VOCAB, key=substream(root, "rounding")),
+        "embedding_fn": LearnedEmbedding(
+            VOCAB, DIM, key=substream(root, "embedding")),
     })
 
 
@@ -108,6 +112,7 @@ def _jax_test_model():
     weights from seed 0, and its inputs: x (8, 16, 64) and t = 0..7."""
     import torch
 
+    from tinydiffusionmodels_torch.core.rng import prng_key
     from tinydiffusionmodels_torch.models import (
         TinyTransformer,
         TransformerConfig,
@@ -115,7 +120,7 @@ def _jax_test_model():
 
     cfg = TransformerConfig(dim=JAX_DIM, n_heads=HEADS, depth=2, dropout=0.0,
                             ffn_dim=JAX_FFN)
-    model = TinyTransformer(cfg, generator=torch.Generator().manual_seed(0))
+    model = TinyTransformer(cfg, key=prng_key(0))
     x = np.random.default_rng(5).standard_normal(
         (JAX_B, JAX_L, JAX_DIM)).astype(np.float32)
     return model, x, np.arange(JAX_B)

@@ -130,6 +130,15 @@ def _seed(seed: int, device=None) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _init_key(seed: int, name: str | None = None) -> torch.Tensor:
+    """A model's initialisation key: ``PRNGKey(seed)``, or its substream
+    ``name`` (the text CLI's "diffusion", "rounding", "embedding")."""
+    from tinydiffusionmodels_torch.core import rng
+
+    key = rng.prng_key(seed)
+    return key if name is None else rng.substream(key, name)
+
+
 def _key(seed: int, device=None) -> torch.Tensor:
     """``PRNGKey(seed)`` on ``device``: the steps' and samplers' draws."""
     from tinydiffusionmodels_torch.core import rng
@@ -162,7 +171,7 @@ def mnist_train_steps(batch_size: int = MNIST_BATCH, chunk: int = F32_CHUNK,
 
     device = _device(device)
     sched = make_schedule(device=device)
-    model = SimpleUNet(sched.timesteps, generator=_seed(0)).to(device)
+    model = SimpleUNet(sched.timesteps, key=_init_key(0), device=device)
     optimizer = adamw(model.parameters(), 1e-3)
     images = torch.randn((chunk * batch_size, 28, 28, 1),
                          generator=_seed(1, device), device=device)
@@ -206,7 +215,7 @@ def mnist_sampler(n_samples: int = MNIST_N, method: str = "ancestral",
 
     device = _device(device)
     sched = make_schedule(timesteps, device=device)
-    model = SimpleUNet(timesteps, generator=_seed(0)).to(device).eval()
+    model = SimpleUNet(timesteps, key=_init_key(0), device=device).eval()
     shape = (n_samples, 28, 28, 1)
 
     def one_step():
@@ -250,12 +259,14 @@ def _text_setup(batch_size, seq_len, dim, *, depth, vocab, device):
     sched = make_schedule(device=device)
     cfg = TransformerConfig(dim=dim, n_heads=4, depth=depth, dropout=0.1,
                             timesteps=sched.timesteps)
-    g = _seed(0)
     joint = nn.ModuleDict({
-        "diffusion_model": TinyTransformer(cfg, generator=g),
-        "rounding_fn": LearnedRounding(dim, vocab, generator=g),
-        "embedding_fn": LearnedEmbedding(vocab, dim, generator=g),
-    }).to(device)
+        "diffusion_model": TinyTransformer(
+            cfg, key=_init_key(0, "diffusion"), device=device),
+        "rounding_fn": LearnedRounding(
+            dim, vocab, key=_init_key(0, "rounding"), device=device),
+        "embedding_fn": LearnedEmbedding(
+            vocab, dim, key=_init_key(0, "embedding"), device=device),
+    })
     return sched, joint, adamw(joint.parameters(), 1e-4)
 
 
@@ -307,7 +318,7 @@ def text_sampler(n: int = TEXT_N, seq_len: int = 64, dim: int = 256, *,
     sched = make_schedule(timesteps, device=device)
     cfg = TransformerConfig(dim=dim, n_heads=4, depth=depth,
                             timesteps=timesteps)
-    model = TinyTransformer(cfg, generator=_seed(0)).to(device).eval()
+    model = TinyTransformer(cfg, key=_init_key(0), device=device).eval()
     shape = (n, seq_len, dim)
 
     def one_step():
@@ -339,7 +350,7 @@ def _tiny_gpt(n: int = GUIDED_N, seq_len: int = 64, *, vocab: int = 4096,
     device = _device(device)
     cfg = TinyGPTConfig(vocab_size=vocab, dim=dim, n_heads=4, depth=depth,
                         max_len=seq_len + 1)
-    model = TinyGPT(cfg, generator=_seed(0)).to(device).eval()
+    model = TinyGPT(cfg, key=_init_key(0), device=device).eval()
     diff = torch.randn((n, seq_len, vocab), generator=_seed(1, device),
                        device=device)
     return model, diff

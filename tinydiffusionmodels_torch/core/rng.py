@@ -250,13 +250,16 @@ def _check_f32(dtype) -> None:
 def uniform(key, shape, dtype=torch.float32, minval=0.0, maxval=1.0,
             window=None, device="cpu") -> torch.Tensor:
     """``jax.random.uniform``: the top 23 bits as a mantissa of [1, 2),
-    minus 1, scaled to [minval, maxval) in float32."""
+    minus 1, scaled to [minval, maxval) in float32 by one fused
+    multiply-add, as XLA computes ``floats * (maxval - minval) + minval``
+    (a product and a sum rounded apart differ in about half the elements
+    of a span that is not a power of 2)."""
     _check_f32(dtype)
     bits = random_bits(key, shape, window=window, device=device)
     floats = _f32_bits((bits >> 9) | 0x3F800000) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return torch.maximum(lo, _fma32(floats, hi - lo, lo))
 
 
 # XLA's ErfInv32 (Giles, "Approximating the erfinv function"): the w < 5

@@ -49,6 +49,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tinydiffusionmodels_torch.core import rng
+
 SEED = 0
 TOL = 1e-5
 VOCAB = 97
@@ -61,8 +63,6 @@ def _params(module) -> dict:
 
 def _step_key(device):
     """The trainers' key of step 0 for ``SEED``, on ``device``."""
-    from tinydiffusionmodels_torch.core import rng
-
     return rng.fold_in(rng.substream(rng.prng_key(SEED), "train"), 0).to(
         device)
 
@@ -100,8 +100,8 @@ def mnist_dp(world: int, device) -> str:
         -1, 1, (2 * world, 28, 28, 1)), device=device)
 
     def step(m) -> dict:
-        model = SimpleUNet(sched.timesteps, generator=torch.Generator(
-        ).manual_seed(SEED)).to(device, torch.float64)
+        model = SimpleUNet(sched.timesteps, key=rng.prng_key(SEED),
+                           device=device).to(torch.float64)
         optimizer = torch.optim.SGD(model.parameters(), lr=1.0)
         loss = mnist_train.train_step(model, optimizer, batch, sched,
                                       _step_key(device), mesh=m)
@@ -124,12 +124,17 @@ def _joint(cfg, device):
         TinyTransformer,
     )
 
-    g = torch.Generator().manual_seed(SEED)
+    root = rng.prng_key(SEED)
     return nn.ModuleDict({
-        "diffusion_model": TinyTransformer(cfg, generator=g),
-        "rounding_fn": LearnedRounding(cfg.dim, VOCAB, generator=g),
-        "embedding_fn": LearnedEmbedding(VOCAB, cfg.dim, generator=g),
-    }).to(device)
+        "diffusion_model": TinyTransformer(
+            cfg, key=rng.substream(root, "diffusion"), device=device),
+        "rounding_fn": LearnedRounding(
+            cfg.dim, VOCAB, key=rng.substream(root, "rounding"),
+            device=device),
+        "embedding_fn": LearnedEmbedding(
+            VOCAB, cfg.dim, key=rng.substream(root, "embedding"),
+            device=device),
+    })
 
 
 def text_step(cfg, tokens, mesh, device, seq_cfg=None) -> dict:

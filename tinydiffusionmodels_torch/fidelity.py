@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from tinydiffusionmodels_torch.core import make_schedule, rng
+from tinydiffusionmodels_torch.core.rng import prng_key
 from tinydiffusionmodels_torch.data import load_mnist, normalize_mnist
 from tinydiffusionmodels_torch.models.classifier import (
     DigitClassifier,
@@ -86,8 +87,8 @@ def train_classifier(images: np.ndarray, labels: np.ndarray, *,
     y = labels.astype(np.int64)
     x_train, x_val = _split(x)
     y_train, y_val = _split(y)
-    model = DigitClassifier(
-        generator=torch.Generator().manual_seed(seed)).to(dev)
+    # init_classifier(PRNGKey(seed)), as tools/fidelity.py draws it.
+    model = DigitClassifier(key=prng_key(seed), device=dev)
     optimizer = torch.optim.AdamW(model.parameters(), lr=1e-3,
                                   betas=(0.9, 0.999), eps=1e-8,
                                   weight_decay=1e-4)

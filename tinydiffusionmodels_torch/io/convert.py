@@ -32,23 +32,36 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
 import torch
 
-from tinydiffusionmodels_torch.models.transformer import (
-    TinyTransformer,
-    TransformerConfig,
-)
+if TYPE_CHECKING:  # the models load their initial weights through here
+    from tinydiffusionmodels_torch.models.transformer import (
+        TinyTransformer,
+        TransformerConfig,
+    )
 
 
 def _t(x) -> torch.Tensor:
+    """``x`` as a float32 tensor: a tensor stays on its device (the
+    initialisers' trees, ``models.init``), anything else goes through
+    numpy."""
+    if torch.is_tensor(x):
+        return x.detach().to(torch.float32).contiguous()
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _permute(x, *axes):
+    """``x`` (a tensor, or anything numpy takes) with its axes permuted."""
+    if torch.is_tensor(x):
+        return x.permute(*axes)
+    return np.asarray(x).transpose(axes)
+
+
 def _lin(p: dict, name: str, sd: dict) -> None:
-    sd[f"{name}.weight"] = _t(np.asarray(p["w"]).T)
+    sd[f"{name}.weight"] = _t(_permute(p["w"], 1, 0))
     sd[f"{name}.bias"] = _t(p["b"])
 
 
@@ -63,7 +76,8 @@ def transformer_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]"
     for i, layer in enumerate(params["layers"]):
         pre = f"encoder.layers.{i}"
         attn = layer["self_attn"]
-        sd[f"{pre}.self_attn.in_proj_weight"] = _t(np.asarray(attn["in_proj"]["w"]).T)
+        sd[f"{pre}.self_attn.in_proj_weight"] = _t(
+            _permute(attn["in_proj"]["w"], 1, 0))
         sd[f"{pre}.self_attn.in_proj_bias"] = _t(attn["in_proj"]["b"])
         _lin(attn["out_proj"], f"{pre}.self_attn.out_proj", sd)
         _lin(layer["linear1"], f"{pre}.linear1", sd)
@@ -105,7 +119,7 @@ def tiny_gpt_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]":
             _lin(blk[group][name], f"{pre}.{group}.{name}", sd)
     sd["ln_f.weight"] = _t(params["ln_f"]["scale"])
     sd["ln_f.bias"] = _t(params["ln_f"]["bias"])
-    sd["lm_head.weight"] = _t(np.asarray(params["lm_head"]["w"]).T)
+    sd["lm_head.weight"] = _t(_permute(params["lm_head"]["w"], 1, 0))
     return sd
 
 
@@ -169,7 +183,7 @@ _UNET_BLOCKS = ("rb1", "rb2", "rb3", "rb4")
 
 
 def _conv(p: dict, name: str, sd: dict) -> None:
-    sd[f"{name}.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
+    sd[f"{name}.weight"] = _t(_permute(p["w"], 3, 2, 0, 1))
     sd[f"{name}.bias"] = _t(p["b"])
 
 
@@ -378,8 +392,10 @@ def classifier_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]":
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     _conv(params["conv1"], "conv1", sd)
     _conv(params["conv2"], "conv2", sd)
-    w1 = np.asarray(params["fc1"]["w"])              # (7*7*32, 128), HWC rows
-    w1 = w1.reshape(7, 7, 32, -1).transpose(2, 0, 1, 3).reshape(w1.shape)
+    w1 = params["fc1"]["w"]                          # (7*7*32, 128), HWC rows
+    if not torch.is_tensor(w1):
+        w1 = np.asarray(w1)
+    w1 = _permute(w1.reshape(7, 7, 32, -1), 2, 0, 1, 3).reshape(w1.shape)
     _lin({"w": w1, "b": params["fc1"]["b"]}, "fc1", sd)
     _lin(params["fc2"], "fc2", sd)
     return sd

@@ -60,6 +60,7 @@ def _models(args, device):
         load_checkpoint,
         tiny_gpt_state_from_jax,
     )
+    from tinydiffusionmodels_torch.core.rng import prng_key
     from tinydiffusionmodels_torch.models import TinyGPT, TinyGPTConfig
 
     if args.lm_ckpt:
@@ -68,7 +69,7 @@ def _models(args, device):
         cfg = TinyGPTConfig(vocab_size=int(vocab), dim=int(dim),
                             n_heads=args.heads, depth=len(params["blocks"]),
                             max_len=int(params["pos_emb"].shape[0]))
-        trained = TinyGPT(cfg)
+        trained = torch.nn.utils.skip_init(TinyGPT, cfg)
         trained.load_state_dict(tiny_gpt_state_from_jax(params), strict=True)
         print(f"trained: {args.lm_ckpt}")
     else:
@@ -91,7 +92,7 @@ def _models(args, device):
               f"({source} corpus)")
         trained = train_lm(chunks, cfg, epochs=args.epochs, seed=0,
                            device=device)
-    random = TinyGPT(cfg, generator=torch.Generator().manual_seed(0))
+    random = TinyGPT(cfg, key=prng_key(0), device=device)
     return {"random": random.to(device).eval(),
             "trained": trained.to(device).eval()}
 

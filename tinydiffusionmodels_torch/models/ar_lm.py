@@ -23,10 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tinydiffusionmodels_torch import ops
-from tinydiffusionmodels_torch.models.embedding import (
-    _default_generator,
-    init_linear_,
-)
+from tinydiffusionmodels_torch.io import convert
+from tinydiffusionmodels_torch.models import init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,10 +76,10 @@ class Block(nn.Module):
 
 
 class TinyGPT(nn.Module):
-    """ids (B, L) -> next-token logits (B, L, V)."""
+    """ids (B, L) -> next-token logits (B, L, V). The weights are
+    ``init_tiny_gpt``'s from ``key``, drawn on ``device``."""
 
-    def __init__(self, cfg: TinyGPTConfig, *,
-                 generator: torch.Generator | None = None):
+    def __init__(self, cfg: TinyGPTConfig, *, key=None, device=None):
         super().__init__()
         self.cfg = cfg
         d = cfg.dim
@@ -92,23 +90,20 @@ class TinyGPT(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
         self.ln_f = nn.LayerNorm(d, eps=1e-5)
         self.lm_head = _linear(d, cfg.vocab_size, bias=False)
-        self.reset_parameters(generator)
+        self.to(device)
+        self.reset_parameters(key)
 
-    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        """The JAX package's init distributions, drawn from ``generator``
-        (seed 0 when None): token table N(0, 0.02), position table
-        N(0, 0.01), linears U(+-1/sqrt(fan_in)), LayerNorms 1/0."""
-        g = _default_generator(generator)
-        with torch.no_grad():
-            self.tok_emb.weight.normal_(0.0, 0.02, generator=g)
-            self.pos_emb.weight.normal_(0.0, 0.01, generator=g)
-            for blk in self.blocks:
-                for lin in (*blk.attn.values(), *blk.mlp.values()):
-                    init_linear_(lin, g)
-                blk.ln1.reset_parameters()
-                blk.ln2.reset_parameters()
-            self.ln_f.reset_parameters()
-            init_linear_(self.lm_head, g)
+    def reset_parameters(self, key=None) -> None:
+        """The JAX package's ``init_tiny_gpt`` from ``key`` (``PRNGKey(0)``
+        when None), drawn on the parameters' device: token table 0.02
+        N(0, 1), position table 0.01 N(0, 1), linears U(+-1/sqrt(fan_in)),
+        LayerNorms 1/0."""
+        # nn.utils.skip_init builds a module to load into: no draw.
+        if self.lm_head.weight.is_meta:
+            return
+        params = init.init_tiny_gpt(init.default_key(key), self.cfg,
+                                    self.lm_head.weight.device)
+        self.load_state_dict(convert.tiny_gpt_state_from_jax(params))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         """Full causal forward (``tiny_gpt_apply``)."""

@@ -17,27 +17,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tinydiffusionmodels_torch.models.embedding import (
-    _default_generator,
-    init_linear_,
-)
+from tinydiffusionmodels_torch.io import convert
+from tinydiffusionmodels_torch.models import init
 from tinydiffusionmodels_torch.models.unet import _conv
 
 
 class DigitClassifier(nn.Module):
-    """``init_classifier``'s network; torch's default init from
-    ``generator``."""
+    """``init_classifier``'s network, its weights drawn from ``key``
+    (``PRNGKey(0)`` when None) on ``device``."""
 
-    def __init__(self, n_classes: int = 10, *,
-                 generator: torch.Generator | None = None):
+    def __init__(self, n_classes: int = 10, *, key=None, device=None):
         super().__init__()
-        g = _default_generator(generator)
-        self.conv1 = _conv(1, 16, 3, g)
-        self.conv2 = _conv(16, 32, 3, g)
+        self.conv1 = _conv(1, 16, 3)
+        self.conv2 = _conv(16, 32, 3)
         self.fc1 = nn.utils.skip_init(nn.Linear, 7 * 7 * 32, 128)
-        init_linear_(self.fc1, g)
         self.fc2 = nn.utils.skip_init(nn.Linear, 128, n_classes)
-        init_linear_(self.fc2, g)
+        self.to(device)
+        # nn.utils.skip_init builds a module to load into: no draw.
+        if self.fc1.weight.is_meta:
+            return
+        self.load_state_dict(convert.classifier_state_from_jax(
+            init.init_classifier(init.default_key(key), n_classes,
+                                 self.fc1.weight.device)))
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, 28, 28, 1) -> the penultimate features (B, 128)."""

@@ -13,30 +13,15 @@ import numpy as np
 import torch
 from torch import nn
 
-
-def _default_generator(generator: torch.Generator | None) -> torch.Generator:
-    return generator if generator is not None else torch.Generator().manual_seed(0)
-
-
-def init_linear_(
-    layer: nn.Linear, generator: torch.Generator | None = None
-) -> None:
-    """torch's nn.Linear default init, U(+-1/sqrt(fan_in)) for weight and
-    bias, drawn from ``generator``."""
-    g = _default_generator(generator)
-    bound = 1.0 / math.sqrt(layer.in_features)
-    with torch.no_grad():
-        layer.weight.uniform_(-bound, bound, generator=g)
-        if layer.bias is not None:
-            layer.bias.uniform_(-bound, bound, generator=g)
+from tinydiffusionmodels_torch.io import convert
+from tinydiffusionmodels_torch.models import init
 
 
 class LearnedEmbedding(nn.Module):
-    """Trainable (vocab, dim) table, N(0, 0.02) init.
-
-    ``pretrained`` (vocab, pre_dim) initializes the table instead; when
-    pre_dim != dim it is projected through a random, untrained
-    Linear(pre_dim, dim, bias=False), the reference's quirk."""
+    """Trainable (vocab, dim) table: ``init_learned_embedding``'s from
+    ``key``, drawn on ``device``: 0.02 N(0, 1), or ``pretrained`` (vocab,
+    pre_dim), projected through a random, untrained Linear(pre_dim, dim,
+    bias=False) when pre_dim != dim (the reference's quirk)."""
 
     def __init__(
         self,
@@ -44,45 +29,42 @@ class LearnedEmbedding(nn.Module):
         embed_dim: int,
         *,
         pretrained: np.ndarray | torch.Tensor | None = None,
-        generator: torch.Generator | None = None,
+        key=None,
+        device=None,
     ):
         super().__init__()
         # _weight skips nn.Embedding's own draw from the global RNG.
         self.embeddings = nn.Embedding(
             vocab_size, embed_dim, _weight=torch.empty(vocab_size, embed_dim)
         )
-        g = _default_generator(generator)
-        with torch.no_grad():
-            if pretrained is None:
-                self.embeddings.weight.normal_(0.0, 0.02, generator=g)
-                return
-            pre = torch.as_tensor(np.asarray(pretrained), dtype=torch.float32)
-            if pre.shape[0] != vocab_size:
-                raise ValueError(
-                    f"pretrained vocab {pre.shape[0]} != {vocab_size}"
-                )
-            if pre.shape[1] != embed_dim:
-                bound = 1.0 / math.sqrt(pre.shape[1])
-                proj = torch.empty(pre.shape[1], embed_dim).uniform_(
-                    -bound, bound, generator=g
-                )
-                pre = pre @ proj
-            self.embeddings.weight.copy_(pre)
+        self.to(device)
+        # nn.utils.skip_init builds a module to load into: no draw.
+        if self.embeddings.weight.is_meta:
+            return
+        if torch.is_tensor(pretrained):
+            pretrained = pretrained.detach().cpu()
+        self.load_state_dict(convert.embedding_state_from_jax(
+            init.init_learned_embedding(init.default_key(key), vocab_size,
+                                        embed_dim, pretrained,
+                                        self.embeddings.weight.device)))
 
 
 class LearnedRounding(nn.Module):
-    """One Linear(dim, vocab) decoding embeddings to token logits."""
+    """One Linear(dim, vocab) decoding embeddings to token logits:
+    ``init_learned_rounding``'s from ``key``, drawn on ``device``."""
 
-    def __init__(
-        self,
-        embed_dim: int,
-        vocab_size: int,
-        *,
-        generator: torch.Generator | None = None,
-    ):
+    def __init__(self, embed_dim: int, vocab_size: int, *, key=None,
+                 device=None):
         super().__init__()
         self.decoder = nn.utils.skip_init(nn.Linear, embed_dim, vocab_size)
-        init_linear_(self.decoder, generator)
+        self.to(device)
+        # nn.utils.skip_init builds a module to load into: no draw.
+        if self.decoder.weight.is_meta:
+            return
+        self.load_state_dict(convert.rounding_state_from_jax(
+            init.init_learned_rounding(init.default_key(key), embed_dim,
+                                       vocab_size,
+                                       self.decoder.weight.device)))
 
     def forward(self, embeddings: torch.Tensor) -> torch.Tensor:
         return self.decoder(embeddings)

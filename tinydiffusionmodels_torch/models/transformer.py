@@ -17,8 +17,9 @@ package's sites, from the JAX package's keys (``core/rng.py``): the input
 flash kernels, seeded per layer by ``randint(substream(fold_in(key, i),
 "attn_weights"))``) and ``dropout1``, ``dropout_ffn`` and ``dropout2`` of
 layer i (``substream(fold_in(key, i), name)``). Every mask and seed is
-drawn on the model's device (``ops.rng``: one launch a draw on the card),
-so a training step needs no host sync. The masks are ``draw_keep``'s, so
+drawn on the model's device (``ops.rng``: on the card one launch a mask,
+and one for all the layers' seeds, which the trainer draws with the
+step's timesteps and noise), so a training step needs no host sync. The masks are ``draw_keep``'s, so
 for the same key they equal the JAX package's; the attention-weight mask
 is the flash kernels' coordinate hash, which equals the JAX package's
 flash path (its XLA path, which it takes at the training shapes, drops a
@@ -56,10 +57,8 @@ from torch import nn
 
 from tinydiffusionmodels_torch import ops
 from tinydiffusionmodels_torch.core.rng import fold_in, substream
-from tinydiffusionmodels_torch.models.embedding import (
-    _default_generator,
-    init_linear_,
-)
+from tinydiffusionmodels_torch.io import convert
+from tinydiffusionmodels_torch.models import init
 from tinydiffusionmodels_torch.parallel.tp import (
     copy_to_model,
     reduce_from_model,
@@ -97,8 +96,8 @@ class TransformerConfig:
 
 
 def _linear(in_dim: int, out_dim: int) -> nn.Linear:
-    # skip_init: parameters are drawn by reset_parameters from an explicit
-    # generator, not by nn.Linear from the global RNG.
+    # skip_init: parameters are drawn by reset_parameters from the key
+    # tree, not by nn.Linear from the global RNG.
     return nn.utils.skip_init(nn.Linear, in_dim, out_dim)
 
 
@@ -158,10 +157,11 @@ class SelfAttention(nn.Module):
         self.tp = None   # parallel.tp.TensorSplit: this rank's heads
 
     def forward(
-        self, x: torch.Tensor, key=None, batch: tuple[int, int] = (0, 1)
+        self, x: torch.Tensor, seed=None, batch: tuple[int, int] = (0, 1)
     ) -> torch.Tensor:
-        """``key`` (training; the layer's) seeds the attention-weight
-        dropout; ``batch`` places ``x``'s rows in the global batch."""
+        """``seed`` (training: the layer's ``attention_seed``, a one-element
+        int32 tensor on the device) seeds the attention-weight dropout;
+        ``batch`` places ``x``'s rows in the global batch."""
         cfg, tp = self.cfg, self.tp
         b, l, d = x.shape
         dh = d // cfg.n_heads
@@ -179,13 +179,7 @@ class SelfAttention(nn.Module):
             offset = ops.sequence_shard(cfg.seq_axis)[0] * l
             q = _rope(q, l_axis=1, offset=offset)
             k = _rope(k, l_axis=1, offset=offset)
-        rate, seed = 0.0, None
-        if key is not None and cfg.dropout > 0.0:
-            # One int32 seed per call, drawn on the device as
-            # _pack_scalars draws it: the kernels read it there, as the TPU
-            # kernel reads its SMEM scalar.
-            rate = cfg.dropout
-            seed = ops.rng.attention_seed(substream(key, "attn_weights"))
+        rate = 0.0 if seed is None else cfg.dropout
         out = ops.attention(q, k, v, layout="blhd", dropout_rate=rate,
                             dropout_seed=seed, seq_axis=cfg.seq_axis,
                             batch_offset=batch[0] * b, **heads_kw)
@@ -212,12 +206,14 @@ class EncoderLayer(nn.Module):
         self.tp = None   # parallel.tp.TensorSplit: this rank's FFN columns
 
     def forward(
-        self, x: torch.Tensor, key=None, batch: tuple[int, int] = (0, 1)
+        self, x: torch.Tensor, key=None, batch: tuple[int, int] = (0, 1),
+        seed=None,
     ) -> torch.Tensor:
         """``key`` (training; the layer's, ``fold_in(key, i)``) draws the
         dropout masks: dropout1 on the attention output, dropout_ffn after
-        the ReLU, dropout2 after linear2. ``batch`` places ``x``'s rows in
-        the global batch."""
+        the ReLU, dropout2 after linear2; ``seed`` is the attention-weight
+        dropout's (``TinyTransformer.seed_draws``). ``batch`` places
+        ``x``'s rows in the global batch."""
         rate, tp = self.rate, self.tp
         shard = ops.sequence_shard(self.seq_axis)
 
@@ -227,7 +223,7 @@ class EncoderLayer(nn.Module):
             return dropout(y, rate, substream(key, name), batch, shard,
                            features)
 
-        sa = drop(self.self_attn(x, key, batch), "dropout1")
+        sa = drop(self.self_attn(x, seed, batch), "dropout1")
         x = self.norm1(x + sa)
         if tp is None:
             ff = drop(F.relu(self.linear1(x)), "dropout_ffn")
@@ -249,14 +245,10 @@ class Encoder(nn.Module):
 
 class TinyTransformer(nn.Module):
     """x: (B, L, dim) noisy embeddings, t: (B,) int timesteps -> eps_hat
-    (or x0_hat for an x0-parameterized checkpoint)."""
+    (or x0_hat for an x0-parameterized checkpoint). The weights are
+    ``init_tiny_transformer``'s from ``key``, drawn on ``device``."""
 
-    def __init__(
-        self,
-        cfg: TransformerConfig,
-        *,
-        generator: torch.Generator | None = None,
-    ):
+    def __init__(self, cfg: TransformerConfig, *, key=None, device=None):
         super().__init__()
         self.cfg = cfg
         self.time_emb = _linear(1, cfg.dim)
@@ -268,34 +260,23 @@ class TinyTransformer(nn.Module):
             self.pos_emb = None
         self.selfcond_proj = _linear(cfg.dim, cfg.dim) if cfg.self_cond else None
         self.encoder = Encoder(cfg)
-        self.reset_parameters(generator)
+        self.to(device)
+        self.reset_parameters(key)
 
-    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        """torch's module defaults, drawn from ``generator`` (seed 0 when
-        None): nn.Linear U(+-1/sqrt(fan_in)); MHA xavier-uniform in_proj with
-        zero in_proj and out_proj biases; LayerNorm 1/0; the position table
-        N(0, 0.02); the self-conditioning projection zero (so with no
-        estimate the model computes the unconditioned function)."""
-        g = _default_generator(generator)
-        d = self.cfg.dim
-        with torch.no_grad():
-            init_linear_(self.time_emb, g)
-            if self.pos_emb is not None:
-                self.pos_emb.weight.normal_(0.0, 0.02, generator=g)
-            if self.selfcond_proj is not None:
-                self.selfcond_proj.weight.zero_()
-                self.selfcond_proj.bias.zero_()
-            for layer in self.encoder.layers:
-                attn = layer.self_attn
-                bound = math.sqrt(6.0 / (d + 3 * d))
-                attn.in_proj_weight.uniform_(-bound, bound, generator=g)
-                attn.in_proj_bias.zero_()
-                init_linear_(attn.out_proj, g)
-                attn.out_proj.bias.zero_()
-                init_linear_(layer.linear1, g)
-                init_linear_(layer.linear2, g)
-                for norm in (layer.norm1, layer.norm2):
-                    norm.reset_parameters()
+    def reset_parameters(self, key=None) -> None:
+        """The JAX package's ``init_tiny_transformer`` from ``key``
+        (``PRNGKey(0)`` when None), drawn on the parameters' device:
+        torch's module defaults (nn.Linear U(+-1/sqrt(fan_in)); MHA
+        xavier-uniform in_proj with zero in_proj and out_proj biases;
+        LayerNorm 1/0), the position table 0.02 N(0, 1), the
+        self-conditioning projection zero (so with no estimate the model
+        computes the unconditioned function)."""
+        # nn.utils.skip_init builds a module to load into: no draw.
+        if self.time_emb.weight.is_meta:
+            return
+        params = init.init_tiny_transformer(
+            init.default_key(key), self.cfg, self.time_emb.weight.device)
+        self.load_state_dict(convert.transformer_state_from_jax(params))
 
     def forward(
         self,
@@ -305,6 +286,7 @@ class TinyTransformer(nn.Module):
         x0_prev: torch.Tensor | None = None,
         deterministic: bool = True,
         key=None,
+        attn_seeds=None,
         batch_shard: tuple[int, int] = (0, 1),
     ) -> torch.Tensor:
         """Additive time bias (and positions, and the self-conditioning
@@ -312,8 +294,10 @@ class TinyTransformer(nn.Module):
         previous clean estimate when ``cfg.self_cond``; None means no
         estimate. ``deterministic=False`` (training) needs ``key`` (a key or
         ``core.rng.KeyPath`` on the device of ``x``: the JAX package's
-        dropout key), from which every dropout mask and seed is drawn.
-        ``batch_shard`` = (index, n): ``x`` is the index-th of n equal row
+        dropout key), from which every dropout mask and seed is drawn;
+        ``attn_seeds`` are the layers' attention-weight seeds when the
+        caller drew them (``seed_draws``, in its own launch), else they are
+        drawn here in one. ``batch_shard`` = (index, n): ``x`` is the index-th of n equal row
         blocks of the global batch (a data-parallel rank's), and the masks
         are its rows of the global batch's."""
         cfg = self.cfg
@@ -343,7 +327,24 @@ class TinyTransformer(nn.Module):
         if key is not None:
             x = dropout(x, cfg.dropout, substream(key, "input_dropout"),
                         batch_shard, shard)
+        if key is not None and attn_seeds is None:
+            attn_seeds = ops.rng.draw_many(self.seed_draws(key), x.device)
         for i, layer in enumerate(self.encoder.layers):
-            x = layer(x, None if key is None else fold_in(key, i),
-                      batch_shard)
+            if key is None:
+                x = layer(x, None, batch_shard)
+            else:
+                x = layer(x, fold_in(key, i), batch_shard,
+                          attn_seeds[i] if attn_seeds else None)
         return x
+
+    def seed_draws(self, key) -> list:
+        """The layers' attention-weight dropout seeds under the dropout key
+        ``key``, as ``ops.rng.Draw``s: layer i's is ``randint(substream(
+        fold_in(key, i), "attn_weights"))``, the int32 scalar
+        ``_pack_scalars`` draws, which the flash kernels read on the
+        device; none without dropout."""
+        if self.cfg.dropout == 0.0:
+            return []
+        return [ops.rng.attention_seed_draw(
+            substream(fold_in(key, i), "attn_weights"))
+            for i in range(self.cfg.depth)]

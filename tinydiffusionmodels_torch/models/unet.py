@@ -17,44 +17,32 @@ Not carried over: the concat-free split decoder (``_split_decoder``,
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tinydiffusionmodels_torch import ops
-from tinydiffusionmodels_torch.models.embedding import (
-    _default_generator,
-    init_linear_,
-)
+from tinydiffusionmodels_torch.io import convert
+from tinydiffusionmodels_torch.models import init
 
-# (in_ch, out_ch) per residual block, reference src/mnist.py:68-74.
-BLOCKS = {"rb1": (1, 32), "rb2": (32, 64), "rb3": (64, 64), "rb4": (96, 32)}
+BLOCKS = init.UNET_BLOCKS
 
 
-def _conv(in_ch: int, out_ch: int, k: int, g: torch.Generator) -> nn.Conv2d:
-    """torch's nn.Conv2d default init, U(+-1/sqrt(fan_in)) for weight and
-    bias, drawn from ``g`` (``torch_init.conv_params``)."""
-    conv = nn.utils.skip_init(nn.Conv2d, in_ch, out_ch, k, padding=k // 2)
-    bound = 1.0 / math.sqrt(in_ch * k * k)
-    with torch.no_grad():
-        conv.weight.uniform_(-bound, bound, generator=g)
-        conv.bias.uniform_(-bound, bound, generator=g)
-    return conv
+def _conv(in_ch: int, out_ch: int, k: int) -> nn.Conv2d:
+    """An nn.Conv2d (same padding) left for the initialiser to fill."""
+    return nn.utils.skip_init(nn.Conv2d, in_ch, out_ch, k, padding=k // 2)
 
 
 class ResBlock(nn.Module):
     """relu(conv1(x)) + time bias -> relu(conv2(.)) + skip(x); the skip is
     a 1x1 conv where the channel count changes, else the identity."""
 
-    def __init__(self, in_ch: int, out_ch: int, g: torch.Generator):
+    def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.conv1 = _conv(in_ch, out_ch, 3, g)
-        self.conv2 = _conv(out_ch, out_ch, 3, g)
+        self.conv1 = _conv(in_ch, out_ch, 3)
+        self.conv2 = _conv(out_ch, out_ch, 3)
         self.time_emb = nn.utils.skip_init(nn.Linear, 1, out_ch)
-        init_linear_(self.time_emb, g)
-        self.skip = _conv(in_ch, out_ch, 1, g) if in_ch != out_ch else None
+        self.skip = _conv(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor, t_scaled: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, Cin) NHWC, t_scaled (B, 1) -> (B, H, W, Cout)."""
@@ -77,16 +65,23 @@ def _upsample_nearest2(x: torch.Tensor) -> torch.Tensor:
 
 
 class SimpleUNet(nn.Module):
-    """The MNIST denoiser: (x_t (B, H, W, 1) NHWC, t (B,) int) -> eps_hat."""
+    """The MNIST denoiser: (x_t (B, H, W, 1) NHWC, t (B,) int) -> eps_hat.
+    The weights are ``init_unet``'s from ``key`` (``PRNGKey(0)`` when
+    None), drawn on ``device``: torch's nn.Conv2d and nn.Linear defaults,
+    U(+-1/sqrt(fan_in))."""
 
-    def __init__(self, timesteps: int = 1000, *,
-                 generator: torch.Generator | None = None):
+    def __init__(self, timesteps: int = 1000, *, key=None, device=None):
         super().__init__()
         self.timesteps = timesteps
-        g = _default_generator(generator)
         for name, (cin, cout) in BLOCKS.items():
-            self.add_module(name, ResBlock(cin, cout, g))
-        self.out = _conv(32, 1, 1, g)
+            self.add_module(name, ResBlock(cin, cout))
+        self.out = _conv(32, 1, 1)
+        self.to(device)
+        # nn.utils.skip_init builds a module to load into: no draw.
+        if self.out.weight.is_meta:
+            return
+        self.load_state_dict(convert.unet_state_from_jax(init.init_unet(
+            init.default_key(key), self.out.weight.device)))
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """Mirrors ``unet_apply`` (reference src/mnist.py:76-87)."""

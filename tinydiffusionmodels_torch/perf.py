@@ -28,12 +28,16 @@ import torch
 
 # Peaks by device-name prefix: H100 SXM (NVIDIA data sheet, 700 W, dense),
 # HBM3 bytes/s, f32 FLOP/s outside the tensor cores, bf16 and TF32
-# tensor-core FLOP/s.
+# tensor-core FLOP/s, and 32-bit integer operations a second (an SM's 64
+# INT32 lanes and the 64 FMA lanes that also run integer multiply-adds,
+# Hopper white paper, at 132 SMs and the 1.98 GHz boost clock; a hash's
+# add, rotate or xor is one).
 # Only the card the port is measured on is listed: the H100 PCIe and NVL
 # parts have other rates, so they get None. Everything reads them through
 # ``device_peak_flops`` and ``device_hbm_bandwidth``.
 _PEAK_FLOPS = (("NVIDIA H100 80GB HBM3",
-                {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}),)
+                {"bf16": 989e12, "tf32": 495e12, "f32": 67e12,
+                 "int32": 132 * 128 * 1.98e9}),)
 _HBM_BW = (("NVIDIA H100 80GB HBM3", 3.35e12),)
 
 
@@ -67,9 +71,9 @@ def card_label() -> str:
 
 def device_peak_flops(device=None, dtype: str = "bf16") -> float | None:
     """Peak dense FLOP/s of ``device`` (default: the current CUDA device)
-    for ``dtype``: 'bf16' or 'tf32' (tensor cores) or 'f32' (outside the
-    tensor cores). None on the CPU and on a card the table does not
-    list."""
+    for ``dtype``: 'bf16' or 'tf32' (tensor cores), 'f32' (outside the
+    tensor cores) or 'int32' (32-bit integer operations). None on the CPU
+    and on a card the table does not list."""
     name = _device_name(device)
     peaks = _lookup(_PEAK_FLOPS, name) if name else None
     return None if peaks is None else peaks[dtype]
@@ -161,9 +165,9 @@ def bound_ms(nbytes: int, ops, device=None) -> tuple[float, str] | None:
     """(least time in ms, what bounds it) on ``device`` (default: the
     current CUDA device) for work that moves ``nbytes`` and does, for each
     (flops, dtype) of ``ops``, ``flops`` operations of ``dtype`` ('f32',
-    'tf32' or 'bf16', as ``device_peak_flops``): bytes over the HBM rate or the summed
-    operation times at the dtypes' peaks, the larger ("bytes" or
-    "operations"). None where the peaks are unknown (the CPU, an unlisted
+    'tf32', 'bf16' or 'int32', as ``device_peak_flops``): bytes over the
+    HBM rate or the summed operation times at the dtypes' peaks, the
+    larger ("bytes" or "operations"). None where the peaks are unknown (the CPU, an unlisted
     card)."""
     bandwidth = device_hbm_bandwidth(device)
     peaks = [device_peak_flops(device, dtype) for _, dtype in ops]

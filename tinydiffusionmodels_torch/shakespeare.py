@@ -60,6 +60,7 @@ import os
 
 import numpy as np
 import torch
+from torch.nn.utils import skip_init
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
@@ -332,10 +333,12 @@ def _run(args):
 
     dev = device()
     multihost.initialize()
-    # Parameters are drawn on the CPU so a seed gives the same weights on
-    # every device; noise, masks and dropout seeds are the JAX CLI's draws
-    # (core/rng.py), made on the device.
-    init_gen = torch.Generator().manual_seed(args.seed)
+    # Every draw is the JAX CLI's, from its key tree (core/rng.py), made on
+    # the run's device: the initial weights from the substreams
+    # "embedding", "diffusion" and "rounding" of PRNGKey(--seed), as the
+    # JAX package's shakespeare.py draws them, then noise, masks and
+    # dropout seeds.
+    root = rng.prng_key(args.seed)
 
     # --- tokenizer / pretrained-matrix resolution -------------------------
     hf_tok, pretrained_matrix, torch_lm = None, None, None
@@ -384,7 +387,7 @@ def _run(args):
             vocab_size, embed_dim,
             pretrained=(pretrained_matrix if args.init_from_pretrained
                         else None),
-            generator=init_gen,
+            key=rng.substream(root, "embedding"), device=dev,
         )
         print(f"Using learned embeddings (dim={embed_dim}, "
               f"init_from_pretrained={args.init_from_pretrained})")
@@ -411,9 +414,11 @@ def _run(args):
         )
 
         joint = torch.nn.ModuleDict({
-            "diffusion_model": TinyTransformer(cfg, generator=init_gen),
-            "rounding_fn": LearnedRounding(embed_dim, vocab_size,
-                                           generator=init_gen),
+            "diffusion_model": TinyTransformer(
+                cfg, key=rng.substream(root, "diffusion"), device=dev),
+            "rounding_fn": LearnedRounding(
+                embed_dim, vocab_size, key=rng.substream(root, "rounding"),
+                device=dev),
         })
         if use_learned_embeddings:
             joint["embedding_fn"] = embedding
@@ -503,12 +508,12 @@ def _run(args):
             diff_sd = checkpoint["diffusion_model"]
             rounding_sd = checkpoint["rounding_fn"]
             v_ckpt, d_ckpt = np.shape(rounding_sd["decoder.weight"])
-            rounding = LearnedRounding(int(d_ckpt), int(v_ckpt))
+            rounding = skip_init(LearnedRounding, int(d_ckpt), int(v_ckpt))
             rounding.load_state_dict(state_from_checkpoint(rounding_sd))
             if use_learned_embeddings and "embedding_fn" in checkpoint:
                 emb_sd = checkpoint["embedding_fn"]
-                embedding = LearnedEmbedding(
-                    *np.shape(emb_sd["embeddings.weight"])
+                embedding = skip_init(
+                    LearnedEmbedding, *np.shape(emb_sd["embeddings.weight"])
                 )
                 embedding.load_state_dict(state_from_checkpoint(emb_sd))
             elif use_learned_embeddings:
@@ -531,7 +536,7 @@ def _run(args):
             use_learned_embeddings = False
 
         cfg = config_from_state_dict(diff_sd, cfg)
-        model = TinyTransformer(cfg)
+        model = skip_init(TinyTransformer, cfg)
         model.load_state_dict(state_from_checkpoint(diff_sd), strict=True)
     embed_dim = cfg.dim
     model.to(dev).eval()
@@ -562,8 +567,9 @@ def _run(args):
         print("Warning: no pre-trained embedding matrix available; cosine "
               "decoding will use randomly-initialized embeddings.")
         if embedding.embeddings.weight.shape[1] != embed_dim:
-            embedding = LearnedEmbedding(vocab_size, embed_dim,
-                                         generator=init_gen)
+            embedding = LearnedEmbedding(
+                vocab_size, embed_dim, key=rng.substream(root, "embedding"),
+                device=dev)
         embed_matrix = embedding_matrix(
             embedding.embeddings.weight.detach().to(dev), norm=args.embed_norm
         )
@@ -698,7 +704,8 @@ def _load_or_train_lm(args, vocab_size: int, corpus: str, tokenizer, dev,
             if t_ckpt < lm_cfg.max_len:
                 raise ValueError(f"cached base-LM max_len {t_ckpt} < "
                                  f"required {lm_cfg.max_len}")
-            lm = TinyGPT(dataclasses.replace(lm_cfg, max_len=t_ckpt))
+            lm = skip_init(TinyGPT, dataclasses.replace(lm_cfg,
+                                                        max_len=t_ckpt))
             lm.load_state_dict(tiny_gpt_state_from_jax(params), strict=True)
             print(f"[lm] loaded TinyGPT from {args.lm_ckpt}")
             return lm.to(dev).eval()

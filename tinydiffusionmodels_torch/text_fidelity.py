@@ -37,6 +37,7 @@ import sys
 
 import numpy as np
 import torch
+from torch.nn.utils import skip_init
 
 from tinydiffusionmodels_torch.core.rng import prng_key, substream
 from tinydiffusionmodels_torch.runtime import device as runtime_device
@@ -123,7 +124,8 @@ def load_or_train_lm(lm_ckpt: str, corpus: str, tokenizer, lm_cfg, *,
             if length < lm_cfg.max_len:
                 raise ValueError(f"cached judge max_len {length} < "
                                  f"required {lm_cfg.max_len}")
-            lm = TinyGPT(dataclasses.replace(lm_cfg, max_len=length))
+            lm = skip_init(TinyGPT, dataclasses.replace(lm_cfg,
+                                                        max_len=length))
             lm.load_state_dict(tiny_gpt_state_from_jax(params), strict=True)
             log(f"[lm] loaded TinyGPT from {lm_ckpt}")
             return lm.to(device).eval()
@@ -162,10 +164,10 @@ def _load_denoiser(ckpt: dict, corpus: str, device):
     cfg = config_from_state_dict(ckpt["diffusion_model"], TransformerConfig(
         dim=int(embed_dim), timesteps=sched.timesteps, self_cond=self_cond,
         pos_emb=ckpt.get("pos_emb", "none")))
-    model = TinyTransformer(cfg)
+    model = skip_init(TinyTransformer, cfg)
     model.load_state_dict(state_from_checkpoint(ckpt["diffusion_model"]),
                           strict=True)
-    rounding = LearnedRounding(int(embed_dim), int(vocab))
+    rounding = skip_init(LearnedRounding, int(embed_dim), int(vocab))
     rounding.load_state_dict(state_from_checkpoint(ckpt["rounding_fn"]))
     embed_matrix = None
     if "embedding_fn" in ckpt:

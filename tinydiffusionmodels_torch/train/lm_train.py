@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from tinydiffusionmodels_torch import runtime
+from tinydiffusionmodels_torch.core import rng
 from tinydiffusionmodels_torch.data.loader import batch_iterator
 from tinydiffusionmodels_torch.models.ar_lm import TinyGPT, TinyGPTConfig
 from tinydiffusionmodels_torch.train.optim import adamw
@@ -59,8 +60,11 @@ def train_lm(
     if device is None:
         device = runtime.device()
     batch_size = max(1, min(batch_size, chunks.shape[0]))
-    model = TinyGPT(cfg, generator=torch.Generator().manual_seed(seed))
-    model.to(device).train()
+    # init_tiny_gpt's weights from substream(PRNGKey(seed), "lm_init"), as
+    # the JAX trainer draws them, on the device.
+    model = TinyGPT(cfg, key=rng.substream(rng.prng_key(seed), "lm_init"),
+                    device=device)
+    model.train()
     optimizer = adamw(model.parameters(), lr, weight_decay=0.01)
     data = torch.as_tensor(chunks, dtype=torch.long, device=device)
     for epoch in range(epochs):

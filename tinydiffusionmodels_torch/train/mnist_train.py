@@ -106,17 +106,19 @@ def optimizer_step(model: nn.Module, optimizer, batch: torch.Tensor,
 def draw_t_noise(key, shape, timesteps: int, mesh=None):
     """The JAX step's timesteps (B,) and noise ``shape`` (B, 28, 28, 1) for
     step key ``key``: ``randint(substream(key, "timesteps"))`` and
-    ``draw_noise(substream(key, "noise"))`` on the key's device; with
-    ``mesh`` this rank's rows of them, drawn alone."""
+    ``draw_noise(substream(key, "noise"))`` on the key's device, in one
+    launch on the card; with ``mesh`` this rank's rows of them, drawn
+    alone."""
     b = shape[0]
     index, n = (0, 1) if mesh is None else (mesh.index("data"),
                                             mesh.axis_size("data"))
     rows = b // n
     window = ((index * rows, rows),) + tuple((0, d) for d in shape[1:])
-    t = ops.rng.randint(rng.substream(key, "timesteps"), (b,), 0, timesteps,
-                        window=window[:1])
-    noise = ops.rng.draw_noise(rng.substream(key, "noise"), tuple(shape),
-                               window=window)
+    t, noise = ops.rng.draw_many([
+        ops.rng.Draw("randint", rng.substream(key, "timesteps"), (b,),
+                     window[:1], 0, timesteps, dtype=torch.int64),
+        ops.rng.Draw("noise", rng.substream(key, "noise"), tuple(shape),
+                     window)])
     return t, noise
 
 
@@ -302,17 +304,17 @@ def train(
     data = torch.as_tensor(normalize_mnist(images), device=dev)
 
     sched = make_schedule(device=dev)
-    # Parameters are drawn on the CPU, so a seed gives the same weights on
-    # every device; t and noise are drawn on the device.
-    model = SimpleUNet(sched.timesteps,
-                       generator=torch.Generator().manual_seed(seed)).to(dev)
+    # init_unet's weights from substream(PRNGKey(seed), "init"), as the JAX
+    # trainer draws them, on the device.
+    root = rng.prng_key(seed)
+    model = SimpleUNet(sched.timesteps, key=rng.substream(root, "init"),
+                       device=dev)
     replicate_tree(mesh, model)
     # torch AdamW default weight decay, reference src/mnist.py:148.
     optimizer = adamw(model.parameters(), lr, weight_decay=0.01)
     ema = None
     if ema_decay is not None:
         ema = copy.deepcopy(model).requires_grad_(False)
-    root = rng.prng_key(seed)
     epoch_steps = data.shape[0] // batch_size
     steps = MnistSteps(model, optimizer, data, sched, batch_size=batch_size,
                        steps=epoch_steps, key=rng.substream(root, "train"),
@@ -393,7 +395,7 @@ def train(
 
 def load_unet(ckpt_path: str, device=None) -> SimpleUNet:
     """A SimpleUNet from a checkpoint either package wrote, on ``device``."""
-    model = SimpleUNet()
+    model = nn.utils.skip_init(SimpleUNet)
     model.load_state_dict(state_from_checkpoint(load_checkpoint(ckpt_path)),
                           strict=True)
     return model.to(runtime_device() if device is None else device).eval()

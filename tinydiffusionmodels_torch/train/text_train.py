@@ -110,6 +110,7 @@ def _losses(
     pretrained_matrix: torch.Tensor | None,
     deterministic: bool,
     key=None,
+    attn_seeds=None,
     batch_shard: tuple[int, int] = (0, 1),
     self_cond_coin: bool = False,
     parameterization: str = "eps",
@@ -194,7 +195,8 @@ def _losses(
         else:
             x0_prev = torch.zeros(x_noisy.shape, device=x_noisy.device)
 
-    kw = {} if deterministic else dict(key=key, batch_shard=batch_shard)
+    kw = {} if deterministic else dict(key=key, attn_seeds=attn_seeds,
+                                       batch_shard=batch_shard)
     pred = denoise(x_noisy, t, deterministic=deterministic, x0_prev=x0_prev,
                    **kw)
     target = x0 if parameterization == "x0" else noise
@@ -231,22 +233,43 @@ def shards(joint, mesh) -> tuple[tuple[int, int], tuple[int, int]]:
     return (mesh.index("data"), mesh.axis_size("data")), seq
 
 
-def draw_t_noise(joint, token_ids, timesteps, key, mesh=None):
-    """The JAX step's timesteps (B,) and noise (B, L, dim) for the global
-    batch ``token_ids`` and step key ``key``: ``randint(substream(key,
-    "timesteps"))`` and ``draw_noise(substream(key, "noise"))``, on the
-    device of the key. With ``mesh``, this rank's rows (and positions) of
-    them, drawn alone."""
+def _t_noise_draws(joint, token_ids, timesteps, key, mesh) -> list:
     b, length = token_ids.shape
     dim = joint["diffusion_model"].cfg.dim
     (bi, bn), (si, sn) = shards(joint, mesh)
     rows, cols = b // bn, length // sn
-    t = ops.rng.randint(rng.substream(key, "timesteps"), (b,), 0, timesteps,
-                        window=((bi * rows, rows),))
-    noise = ops.rng.draw_noise(
-        rng.substream(key, "noise"), (b, length, dim),
-        window=((bi * rows, rows), (si * cols, cols), (0, dim)))
+    return [ops.rng.Draw("randint", rng.substream(key, "timesteps"), (b,),
+                         ((bi * rows, rows),), 0, timesteps,
+                         dtype=torch.int64),
+            ops.rng.Draw("noise", rng.substream(key, "noise"),
+                         (b, length, dim),
+                         ((bi * rows, rows), (si * cols, cols), (0, dim)))]
+
+
+def draw_t_noise(joint, token_ids, timesteps, key, mesh=None):
+    """The JAX step's timesteps (B,) and noise (B, L, dim) for the global
+    batch ``token_ids`` and step key ``key``: ``randint(substream(key,
+    "timesteps"))`` and ``draw_noise(substream(key, "noise"))``, on the
+    device of the key, in one launch on the card. With ``mesh``, this
+    rank's rows (and positions) of them, drawn alone."""
+    t, noise = ops.rng.draw_many(
+        _t_noise_draws(joint, token_ids, timesteps, key, mesh))
     return t, noise
+
+
+def step_draws(joint, token_ids, timesteps, key, mesh=None):
+    """A training step's draws in one launch on the card: ``draw_t_noise``'s
+    timesteps and noise, the denoiser's attention-weight dropout seeds
+    under the step's dropout key ``substream(key, "dropout")``
+    (``TinyTransformer.seed_draws``) and that key itself, derived once
+    (on the card a (2,) device tensor, from which the step's masks fold in
+    their few words). Returns (t, noise, seeds, dropout key)."""
+    dropout_key = rng.substream(key, "dropout")
+    draws = _t_noise_draws(joint, token_ids, timesteps, key, mesh)
+    seeds = joint["diffusion_model"].seed_draws(dropout_key)
+    t, noise, derived, *seeds = ops.rng.draw_many(
+        draws + [ops.rng.Draw("key", dropout_key, (2,))] + seeds)
+    return t, noise, seeds, derived
 
 
 def _local(joint, mesh, token_ids):
@@ -284,11 +307,11 @@ def train_step(joint, optimizer, token_ids, rounding_weight, key, *,
     ``mesh`` the step trains on this rank's share of it with its share of
     every draw, and ``parallel.average_gradients`` averages the gradients
     and losses over the ranks before AdamW."""
-    t, noise = draw_t_noise(joint, token_ids, sched.timesteps, key, mesh)
+    t, noise, seeds, dropout_key = step_draws(joint, token_ids,
+                                              sched.timesteps, key, mesh)
     total, (diff, round_) = _losses(
         joint, _local(joint, mesh, token_ids), t, noise, rounding_weight,
-        sched=sched, deterministic=False,
-        key=rng.substream(key, "dropout"),
+        sched=sched, deterministic=False, key=dropout_key, attn_seeds=seeds,
         batch_shard=shards(joint, mesh)[0],
         self_cond_coin=self_cond_coin, **loss_kwargs,
     )
