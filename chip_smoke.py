@@ -138,9 +138,16 @@ no result line) on any error; no phase catches its own failure.
    off) at the four block shapes of the UNet, batch 1, 3, 25 and 128, both
    tile edges, random weights and a nonzero time bias: f32 atol = rtol =
    1e-4, bf16 2e-2 (both round h and the output to bf16), the max error
-   per shape printed. One autograd backward per block through the wrapper's
-   Function against autograd of the plain version (1e-4), and one UNet
-   forward on the card against the CPU (1e-4).
+   per shape printed. The widths of RESBLOCK_WIDTHS (Cin and Cout from 1
+   to 1024, odd and wide, identity and 1x1 skips, at batch 2-3), each at
+   its plan, in both dtypes at the same tolerances. rb4 from two sources
+   (``_launch(h3, ..., x_b=h1, upsample_a=2)``, the gather of
+   ``fused_resblock_split``) bit-equal to the launch on the materialised
+   cat(upsample(h3), h1) at RESBLOCK_BATCHES, both tile edges and both
+   dtypes. One autograd backward per block through the wrapper's
+   Function against autograd of the plain version (1e-4), rb4 from two
+   sources too, and one UNet forward on the card against the CPU (1e-4),
+   whose aten ops must hold no cat and no repeat_interleave.
 15. Main path, MNIST training: ``mnist.main(["--train", "--epochs", "1",
    "--batch_size", "128", ...])`` on the synthetic 60 000 digits (the card
    machine has no MNIST files and no network), with the per-epoch grid of 25
@@ -155,7 +162,9 @@ no result line) on any error; no phase catches its own failure.
    kernel's CUDA-event time beside the plain version's (cuDNN convs, TF32
    off) and the bound (the products as 3xTF32 in f32 or at the bf16
    peak, against bytes at 3.35 TB/s; the FP32-FMA roof printed beside; no
-   single PyTorch call computes the block), and their sums over a UNet forward; then
+   single PyTorch call computes the block), and their sums over a UNet
+   forward; rb4 from two sources against upsample + cat + the kernel at
+   n 25 and 256, and a wide block (RESBLOCK_WIDE) against its bound; then
    ``torch.profiler`` over PROFILE_STEPS MNIST sampler steps and over
    PROFILE_TRAIN_STEPS MNIST training steps; and over PROFILE_TRAIN_STEPS
    bf16 steps of each trainer at the bench's bf16 batch, BF16_BATCH (512):
@@ -236,7 +245,9 @@ count replays.
    training graph (the second of two) must list the flash
    forward, dq and dk/dv kernels, the resblock kernel and the draw kernel
    as many times as the capture counted; over a second call of a
-   captured 10-step sampler loop (ten replays), ten steps' worth. Where
+   captured 10-step sampler loop (ten replays), ten steps' worth, and
+   the MNIST sampler's replays no kernel that builds rb4's concatenated
+   input (DECODER_INPUT_KERNELS). Where
    the profiler lists no kernel of a replay, that is printed, and the
    counters' deltas are the evidence.
 26. Timing (phases 13 and 17's profiles): for the text step at bs 8 f32,
@@ -572,6 +583,18 @@ _SINGLE_BLOCK_IDLE = {"attention_single_block_fwd": 0,
 MNIST_BATCH, MNIST_N, MNIST_IMAGES = 128, 25, 60_000
 MNIST_DDIM_STEPS = 50
 RESBLOCK_BATCHES = (1, 3, 25, 128)
+# The resblock at other widths (phase 14): (batch, H, W, Cin, Cout, 1x1
+# skip), the CPU tests' shapes (tests/test_torch_resblock_widths.py) and
+# the widest, each at its plan; and the wide block timed against its bound
+# (phase 17).
+RESBLOCK_WIDTHS = ((2, 5, 5, 1, 1, True), (3, 9, 13, 3, 8, True),
+                   (2, 12, 12, 5, 40, True), (3, 14, 14, 48, 24, True),
+                   (2, 7, 7, 96, 96, False), (2, 8, 8, 128, 256, True),
+                   (2, 8, 8, 1024, 1024, False), (3, 8, 8, 1, 1024, True),
+                   (2, 8, 8, 1024, 1, True))
+RESBLOCK_WIDE = (8, 32, 32, 256, 256, False)
+# rb4 from two sources against upsample + cat + the kernel (phase 17).
+SPLIT_BATCHES = (MNIST_N, 256)
 # bf16 training (phase a): MNIST steps of MNIST_BATCH; phase (b)'s
 # tolerances, those of tests/test_torch_precision.py: losses relative, and
 # gradients GRAD_RTOL_BF16 of the largest magnitude plus the reference's
@@ -2241,43 +2264,189 @@ def profile_training(card: str, batch: int = BATCH,
         card)
 
 
-def _resblock_args(name: str, b: int, seed: int, grad: bool = False):
-    """Inputs of UNet block ``name`` at batch ``b`` on the card: N(0, 1)
-    activations and time bias, weights at torch's init scale, biases 0.1."""
+def _width_args(b: int, h: int, w: int, cin: int, cout: int, skip: bool,
+                seed: int, grad: bool = False):
+    """Inputs of a (b, h, w, cin) -> cout block on the card: N(0, 1)
+    activations and time bias, weights at torch's init scale, biases 0.1;
+    a 1x1 skip or (``skip`` False, Cin == Cout) the identity."""
     import math
 
     import torch
 
-    from tinydiffusionmodels_torch.models.unet import BLOCKS
-
-    cin, cout = BLOCKS[name]
-    hw = 28 if name in ("rb1", "rb4") else 14
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def r(*shape, scale=1.0):
         t = scale * torch.randn(*shape, generator=g, device="cuda")
         return t.requires_grad_(grad)
 
-    args = [r(b, hw, hw, cin), r(cout, cin, 3, 3, scale=1 / math.sqrt(9 * cin)),
+    args = [r(b, h, w, cin), r(cout, cin, 3, 3, scale=1 / math.sqrt(9 * cin)),
             r(cout, scale=0.1), r(cout, cout, 3, 3,
                                   scale=1 / math.sqrt(9 * cout)),
             r(cout, scale=0.1), r(b, 1, 1, cout)]
-    if cin != cout:
+    if skip:
         return args + [r(cout, cin, 1, 1, scale=1 / math.sqrt(cin)),
                        r(cout, scale=0.1)]
     return args + [None, None]
 
 
+def _resblock_args(name: str, b: int, seed: int, grad: bool = False):
+    """Inputs of UNet block ``name`` at batch ``b`` on the card."""
+    from tinydiffusionmodels_torch.models.unet import BLOCKS
+
+    cin, cout = BLOCKS[name]
+    hw = 28 if name in ("rb1", "rb4") else 14
+    return _width_args(b, hw, hw, cin, cout, cin != cout, seed, grad)
+
+
+def _rb4_sources(b: int, seed: int, grad: bool = False):
+    """rb4's two sources at batch ``b`` on the card, h3 (b, 14, 14, 64)
+    and h1 (b, 28, 28, 32), and its other arguments."""
+    import torch
+
+    args = _resblock_args("rb4", b, seed, grad)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    h3, h1 = (torch.randn(*shape, generator=g, device="cuda")
+              .requires_grad_(grad)
+              for shape in ((b, 14, 14, 64), (b, 28, 28, 32)))
+    return h3, h1, args[1:]
+
+
+def _typed(args, dtype):
+    return [None if t is None else t.to(dtype) for t in args]
+
+
+def _resblock_widths() -> dict:
+    """Phase 14's width grid: RESBLOCK_WIDTHS at their plans, f32 (1e-4)
+    and bf16 (2e-2), against the plain version. Returns the largest error
+    of each dtype."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import reference
+    from tinydiffusionmodels_torch.ops import resblock as rb
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (b, h, w, cin, cout, skip) in enumerate(RESBLOCK_WIDTHS):
+        args = _width_args(b, h, w, cin, cout, skip, seed=500 + i)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            typed = _typed(args, dtype)
+            ref = reference.fused_resblock(*typed)
+            before = rb.launches
+            out = rb._launch(*typed)
+            torch.cuda.synchronize()
+            if rb.launches != before + 1 or out.dtype != dtype:
+                raise AssertionError(f"{out.dtype} output of {dtype}, "
+                                     f"{rb.launches - before} launches")
+            torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+            err = _max_err(out, ref)
+            worst[dtype] = max(worst[dtype], err)
+            p = rb.plan(b, h, w, cin, cout, dtype)
+            print(f"width Cin {cin} -> Cout {cout} ({'1x1' if skip else 'identity'} "
+                  f"skip), {h} x {w}, batch {b}, {str(dtype)[6:]}: max|d| "
+                  f"{err:.3e} (tol {tol:g}); plan tile {p.tile}, kc {p.kc}, "
+                  f"x {'in chunks' if p.x_chunked else 'whole'}, "
+                  f"{p.column_groups} column groups x {p.column_passes} "
+                  f"passes, {p.ctas} CTAs, {p.smem_bytes} B")
+    return worst
+
+
+def _split_bit_equal() -> None:
+    """rb4 from two sources (h3 at half resolution, h1) against the launch
+    on the materialised cat(upsample(h3), h1), bit for bit, at
+    RESBLOCK_BATCHES, both tile edges and both dtypes; and once through
+    ``ops.fused_resblock_split`` (one launch)."""
+    import torch
+
+    from tinydiffusionmodels_torch import ops
+    from tinydiffusionmodels_torch.ops import reference
+    from tinydiffusionmodels_torch.ops import resblock as rb
+
+    for b in RESBLOCK_BATCHES:
+        h3, h1, params = _rb4_sources(b, seed=600 + b)
+        for dtype in (torch.float32, torch.bfloat16):
+            a, c, typed = h3.to(dtype), h1.to(dtype), _typed(params, dtype)
+            full = reference.concat_sources(a, c, 2)
+            for tile in rb.TILES:
+                split = rb._launch(a, *typed, x_b=c, upsample_a=2, tile=tile)
+                cat = rb._launch(full, *typed, tile=tile)
+                torch.cuda.synchronize()
+                if not torch.equal(split, cat):
+                    raise AssertionError(
+                        f"rb4 from two sources, batch {b}, {dtype}, tile "
+                        f"{tile}: {_max_err(split, cat)} from the launch on "
+                        f"the concat")
+            before = rb.launches
+            out = ops.fused_resblock_split(a, c, *typed, upsample_a=2)
+            if rb.launches != before + 1 or not torch.equal(
+                    out, rb._launch(full, *typed)):
+                raise AssertionError(f"ops.fused_resblock_split, batch {b}, "
+                                     f"{dtype}: not one launch equal to "
+                                     f"the concat's")
+        print(f"rb4 from two sources (h3 upsampled 2x in the gather, h1) "
+              f"batch {b}: bit-equal to the launch on the concat at tiles "
+              f"{rb.TILES}, f32 and bf16")
+
+
+def _unet_aten_ops(model, x, t) -> dict:
+    """The aten ops of one forward of ``model`` and their counts."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            self.seen[name] = self.seen.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as mode:
+        model(x, t)
+    return mode.seen
+
+
+def _backward_vs_plain(what: str, args, fn, plain, shape) -> None:
+    """Gradients of every tensor in ``args`` through ``fn`` against
+    autograd of ``plain``, at 1e-4, for a random cotangent of the output
+    (``shape`` and the block's Cout)."""
+    import torch
+
+    leaves = [t for t in args if t is not None]
+    # cuDNN's f32 weight-gradient convolutions differ from run to run (one
+    # element of rb3's 36864 by 1.07e-4 once); deterministic algorithms on
+    # both sides leave only the Function's own difference.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = fn(*args)
+        g = torch.randn(*shape, out.shape[-1], device="cuda")
+        grads = [torch.autograd.grad(out, leaves, g),
+                 torch.autograd.grad(plain(*args), leaves, g)]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    errs = []
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        errs.append(_max_err(got, want))
+    print(f"{what} backward through the Function vs plain autograd, batch "
+          f"{shape[0]}: worst of {len(leaves)} gradients {max(errs):.3e} "
+          f"(tol 1e-4)")
+
+
 def resblock_kernel_vs_plain():
     """The kernel against its plain version at every block shape, the
-    RESBLOCK_BATCHES and both tile edges, in f32 (1e-4) and bf16 (2e-2);
-    one backward per block through the Function against autograd of the
-    plain version; one UNet forward, card against CPU. Returns the largest
-    f32 and bf16 forward errors."""
+    RESBLOCK_BATCHES and both tile edges, in f32 (1e-4) and bf16 (2e-2),
+    and at RESBLOCK_WIDTHS; rb4 from two sources bit-equal to the launch
+    on the concat; one backward per block (and rb4 from two sources)
+    through the Function against autograd of the plain version; one UNet
+    forward, card against CPU, with no cat or upsample on the card.
+    Returns the largest f32 and bf16 forward errors."""
     import copy
 
     import torch
 
+    from tinydiffusionmodels_torch import ops
     from tinydiffusionmodels_torch.models import SimpleUNet
     from tinydiffusionmodels_torch.models.unet import BLOCKS
     from tinydiffusionmodels_torch.ops import reference
@@ -2292,7 +2461,7 @@ def resblock_kernel_vs_plain():
             args = _resblock_args(name, b, seed=200 + 10 * i + b)
             x = args[0]
             for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-                typed = [None if t is None else t.to(dtype) for t in args]
+                typed = _typed(args, dtype)
                 ref = reference.fused_resblock(*typed)
                 line = []
                 for tile in rb.TILES:
@@ -2313,31 +2482,37 @@ def resblock_kernel_vs_plain():
                 print(f"{name} (Cin {x.shape[-1]}, Cout {args[1].shape[0]}, "
                       f"H {x.shape[1]}) {str(dtype)[6:]} batch {b:3d}: "
                       f"{'; '.join(line)} (tol {tol:g})")
+    for dtype, err in _resblock_widths().items():
+        worst[dtype] = max(worst[dtype], err)
+    _split_bit_equal()
     for i, name in enumerate(BLOCKS):
         args = _resblock_args(name, 3, seed=300 + i, grad=True)
-        leaves = [t for t in args if t is not None]
-        g = torch.randn(args[0].shape[:3] + (args[1].shape[0],),
-                        device="cuda")
-        grads = [torch.autograd.grad(fn(*args), leaves, g)
-                 for fn in (rb.fused_resblock, reference.fused_resblock)]
-        torch.cuda.synchronize()
-        errs = []
-        for got, want in zip(*grads):
-            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-            errs.append(_max_err(got, want))
-        print(f"{name} backward through the Function vs plain autograd, "
-              f"batch 3: worst of {len(leaves)} gradients {max(errs):.3e} "
-              f"(tol 1e-4)")
+        _backward_vs_plain(name, args, rb.fused_resblock,
+                           reference.fused_resblock, args[0].shape[:3])
+    h3, h1, params = _rb4_sources(3, seed=310, grad=True)
+    _backward_vs_plain(
+        "rb4 from two sources", [h3, h1, *params],
+        lambda *a: ops.fused_resblock_split(*a, upsample_a=2),
+        lambda *a: reference.fused_resblock_split(*a, upsample_a=2),
+        h1.shape[:3])
     model = SimpleUNet(key=_init_key(4)).eval()
     x = torch.randn(2, 28, 28, 1, generator=torch.Generator().manual_seed(5))
     t = torch.tensor([10, 500])
     with torch.inference_mode():
         want = model(x, t)
-        got = copy.deepcopy(model).cuda()(x.cuda(), t.cuda()).cpu()
+        card_model = copy.deepcopy(model).cuda()
+        got = card_model(x.cuda(), t.cuda()).cpu()
+        seen = _unet_aten_ops(card_model, x.cuda(), t.cuda())
     err = _max_err(got, want)
     print(f"UNet forward, card vs CPU (t = [10, 500]): {err:.3e} (tol 1e-4)")
     if not err <= 1e-4:
         raise AssertionError(f"the UNet on the card leaves the CPU by {err}")
+    built = {op: n for op, n in seen.items()
+             if op in ("cat", "repeat_interleave", "index_select", "index")}
+    print(f"UNet forward on the card, aten ops: {seen}")
+    if built:
+        raise AssertionError(f"the UNet on the card builds the decoder's "
+                             f"input: {built}")
     return worst[torch.float32], worst[torch.bfloat16]
 
 
@@ -2516,9 +2691,7 @@ def resblock_timing(card: str) -> dict:
                 p_ms.append(perf.device_ms(plain))
                 nbytes, flops = rb.work(*typed)
                 f32 = dtype == torch.float32
-                ops = (perf.f32_tensor_core_ops(flops) if f32
-                       else [(flops, "bf16")])
-                bound_ms, bound_by = perf.bound_ms(nbytes, ops)
+                bound_ms, bound_by = _bound(nbytes, flops, f32)
                 roof_ms = perf.bound_ms(0, [(flops, "f32")])[0]
                 ms = sum(k_ms) / 2
                 key = "f32" if f32 else "bf16"
@@ -2541,9 +2714,8 @@ def resblock_timing(card: str) -> dict:
                  for k in ("ms", "plain_ms", "fp32_fma_roof_ms", "bytes",
                            "flops")}
             # The bound of the four blocks as one piece of work.
-            t["bound_ms"], t["bound_by"] = perf.bound_ms(
-                t["bytes"], perf.f32_tensor_core_ops(t["flops"])
-                if key == "f32" else [(t["flops"], "bf16")])
+            t["bound_ms"], t["bound_by"] = _bound(t["bytes"], t["flops"],
+                                                  key == "f32")
             sums[key] = t
             print(f"UNet forward's four blocks at n {b}, {key}: kernel "
                   f"{t['ms']} ms, plain {t['plain_ms']} ms, bound "
@@ -2551,7 +2723,96 @@ def resblock_timing(card: str) -> dict:
                   f"{t['bound_by']} ({t['ms'] / t['bound_ms']:.1f}x), "
                   f"FP32-FMA roof {t['fp32_fma_roof_ms']} ms; on {card}")
         out[b] = dict(sums["f32"], bf16=sums["bf16"], blocks=blocks)
+    out["split"] = _split_timing(card)
+    out["wide"] = _wide_timing(card)
     return out
+
+
+def _bound(nbytes: int, flops: int, f32: bool) -> tuple[float, str]:
+    """The resblock's bound: bytes, or its products as 3xTF32 (f32) or at
+    the bf16 peak, the larger."""
+    from tinydiffusionmodels_torch import perf
+
+    return perf.bound_ms(nbytes, perf.f32_tensor_core_ops(flops) if f32
+                         else [(flops, "bf16")])
+
+
+def _split_timing(card: str) -> dict:
+    """rb4 from two sources (one launch) against upsample + cat + the
+    kernel on the concat, device ms by CUDA events in turns (cat, split,
+    split, cat) at SPLIT_BATCHES, f32 and bf16. {"n<b> <dtype>": row}."""
+    import torch
+
+    from tinydiffusionmodels_torch import perf
+    from tinydiffusionmodels_torch.ops import reference
+    from tinydiffusionmodels_torch.ops import resblock as rb
+
+    rows = {}
+    for b in SPLIT_BATCHES:
+        h3, h1, params = _rb4_sources(b, seed=700 + b)
+        for dtype in (torch.float32, torch.bfloat16):
+            a, c, typed = h3.to(dtype), h1.to(dtype), _typed(params, dtype)
+
+            def split():
+                rb._launch(a, *typed, x_b=c, upsample_a=2)
+
+            def cat():
+                rb._launch(reference.concat_sources(a, c, 2), *typed)
+
+            c_ms = [perf.device_ms(cat)]
+            s_ms = [perf.device_ms(split), perf.device_ms(split)]
+            c_ms.append(perf.device_ms(cat))
+            nbytes, flops = rb.work(a, *typed, x_b=c, upsample_a=2)
+            bound_ms, bound_by = _bound(nbytes, flops,
+                                        dtype == torch.float32)
+            key = f"n{b} {str(dtype)[6:]}"
+            rows[key] = dict(ms=sum(s_ms) / 2, cat_ms=sum(c_ms) / 2,
+                             bound_ms=bound_ms, bound_by=bound_by)
+            print(f"rb4 from two sources {key}: one launch {s_ms} ms, "
+                  f"upsample + cat + kernel {c_ms} ms; bound {bound_ms} ms "
+                  f"by {bound_by}; on {card}")
+    return rows
+
+
+def _wide_timing(card: str) -> dict:
+    """The wide block RESBLOCK_WIDE at its plan, f32 and bf16: the kernel's
+    CUDA-event time beside the plain version's and the bound."""
+    import torch
+
+    from tinydiffusionmodels_torch import perf
+    from tinydiffusionmodels_torch.ops import reference
+    from tinydiffusionmodels_torch.ops import resblock as rb
+
+    b, h, w, cin, cout, skip = RESBLOCK_WIDE
+    args = _width_args(b, h, w, cin, cout, skip, seed=800)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        typed = _typed(args, dtype)
+
+        def plain():
+            with torch.no_grad():
+                reference.fused_resblock(*typed)
+
+        def kernel():
+            rb._launch(*typed)
+
+        p_ms = [perf.device_ms(plain)]
+        k_ms = [perf.device_ms(kernel), perf.device_ms(kernel)]
+        p_ms.append(perf.device_ms(plain))
+        nbytes, flops = rb.work(*typed)
+        bound_ms, bound_by = _bound(nbytes, flops, dtype == torch.float32)
+        ms = sum(k_ms) / 2
+        p = rb.plan(b, h, w, cin, cout, dtype)
+        key = str(dtype)[6:]
+        rows[key] = dict(ms=ms, plain_ms=sum(p_ms) / 2, bound_ms=bound_ms,
+                         bound_by=bound_by,
+                         at=f"B {b}, {h} x {w}, Cin {cin}, Cout {cout}",
+                         plan=dataclasses.asdict(p))
+        print(f"wide block B {b} {h} x {w} Cin {cin} Cout {cout} {key}: "
+              f"kernel {k_ms} ms, plain {p_ms} ms; bound {bound_ms} ms by "
+              f"{bound_by} ({nbytes} B, {flops} FLOP), {ms / bound_ms:.1f}x; "
+              f"{flops / ms / 1e9:.2f} TFLOP/s; plan {p}; on {card}")
+    return rows
 
 
 def profile_mnist_sampler(model, card: str) -> dict:
@@ -3481,6 +3742,22 @@ def _kernel_counts(prof) -> dict:
     return counts
 
 
+# Kernels that would build rb4's input cat(upsample(h3), h1): torch's
+# concatenation and repeat_interleave's index computation (its gather is
+# an index_select, which the sampler's schedule lookups also launch).
+DECODER_INPUT_KERNELS = ("CatArray", "compute_cuda_kernel")
+
+
+def _decoder_input_kernels(prof) -> dict:
+    """Kernels of a profile that build rb4's concatenated input, and their
+    counts."""
+    from torch.autograd import DeviceType
+
+    return {e.key[:80]: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and any(k in e.key for k in DECODER_INPUT_KERNELS)}
+
+
 def _last_replay_kernels(prof) -> list:
     """The names of the kernels of the last profiled replay: the device
     events after the widest gap between two of them, where the replays
@@ -3591,6 +3868,11 @@ def kernels_in_graphs(runners: dict, models) -> None:
         print(f"{what}, a captured 10-step loop called again (10 replays): "
               f"the profiler lists {seen} {GRAPH_KERNEL_NAMES[counter]}, "
               f"{10 * per_step} launched")
+        if counter == "fused_resblock":
+            built = _decoder_input_kernels(prof)
+            if built:
+                raise AssertionError(f"{what}: the replays build rb4's "
+                                     f"input: {built}")
         if seen == 0:
             blind.append(what)
         elif seen != 10 * per_step:
@@ -4220,17 +4502,19 @@ FID_FLOOR_MULTIPLE = 10.0
 @contextlib.contextmanager
 def _plain_resblocks():
     """The UNet's residual blocks through their plain PyTorch version
-    (``reference.fused_resblock``: cuDNN convs and elementwise ops) inside,
-    not the fused kernel."""
+    (``reference.fused_resblock`` and, for rb4's two sources,
+    ``reference.fused_resblock_split``: cuDNN convs and elementwise ops)
+    inside, not the fused kernel."""
     from tinydiffusionmodels_torch import ops
     from tinydiffusionmodels_torch.ops import reference
 
-    fused = ops.fused_resblock
+    fused = ops.fused_resblock, ops.fused_resblock_split
     ops.fused_resblock = reference.fused_resblock
+    ops.fused_resblock_split = reference.fused_resblock_split
     try:
         yield
     finally:
-        ops.fused_resblock = fused
+        ops.fused_resblock, ops.fused_resblock_split = fused
 
 
 def _finite_record(what: str, rec: dict, keys: set, source: str) -> None:
@@ -5627,14 +5911,17 @@ def xprof_on_card(card: str) -> list:
     return records
 
 
-# PERF.md §5's replayed steps before the draws moved to the key tree
-# (xprof_ops on the bench's steps): profiled device us and kernels a step,
-# printed beside phase 13's rows.
+# PERF.md §5's replayed steps (xprof_ops on the bench's steps): profiled
+# device us and kernels a step, printed beside phase 13's rows; the text
+# rows before the draws moved to the key tree, the MNIST rows before rb4
+# gathered its two sources (a training step's backward still builds rb4's
+# concatenated input, in the plain version it differentiates: the same
+# kernel count).
 PERF5_STEPS = {
     f"text train bs {BATCH} f32": (1372.8, 244),
-    f"MNIST train bs {MNIST_BATCH} f32": (4426.5, 268),
+    f"MNIST train bs {MNIST_BATCH} f32": (4433.7, 265),
     f"text train bs {BF16_BATCH} bf16 (vocab {GRAPH_VOCAB})": (10823.6, 326),
-    f"MNIST train bs {BF16_BATCH} bf16": (4682.3, 258),
+    f"MNIST train bs {BF16_BATCH} bf16": (4682.8, 255),
     f"text sampler n {N}": (364.4, 60),
 }
 
@@ -5762,6 +6049,8 @@ def main() -> None:
         "n128": {k: n128[k] for k in (*sums, "bound_by")},
         "bf16_n25": n25["bf16"], "bf16_n128": n128["bf16"],
         "blocks_n25": n25["blocks"], "blocks_n128": n128["blocks"],
+        "rb4_two_sources": resblock_times["split"],
+        "wide": resblock_times["wide"],
         "plain": "cuDNN convs, TF32 off; no single PyTorch call computes "
                  "the block, so library_ms is null",
         "max_abs_err_bf16": resblock_bf16_error,

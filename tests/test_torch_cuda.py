@@ -409,23 +409,29 @@ def test_decode_rejects_before_launch(cuda):
     assert dk.launches == before
 
 
-def _block_args(name, b, device, seed=0):
-    """Inputs of UNet block ``name`` at batch ``b``: N(0, 1) activations
-    and time bias, weights at torch's init scale."""
-    cin, cout = BLOCKS[name]
-    hw = 28 if name in ("rb1", "rb4") else 14
+def _width_args(b, h, w, cin, cout, skip, device, seed=0):
+    """Inputs of a (b, h, w, cin) -> cout block: N(0, 1) activations and
+    time bias, weights at torch's init scale; a 1x1 skip, or the
+    identity."""
     rng = np.random.default_rng(seed)
 
     def r(*shape, scale=1.0):
         return torch.from_numpy(
             scale * rng.standard_normal(shape, dtype=np.float32)).to(device)
 
-    args = [r(b, hw, hw, cin), r(cout, cin, 3, 3, scale=(9 * cin) ** -0.5),
+    args = [r(b, h, w, cin), r(cout, cin, 3, 3, scale=(9 * cin) ** -0.5),
             r(cout, scale=0.1), r(cout, cout, 3, 3, scale=(9 * cout) ** -0.5),
             r(cout, scale=0.1), r(b, 1, 1, cout)]
-    if cin == cout:
+    if not skip:
         return args + [None, None]
     return args + [r(cout, cin, 1, 1, scale=cin ** -0.5), r(cout, scale=0.1)]
+
+
+def _block_args(name, b, device, seed=0):
+    """Inputs of UNet block ``name`` at batch ``b``."""
+    cin, cout = BLOCKS[name]
+    hw = 28 if name in ("rb1", "rb4") else 14
+    return _width_args(b, hw, hw, cin, cout, cin != cout, device, seed)
 
 
 @pytest.mark.parametrize("tile", [7, 14])
@@ -450,6 +456,65 @@ def test_resblock_bf16_matches_plain(cuda, name):
                                rtol=2e-2, atol=2e-2)
 
 
+# (Cin, Cout, H, W, 1x1 skip): odd and wide widths, each at its plan (x
+# staged in chunks at Cin 1024), as tests/test_torch_resblock_widths.py.
+RESBLOCK_WIDTHS = [(1, 1, 5, 5, True), (3, 8, 9, 13, True),
+                   (5, 40, 12, 12, True), (48, 24, 14, 14, True),
+                   (96, 96, 7, 7, False), (128, 256, 8, 8, True),
+                   (1024, 1024, 8, 8, False), (1, 1024, 8, 8, True),
+                   (1024, 1, 8, 8, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin, cout, h, w, skip", RESBLOCK_WIDTHS)
+def test_resblock_kernel_matches_plain_at_width(cuda, cin, cout, h, w, skip,
+                                                dtype):
+    args = [None if a is None else a.to(dtype)
+            for a in _width_args(2, h, w, cin, cout, skip, cuda, seed=cin)]
+    before = rb.launches
+    out = rb.fused_resblock(*args)
+    assert rb.launches == before + 1 and out.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out, reference.fused_resblock(*args),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [7, 14])
+@pytest.mark.parametrize("b", [1, 3, 25])
+def test_resblock_split_equals_the_launch_on_the_concat(cuda, b, tile,
+                                                        dtype):
+    """rb4 from two sources, h3 upsampled 2x in the gather and h1: one
+    launch, bit-equal to the launch on cat(upsample(h3), h1)."""
+    params = [None if a is None else a.to(dtype)
+              for a in _block_args("rb4", b, cuda, seed=b)[1:]]
+    rng = np.random.default_rng(b)
+    h3, h1 = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+              .to(cuda, dtype) for shape in ((b, 14, 14, 64), (b, 28, 28, 32)))
+    before = rb.launches
+    split = rb._launch(h3, *params, x_b=h1, upsample_a=2, tile=tile)
+    cat = rb._launch(reference.concat_sources(h3, h1, 2), *params, tile=tile)
+    assert rb.launches == before + 2
+    assert torch.equal(split, cat)
+    torch.testing.assert_close(
+        rb.fused_resblock_split(h3, h1, *params, upsample_a=2),
+        reference.fused_resblock_split(h3, h1, *params, upsample_a=2),
+        **(TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)))
+
+
+def _wide_cout(args, cout):
+    """The block's arguments with Cout ``cout``: stride-0 views, no
+    memory."""
+    x = args[0]
+    b, cin = x.shape[0], x.shape[-1]
+
+    def t(*shape):
+        return torch.zeros(1, device=x.device).expand(*shape)
+
+    return [x, t(cout, cin, 3, 3), t(cout), t(cout, cout, 3, 3), t(cout),
+            t(b, 1, 1, cout), t(cout, cin, 1, 1), t(cout)]
+
+
 def test_resblock_one_launch_per_call(cuda):
     args = _block_args("rb3", 2, cuda)
     before = rb.launches
@@ -471,6 +536,8 @@ def test_resblock_one_launch_per_call(cuda):
     (lambda a: [a[0], a[1][:, :, :2], *a[2:]], ValueError, "w1 must be"),
     (lambda a: [*a[:6], None, None], ValueError, "identity skip"),
     (lambda a: [a[0].bfloat16(), *a[1:]], TypeError, "one dtype"),
+    (lambda a: _wide_cout(a, 8192), ValueError,
+     "Cout=8192 .* limit of 232448"),
 ])
 def test_resblock_rejects_before_launch(cuda, change, error, match):
     args = change(_block_args("rb2", 1, cuda))

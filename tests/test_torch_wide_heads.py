@@ -207,12 +207,29 @@ def test_resblock_wrapper_takes_one_dtype():
         resblock._check(*[None if a is None else a.half() for a in args])
 
 
-def test_resblock_wrapper_rejects_other_widths():
-    """The kernel is built for the UNet's Cout 32 and 64; the wrapper's
-    check refuses any other before a launch."""
-    _, _, _, args = _bf16_block(32, 48, 14)
-    with pytest.raises(ValueError, match=r"Cout=48: the kernel is built for "
-                                         r"Cout in \(32, 64\)"):
+def _meta_block(cin, cout, hw, dtype):
+    """A block's arguments as meta tensors: shapes and dtype, no memory."""
+    def t(*shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return [t(2, hw, hw, cin), t(cout, cin, 3, 3), t(cout), t(cout, cout, 3, 3),
+            t(cout), t(2, 1, 1, cout), t(cout, cin, 1, 1), t(cout)]
+
+
+@pytest.mark.parametrize("cout, dtype, refused", [
+    (48, torch.bfloat16, False), (1, torch.float32, False),
+    (1024, torch.float32, False), (1024, torch.bfloat16, False),
+    (8192, torch.float32, True), (12288, torch.bfloat16, True)])
+def test_resblock_wrapper_rejects_other_widths(cout, dtype, refused):
+    """The kernel takes every Cout up to 1024 (and more, while its plan
+    fits the card's shared memory); the wrapper's check refuses a width
+    past that before a launch, naming the limit."""
+    args = _meta_block(32, cout, 14, dtype)
+    if not refused:
+        plan = resblock._check(*args)
+        assert plan.smem_bytes <= resblock.SMEM_LIMIT
+        return
+    with pytest.raises(ValueError, match=rf"Cout={cout} .* limit of 232448"):
         resblock._check(*args)
 
 

@@ -22,8 +22,10 @@ NAMES = {
     "flash_bwd::BwdParams)": "flash dq",
     "void (anonymous namespace)::flash_bwd_dkv_kernel<__nv_bfloat16, 64, 1,"
     " false>(flash_bwd::BwdParams)": "flash dkv",
-    "void (anonymous namespace)::fused_resblock_kernel<float, 32>((anonymou"
-    "s namespace)::Params)": "resblock",
+    "void (anonymous namespace)::fused_resblock_kernel_narrow<float, 32, fa"
+    "lse>((anonymous namespace)::Params)": "resblock",
+    "void (anonymous namespace)::fused_resblock_kernel<__nv_bfloat16, 256>(("
+    "anonymous namespace)::Params)": "resblock",
     "void (anonymous namespace)::guided_decode_kernel(Params)": "decode",
     "void (anonymous namespace)::single_block_fwd_kernel<float, 64>(P)":
         "single-block attention",

@@ -3,7 +3,8 @@
 Dispatch is on the tensor's device alone, inside each kernel's wrapper: a
 CUDA tensor runs the hand-written kernels (the flash-attention forward, in
 training its recompute backward, the persistent guided-decode kernel of
-``decode_kernel``, the UNet residual block of ``resblock`` and the
+``decode_kernel``, the UNet residual block of ``resblock`` (one source,
+or the decoder's two with ``fused_resblock_split``) and the
 single-block attention pair of ``single_block``, the random draws of
 ``rng``), a CPU tensor their plain
 PyTorch version. There is no environment knob and no size threshold; the
@@ -30,7 +31,10 @@ from tinydiffusionmodels_torch.ops import (
     rng,
     single_block,
 )
-from tinydiffusionmodels_torch.ops.resblock import fused_resblock
+from tinydiffusionmodels_torch.ops.resblock import (
+    fused_resblock,
+    fused_resblock_split,
+)
 from tinydiffusionmodels_torch.ops.single_block import single_block_attention
 
 
@@ -136,6 +140,6 @@ def attention(
 
 
 __all__ = ["attention", "decode_kernel", "flash_attention", "fused_resblock",
-           "reference", "register_sequence_mesh", "resblock", "rng",
+           "fused_resblock_split", "reference", "register_sequence_mesh", "resblock", "rng",
            "sequence_mesh",
            "sequence_shard", "single_block", "single_block_attention"]

@@ -13,8 +13,8 @@ backward.
 
 ``fused_guided_decode`` is the plain version of the guided-decode kernel
 (``ops/decode_kernel.py``, ``csrc/guided_decode.cu``),
-``fused_resblock`` that of the UNet residual-block kernel
-(``ops/resblock.py``, ``csrc/fused_resblock.cu``), and
+``fused_resblock`` and ``fused_resblock_split`` those of the UNet
+residual-block kernel (``ops/resblock.py``, ``csrc/fused_resblock.cu``), and
 ``single_block_attention`` and ``single_block_attention_bwd`` those of the
 single-block attention pair (``ops/single_block.py``,
 ``csrc/attention_single_block.cu``).
@@ -449,3 +449,29 @@ def resblock_in_dtype(x, w1, b1, w2, b2, time_bias, ws=None, bs=None):
     in full float32. In float32 it is ``fused_resblock``."""
     with full_f32_convs():
         return _resblock(x, w1, b1, w2, b2, time_bias, ws, bs)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Nearest-neighbour upsampling of NHWC ``x`` by an integer factor:
+    pixel (y, x) of the output is pixel (y // factor, x // factor)."""
+    if factor == 1:
+        return x
+    return x.repeat_interleave(factor, dim=1).repeat_interleave(factor,
+                                                                dim=2)
+
+
+def concat_sources(x_a: torch.Tensor, x_b: torch.Tensor,
+                   upsample_a: int = 1) -> torch.Tensor:
+    """The input of a two-source block: cat(upsample_nearest(x_a,
+    upsample_a), x_b) along channels."""
+    return torch.cat([upsample_nearest(x_a, upsample_a), x_b], dim=-1)
+
+
+def fused_resblock_split(x_a, x_b, w1, b1, w2, b2, time_bias, ws=None,
+                         bs=None, *, upsample_a: int = 1):
+    """Plain version of the two-source block (``xla_ref.
+    fused_resblock_split``, with x_a upsampled first): ``fused_resblock``
+    on ``concat_sources(x_a, x_b, upsample_a)``. The kernel reads the two
+    sources into the rows the concatenated tile fills; this builds it."""
+    return fused_resblock(concat_sources(x_a, x_b, upsample_a), w1, b1, w2,
+                          b2, time_bias, ws, bs)
