@@ -140,7 +140,13 @@ no result line) on any error; no phase catches its own failure.
    1e-4, bf16 2e-2 (both round h and the output to bf16), the max error
    per shape printed. The widths of RESBLOCK_WIDTHS (Cin and Cout from 1
    to 1024, odd and wide, identity and 1x1 skips, at batch 2-3), each at
-   its plan, in both dtypes at the same tolerances. rb4 from two sources
+   its plan (the wgmma kernel where the narrow one does not apply), in
+   both dtypes at the same tolerances. A two-source block at a wide width
+   (RESBLOCK_WIDE_SPLIT, the wgmma kernel) bit-equal to the launch on the
+   concat and to the launch in clusters of 2, and within the tolerances of
+   plain. The wgmma kernel at the UNet's blocks and rb4 from two sources
+   (``kernel="wgmma"``, RESBLOCK_BATCHES) against plain, rb4 bit-equal to
+   its launch on the concat. rb4 from two sources
    (``_launch(h3, ..., x_b=h1, upsample_a=2)``, the gather of
    ``fused_resblock_split``) bit-equal to the launch on the materialised
    cat(upsample(h3), h1) at RESBLOCK_BATCHES, both tile edges and both
@@ -164,7 +170,11 @@ no result line) on any error; no phase catches its own failure.
    peak, against bytes at 3.35 TB/s; the FP32-FMA roof printed beside; no
    single PyTorch call computes the block), and their sums over a UNet
    forward; rb4 from two sources against upsample + cat + the kernel at
-   n 25 and 256, and a wide block (RESBLOCK_WIDE) against its bound; then
+   n 25 and 256; the wide blocks (RESBLOCK_WIDE_CASES, identity and 1x1
+   skips) against their bound, in clusters of 1 and 2, with the plan, its
+   CTAs, the cluster and the instance's registers and spills; the narrow
+   against the wgmma kernel at the UNet's blocks and rb4 from two sources
+   at RESBLOCK_BATCHES, f32 and bf16, in turns (``resblock_tile_ab``); then
    ``torch.profiler`` over PROFILE_STEPS MNIST sampler steps and over
    PROFILE_TRAIN_STEPS MNIST training steps; and over PROFILE_TRAIN_STEPS
    bf16 steps of each trainer at the bench's bf16 batch, BF16_BATCH (512):
@@ -592,7 +602,13 @@ RESBLOCK_WIDTHS = ((2, 5, 5, 1, 1, True), (3, 9, 13, 3, 8, True),
                    (2, 7, 7, 96, 96, False), (2, 8, 8, 128, 256, True),
                    (2, 8, 8, 1024, 1024, False), (3, 8, 8, 1, 1024, True),
                    (2, 8, 8, 1024, 1, True))
+# The wide blocks timed against their bound (phase 17): the identity skip
+# and a 1x1 skip; and a two-source block at a wide width (phase 14): x_a
+# (B, 16, 16, 128) upsampled 2x in the gather, x_b (B, 32, 32, 128), Cout
+# 256 with a 1x1 skip.
 RESBLOCK_WIDE = (8, 32, 32, 256, 256, False)
+RESBLOCK_WIDE_CASES = (RESBLOCK_WIDE, (8, 32, 32, 128, 256, True))
+RESBLOCK_WIDE_SPLIT = (2, 32, 32, 128, 128, 256)
 # rb4 from two sources against upsample + cat + the kernel (phase 17).
 SPLIT_BATCHES = (MNIST_N, 256)
 # bf16 training (phase a): MNIST steps of MNIST_BATCH; phase (b)'s
@@ -2342,10 +2358,57 @@ def _resblock_widths() -> dict:
             p = rb.plan(b, h, w, cin, cout, dtype)
             print(f"width Cin {cin} -> Cout {cout} ({'1x1' if skip else 'identity'} "
                   f"skip), {h} x {w}, batch {b}, {str(dtype)[6:]}: max|d| "
-                  f"{err:.3e} (tol {tol:g}); plan tile {p.tile}, kc {p.kc}, "
-                  f"x {'in chunks' if p.x_chunked else 'whole'}, "
-                  f"{p.column_groups} column groups x {p.column_passes} "
-                  f"passes, {p.ctas} CTAs, {p.smem_bytes} B")
+                  f"{err:.3e} (tol {tol:g}); {_plan_text(p)}")
+    return worst
+
+
+def _plan_text(p) -> str:
+    """A resblock plan in a line."""
+    return (f"{p.kernel} kernel, tile {p.tile}, {p.ctas} CTAs ({p.waves} "
+            f"waves), {p.nc} columns x {p.column_passes} chunks, stages of "
+            f"{p.kc} channels x {p.stages}, x "
+            f"{'in chunks' if p.x_chunked else 'whole'}, clusters of "
+            f"{p.cluster}, {p.m_tiles} m-tiles, {p.smem_bytes} B")
+
+
+def _wide_split_bit_equal() -> dict:
+    """The two-source block at a wide width (RESBLOCK_WIDE_SPLIT) on the
+    wgmma kernel: one launch bit-equal to the launch on the materialised
+    cat(upsample(x_a), x_b), and to the launch in clusters of 2 (the
+    multicast path), and within 1e-4 f32 and 2e-2 bf16 of the plain
+    version. Returns the largest error of each dtype."""
+    import torch
+
+    from tinydiffusionmodels_torch.ops import reference
+    from tinydiffusionmodels_torch.ops import resblock as rb
+
+    b, h, w, ca, cb, cout = RESBLOCK_WIDE_SPLIT
+    args = _width_args(b, h, w, ca + cb, cout, True, seed=550)
+    g = torch.Generator(device="cuda").manual_seed(551)
+    x_a = torch.randn(b, h // 2, w // 2, ca, generator=g, device="cuda")
+    x_b = torch.randn(b, h, w, cb, generator=g, device="cuda")
+    worst = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        a, c, typed = x_a.to(dtype), x_b.to(dtype), _typed(args[1:], dtype)
+        full = reference.concat_sources(a, c, 2)
+        split = rb._launch(a, *typed, x_b=c, upsample_a=2)
+        cat = rb._launch(full, *typed)
+        pair = rb._launch(a, *typed, x_b=c, upsample_a=2, cluster=2)
+        ref = reference.fused_resblock(full, *typed)
+        torch.cuda.synchronize()
+        if not (torch.equal(split, cat) and torch.equal(split, pair)):
+            raise AssertionError(
+                f"wide two-source block {dtype}: {_max_err(split, cat)} from "
+                f"the launch on the concat, {_max_err(split, pair)} from "
+                f"the launch in clusters of 2")
+        torch.testing.assert_close(split, ref, atol=tol, rtol=tol)
+        worst[dtype] = _max_err(split, ref)
+        p = rb.plan(b, h, w, ca + cb, cout, dtype, sources=2)
+        print(f"wide two sources: x_a {tuple(a.shape)} upsampled 2x + x_b "
+              f"{tuple(c.shape)} -> Cout {cout} (1x1 skip), "
+              f"{str(dtype)[6:]}: bit-equal to the launch on the concat "
+              f"and in clusters of 2; max|d| {worst[dtype]:.3e} from plain "
+              f"(tol {tol:g}); {_plan_text(p)}")
     return worst
 
 
@@ -2484,7 +2547,16 @@ def resblock_kernel_vs_plain():
                       f"{'; '.join(line)} (tol {tol:g})")
     for dtype, err in _resblock_widths().items():
         worst[dtype] = max(worst[dtype], err)
+    for dtype, err in _wide_split_bit_equal().items():
+        worst[dtype] = max(worst[dtype], err)
     _split_bit_equal()
+    from tinydiffusionmodels_torch import resblock_tile_ab
+    err = resblock_tile_ab.check_kernels(RESBLOCK_BATCHES)
+    print(f"the wgmma kernel at the UNet's blocks and rb4 from two sources "
+          f"(kernel='wgmma'), batches {RESBLOCK_BATCHES}: within 1e-4 f32 "
+          f"(worst {err:.3e}) and 2e-2 bf16 of plain; rb4's two sources "
+          f"bit-equal to its launch on the concat")
+    worst[torch.float32] = max(worst[torch.float32], err)
     for i, name in enumerate(BLOCKS):
         args = _resblock_args(name, 3, seed=300 + i, grad=True)
         _backward_vs_plain(name, args, rb.fused_resblock,
@@ -2725,6 +2797,11 @@ def resblock_timing(card: str) -> dict:
         out[b] = dict(sums["f32"], bf16=sums["bf16"], blocks=blocks)
     out["split"] = _split_timing(card)
     out["wide"] = _wide_timing(card)
+    from tinydiffusionmodels_torch import resblock_tile_ab
+    print(f"the narrow against the wgmma kernel at the UNet's blocks, "
+          f"batches {RESBLOCK_BATCHES} (resblock_tile_ab --kernels), on "
+          f"{card}:")
+    out["unet_kernels"] = resblock_tile_ab.kernel_ab(RESBLOCK_BATCHES)
     return out
 
 
@@ -2775,43 +2852,60 @@ def _split_timing(card: str) -> dict:
 
 
 def _wide_timing(card: str) -> dict:
-    """The wide block RESBLOCK_WIDE at its plan, f32 and bf16: the kernel's
-    CUDA-event time beside the plain version's and the bound."""
+    """The wide blocks RESBLOCK_WIDE_CASES at their plans, f32 and bf16:
+    the kernel's CUDA-event time beside the plain version's, the bound and
+    the kernel in clusters of 2 (the multicast path), in turns (plain,
+    kernel, pair, kernel, pair, plain); the plan, its CTAs and waves, the
+    cluster and the instance's registers and spills."""
     import torch
 
     from tinydiffusionmodels_torch import perf
     from tinydiffusionmodels_torch.ops import reference
     from tinydiffusionmodels_torch.ops import resblock as rb
 
-    b, h, w, cin, cout, skip = RESBLOCK_WIDE
-    args = _width_args(b, h, w, cin, cout, skip, seed=800)
     rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        typed = _typed(args, dtype)
+    for b, h, w, cin, cout, skip in RESBLOCK_WIDE_CASES:
+        args = _width_args(b, h, w, cin, cout, skip, seed=800)
+        for dtype in (torch.float32, torch.bfloat16):
+            typed = _typed(args, dtype)
 
-        def plain():
-            with torch.no_grad():
-                reference.fused_resblock(*typed)
+            def plain():
+                with torch.no_grad():
+                    reference.fused_resblock(*typed)
 
-        def kernel():
-            rb._launch(*typed)
+            def kernel():
+                rb._launch(*typed)
 
-        p_ms = [perf.device_ms(plain)]
-        k_ms = [perf.device_ms(kernel), perf.device_ms(kernel)]
-        p_ms.append(perf.device_ms(plain))
-        nbytes, flops = rb.work(*typed)
-        bound_ms, bound_by = _bound(nbytes, flops, dtype == torch.float32)
-        ms = sum(k_ms) / 2
-        p = rb.plan(b, h, w, cin, cout, dtype)
-        key = str(dtype)[6:]
-        rows[key] = dict(ms=ms, plain_ms=sum(p_ms) / 2, bound_ms=bound_ms,
-                         bound_by=bound_by,
-                         at=f"B {b}, {h} x {w}, Cin {cin}, Cout {cout}",
-                         plan=dataclasses.asdict(p))
-        print(f"wide block B {b} {h} x {w} Cin {cin} Cout {cout} {key}: "
-              f"kernel {k_ms} ms, plain {p_ms} ms; bound {bound_ms} ms by "
-              f"{bound_by} ({nbytes} B, {flops} FLOP), {ms / bound_ms:.1f}x; "
-              f"{flops / ms / 1e9:.2f} TFLOP/s; plan {p}; on {card}")
+            def pair():
+                rb._launch(*typed, cluster=2)
+
+            p_ms, k_ms, c_ms = [perf.device_ms(plain)], [], []
+            for _ in range(2):
+                k_ms.append(perf.device_ms(kernel))
+                c_ms.append(perf.device_ms(pair))
+            p_ms.append(perf.device_ms(plain))
+            nbytes, flops = rb.work(*typed)
+            bound_ms, bound_by = _bound(nbytes, flops, dtype == torch.float32)
+            ms = sum(k_ms) / 2
+            p = rb.plan(b, h, w, cin, cout, dtype)
+            attrs = rb.wgmma_attributes(p, dtype)
+            key = (f"{cin}->{cout} {'1x1' if skip else 'identity'} "
+                   f"{str(dtype)[6:]}")
+            rows[key] = dict(ms=ms, plain_ms=sum(p_ms) / 2,
+                             cluster2_ms=sum(c_ms) / 2, bound_ms=bound_ms,
+                             bound_by=bound_by,
+                             at=f"B {b}, {h} x {w}, Cin {cin}, Cout {cout}",
+                             plan=dataclasses.asdict(p), **attrs)
+            print(f"wide block B {b} {h} x {w} Cin {cin} Cout {cout} "
+                  f"({'1x1' if skip else 'identity'} skip) "
+                  f"{str(dtype)[6:]}: kernel {k_ms} ms, in clusters of 2 "
+                  f"{c_ms} ms, plain {p_ms} ms; bound {bound_ms} ms by "
+                  f"{bound_by} ({nbytes} B, {flops} FLOP), "
+                  f"{ms / bound_ms:.1f}x; {flops / ms / 1e9:.2f} TFLOP/s; "
+                  f"{_plan_text(p)}; {attrs['registers']} registers, "
+                  f"{attrs['local_bytes']} local (spill) bytes a thread, "
+                  f"{attrs['max_active_clusters']} clusters at once; "
+                  f"on {card}")
     return rows
 
 
@@ -6051,6 +6145,7 @@ def main() -> None:
         "blocks_n25": n25["blocks"], "blocks_n128": n128["blocks"],
         "rb4_two_sources": resblock_times["split"],
         "wide": resblock_times["wide"],
+        "unet_narrow_vs_wgmma": resblock_times["unet_kernels"],
         "plain": "cuDNN convs, TF32 off; no single PyTorch call computes "
                  "the block, so library_ms is null",
         "max_abs_err_bf16": resblock_bf16_error,

@@ -502,6 +502,61 @@ def test_resblock_split_equals_the_launch_on_the_concat(cuda, b, tile,
         **(TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)))
 
 
+# The wide blocks of chip_smoke.py's phase 17, on the wgmma kernel: (B, H,
+# W, Cin, Cout, 1x1 skip).
+RESBLOCK_WIDE = [(8, 32, 32, 256, 256, False), (8, 32, 32, 128, 256, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, h, w, cin, cout, skip", RESBLOCK_WIDE)
+def test_resblock_wgmma_wide_matches_plain(cuda, b, h, w, cin, cout, skip,
+                                           dtype):
+    """The wide blocks at their plan (the wgmma kernel, an 8-pixel tile),
+    and in clusters of 2 (the multicast path) bit-equal to it."""
+    args = [None if a is None else a.to(dtype)
+            for a in _width_args(b, h, w, cin, cout, skip, cuda, seed=cin)]
+    assert rb.plan(b, h, w, cin, cout, dtype).kernel == "wgmma"
+    before = rb.launches
+    out = rb.fused_resblock(*args)
+    assert rb.launches == before + 1 and out.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out, reference.fused_resblock(*args),
+                               rtol=tol, atol=tol)
+    assert torch.equal(rb._launch(*args, cluster=2), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resblock_wide_split_equals_the_launch_on_the_concat(cuda, dtype):
+    """Two sources at a wide width on the wgmma kernel, x_a (2, 16, 16,
+    128) upsampled 2x in the gather and x_b (2, 32, 32, 128) to Cout 256
+    with a 1x1 skip: bit-equal to the launch on the concat."""
+    params = [None if a is None else a.to(dtype) for a in
+              _width_args(2, 32, 32, 256, 256, True, cuda, seed=7)[1:]]
+    rng = np.random.default_rng(7)
+    x_a, x_b = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                .to(cuda, dtype) for shape in ((2, 16, 16, 128),
+                                               (2, 32, 32, 128)))
+    full = reference.concat_sources(x_a, x_b, 2)
+    split = rb.fused_resblock_split(x_a, x_b, *params, upsample_a=2)
+    assert torch.equal(split, rb._launch(full, *params))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(split, reference.fused_resblock(full, *params),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(BLOCKS))
+def test_resblock_wgmma_at_the_unet_blocks(cuda, name, dtype):
+    """The wgmma kernel (``kernel="wgmma"``) at the narrow kernel's plans,
+    the comparison of the two: within the tolerances of plain."""
+    args = [None if a is None else a.to(dtype)
+            for a in _block_args(name, 3, cuda)]
+    out = rb._launch(*args, kernel="wgmma")
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out, reference.fused_resblock(*args),
+                               rtol=tol, atol=tol)
+
+
 def _wide_cout(args, cout):
     """The block's arguments with Cout ``cout``: stride-0 views, no
     memory."""
