@@ -122,7 +122,8 @@ def test_wrapper_rejects_before_launch(cuda, make, match):
     assert fa.launches == before
 
 
-# (Dh, Dv) above 256, where the D 256 instances walk the head width in
+# (Dh, Dv) above 256, where the wide forward and dk/dv kernels split the
+# head width over a cluster and the dq kernel's D 256 instance walks it in
 # chunks of 256 columns: one column past it on either side, the text CLI's
 # --embed_dim 2048 (Dh 512) and a ragged last chunk of 8 with Dv != Dh.
 WIDE = {"dh257": (257, 257), "dh64_dv257": (64, 257), "dh512": (512, 512),
@@ -149,13 +150,13 @@ def test_kernels_match_plain_above_256(cuda, name, dtype):
     g_lse = torch.from_numpy(rng.standard_normal(
         (2, 2, 40), dtype=np.float32)).to(cuda)
     kw = dict(causal=True, dropout_rate=0.1, dropout_seed=_seed(cuda))
-    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    before = (fa.wide_launches, fa.dq_launches, fa.wide_dkv_launches)
     results = []
     for fn in (fa.flash_attention_with_lse, reference.attention):
         out, lse = fn(*inputs, **kw)
         results.append((out, lse, torch.autograd.grad(
             (out, lse), inputs, (g_out, g_lse))))
-    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == tuple(
+    assert (fa.wide_launches, fa.dq_launches, fa.wide_dkv_launches) == tuple(
         n + 1 for n in before)
     (out, lse, grads), (r_out, r_lse, r_grads) = results
     bf = dtype == torch.bfloat16
@@ -166,6 +167,61 @@ def test_kernels_match_plain_above_256(cuda, name, dtype):
     tol_g = dict(rtol=4e-2, atol=4e-2) if bf else GRAD_TOL
     for got, want in zip(grads, r_grads):
         torch.testing.assert_close(got, want, **tol_g)
+
+
+# (Dh, Dv, L) of the wide kernels (csrc/flash_wide.cuh): clusters of 3
+# CTAs of 96 and of 112 columns, of 4 of 128 (the --embed_dim 2048 heads,
+# also at L 520: nine query and key tiles, the last ragged), of 8 of 128,
+# and two and four 128-column parts a CTA (Dh 2048; Dh 4000 with Dv 3000,
+# ending inside a CTA).
+WIDE_KERNEL_CASES = {"dh257": (257, 257, 40), "dh264_dv320": (264, 320, 40),
+                     "dh512": (512, 512, 64), "dh512_L520": (512, 512, 520),
+                     "dh1024": (1024, 1024, 40), "dh2048": (2048, 2048, 40),
+                     "dh4000_dv3000": (4000, 3000, 24)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(WIDE_KERNEL_CASES))
+def test_wide_kernels_match_plain(cuda, name, dtype):
+    """The wide forward and dk/dv kernels, causal with dropout 0.1 and an
+    lse cotangent, on strided blhd views, against autograd of the plain
+    version: O and lse, dq, dk, dv at the tolerances of
+    test_kernels_match_plain_above_256, one launch of each wide kernel and
+    none of the narrow ones."""
+    dh, dv, length = WIDE_KERNEL_CASES[name]
+    rng = np.random.default_rng(8)
+    b, h = 2, 2
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(cuda, dtype)
+
+    qk = randn(b, length, 2, h, dh).requires_grad_()
+    v = randn(b, length, h, dv).requires_grad_()
+    leaves, views = (qk, v), (qk[:, :, 0], qk[:, :, 1], v)
+    g_out = randn(b, length, h, dv)
+    g_lse = torch.from_numpy(rng.standard_normal(
+        (b, h, length), dtype=np.float32)).to(cuda)
+    kw = dict(causal=True, layout="blhd", dropout_rate=0.1,
+              dropout_seed=_seed(cuda))
+    names = ("launches", "dkv_launches", "wide_launches", "wide_dkv_launches")
+    before = [getattr(fa, n) for n in names]
+    results = []
+    for fn in (fa.flash_attention_with_lse, reference.attention):
+        out, lse = fn(*views, **kw)
+        results.append((out, lse, torch.autograd.grad(
+            (out, lse), leaves, (g_out, g_lse))))
+    assert [getattr(fa, n) - n0 for n, n0 in zip(names, before)] == [
+        0, 0, 1, 1]
+    (out, lse, grads), (r_out, r_lse, r_grads) = results
+    bf = dtype == torch.bfloat16
+    torch.testing.assert_close(
+        out, r_out, **(dict(rtol=2e-2, atol=2e-2) if bf else TOL))
+    torch.testing.assert_close(
+        lse, r_lse, **(dict(rtol=1e-2, atol=1e-2) if bf else TOL))
+    for got, want in zip(grads, r_grads):
+        torch.testing.assert_close(
+            got, want, **(dict(rtol=4e-2, atol=4e-2) if bf else GRAD_TOL))
 
 
 def _views(b, length, h, d, device, dtype, seed=3):

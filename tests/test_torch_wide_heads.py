@@ -1,18 +1,21 @@
 """Head widths above 128 and bfloat16 residual blocks: the torch package
 against the JAX package on the CPU.
 
-On the card the flash kernels take every head width (the D 256 instances,
-staged in chunks of 256 columns above 256) and the fused resblock kernel
-takes bfloat16. Here their plain
-versions, which the kernels are held to on the card, are held to the JAX
-package's Pallas kernels run as its own tests run them on the CPU
+On the card the flash kernels take every head width up to 4096 (above
+256 the wide forward and dk/dv kernels, which split the width over a
+cluster of CTAs, and the dq kernel's D 256 instance, staged in chunks of
+256 columns) and the fused resblock kernel takes bfloat16. Here their
+plain versions, which the kernels are held to on the card, are held to the
+JAX package's Pallas kernels run as its own tests run them on the CPU
 (interpret mode), on the same numpy inputs:
 
 - flash attention at Dh = Dv = 192 (``--embed_dim 768``, 4 heads), Dh 160
   with Dv 256, Dh = Dv = 512 (``--embed_dim 2048``, the width of the text
-  CLI's default Gemma-2B embedding) and Dh 264 with Dv 320 (a ragged last
-  chunk of 8 columns above 256), forward (out and logsumexp) within 1e-5
-  and, with
+  CLI's default Gemma-2B embedding), Dh 264 with Dv 320 (a ragged last
+  chunk of 8 columns above 256), and two widths that split raggedly over
+  the wide kernels' CTAs: Dh = Dv = 1024 (eight CTAs of 128 columns) and
+  Dh 300 with Dv 520 (five of 112, Dh ending inside the third), forward
+  (out and logsumexp) within 1e-5 and, with
   attention-weight dropout and an lse cotangent, dq, dk and dv within 1e-4
   (PERF.md's CPU tolerances; the TPU kernel scales q before the dot, the
   plain version the scores after it, and sums in another order);
@@ -56,6 +59,10 @@ CASES = {
     "dh512": (1, 2, 40, 40, 512, 512, False, "blhd", 0, 0, 0.1, 512),
     "dh264_dv320_causal": (1, 2, 40, 40, 264, 320, True, "bhld", 0, 0, 0.1,
                            264_320),
+    "dh1024_causal": (1, 2, 40, 40, 1024, 1024, True, "blhd", 0, 0, 0.1,
+                      1024),
+    "dh300_dv520_causal": (1, 2, 40, 40, 300, 520, True, "bhld", 0, 0, 0.1,
+                           300_520),
 }
 
 
@@ -136,6 +143,86 @@ def test_widths_above_the_kernels_raise_before_a_launch(monkeypatch):
     empty = torch.zeros(1, 1, 4, 0)
     with pytest.raises(ValueError, match="non-empty operands"):
         fa._check_cuda_operands(empty, empty, v, "bhld")
+
+
+class _Library:
+    """Stands in for the kernel library: records the entry points called
+    and returns cudaSuccess."""
+
+    def __init__(self):
+        self.called = []
+
+    def function(self, name, argtypes):
+        return lambda *args: self.called.append(name) or 0
+
+
+# (Dh, Dv): the forward's and the dk/dv kernel's entry points.
+ROUTES = {(256, 256): ("tdm_flash_attention_fwd",
+                       "tdm_flash_attention_bwd_dkv"),
+          (24, 256): ("tdm_flash_attention_fwd",
+                      "tdm_flash_attention_bwd_dkv"),
+          (257, 257): ("tdm_flash_attention_wide_fwd",
+                       "tdm_flash_attention_wide_bwd_dkv"),
+          (257, 8): ("tdm_flash_attention_wide_fwd",
+                     "tdm_flash_attention_wide_bwd_dkv"),
+          (64, 1024): ("tdm_flash_attention_wide_fwd",
+                       "tdm_flash_attention_wide_bwd_dkv"),
+          (4096, 4096): ("tdm_flash_attention_wide_fwd",
+                         "tdm_flash_attention_wide_bwd_dkv")}
+
+
+@pytest.mark.parametrize("dh, dv", sorted(ROUTES))
+def test_widths_route_to_their_kernels(monkeypatch, dh, dv):
+    """forward and backward_dkv pick the entry point by width alone: heads
+    with max(Dh, Dv) above 256 reach the wide kernels, the rest the narrow
+    ones, and each launch counts on its own kernel's counter; dq has one
+    entry point. The library and the stream are stand-ins, so the wrappers
+    run here on CPU tensors up to the launch."""
+    lib = _Library()
+    monkeypatch.setattr(fa._build, "function", lib.function)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    q, k = torch.zeros(2, 3, 8, dh), torch.zeros(2, 3, 8, dh)
+    v = torch.zeros(2, 3, 8, dv)
+    kw = dict(causal=True, layout="bhld", q_offset=0, k_offset=0,
+              dropout_rate=0.0, dropout_seed=None)
+    names = ("launches", "wide_launches", "dkv_launches", "wide_dkv_launches",
+             "dq_launches")
+    before = {n: getattr(fa, n) for n in names}
+    out, lse = fa.forward(q, k, v, **kw)
+    assert out.shape == (2, 3, 8, dv) and lse.shape == (2, 3, 8)
+    delta = torch.zeros(2, 3, 8)
+    fa.backward_dkv(q, k, v, out, lse, delta, torch.empty_like(k),
+                    torch.empty_like(v), **kw)
+    fa.backward_dq(q, k, v, out, lse, delta, torch.empty_like(q), **kw)
+    fwd, dkv = ROUTES[(dh, dv)]
+    assert lib.called == [fwd, dkv, "tdm_flash_attention_bwd_dq"]
+    wide = fa.is_wide(dh, dv)
+    assert wide == (max(dh, dv) > 256)
+    grew = {n: getattr(fa, n) - before[n] for n in names}
+    assert grew == {"launches": int(not wide), "wide_launches": int(wide),
+                    "dkv_launches": int(not wide),
+                    "wide_dkv_launches": int(wide), "dq_launches": 1}
+
+
+@pytest.mark.parametrize("shape_q, shape_v, match", [
+    ((1, 1, 4, 4097), (1, 1, 4, 64), "up to 4096"),
+    ((1, 1, 4, 300), (1, 1, 4, 5000), "up to 4096"),
+    ((1, 1, 4, 0), (1, 1, 4, 520), "non-empty operands"),
+    ((1, 1, 4, 520), (1, 2, 4, 520), "batch/head dims differ")])
+def test_bad_wide_operands_raise_before_a_launch(monkeypatch, shape_q,
+                                                 shape_v, match):
+    """The wrapper's check for the card refuses what the wide kernels do not
+    take (a head wider than 4096, an empty or mismatched operand) before
+    any entry point is called; the check's device comparison stands in as
+    in the test above."""
+    lib = _Library()
+    monkeypatch.setattr(fa._build, "function", lib.function)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    q = torch.zeros(shape_q)
+    with pytest.raises(ValueError, match=match):
+        fa._check_cuda_operands(q, q, torch.zeros(shape_v), "bhld")
+    assert lib.called == []
 
 
 # (Cin, Cout, H) of rb1..rb4 (models/unet.py:26).

@@ -1,8 +1,9 @@
 // Flash-attention recompute backward for Hopper (sm_90a), f32 and bf16,
-// f32 accumulation: what both backward kernels compute, and the parameters
+// f32 accumulation: what the backward kernels compute, and the parameters
 // and argument checks they share. The dq kernel is flash_attention_bwd_dq.cu,
-// the dk/dv kernel flash_attention_bwd_dkv.cu; each source compiles in
-// parallel with the other.
+// the dk/dv kernel flash_attention_bwd_dkv.cu (max(Dh, Dv) up to 256) and
+// flash_attention_wide_bwd_dkv.cu (above 256); each source compiles in
+// parallel with the others.
 //
 // Replaces the TPU kernels `_flash_dq_kernel` and `_flash_dkv_kernel` in
 // tinydiffusionmodels_tpu/ops/pallas_kernels.py (host side
@@ -27,9 +28,10 @@
 // (masked_fill with float32's lowest value, ops/reference.py) gives. The TPU
 // kernel zeroes such rows' p instead; the port follows its plain version.
 //
-// Head widths: every Dh and Dv from 1 up, on instances at D = 16, 32, 64,
-// 128 and 256 (the padded max(Dh, Dv)), the D 256 one staged above 256;
-// columns past the true widths load as zeros and are not stored. Both
+// Head widths: every Dh and Dv from 1 up to 4096, on instances at D = 16,
+// 32, 64, 128 and 256 (the padded max(Dh, Dv)); above 256 the dq kernel's D
+// 256 instance runs staged and dk/dv is the wide kernel's (flash_wide.cuh).
+// Columns past the true widths load as zeros and are not stored. The
 // kernels are on the tensor cores (flash_mma.cuh); each source's header
 // says how it is laid out.
 
@@ -81,7 +83,7 @@ __device__ __forceinline__ const T* operand(const BwdParams& p, const void* x,
 }
 
 // The padded width of an instance: 16, 32, 64, 128 or 256 (0: above 256,
-// where the D 256 instance runs staged).
+// where the dq kernel's D 256 instance runs staged).
 inline int padded_width(int dh, int dv) {
   const int d = dh > dv ? dh : dv;
   return d <= 16    ? 16
@@ -144,7 +146,7 @@ inline bool make_params(BwdParams& p, const void* q, const void* k,
 
 }  // namespace flash_bwd
 
-// Both entry points (one in each source) take the same arguments. dtype:
+// The entry points (one in each source) take the same arguments. dtype:
 // 0 = float32, 1 = bfloat16. dh, dv_dim: 1 or more. vec: bytes per copy of
 // q, k, v and dO into shared memory (16, 8, 4; 2 for bf16 only), which their
 // addresses and strides must be multiples of.
@@ -153,7 +155,7 @@ inline bool make_params(BwdParams& p, const void* q, const void* k,
 // float32. head_off, heads_total and batch_off place the launch's heads and
 // rows among those the dropout mask is hashed over, as in the forward.
 // `seed` is a device int32 (null: no dropout). The dq kernel writes
-// dq only; the dkv kernel writes dk and dv only. Returns the launch's
+// dq only; the dkv kernels write dk and dv only. Returns the launch's
 // cudaError_t (0 on success); the kernels run on `stream` and allocate
 // nothing.
 #define TDM_BWD_ARGS                                                        \

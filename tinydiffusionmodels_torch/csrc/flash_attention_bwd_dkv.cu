@@ -19,19 +19,15 @@
 // and dS to q's before their products, as the TPU kernel does
 // (`pv.astype(do.dtype)`, `ds.astype(q.dtype)`).
 //
-// Head widths: every Dh and Dv from 1 up, on instances at D = 16, 32, 64,
-// 128 and 256 (the padded max(Dh, Dv)); columns past the true widths load
-// as zeros, whole k steps and output blocks past them are skipped, and no
-// padded column is stored. A CTA accumulates at most 128 columns of dk and
-// of dv (registers): past 128, further CTAs (grid z, ceil(max(Dh, Dv) / 128)
-// in all) take columns 128-255, ... of both and recompute S^T and dP^T. The
-// D 256 instance walks queries in tiles of 32 and takes at most two warps
-// per key group or two groups per CTA (shared memory). Above 256 it runs
-// staged (STAGED): per query tile, S^T = K Q^T and dP^T = V dO^T sum over
-// 256 columns at a time, K and Q (V and dO) restaged through the same
-// shared tiles (flash_mma.cuh mma_abt_staged) one contraction after the
-// other, and the CTA's 128 columns of Q and dO come in beside them (84 KB of
-// shared memory in f32 at 16 key rows: two CTAs per SM).
+// Head widths: every Dh and Dv with max(Dh, Dv) up to 256, on instances at
+// D = 16, 32, 64, 128 and 256 (the padded max(Dh, Dv)); wider heads are the
+// wide kernel's (flash_attention_wide_bwd_dkv.cu), and this entry point
+// refuses them. Columns past the true widths load as zeros, whole k steps
+// and output blocks past them are skipped, and no padded column is stored.
+// A CTA accumulates at most 128 columns of dk and of dv (registers): past
+// 128, a second CTA (grid z) takes columns 128-255 of both and recomputes
+// S^T and dP^T. The D 256 instance walks queries in tiles of 32 and takes
+// at most two warps per key group or two groups per CTA (shared memory).
 //
 // Design. Each 16-row key group is one warp's, or, at short sequences,
 // four warps' that split every query tile among them (16 queries each) and
@@ -88,24 +84,21 @@ __host__ __device__ constexpr int query_tile() {
   return D > 128 ? 32 : QW > 1 || D <= 64 ? 64 : 32;
 }
 
-template <typename T, int D, int QW, bool STAGED>
+template <typename T, int D, int QW>
 constexpr size_t smem_bytes(int key_rows) {
   // K and V of `key_rows` rows; two stages of Q and dO tiles; two stages of
-  // lse and D. Staged: one `key_rows` tile (K, then V) and one query tile
-  // (Q, then dO) for the contractions, then the CTA's columns of Q and dO.
+  // lse and D.
   constexpr size_t kBQ = query_tile<D, QW>();
   constexpr size_t S = fmma::stride<T, D>();
-  constexpr size_t SO = fmma::stride<T, fmma::out_cols<D>()>();
-  return (STAGED ? sizeof(T) * ((key_rows + kBQ) * S + 2 * kBQ * SO)
-                 : sizeof(T) * S * (2 * size_t(key_rows) + 4 * kBQ)) +
+  return sizeof(T) * S * (2 * size_t(key_rows) + 4 * kBQ) +
          sizeof(float) * 4 * kBQ;
 }
 
 // QW warps share each 16-row key group and split every query tile among
 // them (QW = 1, or max_warps<D>() at short sequences); their dk and dv are
 // summed at the end. The CTA accumulates the columns [col0, col0 + DO) of
-// dk and dv. STAGED: Dh or Dv above D (256).
-template <typename T, int D, int QW, bool STAGED>
+// dk and dv.
+template <typename T, int D, int QW>
 __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     flash_bwd_dkv_kernel(const BwdParams p) {
   constexpr int S = fmma::stride<T, D>();
@@ -113,20 +106,13 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   constexpr int kBQ = query_tile<D, QW>();
   constexpr int kWarpBlocks = kBQ / 8 / QW;  // query blocks of 8 per warp
   constexpr int kOutBlocks = DO / 8;
-  constexpr int SO = fmma::stride<T, DO>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = blockDim.x / (2 * QW);  // 16 key rows per group
-  // Staged, the two contractions run one after the other through one pair
-  // of tiles: V takes K's, dO takes Q's; the CTA's columns of Q and of dO
-  // follow.
   T* sk = reinterpret_cast<T*>(smem_raw);
-  T* sv = STAGED ? sk : sk + rows * S;
-  T* sq = sv + rows * S;                   // two stages of kBQ x S
-  T* sdo = STAGED ? sq : sq + 2 * kBQ * S;  // two stages of kBQ x S
-  T* q_slice = sq + kBQ * S;               // staged: kBQ x SO each
-  T* do_slice = q_slice + kBQ * SO;
-  float* slse = reinterpret_cast<float*>(STAGED ? do_slice + kBQ * SO
-                                                : sdo + 2 * kBQ * S);
+  T* sv = sk + rows * S;
+  T* sq = sv + rows * S;      // two stages of kBQ x S
+  T* sdo = sq + 2 * kBQ * S;  // two stages of kBQ x S
+  float* slse = reinterpret_cast<float*>(sdo + 2 * kBQ * S);
   float* sdelta = slse + 2 * kBQ;  // both 2 x kBQ
 
   const int bh = blockIdx.x;
@@ -158,12 +144,10 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     fmma::load_row_f32(slse + stage * kBQ, lse, q0, kBQ, p.lq);
     fmma::load_row_f32(sdelta + stage * kBQ, delta, q0, kBQ, p.lq);
   };
-  if constexpr (!STAGED) {
-    fmma::load_tile<T, D>(sk, k, p.sl[kK], k0, rows, p.lk, p.dh, p.vec);
-    fmma::load_tile<T, D>(sv, v, p.sl[kV], k0, rows, p.lk, p.dv_dim, p.vec);
-    load_queries(0, 0);
-    fmma::cp_async_commit();
-  }
+  fmma::load_tile<T, D>(sk, k, p.sl[kK], k0, rows, p.lk, p.dh, p.vec);
+  fmma::load_tile<T, D>(sv, v, p.sl[kV], k0, rows, p.lk, p.dv_dim, p.vec);
+  load_queries(0, 0);
+  fmma::cp_async_commit();
 
   // This thread's two key rows, g and g + 8 of the group's 16.
   int k_row[2];
@@ -187,7 +171,7 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     // in the stage.
     const int off = slice * 8 * kWarpBlocks;
     const int qw0 = it * kBQ + off;
-    const int stage = STAGED ? 0 : it % 2;
+    const int stage = it % 2;
     const float* lse_t = slse + stage * kBQ + off;
     const float* delta_t = sdelta + stage * kBQ + off;
     const int q_blocks = min(kWarpBlocks, (p.lq - qw0 + 7) / 8);
@@ -204,41 +188,17 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     // The right factors of dk and dv: those rows at the CTA's columns.
     const T* q_cols = qt + col0;
     const T* do_cols = dot + col0;
-    if constexpr (STAGED) {
-      // lse and D into the first stage; the CTA's columns of Q and dO
-      // after the query tile.
-      const int q0 = it * kBQ;
-      q_cols = q_slice + off * SO;
-      do_cols = do_slice + off * SO;
-      fmma::load_row_f32(slse, lse, q0, kBQ, p.lq);
-      fmma::load_row_f32(sdelta, delta, q0, kBQ, p.lq);
-      fmma::load_tile<T, DO>(q_slice, col0 < p.dh ? q + col0 : q, p.sl[kQ],
-                             q0, kBQ, p.lq, p.dh - col0, p.vec);
-      fmma::load_tile<T, DO>(do_slice, col0 < p.dv_dim ? dout + col0 : dout,
-                             p.sl[kDO], q0, kBQ, p.lq, p.dv_dim - col0,
-                             p.vec);
-      fmma::mma_abt_staged<kWarpBlocks, D>(
-          st, sk, fmma::Rows<T>{k, p.sl[kK], k0, rows, p.lk}, group * 16, sq,
-          fmma::Rows<T>{q, p.sl[kQ], q0, kBQ, p.lq}, off, p.dh, p.vec,
-          q_blocks > 0);
-      fmma::mma_abt_staged<kWarpBlocks, D>(
-          dpt, sv, fmma::Rows<T>{v, p.sl[kV], k0, rows, p.lk}, group * 16,
-          sdo, fmma::Rows<T>{dout, p.sl[kDO], q0, kBQ, p.lq}, off, p.dv_dim,
-          p.vec, q_blocks > 0);
+    if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
+      load_queries((it + 1) % 2, (it + 1) * kBQ);
+      fmma::cp_async_commit();
+      fmma::cp_async_wait<1>();
     } else {
-      if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
-        load_queries((it + 1) % 2, (it + 1) * kBQ);
-        fmma::cp_async_commit();
-        fmma::cp_async_wait<1>();
-      } else {
-        fmma::cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (q_blocks > 0) {
-        fmma::mma_abt<kWarpBlocks, D>(st, sk + group * 16 * S, qt, p.dh);
-        fmma::mma_abt<kWarpBlocks, D>(dpt, sv + group * 16 * S, dot,
-                                      p.dv_dim);
-      }
+      fmma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (q_blocks > 0) {
+      fmma::mma_abt<kWarpBlocks, D>(st, sk + group * 16 * S, qt, p.dh);
+      fmma::mma_abt<kWarpBlocks, D>(dpt, sv + group * 16 * S, dot, p.dv_dim);
     }
     if (q_blocks > 0) {
       // The forward's weight p, its dropped form (into st, for dv) and ds
@@ -272,11 +232,10 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
       }
 
       // dv += (mask P)^T dO and dk += dS^T Q.
-      constexpr int SX = STAGED ? DO : D;  // the row stride of Q and dO
-      fmma::mma_cx<kWarpBlocks, DO, SX>(acc_v, st, do_cols, p.dv_dim - col0,
-                                        q_blocks);
-      fmma::mma_cx<kWarpBlocks, DO, SX>(acc_k, dpt, q_cols, p.dh - col0,
-                                        q_blocks);
+      fmma::mma_cx<kWarpBlocks, DO, D>(acc_v, st, do_cols, p.dv_dim - col0,
+                                       q_blocks);
+      fmma::mma_cx<kWarpBlocks, DO, D>(acc_k, dpt, q_cols, p.dh - col0,
+                                       q_blocks);
     }
     __syncthreads();  // this stage is consumed before it is refilled
   }
@@ -326,23 +285,22 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   }
 }
 
-template <typename T, int D, int QW, bool STAGED>
+template <typename T, int D, int QW>
 cudaError_t launch_split(const BwdParams& p, int bh, int groups,
                          cudaStream_t stream) {
   // Once per instance: the most shared memory any launch of it asks for.
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D, QW, STAGED>,
+      flash_bwd_dkv_kernel<T, D, QW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem_bytes<T, D, QW, STAGED>(16 * fmma::max_warps<D>() / QW)));
+      int(smem_bytes<T, D, QW>(16 * fmma::max_warps<D>() / QW)));
   if (attr != cudaSuccess) return attr;
   constexpr int DO = fmma::out_cols<D>();
   const int cols = p.dh > p.dv_dim ? p.dh : p.dv_dim;
   const dim3 grid(unsigned(bh), unsigned((p.lk + 16 * groups - 1) / (16 * groups)),
                   unsigned((cols + DO - 1) / DO));
-  flash_bwd_dkv_kernel<T, D, QW, STAGED><<<grid, 32 * QW * groups,
-                                           smem_bytes<T, D, QW, STAGED>(
-                                               16 * groups),
-                                           stream>>>(p);
+  flash_bwd_dkv_kernel<T, D, QW><<<grid, 32 * QW * groups,
+                                   smem_bytes<T, D, QW>(16 * groups),
+                                   stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -350,13 +308,13 @@ cudaError_t launch_split(const BwdParams& p, int bh, int groups,
 // max_warps<D>()) as keep 128 CTAs; where even one group per CTA gives no
 // more CTAs than that (short sequences), max_warps<D>() warps split each
 // query tile of the one group.
-template <typename T, int D, bool STAGED = false>
+template <typename T, int D>
 cudaError_t launch(const BwdParams& p, int batch, cudaStream_t stream) {
   constexpr int kMost = fmma::max_warps<D>();
   const int bh = batch * p.heads;
   const int groups = fmma::pick_warps(bh, p.lk, kMost);
-  if (groups == 1) return launch_split<T, D, kMost, STAGED>(p, bh, 1, stream);
-  return launch_split<T, D, 1, STAGED>(p, bh, groups, stream);
+  if (groups == 1) return launch_split<T, D, kMost>(p, bh, 1, stream);
+  return launch_split<T, D, 1>(p, bh, groups, stream);
 }
 
 template <typename T>
@@ -367,12 +325,14 @@ cudaError_t launch_width(const BwdParams& p, int batch, cudaStream_t s) {
     case 64: return launch<T, 64>(p, batch, s);
     case 128: return launch<T, 128>(p, batch, s);
     case 256: return launch<T, 256>(p, batch, s);
-    default: return launch<T, 256, true>(p, batch, s);
+    default: return cudaErrorInvalidValue;  // the wide kernel's
   }
 }
 
 }  // namespace
 
+// The dk/dv entry point of flash_attention_bwd.cuh's arguments at
+// max(dh, dv_dim) up to 256.
 extern "C" int tdm_flash_attention_bwd_dkv(TDM_BWD_ARGS) {
   BwdParams p;
   if (!TDM_BWD_PARAMS(p)) return int(cudaErrorInvalidValue);

@@ -27,7 +27,10 @@
 // sum over 256 columns at a time, Q and K (dO and V) restaged through the
 // same shared tiles (flash_mma.cuh mma_abt_staged) one contraction after
 // the other, and the CTA's 128 columns of K for dS K come in beside them
-// (67 KB of shared memory in f32 at 16 query rows: three CTAs per SM).
+// (67 KB of shared memory in f32 at 16 query rows: three CTAs per SM). It
+// is the one staged flash kernel left: the forward and dk/dv kernels take
+// those widths in the wide kernels of flash_wide.cuh, which form S once a
+// row block over a cluster of CTAs.
 //
 // Design: the dk/dv kernel's (flash_attention_bwd_dkv.cu) with the roles of
 // queries and keys exchanged. Each 16-row query group is one warp's, or, at

@@ -25,24 +25,18 @@
 // weights are rounded to bf16 before P*V, where the TPU kernel rounds them
 // (`pv.astype(v.dtype)`).
 //
-// Head widths. Every Dh and Dv from 1 up. The kernel is instantiated at
-// D = 16, 32, 64, 128 and 256, D the padded max(Dh, Dv); it takes the true
-// widths at run time, loads columns at or past them as zeros (zero columns
-// of q and k change no score), skips whole k steps and output blocks past
-// them, and stores no padded column. The scale is 1/sqrt(Dh) of the true
-// width. A CTA accumulates at most 128 output columns (registers): with
-// Dv > 128, further CTAs (grid z, ceil(Dv / 128) in all) take columns
-// 128-255, 256-383, ... and form the same scores and softmax; only the first
-// writes the lse. The D 256 instance walks keys in tiles of 32 and takes at
-// most two warps per query group or two groups per CTA (shared memory: its
-// Q and K tiles are 256 wide). Above 256 the D 256 instance runs staged
-// (STAGED): per key tile, S = Q K^T sums over Dh 256 columns at a time, the
-// Q and K column chunks restaged through the same shared tiles
-// (flash_mma.cuh mma_abt_staged), and the tile's V columns of the CTA come
-// in beside them; nothing is prefetched, so one stage of K and V does (67
-// KB of shared memory in f32 at 16 query rows: three CTAs per SM). The D
-// 256 instance's registers; slower: a width no instance holds costs one
-// reload of Q per key tile and chunk.
+// Head widths. Every Dh and Dv with max(Dh, Dv) up to 256; wider heads are
+// the wide kernel's (flash_attention_wide_fwd.cu), and this entry point
+// refuses them. The kernel is instantiated at D = 16, 32, 64, 128 and 256,
+// D the padded max(Dh, Dv); it takes the true widths at run time, loads
+// columns at or past them as zeros (zero columns of q and k change no
+// score), skips whole k steps and output blocks past them, and stores no
+// padded column. The scale is 1/sqrt(Dh) of the true width. A CTA
+// accumulates at most 128 output columns (registers): with Dv > 128, a
+// second CTA (grid z) takes columns 128-255 and forms the same scores and
+// softmax; only the first writes the lse. The D 256 instance walks keys in
+// tiles of 32 and takes at most two warps per query group or two groups
+// per CTA (shared memory: its Q and K tiles are 256 wide).
 //
 // Design. Each 16-row query group is one warp's, or, at short sequences,
 // four warps' that split every key tile among them (16 keys each) and merge
@@ -83,6 +77,7 @@
 #include <cuda_runtime.h>
 
 #include "dropout_hash.cuh"
+#include "flash_attention_fwd.cuh"
 #include "flash_mma.cuh"
 
 namespace {
@@ -95,57 +90,23 @@ __host__ __device__ constexpr int key_tile() {
   return D <= 128 ? 64 : 32;
 }
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  float* lse;  // (batch*heads, lq), contiguous
-  // Element strides over (batch, head, row); the last dim is contiguous.
-  int64_t q_sb, q_sh, q_sl;
-  int64_t k_sb, k_sh, k_sl;
-  int64_t v_sb, v_sh, v_sl;
-  int64_t o_sb, o_sh, o_sl;
-  int heads, lq, lk, dh, dv;
-  int vec;  // bytes per copy of q, k and v into shared memory
-  int q_off, k_off;
-  // The hashed head: (b + batch_off) * heads_total + head_off + h.
-  int head_off, heads_total, batch_off;
-  int causal;
-  float scale;
-  // Dropout: off when seed is null; else keep where hash >= drop_thresh and
-  // scale kept weights by drop_scale.
-  const int* seed;
-  uint32_t drop_thresh;
-  float drop_scale;
-};
+using flash_fwd::Params;
+using flash_fwd::store;
 
-// Ring stages of K and V tiles: two, or one when staged (nothing is
-// prefetched there, and the smaller footprint fits more CTAs on an SM).
-template <bool STAGED>
-__host__ __device__ constexpr int stages() {
-  return STAGED ? 1 : 2;
-}
-
-template <typename T, int D, bool STAGED>
+template <typename T, int D>
 constexpr size_t smem_bytes(int rows) {
-  // Q of `rows` rows, the stages of K tiles (D wide) and of V tiles (the
+  // Q of `rows` rows, two stages of K tiles (D wide) and of V tiles (the
   // CTA's output columns).
-  constexpr size_t kTiles = size_t(stages<STAGED>()) * key_tile<D>();
+  constexpr size_t kTiles = size_t(2) * key_tile<D>();
   return sizeof(T) * (fmma::stride<T, D>() * (size_t(rows) + kTiles) +
                       fmma::stride<T, fmma::out_cols<D>()>() * kTiles);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
 }
 
 // KW warps share each 16-row query group and split every key tile among
 // them (KW = 1, or max_warps<D>() at short sequences: kBlockK / KW keys per
 // warp); their softmax states are merged at the end. The CTA accumulates
-// the output columns [col0, col0 + DO). STAGED: Dh or Dv above D (256).
-template <typename T, int D, int KW, bool STAGED>
+// the output columns [col0, col0 + DO).
+template <typename T, int D, int KW>
 __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     flash_fwd_kernel(const Params p) {
   constexpr int S = fmma::stride<T, D>();
@@ -158,7 +119,7 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   const int rows = blockDim.x / (2 * KW);  // 16 per query group
   T* sq = reinterpret_cast<T*>(smem_raw);
   T* sk = sq + rows * S;                          // stages of kBlockK x S
-  T* sv = sk + stages<STAGED>() * kBlockK * S;    // stages of kBlockK x SV
+  T* sv = sk + 2 * kBlockK * S;                  // stages of kBlockK x SV
   const int col0 = blockIdx.z * DO;
 
   const int bh = blockIdx.x;
@@ -177,13 +138,11 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   const int g = lane / 4, t = lane % 4;
   const int n_tiles = (p.lk + kBlockK - 1) / kBlockK;
 
-  if constexpr (!STAGED) {
-    fmma::load_tile<T, D>(sq, q, p.q_sl, q0, rows, p.lq, p.dh, p.vec);
-    fmma::load_tile<T, D>(sk, k, p.k_sl, 0, kBlockK, p.lk, p.dh, p.vec);
-    fmma::load_tile<T, DO>(sv, v, p.v_sl, 0, kBlockK, p.lk, p.dv - col0,
-                           p.vec);
-    fmma::cp_async_commit();
-  }
+  fmma::load_tile<T, D>(sq, q, p.q_sl, q0, rows, p.lq, p.dh, p.vec);
+  fmma::load_tile<T, D>(sk, k, p.k_sl, 0, kBlockK, p.lk, p.dh, p.vec);
+  fmma::load_tile<T, DO>(sv, v, p.v_sl, 0, kBlockK, p.lk, p.dv - col0,
+                         p.vec);
+  fmma::cp_async_commit();
 
   // This thread's two query rows, g and g + 8 of the group's 16.
   int q_pos[2];
@@ -209,25 +168,23 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   }
 
   for (int it = 0; it < n_tiles; ++it) {
-    if constexpr (!STAGED) {
-      if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
-        const int next = (it + 1) % 2;
-        const int k0 = (it + 1) * kBlockK;
-        fmma::load_tile<T, D>(sk + next * kBlockK * S, k, p.k_sl, k0,
-                              kBlockK, p.lk, p.dh, p.vec);
-        fmma::load_tile<T, DO>(sv + next * kBlockK * SV, v, p.v_sl, k0,
-                               kBlockK, p.lk, p.dv - col0, p.vec);
-        fmma::cp_async_commit();
-        fmma::cp_async_wait<1>();
-      } else {
-        fmma::cp_async_wait<0>();
-      }
-      __syncthreads();
+    if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
+      const int next = (it + 1) % 2;
+      const int k0 = (it + 1) * kBlockK;
+      fmma::load_tile<T, D>(sk + next * kBlockK * S, k, p.k_sl, k0, kBlockK,
+                            p.lk, p.dh, p.vec);
+      fmma::load_tile<T, DO>(sv + next * kBlockK * SV, v, p.v_sl, k0,
+                             kBlockK, p.lk, p.dv - col0, p.vec);
+      fmma::cp_async_commit();
+      fmma::cp_async_wait<1>();
+    } else {
+      fmma::cp_async_wait<0>();
     }
+    __syncthreads();
     // This warp's keys of the tile: kw0 .. kw0 + 8 kWarpBlocks.
     const int off = slice * 8 * kWarpBlocks;
     const int kw0 = it * kBlockK + off;
-    const int stage = STAGED ? 0 : it % 2;
+    const int stage = it % 2;
     const int stage_off_v = stage * kBlockK * SV + off * SV;
     // Key blocks of 8 that hold a key below Lk (none: <= 0).
     const int k_blocks = min(kWarpBlocks, (p.lk - kw0 + 7) / 8);
@@ -238,14 +195,7 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
     }
-    if constexpr (STAGED) {
-      fmma::load_tile<T, DO>(sv, v, p.v_sl, it * kBlockK, kBlockK, p.lk,
-                             p.dv - col0, p.vec);
-      fmma::mma_abt_staged<kWarpBlocks, D>(
-          s, sq, fmma::Rows<T>{q, p.q_sl, q0, rows, p.lq}, group * 16, sk,
-          fmma::Rows<T>{k, p.k_sl, it * kBlockK, kBlockK, p.lk}, off, p.dh,
-          p.vec, k_blocks > 0);
-    } else if (k_blocks > 0) {
+    if (k_blocks > 0) {
       fmma::mma_abt<kWarpBlocks, D>(s, sq + group * 16 * S,
                                     sk + stage * kBlockK * S + off * S, p.dh);
     }
@@ -374,21 +324,19 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   }
 }
 
-template <typename T, int D, int KW, bool STAGED>
+template <typename T, int D, int KW>
 cudaError_t launch_split(const Params& p, int bh, int groups,
                          cudaStream_t stream) {
   // Once per instance: the most shared memory any launch of it asks for.
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, KW, STAGED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem_bytes<T, D, STAGED>(16 * fmma::max_warps<D>() / KW)));
+      flash_fwd_kernel<T, D, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem_bytes<T, D>(16 * fmma::max_warps<D>() / KW)));
   if (attr != cudaSuccess) return attr;
   constexpr int DO = fmma::out_cols<D>();
   const dim3 grid(unsigned(bh), unsigned((p.lq + 16 * groups - 1) / (16 * groups)),
                   unsigned((p.dv + DO - 1) / DO));
-  flash_fwd_kernel<T, D, KW, STAGED><<<grid, 32 * KW * groups,
-                                       smem_bytes<T, D, STAGED>(16 * groups),
-                                       stream>>>(p);
+  flash_fwd_kernel<T, D, KW><<<grid, 32 * KW * groups,
+                               smem_bytes<T, D>(16 * groups), stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -396,13 +344,13 @@ cudaError_t launch_split(const Params& p, int bh, int groups,
 // max_warps<D>()) as keep 128 CTAs; where even one group per CTA gives no
 // more CTAs than that (short sequences), max_warps<D>() warps split each
 // key tile of the one group.
-template <typename T, int D, bool STAGED = false>
+template <typename T, int D>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr int kMost = fmma::max_warps<D>();
   const int bh = batch * p.heads;
   const int groups = fmma::pick_warps(bh, p.lq, kMost);
-  if (groups == 1) return launch_split<T, D, kMost, STAGED>(p, bh, 1, stream);
-  return launch_split<T, D, 1, STAGED>(p, bh, groups, stream);
+  if (groups == 1) return launch_split<T, D, kMost>(p, bh, 1, stream);
+  return launch_split<T, D, 1>(p, bh, groups, stream);
 }
 
 template <typename T>
@@ -413,70 +361,20 @@ cudaError_t launch_width(const Params& p, int batch, cudaStream_t s) {
   if (d <= 64) return launch<T, 64>(p, batch, s);
   if (d <= 128) return launch<T, 128>(p, batch, s);
   if (d <= 256) return launch<T, 256>(p, batch, s);
-  return launch<T, 256, true>(p, batch, s);
+  return cudaErrorInvalidValue;  // the wide kernel's
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. dh, dv: 1 or more. vec: bytes per copy
-// of q, k and v into shared memory (16, 8, 4; 2 for bf16 only), which their
-// addresses and (batch, head, row) strides must be multiples of. Strides are
-// in elements. head_off and heads_total place the launch's heads among the
-// heads the dropout mask is hashed over (0 and `heads` for a whole layer),
-// batch_off its batch rows among the global batch's (0 for the whole).
-// `seed` is a device int32 (null: no dropout). Returns the
-// launch's cudaError_t (0 on success); the kernel runs on `stream` and
-// allocates nothing.
-extern "C" int tdm_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    int dtype, int batch, int heads, int lq, int lk, int dh, int dv, int vec,
-    long long q_sb, long long q_sh, long long q_sl,
-    long long k_sb, long long k_sh, long long k_sl,
-    long long v_sb, long long v_sh, long long v_sl,
-    long long o_sb, long long o_sh, long long o_sl,
-    float scale, int causal, int q_off, int k_off, int head_off,
-    int heads_total, int batch_off, const void* seed, unsigned drop_thresh,
-    float drop_scale,
-    void* stream) {
-  const int min_vec = dtype == 1 ? 2 : 4;
-  if (batch <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || dh <= 0 || dv <= 0 ||
-      head_off < 0 || heads_total < head_off + heads || batch_off < 0 ||
-      vec < min_vec || vec > 16 || (vec & (vec - 1)) != 0) {
-    return int(cudaErrorInvalidValue);
-  }
+// The entry point of flash_attention_fwd.cuh's arguments: max(dh, dv) up
+// to 256.
+extern "C" int tdm_flash_attention_fwd(TDM_FWD_ARGS) {
   Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.lse = static_cast<float*>(lse);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
-  p.heads = heads;
-  p.lq = lq;
-  p.lk = lk;
-  p.dh = dh;
-  p.dv = dv;
-  p.vec = vec;
-  p.q_off = q_off;
-  p.k_off = k_off;
-  p.head_off = head_off;
-  p.heads_total = heads_total;
-  p.batch_off = batch_off;
-  p.causal = causal;
-  p.scale = scale;
-  p.seed = static_cast<const int*>(seed);
-  p.drop_thresh = drop_thresh;
-  p.drop_scale = drop_scale;
+  if (!TDM_FWD_PARAMS(p)) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dtype) {
-    case 0: err = launch_width<float>(p, batch, s); break;
-    case 1: err = launch_width<__nv_bfloat16>(p, batch, s); break;
-    default: err = cudaErrorInvalidValue; break;
-  }
+  const cudaError_t err = dtype == 0
+                              ? launch_width<float>(p, batch, s)
+                              : launch_width<__nv_bfloat16>(p, batch, s);
   return int(err);
 }
 

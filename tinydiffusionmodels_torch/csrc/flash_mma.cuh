@@ -43,9 +43,11 @@ constexpr int kMinCtas = 128;  // the grid the host aims for (132 SMs)
 // each CTA owns at most kMaxOutCols output columns: a D 256 instance runs a
 // second CTA for columns 128-255, which recomputes the scores. Its tiles
 // are twice as wide, so it also takes at most half the warps (shared
-// memory). Past 256 the D 256 instance is staged: its contractions walk the
-// head width 256 columns at a time (mma_abt_staged), and grid z takes the
-// output columns 128 at a time, however many there are.
+// memory). Past 256 the forward and the dk/dv kernel are the wide kernels
+// of flash_wide.cuh; the dq kernel's D 256 instance is staged: its
+// contractions walk the head width 256 columns at a time (mma_abt_staged),
+// and grid z takes the output columns 128 at a time, however many there
+// are.
 constexpr int kMaxOutCols = 128;
 
 template <int D>
@@ -354,14 +356,16 @@ __device__ __forceinline__ void bf16_a_from_c(uint32_t (&a)[4],
 // ---- tile products ---------------------------------------------------------
 
 // acc[j] (16 x 8 C fragments, j < NB) += A B^T over the first `depth`
-// columns (rounded up to the k step): A the warp's 16 rows of a row-major
-// tile `a`, B^T the rows [8j, 8j + 8) of a row-major tile `b`; both D wide,
-// stride<T, D>(). Columns of both are contiguous, so this is Q K^T, or K
-// Q^T, V dO^T in the dk/dv kernel.
-template <int NB, int D>
+// columns (rounded up to the k step) of at most D: A the warp's 16 rows of
+// a row-major tile `a`, B^T the rows [8j, 8j + 8) of a row-major tile `b`;
+// both with the row stride of an SD-wide tile, stride<T, SD>() (SD = D: the
+// tiles are D wide; the wide kernels take D columns of wider tiles).
+// Columns of both are contiguous, so this is Q K^T, or K Q^T, V dO^T in the
+// dk/dv kernel.
+template <int NB, int D, int SD = D>
 __device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const float* a,
                                         const float* b, int depth) {
-  constexpr int S = stride<float, D>();
+  constexpr int S = stride<float, SD>();
   constexpr int kGroup = NB < kTermBlocks ? NB : kTermBlocks;
 #pragma unroll
   for (int k0 = 0; k0 < D; k0 += 8) {
@@ -377,11 +381,11 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const float* a,
   }
 }
 
-template <int NB, int D>
+template <int NB, int D, int SD = D>
 __device__ __forceinline__ void mma_abt(float (&acc)[NB][4],
                                         const __nv_bfloat16* a,
                                         const __nv_bfloat16* b, int depth) {
-  constexpr int S = stride<__nv_bfloat16, D>();
+  constexpr int S = stride<__nv_bfloat16, SD>();
   static_assert(NB % 2 == 0, "bf16 B fragments come in pairs of blocks");
 #pragma unroll
   for (int k0 = 0; k0 < D; k0 += 16) {
@@ -412,14 +416,16 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NB][4],
 // the zeroed fragments cost at most 32 registers.
 constexpr int kChunkBlocks = 8;
 
-template <int NB, int DO, int D>
+// GROUP: output blocks a 3xTF32 group (kTermBlocks; the wide kernels, one
+// warp a scheduler, take 8, so that twice the products are in flight).
+template <int NB, int DO, int D, int GROUP = kTermBlocks>
 __device__ __forceinline__ void mma_cx(float (&out)[DO / 8][4],
                                        const float (&p)[NB][4],
                                        const float* x, int width,
                                        int k_blocks) {
   constexpr int S = stride<float, D>();
   constexpr int kChunk = DO / 8 < kChunkBlocks ? DO / 8 : kChunkBlocks;
-  constexpr int kGroup = kChunk < kTermBlocks ? kChunk : kTermBlocks;
+  constexpr int kGroup = kChunk < GROUP ? kChunk : GROUP;
 #pragma unroll
   for (int n0 = 0; n0 < DO / 8; n0 += kChunk) {
     if (8 * n0 >= width) break;
@@ -447,7 +453,7 @@ __device__ __forceinline__ void mma_cx(float (&out)[DO / 8][4],
   }
 }
 
-template <int NB, int DO, int D>
+template <int NB, int DO, int D, int GROUP = kTermBlocks>
 __device__ __forceinline__ void mma_cx(float (&out)[DO / 8][4],
                                        const float (&p)[NB][4],
                                        const __nv_bfloat16* x, int width,
@@ -517,7 +523,7 @@ __device__ __forceinline__ void mma_ab(float (&acc)[NB][4],
   }
 }
 
-// ---- head widths above 256 -------------------------------------------------
+// ---- head widths above 256 (the dq kernel) --------------------------------
 
 // Rows [r0, r0 + rows) of a row-major operand with row stride `ld`; rows at
 // or past `limit` read as zeros.

@@ -504,7 +504,7 @@ cudaError_t launch_narrow(const NarrowParams& p, int batch, size_t smem,
   if (narrow_smem<T, COUT>(p).bytes != smem) return cudaErrorInvalidValue;
   const auto kernel = p.xb ? fused_resblock_kernel_narrow<T, COUT, true>
                            : fused_resblock_kernel_narrow<T, COUT, false>;
-  const cudaError_t attr = allow_smem(kernel, smem);
+  const cudaError_t attr = hop::allow_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
   const long long blocks = (long long)batch * p.tiles_per_image;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the fused resblock's wgmma kernel: the
-// tensor memory accelerator (TMA) with its mbarrier completion, thread-block
-// clusters and multicast, warpgroup register rebalancing (setmaxnreg) and
-// the warpgroup products (wgmma) with A in registers and B in shared memory.
+// Hopper (sm_90a) building blocks of the fused resblock's wgmma kernel and
+// the wide flash kernels: the tensor memory accelerator (TMA) with its
+// mbarrier completion, thread-block clusters (their launch, barriers,
+// distributed shared memory and multicast), warpgroup register rebalancing
+// (setmaxnreg) and the warpgroup products (wgmma) with A in registers and B
+// in shared memory.
 //
 // Shared-memory operands of wgmma are K-major with a 128-, 64- or 32-byte
 // swizzle: rows of `atom` bytes (one row per column n of B, its K values
@@ -24,6 +26,7 @@
 #include <cstdint>
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 
 namespace hop {
 
@@ -84,19 +87,25 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                :: "r"(smem_u32(bar)) : "memory");
 }
 
+// ---- clusters ----------------------------------------------------------
+
+// The address of `p`'s offset in the shared memory of CTA `cta` of the
+// cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(smem_u32(p)), "r"(cta));
+  return r;
+}
+
 // One arrival on the barrier at `bar`'s offset in CTA `cta` of the cluster,
 // with the default (CTA-scope) release: an explicit .release.cluster made
 // every stage's release cost about as much as its products on the H100.
 __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
                                                     uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 r;\n"
-      "mapa.shared::cluster.u32 r, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [r];\n}\n"
-      :: "r"(smem_u32(bar)), "r"(cta) : "memory");
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
+               :: "r"(cluster_addr(bar, cta)) : "memory");
 }
-
-// ---- clusters ----------------------------------------------------------
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -110,11 +119,87 @@ __device__ __forceinline__ uint32_t cluster_size() {
   return r;
 }
 
-// Every thread of every CTA of the cluster.
+// The two halves of a barrier of every thread of every CTA of the cluster:
+// the arrival releases what the thread wrote, the wait acquires what every
+// thread wrote before it arrived. Work between the two hides the latency.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Above 48 KB of shared memory only after this attribute; a refusal (above
+// the device's 227 KB) is returned, never worked around.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+}
+
+// A launch of `blocks` CTAs of `threads` threads along x, in clusters of
+// `cluster`, each with `smem` bytes of dynamic shared memory; `attr` holds
+// the cluster's shape.
+inline cudaLaunchConfig_t cluster_config(long long blocks, int threads,
+                                         int cluster, size_t smem,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = unsigned(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(unsigned(blocks));
+  config.blockDim = dim3(unsigned(threads));
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+// `kernel(args...)` on that launch; `blocks` is a multiple of the cluster,
+// which is at most 8 (the portable size).
+template <typename Kernel, typename... Args>
+cudaError_t launch_clusters(Kernel kernel, long long blocks, int threads,
+                            int cluster, size_t smem, cudaStream_t stream,
+                            Args... args) {
+  if (blocks <= 0 || blocks > 0x7fffffffLL || cluster < 1 || cluster > 8 ||
+      blocks % cluster != 0) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config =
+      cluster_config(blocks, threads, cluster, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// out[0..2]: a thread's registers and local (spill) bytes of `kernel`, and
+// how many clusters of `cluster` CTAs of `threads` threads with `smem`
+// bytes each the device holds at once.
+template <typename Kernel>
+cudaError_t cluster_attrs(Kernel kernel, int threads, int cluster,
+                          size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = int(a.localSizeBytes);
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config =
+      cluster_config(cluster, threads, cluster, smem, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(&out[2], kernel, &config);
 }
 
 // ---- TMA ---------------------------------------------------------------

@@ -511,14 +511,6 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   }
 }
 
-// Above 48 KB of shared memory only after this attribute; a refusal (above
-// the device's 227 KB) is returned, never worked around.
-template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-}
-
 // cuTensorMapEncodeTiled, from the driver the runtime has loaded (no link
 // against libcuda).
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -577,10 +569,6 @@ cudaError_t launch_wide(const WideParams& p, const void* w1, const void* w2,
   if (WideSmem<T, NC>(p).bytes != smem || NC / cluster % 8 != 0) {
     return cudaErrorInvalidValue;
   }
-  const long long blocks = (long long)batch * p.tiles_per_image;
-  if (blocks > 0x7fffffffLL || blocks % cluster != 0) {
-    return cudaErrorInvalidValue;
-  }
   const int planes = Wide<T>::kPlanes, rows = NC / cluster;
   CUtensorMap maps[3];
   if (!weight_map<T>(&maps[0], w1, p.cin_pad, planes * 9 * p.cout_pad, p.ks,
@@ -591,24 +579,10 @@ cudaError_t launch_wide(const WideParams& p, const void* w1, const void* w2,
                      planes * (ws ? 1 : 9) * p.cout_pad, p.ks, rows)) {
     return cudaErrorInvalidValue;
   }
-  const auto kernel = fused_resblock_wgmma<T, NC>;
-  const cudaError_t attr = allow_smem(kernel, smem);
-  if (attr != cudaSuccess) return attr;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(unsigned(blocks));
-  config.blockDim = dim3(kWideThreads);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
-  cudaLaunchAttribute attrs[1];
-  attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = unsigned(cluster);
-  attrs[0].val.clusterDim.y = 1;
-  attrs[0].val.clusterDim.z = 1;
-  config.attrs = attrs;
-  config.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&config, kernel, p, maps[0], maps[1], maps[2]);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return hop::launch_clusters(fused_resblock_wgmma<T, NC>,
+                              (long long)batch * p.tiles_per_image,
+                              kWideThreads, cluster, smem, stream, p, maps[0],
+                              maps[1], maps[2]);
 }
 
 // The wgmma instance's registers and local (spill) bytes a thread, and how
@@ -616,26 +590,8 @@ cudaError_t launch_wide(const WideParams& p, const void* w1, const void* w2,
 // at once.
 template <typename T, int NC>
 cudaError_t wide_attrs(size_t smem, int cluster, int* out) {
-  const auto kernel = fused_resblock_wgmma<T, NC>;
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err != cudaSuccess) return err;
-  out[0] = a.numRegs;
-  out[1] = int(a.localSizeBytes);
-  err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(unsigned(cluster));
-  config.blockDim = dim3(kWideThreads);
-  config.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attrs[1];
-  attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = unsigned(cluster);
-  attrs[0].val.clusterDim.y = 1;
-  attrs[0].val.clusterDim.z = 1;
-  config.attrs = attrs;
-  config.numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(&out[2], kernel, &config);
+  return hop::cluster_attrs(fused_resblock_wgmma<T, NC>, kWideThreads,
+                            cluster, smem, out);
 }
 
 // The instances: `TDM_WIDE_INSTANCE(extern, T, NC)` declares one (every

@@ -10,12 +10,15 @@ tree's root with that tree's package on the path. A turn calls the tree's
 own wrappers (``ops.flash_attention.forward``, ``backward_dq`` and
 ``backward_dkv``, with the keyword arguments every tree since the dropout
 hash takes, so no tree's ctypes signature is written here) on the same
-operands: the training shape (B 8, L 64, 4 heads of 64 on strided views
-of one QKV projection, dropout 0.1), f32 and bf16. It saves its outputs
-and takes ``--readings`` ``perf.device_ms`` readings of each kernel (200
-launches behind a sleep kernel). Every turn's outputs must be bit-equal
-to the first turn's; the medians print with the card's name and power
-limit, then one JSON line.
+operands: the training shape (B 8, L 64, 4 heads on strided views of one
+QKV projection, dropout 0.1) at head widths 64 (the model's), 256 (the
+widest of the narrow instances) and 512 (the --embed_dim 2048 path's,
+where the trees' kernels may differ), f32 and bf16. It saves its
+outputs and takes ``--readings`` ``perf.device_ms`` readings of each
+kernel (200 launches behind a sleep kernel). Every turn's outputs must be
+bit-equal to the first turn of its tree; between the trees the largest
+difference of each output prints (0 where both run the same kernel). The
+medians print with the card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -42,9 +45,10 @@ from tinydiffusionmodels_torch import perf
 from tinydiffusionmodels_torch.ops import flash_attention as fa
 
 torch.backends.cuda.matmul.allow_tf32 = False
-b, l, h, d = 8, 64, 4, 64
+b, l, h = 8, 64, 4
 outputs, times = {}, {}
-for dtype in (torch.float32, torch.bfloat16):
+for d, dtype in [(w, t) for w in (64, 256, 512)
+                 for t in (torch.float32, torch.bfloat16)]:
     g = torch.Generator(device="cuda").manual_seed(11)
     qkv = torch.randn(b, l, 3, h, d, generator=g, device="cuda").to(dtype)
     q, k, v = qkv.unbind(2)
@@ -63,7 +67,7 @@ for dtype in (torch.float32, torch.bfloat16):
     calls["dq"]()
     calls["dkv"]()
     torch.cuda.synchronize()
-    name = str(dtype)[6:]
+    name = f"{str(dtype)[6:]}_d{d}"
     outputs[name] = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
     times[name] = {k: [perf.device_ms(f) for _ in range(int(sys.argv[2]))]
                    for k, f in calls.items()}
@@ -94,7 +98,7 @@ def main(argv=None) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     card = perf.card_label()
     times: dict = {}
-    first = None
+    first: dict = {}
     for i, who in enumerate(ORDER):
         path = out_dir / f"turn{i}_{who}.pt"
         proc = subprocess.run(
@@ -105,28 +109,34 @@ def main(argv=None) -> None:
             raise SystemExit(f"flash_ab: turn {i} ({who}) exited "
                              f"{proc.returncode}:\n{proc.stderr[-4000:]}")
         outputs = torch.load(path)
-        if first is None:
-            first = outputs
-        for dtype, tensors in outputs.items():
+        first.setdefault(who, outputs)
+        for case, tensors in outputs.items():
             for name, x in tensors.items():
-                if not torch.equal(x, first[dtype][name]):
-                    raise AssertionError(f"{dtype} {name}: turn {i} ({who}) "
-                                         "differs from turn 0")
-        for dtype, kernels in json.loads(proc.stdout.splitlines()[-1]).items():
+                if not torch.equal(x, first[who][case][name]):
+                    raise AssertionError(f"{case} {name}: turn {i} ({who}) "
+                                         f"differs from its tree's first")
+        for case, kernels in json.loads(proc.stdout.splitlines()[-1]).items():
             for kernel, readings in kernels.items():
-                times.setdefault(f"{dtype}_{kernel}", {}).setdefault(
+                times.setdefault(f"{case}_{kernel}", {}).setdefault(
                     who, []).extend(readings)
     record = {"card": card, "order": list(ORDER),
               "readings_per_turn": args.readings}
+    diffs = {case: {name: float((x.float() - first["other"][case][name]
+                                 .float()).abs().max())
+                    for name, x in tensors.items()}
+             for case, tensors in first["this"].items()}
+    for case, d in diffs.items():
+        print(f"{case}: largest difference between the trees {d}")
     for key, t in times.items():
         med = {who: float(np.median(v)) for who, v in t.items()}
-        print(f"{key}: bit-equal in every turn; median ms other "
+        print(f"{key}: bit-equal in every turn of a tree; median ms other "
               f"{med['other']:.5f}, this {med['this']:.5f} "
               f"({med['this'] / med['other']:.3f}x), {len(t['this'])} "
               f"readings each, on {card}")
         record[key] = {**med, "spread_other": [min(t["other"]),
                                                max(t["other"])],
                        "spread_this": [min(t["this"]), max(t["this"])]}
+    record["max_abs_diff_between_trees"] = diffs
     print(json.dumps(record))
 
 

@@ -66,6 +66,8 @@ COUNTERS = (
     (single_block, "bwd_launches"),
     (decode_kernel, "launches"),
     (rng, "launches"),
+    (flash_attention, "wide_launches"),
+    (flash_attention, "wide_dkv_launches"),
 )
 
 

@@ -5,19 +5,27 @@ pallas_kernels.py`` to hand-written CUDA C++ for Hopper, built from
 ``csrc/``:
 
 - ``_flash_kernel`` (forward, with attention-weight dropout) ->
-  ``csrc/flash_attention_fwd.cu``;
+  ``csrc/flash_attention_fwd.cu`` at head widths max(Dh, Dv) up to
+  ``NARROW_WIDTH`` (256) and ``csrc/flash_attention_wide_fwd.cu`` above
+  it (with ``flash_attention_fwd.cuh``, the parameters both share);
 - ``_flash_dq_kernel`` (recompute backward, dq) ->
-  ``csrc/flash_attention_bwd_dq.cu`` (with ``flash_attention_bwd.cuh``, the
-  parameters both backward kernels share);
+  ``csrc/flash_attention_bwd_dq.cu`` at every width (with
+  ``flash_attention_bwd.cuh``, the parameters the backward kernels share);
 - ``_flash_dkv_kernel`` (recompute backward, dk and dv) ->
-  ``csrc/flash_attention_bwd_dkv.cu``;
-- ``_dropout_scale`` (the coordinate-hash mask all three share) ->
+  ``csrc/flash_attention_bwd_dkv.cu`` up to 256 and
+  ``csrc/flash_attention_wide_bwd_dkv.cu`` above;
+- ``_dropout_scale`` (the coordinate-hash mask all of them share) ->
   ``csrc/dropout_hash.cuh``.
 
-All three run their products on the tensor cores (``csrc/flash_mma.cuh``)
-and take every head width Dh and Dv from 1 up (above 256 the D 256
-instances walk the width in chunks); the host passes the widest copy the
-operands' addresses and strides allow (``vector_bytes``).
+All of them run their products on the tensor cores (``csrc/flash_mma.cuh``)
+and take every head width Dh and Dv from 1 up to ``WIDE_MAX_WIDTH`` (4096).
+Above 256 the dq kernel's D 256 instance walks the width in chunks, and
+the wide forward and dk/dv kernels split it over a thread-block cluster
+that forms the scores once (``csrc/flash_wide.cuh``). The routing is by
+width alone: ``forward`` and ``backward_dkv`` launch the wide kernel where
+max(Dh, Dv) > 256, each kernel with its own launch counter. The host
+passes the widest copy the operands' addresses and strides allow
+(``vector_bytes``).
 The sources' headers say what bounds each kernel on the card and what its
 design does about that. The custom
 VJPs ``_flash_attention_diffable`` and ``_flash_attention_lse_diffable``
@@ -52,9 +60,17 @@ from tinydiffusionmodels_torch.ops import _build, reference
 # Kernel launches made by this process, one counter per kernel: each is
 # incremented once per launch of its kernel and nowhere else; callers reset
 # them to 0 to count a run.
-launches = 0          # forward
-dq_launches = 0       # backward, dq
-dkv_launches = 0      # backward, dk and dv
+launches = 0           # forward, max(Dh, Dv) <= NARROW_WIDTH
+dq_launches = 0        # backward, dq
+dkv_launches = 0       # backward, dk and dv, max(Dh, Dv) <= NARROW_WIDTH
+wide_launches = 0      # forward, max(Dh, Dv) > NARROW_WIDTH
+wide_dkv_launches = 0  # backward, dk and dv, max(Dh, Dv) > NARROW_WIDTH
+
+# The widest head the kernels of flash_attention_fwd.cu and
+# flash_attention_bwd_dkv.cu take; wider ones go to the wide kernels, up to
+# WIDE_MAX_WIDTH (eight CTAs of a cluster, four 128-column parts each).
+NARROW_WIDTH = 256
+WIDE_MAX_WIDTH = 4096
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -181,6 +197,10 @@ def _check_cuda_operands(q, k, v, layout: str) -> None:
         raise ValueError("q and k must have the same head dim")
     if min(q.shape[ldim], k.shape[ldim], b, h, q.shape[-1], v.shape[-1]) == 0:
         raise ValueError("flash attention needs non-empty operands")
+    if max(q.shape[-1], v.shape[-1]) > WIDE_MAX_WIDTH:
+        raise ValueError(
+            f"head widths Dh {q.shape[-1]}, Dv {v.shape[-1]}: the kernels "
+            f"take max(Dh, Dv) up to {WIDE_MAX_WIDTH}")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(
             f"q is on {q.device} but the current CUDA device is "
@@ -213,16 +233,24 @@ def _dropout_args(rate: float, seed, heads: int, head_offset: int,
             reference.dropout_threshold(rate), 1.0 / (1.0 - rate))
 
 
+def is_wide(dh: int, dv: int) -> bool:
+    """Whether heads of these widths take the wide kernels."""
+    return max(dh, dv) > NARROW_WIDTH
+
+
 def forward(q, k, v, *, causal, layout, q_offset, k_offset, dropout_rate,
             dropout_seed, head_offset=0, total_heads=None,
             batch_offset=0) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the forward kernel on checked CUDA operands."""
-    global launches
+    """One launch of the forward kernel on checked CUDA operands: the wide
+    kernel where ``is_wide``."""
+    global launches, wide_launches
     b, h, lq, lk, dh, dv = _dims(q, k, v, layout)
+    wide = is_wide(dh, dv)
     out_shape = (b, h, lq, dv) if layout == "bhld" else (b, lq, h, dv)
     out = torch.empty(out_shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    err = _build.function("tdm_flash_attention_fwd", _FWD_ARGTYPES)(
+    name = "tdm_flash_attention_wide_fwd" if wide else "tdm_flash_attention_fwd"
+    err = _build.function(name, _FWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _DTYPE_CODES[q.dtype], b, h, lq, lk, dh, dv,
         vector_bytes(q, k, v), *_bhl_strides(q, layout), *_bhl_strides(k, layout),
@@ -232,9 +260,27 @@ def forward(q, k, v, *, causal, layout, q_offset, k_offset, dropout_rate,
                        total_heads, batch_offset),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.raise_on(err, "flash attention forward")
-    launches += 1
+    _build.raise_on(err, name)
+    if wide:
+        wide_launches += 1
+    else:
+        launches += 1
     return out, lse
+
+
+def wide_attrs(kernel: str, dtype: torch.dtype, dh: int, dv: int) -> dict:
+    """The wide ``kernel``'s ('fwd' or 'dkv') instance for heads of these
+    widths, from the card: a thread's registers and spill bytes, the
+    clusters the card holds at once, and the plan (parts a CTA, CTAs a
+    cluster, columns a CTA)."""
+    name = {"fwd": "tdm_flash_attention_wide_fwd_attrs",
+            "dkv": "tdm_flash_attention_wide_bwd_dkv_attrs"}[kernel]
+    out = (ctypes.c_int * 6)()
+    err = _build.function(name, [_INT, _INT, _INT, ctypes.POINTER(_INT)])(
+        _DTYPE_CODES[dtype], int(dh), int(dv), out)
+    _build.raise_on(err, name)
+    return dict(zip(("registers", "spill_bytes", "active_clusters", "parts",
+                     "cluster", "slice"), out))
 
 
 def backward_delta(out, g_out, g_lse, layout: str) -> torch.Tensor:
@@ -278,11 +324,17 @@ def backward_dq(q, k, v, g_out, lse, delta, dq, **kw) -> None:
 
 
 def backward_dkv(q, k, v, g_out, lse, delta, dk, dv, **kw) -> None:
-    """One launch of the dkv kernel: writes dk and dv (the layouts of k, v)."""
-    global dkv_launches
-    _backward_call("tdm_flash_attention_bwd_dkv", q, k, v, g_out, lse, delta,
-                   (dk, dk, dv), **kw)
-    dkv_launches += 1
+    """One launch of the dkv kernel: writes dk and dv (the layouts of k,
+    v); the wide kernel where ``is_wide``."""
+    global dkv_launches, wide_dkv_launches
+    if is_wide(q.shape[-1], v.shape[-1]):
+        _backward_call("tdm_flash_attention_wide_bwd_dkv", q, k, v, g_out,
+                       lse, delta, (dk, dk, dv), **kw)
+        wide_dkv_launches += 1
+    else:
+        _backward_call("tdm_flash_attention_bwd_dkv", q, k, v, g_out, lse,
+                       delta, (dk, dk, dv), **kw)
+        dkv_launches += 1
 
 
 def _forward(q, k, v, dropout_seed, params):

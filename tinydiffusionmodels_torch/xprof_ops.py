@@ -56,6 +56,8 @@ _KERNEL_RULES = (
     ("flash_fwd_kernel", "flash fwd"),
     ("flash_bwd_dq_kernel", "flash dq"),
     ("flash_bwd_dkv_kernel", "flash dkv"),
+    ("flash_wide_fwd_kernel", "flash fwd"),
+    ("flash_wide_dkv_kernel", "flash dkv"),
     ("single_block_", "single-block attention"),
     ("fused_resblock_kernel", "resblock"),
     ("guided_decode_kernel", "decode"),
