@@ -70,12 +70,13 @@ no result line) on any error; no phase catches its own failure.
    --embed_dim 768 --depth 2`` on NARROW_CHARS characters and ``--sample
    --sampler ddim --steps 50`` from it (100 forward launches), asserted the
    same way. Then the reference's default width, head width 512 (the wide
-   forward and dk/dv kernels, the dq kernel's staged D 256 instance):
+   forward, dq and dk/dv kernels):
    ``--train --embed_dim 2048`` (depth 3, the width of the CLI's default
    Gemma-2B embedding, which is not on the card machine, so learned
    embeddings) on NARROW_CHARS characters and DDIM 50 from it (150
    launches), asserted the same way, on the wide kernels' counters
-   (``_flash_launches``) and none on the narrow forward's or dk/dv's.
+   (``_flash_launches``) and none on the narrow forward's, dq's or
+   dk/dv's.
 7. Guided-decode kernel vs plain: the persistent kernel
    (``csrc/guided_decode.cu``) against its plain version on the same bf16
    weights and N(0, 1) logits: B in {1, 8, 13, 256, 257}, V in {97, 4096,
@@ -108,9 +109,10 @@ no result line) on any error; no phase catches its own failure.
 11. Timing at the training shape (B 8, L 64, H 4, Dh 64, f32, the model's
    strided views of one QKV projection), at the kernel bench's L 512
    (B 8) and L 2048 (B 2), and at the training shape with Dh 512 (the
-   --embed_dim 2048 path's, f32 and bf16: the wide forward and dk/dv
-   kernels): CUDA-event device times of the forward with dropout, the dq
-   kernel and the dkv kernel, each beside its plain version,
+   --embed_dim 2048 path's, f32 and bf16: the wide forward, dq and dk/dv
+   kernels, each with its instance's plan): CUDA-event device times of the
+   forward with dropout, the dq kernel and the dkv kernel, each beside its
+   plain version,
    the device time of a PyTorch call the port never calls
    (``scaled_dot_product_attention`` at dropout 0: the forward, and the
    backward for dq and dk/dv; CUDA events over replays of a graph of 20
@@ -581,9 +583,11 @@ KERNELS = {
                                _PALLAS + ":431"),
     "flash_attention_bwd_dkv": (_CSRC + "flash_attention_bwd_dkv.cu",
                                 _PALLAS + ":484"),
-    # The same two TPU kernels at head widths above 256.
+    # The same three TPU kernels at head widths above 256.
     "flash_attention_wide_fwd": (_CSRC + "flash_attention_wide_fwd.cu",
                                  _PALLAS + ":295"),
+    "flash_attention_wide_bwd_dq": (
+        _CSRC + "flash_attention_wide_bwd_dq.cu", _PALLAS + ":431"),
     "flash_attention_wide_bwd_dkv": (
         _CSRC + "flash_attention_wide_bwd_dkv.cu", _PALLAS + ":484"),
 }
@@ -602,21 +606,23 @@ KERNELS["rng_draw"] = (_CSRC + "rng.cu", "tinydiffusionmodels_tpu/core/rng.py:35
 _SINGLE_BLOCK_IDLE = {"attention_single_block_fwd": 0,
                       "attention_single_block_bwd": 0}
 # Paths whose heads are 256 wide or narrower launch no wide flash kernel.
-_WIDE_IDLE = {"flash_attention_wide_fwd": 0, "flash_attention_wide_bwd_dkv": 0}
+_WIDE_IDLE = {"flash_attention_wide_fwd": 0, "flash_attention_wide_bwd_dq": 0,
+              "flash_attention_wide_bwd_dkv": 0}
 
 
 def _flash_launches(dim: int, fwd: int, dq: int, dkv: int) -> dict:
     """The flash kernels' launches of a text path at width ``dim`` (HEADS
     heads) that launches the forward ``fwd`` times and each backward kernel
-    ``dq`` and ``dkv`` times: the forward and dk/dv on the wide kernels
-    where ``fa.is_wide`` (``--embed_dim 2048``)."""
+    ``dq`` and ``dkv`` times: all three on the wide kernels where
+    ``fa.is_wide`` (``--embed_dim 2048``)."""
     from tinydiffusionmodels_torch.ops import flash_attention as fa
 
     wide = fa.is_wide(dim // HEADS, dim // HEADS)
     return {"flash_attention_fwd": 0 if wide else fwd,
-            "flash_attention_bwd_dq": dq,
+            "flash_attention_bwd_dq": 0 if wide else dq,
             "flash_attention_bwd_dkv": 0 if wide else dkv,
             "flash_attention_wide_fwd": fwd if wide else 0,
+            "flash_attention_wide_bwd_dq": dq if wide else 0,
             "flash_attention_wide_bwd_dkv": dkv if wide else 0}
 
 # The MNIST paths: the UNet as it is (channel plan of models/unet.py, 28x28,
@@ -975,7 +981,7 @@ def training_kernels():
             b, h, length, length, d, d, f32, False, "self", 0, kb.DROPOUT)
     seed = _seed(-1_234_567_890)  # negative: the same 32 bits as uint32
     worst = {"out": 0.0, "dq": 0.0, "dkv": 0.0, "wide_out": 0.0,
-             "wide_dkv": 0.0}
+             "wide_dq": 0.0, "wide_dkv": 0.0}
     for i, (name, (b, h, lq, lk, dh, dv, dtype, causal, layout, k_off,
                    rate)) in enumerate(cases.items()):
         g = torch.Generator(device="cuda").manual_seed(100 + i)
@@ -1045,6 +1051,7 @@ def training_kernels():
             worst["dkv"] = max(worst["dkv"], errs[1], errs[2])
         if not bf and max(dh, dv_dim) > 256:
             worst["wide_out"] = max(worst["wide_out"], e_out)
+            worst["wide_dq"] = max(worst["wide_dq"], errs[0])
             worst["wide_dkv"] = max(worst["wide_dkv"], errs[1], errs[2])
     mismatches = _mask_probes(seed)
     return worst, mismatches
@@ -1219,7 +1226,7 @@ def _reset_counts():
     from tinydiffusionmodels_torch.ops import single_block as sb
 
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
-    fa.wide_launches = fa.wide_dkv_launches = 0
+    fa.wide_launches = fa.wide_dq_launches = fa.wide_dkv_launches = 0
     dk.launches = rb.launches = sb.launches = sb.bwd_launches = 0
     rng.launches = 0
 
@@ -1235,6 +1242,7 @@ def _counts() -> dict:
             "flash_attention_bwd_dq": fa.dq_launches,
             "flash_attention_bwd_dkv": fa.dkv_launches,
             "flash_attention_wide_fwd": fa.wide_launches,
+            "flash_attention_wide_bwd_dq": fa.wide_dq_launches,
             "flash_attention_wide_bwd_dkv": fa.wide_dkv_launches,
             "guided_decode": dk.launches,
             "fused_resblock": rb.launches,
@@ -2051,7 +2059,7 @@ def kernel_timing(card: str) -> dict:
     for the forward kernels, the backward for dq and dk/dv, which together
     compute what that backward does; CUDA events over a replayed graph of
     its calls) and the bound (the products as 3xTF32 in f32 or at the bf16
-    peak, or bytes). At Dh 512 the forward and dk/dv are the wide kernels.
+    peak, or bytes). At Dh 512 all three are the wide kernels.
     Returns per kernel the first shape's ms, plain_ms, library_ms,
     bound_ms, bound_by and fp32_fma_roof_ms (the wide kernels': Dh 512's,
     with their instance's registers, spills, the clusters the card holds
@@ -2108,14 +2116,16 @@ def kernel_timing(card: str) -> dict:
                 torch.autograd.grad(sdpa_out, (qt, kt, vt), g_t,
                                     retain_graph=True)
 
-            fwd_name, dkv_name = (
-                ("flash_attention_wide_fwd", "flash_attention_wide_bwd_dkv")
-                if wide else ("flash_attention_fwd", "flash_attention_bwd_dkv"))
+            fwd_name, dq_name, dkv_name = (
+                ("flash_attention_wide_fwd", "flash_attention_wide_bwd_dq",
+                 "flash_attention_wide_bwd_dkv") if wide else
+                ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"))
             runs = {  # name: (kernel, plain version, library, its label)
                 fwd_name: (
                     lambda: fa.forward(q, k, v, **params), plain_fwd,
                     sdpa_fwd, "SDPA forward"),
-                "flash_attention_bwd_dq": (
+                dq_name: (
                     lambda: fa.backward_dq(q, k, v, g_out, lse, delta, dq,
                                            **params),
                     lambda: torch.autograd.grad(plain_out, q, g_out,
@@ -2130,8 +2140,7 @@ def kernel_timing(card: str) -> dict:
             }
             # (bytes read once and written once, product FLOPs)
             work = {name: fa.work(kind, q, k, v, **params)
-                    for name, kind in ((fwd_name, "fwd"),
-                                       ("flash_attention_bwd_dq", "dq"),
+                    for name, kind in ((fwd_name, "fwd"), (dq_name, "dq"),
                                        (dkv_name, "dkv"))}
             iters = 200 if l <= SEQ else 20
             at = f"B {b}, H {h}, L {l}, Dh {d}, {str(dtype)[6:]}, dropout " \
@@ -2141,7 +2150,8 @@ def kernel_timing(card: str) -> dict:
                 runs, work, card, "dropout 0, a replayed graph", at=at,
                 iters=iters, bf16=dtype == torch.bfloat16)
             if wide:  # the instance and its plan, from the card
-                for name, kind in ((fwd_name, "fwd"), (dkv_name, "dkv")):
+                for name, kind in ((fwd_name, "fwd"), (dq_name, "dq"),
+                                   (dkv_name, "dkv")):
                     plan = fa.wide_attrs(kind, dtype, d, d)
                     out[(b, l, d, dtype)][name]["plan"] = plan
                     print(f"{name} {str(dtype)[6:]} at Dh {d}: {plan}")
@@ -2155,10 +2165,8 @@ def kernel_timing(card: str) -> dict:
         for b, l, d in TIMING_SHAPES[1:] if name in out[(b, l, d, f32)]})
         for name, row in out[TIMING_SHAPES[0] + (f32,)].items()}
     wide = TIMING_SHAPES[3]
-    timings["flash_attention_bwd_dq"]["shapes"][
-        "B{} L{} Dh{} bf16".format(*wide)] = out[wide + (bf16,)][
-            "flash_attention_bwd_dq"]
-    for name in ("flash_attention_wide_fwd", "flash_attention_wide_bwd_dkv"):
+    for name in ("flash_attention_wide_fwd", "flash_attention_wide_bwd_dq",
+                 "flash_attention_wide_bwd_dkv"):
         timings[name] = dict(out[wide + (f32,)][name],
                              bf16=out[wide + (bf16,)][name])
     timings["flash_attention_fwd"]["shapes"].update(_gemma_decode_timing(card))
@@ -5186,7 +5194,7 @@ def flash_head_offsets() -> dict:
           f"{HEADS} heads), dropout {DROPOUT}, f32 and bf16 (TF32 off)")
     seed = _seed(-987_654_321)
     worst = {"out": 0.0, "dq": 0.0, "dkv": 0.0, "wide_out": 0.0,
-             "wide_dkv": 0.0}
+             "wide_dq": 0.0, "wide_dkv": 0.0}
     for dh, dtype in itertools.product(OFFSET_WIDTHS,
                                        (torch.float32, torch.bfloat16)):
         for h0 in HEAD_OFFSETS:
@@ -5230,6 +5238,7 @@ def flash_head_offsets() -> dict:
                   f"{errs[1]:.3e} max|ddv| {errs[2]:.3e} (tol {tol_g:g})")
             if not bf and dh > 256:
                 worst["wide_out"] = max(worst["wide_out"], e_out)
+                worst["wide_dq"] = max(worst["wide_dq"], errs[0])
                 worst["wide_dkv"] = max(worst["wide_dkv"], errs[1], errs[2])
             elif not bf:
                 worst["out"] = max(worst["out"], e_out)
@@ -5311,7 +5320,7 @@ def flash_batch_offsets() -> dict:
           f"{BATCH} rows), dropout {DROPOUT}, f32 and bf16 (TF32 off)")
     seed = _seed(135_792_468)
     worst = {"out": 0.0, "dq": 0.0, "dkv": 0.0, "wide_out": 0.0,
-             "wide_dkv": 0.0}
+             "wide_dq": 0.0, "wide_dkv": 0.0}
     for dh, dtype in itertools.product(OFFSET_WIDTHS,
                                        (torch.float32, torch.bfloat16)):
         for b0 in BATCH_OFFSETS:
@@ -5354,6 +5363,7 @@ def flash_batch_offsets() -> dict:
                   f"{errs[1]:.3e} max|ddv| {errs[2]:.3e} (tol {tol_g:g})")
             if not bf and dh > 256:
                 worst["wide_out"] = max(worst["wide_out"], e_out)
+                worst["wide_dq"] = max(worst["wide_dq"], errs[0])
                 worst["wide_dkv"] = max(worst["wide_dkv"], errs[1], errs[2])
             elif not bf:
                 worst["out"] = max(worst["out"], e_out)
@@ -6213,6 +6223,7 @@ def main() -> None:
               "flash_attention_bwd_dkv": train_errors["dkv"],
               "flash_attention_wide_fwd": max(fwd_errors["wide_f32"],
                                               train_errors["wide_out"]),
+              "flash_attention_wide_bwd_dq": train_errors["wide_dq"],
               "flash_attention_wide_bwd_dkv": train_errors["wide_dkv"],
               "guided_decode": max(decode_worst_gap, exact_gap),
               "fused_resblock": resblock_error,
@@ -6277,6 +6288,7 @@ def main() -> None:
                     "flash_attention_bwd_dq": "dq",
                     "flash_attention_bwd_dkv": "dkv",
                     "flash_attention_wide_fwd": "wide_out",
+                    "flash_attention_wide_bwd_dq": "wide_dq",
                     "flash_attention_wide_bwd_dkv": "wide_dkv"}[name]
             if part in ring_errors:  # the ring runs heads of 64
                 entry["ring_max_abs_err_f32"] = ring_errors[part]

@@ -122,10 +122,9 @@ def test_wrapper_rejects_before_launch(cuda, make, match):
     assert fa.launches == before
 
 
-# (Dh, Dv) above 256, where the wide forward and dk/dv kernels split the
-# head width over a cluster and the dq kernel's D 256 instance walks it in
-# chunks of 256 columns: one column past it on either side, the text CLI's
-# --embed_dim 2048 (Dh 512) and a ragged last chunk of 8 with Dv != Dh.
+# (Dh, Dv) above 256, where the wide forward, dq and dk/dv kernels split
+# the head width over a cluster: one column past it on either side, the
+# text CLI's --embed_dim 2048 (Dh 512) and Dh 264 with Dv 320.
 WIDE = {"dh257": (257, 257), "dh64_dv257": (64, 257), "dh512": (512, 512),
         "dh264_dv320": (264, 320)}
 
@@ -150,14 +149,16 @@ def test_kernels_match_plain_above_256(cuda, name, dtype):
     g_lse = torch.from_numpy(rng.standard_normal(
         (2, 2, 40), dtype=np.float32)).to(cuda)
     kw = dict(causal=True, dropout_rate=0.1, dropout_seed=_seed(cuda))
-    before = (fa.wide_launches, fa.dq_launches, fa.wide_dkv_launches)
+    names = ("wide_launches", "wide_dq_launches", "wide_dkv_launches",
+             "dq_launches")
+    before = [getattr(fa, n) for n in names]
     results = []
     for fn in (fa.flash_attention_with_lse, reference.attention):
         out, lse = fn(*inputs, **kw)
         results.append((out, lse, torch.autograd.grad(
             (out, lse), inputs, (g_out, g_lse))))
-    assert (fa.wide_launches, fa.dq_launches, fa.wide_dkv_launches) == tuple(
-        n + 1 for n in before)
+    assert [getattr(fa, n) - n0 for n, n0 in zip(names, before)] == [
+        1, 1, 1, 0]
     (out, lse, grads), (r_out, r_lse, r_grads) = results
     bf = dtype == torch.bfloat16
     tol_o = dict(rtol=2e-2, atol=2e-2) if bf else TOL
@@ -183,8 +184,8 @@ WIDE_KERNEL_CASES = {"dh257": (257, 257, 40), "dh264_dv320": (264, 320, 40),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", sorted(WIDE_KERNEL_CASES))
 def test_wide_kernels_match_plain(cuda, name, dtype):
-    """The wide forward and dk/dv kernels, causal with dropout 0.1 and an
-    lse cotangent, on strided blhd views, against autograd of the plain
+    """The wide forward, dq and dk/dv kernels, causal with dropout 0.1 and
+    an lse cotangent, on strided blhd views, against autograd of the plain
     version: O and lse, dq, dk, dv at the tolerances of
     test_kernels_match_plain_above_256, one launch of each wide kernel and
     none of the narrow ones."""
@@ -204,7 +205,8 @@ def test_wide_kernels_match_plain(cuda, name, dtype):
         (b, h, length), dtype=np.float32)).to(cuda)
     kw = dict(causal=True, layout="blhd", dropout_rate=0.1,
               dropout_seed=_seed(cuda))
-    names = ("launches", "dkv_launches", "wide_launches", "wide_dkv_launches")
+    names = ("launches", "dq_launches", "dkv_launches", "wide_launches",
+             "wide_dq_launches", "wide_dkv_launches")
     before = [getattr(fa, n) for n in names]
     results = []
     for fn in (fa.flash_attention_with_lse, reference.attention):
@@ -212,7 +214,7 @@ def test_wide_kernels_match_plain(cuda, name, dtype):
         results.append((out, lse, torch.autograd.grad(
             (out, lse), leaves, (g_out, g_lse))))
     assert [getattr(fa, n) - n0 for n, n0 in zip(names, before)] == [
-        0, 0, 1, 1]
+        0, 0, 0, 1, 1, 1]
     (out, lse, grads), (r_out, r_lse, r_grads) = results
     bf = dtype == torch.bfloat16
     torch.testing.assert_close(
@@ -222,6 +224,64 @@ def test_wide_kernels_match_plain(cuda, name, dtype):
     for got, want in zip(grads, r_grads):
         torch.testing.assert_close(
             got, want, **(dict(rtol=4e-2, atol=4e-2) if bf else GRAD_TOL))
+
+
+# (Dh, Dv, Lq, Lk, q_offset, k_offset) of the wide dq kernel, causal but
+# Dh 64 / Dv 1024: WIDE_KERNEL_CASES; Dh 64 with Dv 1024 (CTAs 1-3 of the
+# cluster of 4 own no column of dq); rows 0-39 that see no key (k_offset
+# 40), whole row blocks that see none (k_offset 70: they walk no tile), and
+# query rows at an offset into longer keys.
+WIDE_DQ_CASES = {
+    **{name: (dh, dv, n, n, 0, 0)
+       for name, (dh, dv, n) in WIDE_KERNEL_CASES.items()},
+    "dh64_dv1024": (64, 1024, 40, 40, 0, 0),
+    "dh512_k_off40": (512, 512, 100, 100, 0, 40),
+    "dh512_k_off70": (512, 512, 100, 100, 0, 70),
+    "dh512_q_off30_lk80": (512, 512, 40, 80, 30, 0)}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(WIDE_DQ_CASES))
+def test_wide_dq_matches_plain(cuda, name, dtype, rate):
+    """The wide dq kernel alone (``fa.backward_dq``) on strided blhd views
+    against ``reference.attention_bwd_dq`` on the same lse and D (from the
+    plain forward and an lse cotangent): f32 within 2e-4, bf16 within 2e-2
+    (the kernel rounds dS to bf16 before dS K, the plain version does not),
+    4e-2 past L 64 or with dropout, as the other wide cases; one launch of
+    the wide dq kernel, none of the narrow one."""
+    dh, dv, lq, lk, q_off, k_off = WIDE_DQ_CASES[name]
+    causal = name != "dh64_dv1024"
+    rng = np.random.default_rng(9)
+    b, h = 2, 2
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(cuda, dtype)
+
+    qk = randn(b, max(lq, lk), 2, h, dh)
+    q, k = qk[:, :lq, 0], qk[:, :lk, 1]
+    v = randn(b, lk, h, dv)
+    g_out = randn(b, lq, h, dv)
+    g_lse = torch.from_numpy(rng.standard_normal(
+        (b, h, lq), dtype=np.float32)).to(cuda)
+    kw = dict(causal=causal, layout="blhd", q_offset=q_off, k_offset=k_off,
+              dropout_rate=rate, dropout_seed=_seed(cuda) if rate else None)
+    out, lse = reference.attention(q, k, v, **kw)
+    delta = fa.backward_delta(out, g_out, g_lse, "blhd")
+    dq = torch.empty_like(q)
+    before = (fa.wide_dq_launches, fa.dq_launches)
+    fa.backward_dq(q, k, v, g_out, lse, delta, dq, **kw)
+    torch.cuda.synchronize()
+    assert (fa.wide_dq_launches, fa.dq_launches) == (before[0] + 1,
+                                                     before[1])
+    want = reference.attention_bwd_dq(q, k, v, g_out, lse, delta, **kw)
+    tol = 2e-4
+    if dtype == torch.bfloat16:
+        tol = 4e-2 if rate or max(lq, lk) > 64 else 2e-2
+    torch.testing.assert_close(dq, want, rtol=tol, atol=tol)
+    if k_off > q_off:  # rows that see no key get no gradient
+        assert not dq[:, :k_off - q_off].any()
 
 
 def _views(b, length, h, d, device, dtype, seed=3):

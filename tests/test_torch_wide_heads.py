@@ -2,9 +2,8 @@
 against the JAX package on the CPU.
 
 On the card the flash kernels take every head width up to 4096 (above
-256 the wide forward and dk/dv kernels, which split the width over a
-cluster of CTAs, and the dq kernel's D 256 instance, staged in chunks of
-256 columns) and the fused resblock kernel takes bfloat16. Here their
+256 the wide forward, dq and dk/dv kernels, which split the width over a
+cluster of CTAs) and the fused resblock kernel takes bfloat16. Here their
 plain versions, which the kernels are held to on the card, are held to the
 JAX package's Pallas kernels run as its own tests run them on the CPU
 (interpret mode), on the same numpy inputs:
@@ -12,10 +11,11 @@ JAX package's Pallas kernels run as its own tests run them on the CPU
 - flash attention at Dh = Dv = 192 (``--embed_dim 768``, 4 heads), Dh 160
   with Dv 256, Dh = Dv = 512 (``--embed_dim 2048``, the width of the text
   CLI's default Gemma-2B embedding), Dh 264 with Dv 320 (a ragged last
-  chunk of 8 columns above 256), and two widths that split raggedly over
-  the wide kernels' CTAs: Dh = Dv = 1024 (eight CTAs of 128 columns) and
-  Dh 300 with Dv 520 (five of 112, Dh ending inside the third), forward
-  (out and logsumexp) within 1e-5 and, with
+  chunk of 8 columns above 256), two widths that split raggedly over the
+  wide kernels' CTAs: Dh = Dv = 1024 (eight CTAs of 128 columns) and Dh
+  300 with Dv 520 (five of 112, Dh ending inside the third), and Dh 64
+  with Dv 1024 (the first CTA of a cluster alone owns columns of Dh, and
+  so of dq), forward (out and logsumexp) within 1e-5 and, with
   attention-weight dropout and an lse cotangent, dq, dk and dv within 1e-4
   (PERF.md's CPU tolerances; the TPU kernel scales q before the dot, the
   plain version the scores after it, and sums in another order);
@@ -63,6 +63,8 @@ CASES = {
                       1024),
     "dh300_dv520_causal": (1, 2, 40, 40, 300, 520, True, "bhld", 0, 0, 0.1,
                            300_520),
+    "dh64_dv1024": (1, 2, 40, 40, 64, 1024, False, "blhd", 0, 0, 0.1,
+                    64_1024),
 }
 
 
@@ -156,28 +158,25 @@ class _Library:
         return lambda *args: self.called.append(name) or 0
 
 
-# (Dh, Dv): the forward's and the dk/dv kernel's entry points.
-ROUTES = {(256, 256): ("tdm_flash_attention_fwd",
-                       "tdm_flash_attention_bwd_dkv"),
-          (24, 256): ("tdm_flash_attention_fwd",
-                      "tdm_flash_attention_bwd_dkv"),
-          (257, 257): ("tdm_flash_attention_wide_fwd",
-                       "tdm_flash_attention_wide_bwd_dkv"),
-          (257, 8): ("tdm_flash_attention_wide_fwd",
-                     "tdm_flash_attention_wide_bwd_dkv"),
-          (64, 1024): ("tdm_flash_attention_wide_fwd",
-                       "tdm_flash_attention_wide_bwd_dkv"),
-          (4096, 4096): ("tdm_flash_attention_wide_fwd",
-                         "tdm_flash_attention_wide_bwd_dkv")}
+# (Dh, Dv): the forward's, the dk/dv kernel's and the dq kernel's entry
+# points.
+NARROW_ROUTE = ("tdm_flash_attention_fwd", "tdm_flash_attention_bwd_dkv",
+                "tdm_flash_attention_bwd_dq")
+WIDE_ROUTE = ("tdm_flash_attention_wide_fwd",
+              "tdm_flash_attention_wide_bwd_dkv",
+              "tdm_flash_attention_wide_bwd_dq")
+ROUTES = {(256, 256): NARROW_ROUTE, (24, 256): NARROW_ROUTE,
+          (257, 257): WIDE_ROUTE, (257, 8): WIDE_ROUTE,
+          (64, 1024): WIDE_ROUTE, (4096, 4096): WIDE_ROUTE}
 
 
 @pytest.mark.parametrize("dh, dv", sorted(ROUTES))
 def test_widths_route_to_their_kernels(monkeypatch, dh, dv):
-    """forward and backward_dkv pick the entry point by width alone: heads
-    with max(Dh, Dv) above 256 reach the wide kernels, the rest the narrow
-    ones, and each launch counts on its own kernel's counter; dq has one
-    entry point. The library and the stream are stand-ins, so the wrappers
-    run here on CPU tensors up to the launch."""
+    """forward, backward_dkv and backward_dq pick the entry point by width
+    alone: heads with max(Dh, Dv) above 256 reach the wide kernels, the
+    rest the narrow ones, and each launch counts on its own kernel's
+    counter. The library and the stream are stand-ins, so the wrappers run
+    here on CPU tensors up to the launch."""
     lib = _Library()
     monkeypatch.setattr(fa._build, "function", lib.function)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -187,7 +186,7 @@ def test_widths_route_to_their_kernels(monkeypatch, dh, dv):
     kw = dict(causal=True, layout="bhld", q_offset=0, k_offset=0,
               dropout_rate=0.0, dropout_seed=None)
     names = ("launches", "wide_launches", "dkv_launches", "wide_dkv_launches",
-             "dq_launches")
+             "dq_launches", "wide_dq_launches")
     before = {n: getattr(fa, n) for n in names}
     out, lse = fa.forward(q, k, v, **kw)
     assert out.shape == (2, 3, 8, dv) and lse.shape == (2, 3, 8)
@@ -195,14 +194,15 @@ def test_widths_route_to_their_kernels(monkeypatch, dh, dv):
     fa.backward_dkv(q, k, v, out, lse, delta, torch.empty_like(k),
                     torch.empty_like(v), **kw)
     fa.backward_dq(q, k, v, out, lse, delta, torch.empty_like(q), **kw)
-    fwd, dkv = ROUTES[(dh, dv)]
-    assert lib.called == [fwd, dkv, "tdm_flash_attention_bwd_dq"]
+    assert lib.called == list(ROUTES[(dh, dv)])
     wide = fa.is_wide(dh, dv)
     assert wide == (max(dh, dv) > 256)
     grew = {n: getattr(fa, n) - before[n] for n in names}
     assert grew == {"launches": int(not wide), "wide_launches": int(wide),
                     "dkv_launches": int(not wide),
-                    "wide_dkv_launches": int(wide), "dq_launches": 1}
+                    "wide_dkv_launches": int(wide),
+                    "dq_launches": int(not wide),
+                    "wide_dq_launches": int(wide)}
 
 
 @pytest.mark.parametrize("shape_q, shape_v, match", [

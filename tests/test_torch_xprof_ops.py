@@ -26,6 +26,10 @@ NAMES = {
     " namespace)::Params, int, int)": "flash fwd",
     "void (anonymous namespace)::flash_wide_dkv_kernel<__nv_bfloat16, 2>("
     "flash_bwd::BwdParams, int, int)": "flash dkv",
+    "void (anonymous namespace)::flash_bwd_dq_kernel<float, 256, 2>("
+    "flash_bwd::BwdParams)": "flash dq",
+    "void (anonymous namespace)::flash_wide_dq_kernel<float, 1>("
+    "flash_bwd::BwdParams, int, int)": "flash dq",
     "void (anonymous namespace)::fused_resblock_kernel_narrow<float, 32, fa"
     "lse>((anonymous namespace)::Params)": "resblock",
     "void (anonymous namespace)::fused_resblock_kernel<__nv_bfloat16, 256>(("

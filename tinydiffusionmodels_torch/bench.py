@@ -546,6 +546,7 @@ def _kernel_launches() -> dict:
             "flash_attention_bwd_dq": fa.dq_launches,
             "flash_attention_bwd_dkv": fa.dkv_launches,
             "flash_attention_wide_fwd": fa.wide_launches,
+            "flash_attention_wide_bwd_dq": fa.wide_dq_launches,
             "flash_attention_wide_bwd_dkv": fa.wide_dkv_launches,
             "fused_resblock": rb.launches, "guided_decode": dk.launches,
             "attention_single_block_fwd": sb.launches,

@@ -1,9 +1,10 @@
 // Flash-attention recompute backward for Hopper (sm_90a), f32 and bf16,
 // f32 accumulation: what the backward kernels compute, and the parameters
-// and argument checks they share. The dq kernel is flash_attention_bwd_dq.cu,
-// the dk/dv kernel flash_attention_bwd_dkv.cu (max(Dh, Dv) up to 256) and
-// flash_attention_wide_bwd_dkv.cu (above 256); each source compiles in
-// parallel with the others.
+// and argument checks they share. The dq kernel is flash_attention_bwd_dq.cu
+// (max(Dh, Dv) up to 256) and flash_attention_wide_bwd_dq.cu (above 256),
+// the dk/dv kernel flash_attention_bwd_dkv.cu and
+// flash_attention_wide_bwd_dkv.cu; each source compiles in parallel with
+// the others.
 //
 // Replaces the TPU kernels `_flash_dq_kernel` and `_flash_dkv_kernel` in
 // tinydiffusionmodels_tpu/ops/pallas_kernels.py (host side
@@ -29,8 +30,8 @@
 // kernel zeroes such rows' p instead; the port follows its plain version.
 //
 // Head widths: every Dh and Dv from 1 up to 4096, on instances at D = 16,
-// 32, 64, 128 and 256 (the padded max(Dh, Dv)); above 256 the dq kernel's D
-// 256 instance runs staged and dk/dv is the wide kernel's (flash_wide.cuh).
+// 32, 64, 128 and 256 (the padded max(Dh, Dv)); above 256 both are the
+// wide kernels' (flash_wide.cuh).
 // Columns past the true widths load as zeros and are not stored. The
 // kernels are on the tensor cores (flash_mma.cuh); each source's header
 // says how it is laid out.
@@ -83,7 +84,7 @@ __device__ __forceinline__ const T* operand(const BwdParams& p, const void* x,
 }
 
 // The padded width of an instance: 16, 32, 64, 128 or 256 (0: above 256,
-// where the dq kernel's D 256 instance runs staged).
+// the wide kernels').
 inline int padded_width(int dh, int dv) {
   const int d = dh > dv ? dh : dv;
   return d <= 16    ? 16

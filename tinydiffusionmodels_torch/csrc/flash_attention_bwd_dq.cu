@@ -17,20 +17,13 @@
 // and writes dq = dq scale. In bf16, dS is rounded to q's dtype before its
 // product, as the TPU kernel does (`ds.astype(k.dtype)`).
 //
-// Head widths: every Dh and Dv from 1 up, on instances at D = 16, 32, 64,
-// 128 and 256 (the padded max(Dh, Dv)); columns past the true widths load
-// as zeros, whole k steps and output blocks past them are skipped, and no
-// padded column is stored. A CTA accumulates at most 128 columns of dq
-// (registers): with Dh > 128 further CTAs (grid z, ceil(Dh / 128) in all)
-// take columns 128-255, ... and recompute S and dP. Above 256 the D 256
-// instance runs staged (STAGED): per key tile, S = Q K^T and dP = dO V^T
-// sum over 256 columns at a time, Q and K (dO and V) restaged through the
-// same shared tiles (flash_mma.cuh mma_abt_staged) one contraction after
-// the other, and the CTA's 128 columns of K for dS K come in beside them
-// (67 KB of shared memory in f32 at 16 query rows: three CTAs per SM). It
-// is the one staged flash kernel left: the forward and dk/dv kernels take
-// those widths in the wide kernels of flash_wide.cuh, which form S once a
-// row block over a cluster of CTAs.
+// Head widths: every Dh and Dv with max(Dh, Dv) up to 256, on instances at
+// D = 16, 32, 64, 128 and 256 (the padded max(Dh, Dv)); wider heads are the
+// wide kernel's (flash_attention_wide_bwd_dq.cu), and this entry point
+// refuses them. Columns past the true widths load as zeros, whole k steps
+// and output blocks past them are skipped, and no padded column is stored.
+// A CTA accumulates at most 128 columns of dq (registers): past 128, a
+// second CTA (grid z) takes columns 128-255 and recomputes S and dP.
 //
 // Design: the dk/dv kernel's (flash_attention_bwd_dkv.cu) with the roles of
 // queries and keys exchanged. Each 16-row query group is one warp's, or, at
@@ -86,23 +79,18 @@ __host__ __device__ constexpr int key_tile() {
   return D > 128 ? 32 : KW > 1 || D <= 64 ? 64 : 32;
 }
 
-template <typename T, int D, int KW, bool STAGED>
+template <typename T, int D, int KW>
 constexpr size_t smem_bytes(int rows) {
-  // Q and dO of `rows` rows; two stages of K and V tiles. Staged: one
-  // `rows` tile (Q, then dO) and one key tile (K, then V) for the
-  // contractions, then the CTA's columns of K.
+  // Q and dO of `rows` rows; two stages of K and V tiles.
   constexpr size_t kBK = key_tile<D, KW>();
   constexpr size_t S = fmma::stride<T, D>();
-  return STAGED ? sizeof(T) * ((rows + kBK) * S +
-                               kBK * fmma::stride<T, fmma::out_cols<D>()>())
-                : sizeof(T) * S * (2 * size_t(rows) + 4 * kBK);
+  return sizeof(T) * S * (2 * size_t(rows) + 4 * kBK);
 }
 
 // KW warps share each 16-row query group and split every key tile among
 // them (KW = 1, or max_warps<D>() at short sequences); their dq are summed
 // at the end. The CTA accumulates the dq columns [col0, col0 + DO).
-// STAGED: Dh or Dv above D (256).
-template <typename T, int D, int KW, bool STAGED>
+template <typename T, int D, int KW>
 __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int S = fmma::stride<T, D>();
@@ -110,15 +98,12 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   constexpr int kBK = key_tile<D, KW>();
   constexpr int kWarpBlocks = kBK / 8 / KW;  // key blocks of 8 per warp
   constexpr int kOutBlocks = DO / 8;
-  constexpr int SO = fmma::stride<T, DO>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = blockDim.x / (2 * KW);  // 16 query rows per group
-  // Staged, the two contractions run one after the other through one pair
-  // of tiles: dO takes Q's, V takes K's; the CTA's columns of K follow.
   T* sq = reinterpret_cast<T*>(smem_raw);
-  T* sdo = STAGED ? sq : sq + rows * S;
-  T* sk = sdo + rows * S;                  // two stages of kBK x S
-  T* sv = STAGED ? sk : sk + 2 * kBK * S;  // two stages of kBK x S
+  T* sdo = sq + rows * S;
+  T* sk = sdo + rows * S;    // two stages of kBK x S
+  T* sv = sk + 2 * kBK * S;  // two stages of kBK x S
 
   const int bh = blockIdx.x;
   const int b = bh / p.heads;
@@ -144,13 +129,11 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
     fmma::load_tile<T, D>(sv + stage * kBK * S, v, p.sl[kV], k0, kBK, p.lk,
                           p.dv_dim, p.vec);
   };
-  if constexpr (!STAGED) {
-    fmma::load_tile<T, D>(sq, q, p.sl[kQ], q0, rows, p.lq, p.dh, p.vec);
-    fmma::load_tile<T, D>(sdo, dout, p.sl[kDO], q0, rows, p.lq, p.dv_dim,
-                          p.vec);
-    load_keys(0, 0);
-    fmma::cp_async_commit();
-  }
+  fmma::load_tile<T, D>(sq, q, p.sl[kQ], q0, rows, p.lq, p.dh, p.vec);
+  fmma::load_tile<T, D>(sdo, dout, p.sl[kDO], q0, rows, p.lq, p.dv_dim,
+                        p.vec);
+  load_keys(0, 0);
+  fmma::cp_async_commit();
 
   // This thread's two query rows, g and g + 8 of the group's 16.
   int q_row[2], q_pos[2];
@@ -193,36 +176,19 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
       for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
     }
     const T* kt = sk + (it % 2) * kBK * S + off * S;
-    if constexpr (STAGED) {
-      // The CTA's columns of K, for dS K, after the key tile.
-      kt = sk + kBK * S + off * SO;
-      fmma::load_tile<T, DO>(sk + kBK * S, k + col0, p.sl[kK], it * kBK, kBK,
-                             p.lk, p.dh - col0, p.vec);
-      const fmma::Rows<T> keys{k, p.sl[kK], it * kBK, kBK, p.lk};
-      const fmma::Rows<T> values{v, p.sl[kV], it * kBK, kBK, p.lk};
-      fmma::mma_abt_staged<kWarpBlocks, D>(
-          s, sq, fmma::Rows<T>{q, p.sl[kQ], q0, rows, p.lq}, group * 16, sk,
-          keys, off, p.dh, p.vec, k_blocks > 0);
-      fmma::mma_abt_staged<kWarpBlocks, D>(
-          dp, sdo, fmma::Rows<T>{dout, p.sl[kDO], q0, rows, p.lq}, group * 16,
-          sv, values, off, p.dv_dim, p.vec, k_blocks > 0);
+    if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
+      load_keys((it + 1) % 2, (it + 1) * kBK);
+      fmma::cp_async_commit();
+      fmma::cp_async_wait<1>();
     } else {
-      if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
-        load_keys((it + 1) % 2, (it + 1) * kBK);
-        fmma::cp_async_commit();
-        fmma::cp_async_wait<1>();
-      } else {
-        fmma::cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (k_blocks > 0) {
-        fmma::mma_abt<kWarpBlocks, D>(s, sq + group * 16 * S, kt, p.dh);
-        fmma::mma_abt<kWarpBlocks, D>(dp, sdo + group * 16 * S,
-                                      sv + (it % 2) * kBK * S + off * S,
-                                      p.dv_dim);
-      }
+      fmma::cp_async_wait<0>();
     }
+    __syncthreads();
     if (k_blocks > 0) {
+      fmma::mma_abt<kWarpBlocks, D>(s, sq + group * 16 * S, kt, p.dh);
+      fmma::mma_abt<kWarpBlocks, D>(dp, sdo + group * 16 * S,
+                                    sv + (it % 2) * kBK * S + off * S,
+                                    p.dv_dim);
       // dS, into s. Element c of block j is query row g + 8 (c / 2), key
       // kw0 + 8 j + 2 t + c % 2. Only visible weights carry a gradient, and
       // a row with a visible key has p = exp(s - lse).
@@ -245,12 +211,8 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
       }
 
       // dq += dS K, over the CTA's columns of K.
-      if constexpr (STAGED) {
-        fmma::mma_cx<kWarpBlocks, DO, DO>(acc, s, kt, p.dh - col0, k_blocks);
-      } else {
-        fmma::mma_cx<kWarpBlocks, DO, D>(acc, s, kt + col0, p.dh - col0,
-                                         k_blocks);
-      }
+      fmma::mma_cx<kWarpBlocks, DO, D>(acc, s, kt + col0, p.dh - col0,
+                                       k_blocks);
     }
     __syncthreads();  // this stage is consumed before it is refilled
   }
@@ -292,22 +254,21 @@ __global__ void __launch_bounds__(32 * fmma::kMaxWarps)
   }
 }
 
-template <typename T, int D, int KW, bool STAGED>
+template <typename T, int D, int KW>
 cudaError_t launch_split(const BwdParams& p, int bh, int groups,
                          cudaStream_t stream) {
   // Once per instance: the most shared memory any launch of it asks for.
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D, KW, STAGED>,
+      flash_bwd_dq_kernel<T, D, KW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem_bytes<T, D, KW, STAGED>(16 * fmma::max_warps<D>() / KW)));
+      int(smem_bytes<T, D, KW>(16 * fmma::max_warps<D>() / KW)));
   if (attr != cudaSuccess) return attr;
   constexpr int DO = fmma::out_cols<D>();
   const dim3 grid(unsigned(bh), unsigned((p.lq + 16 * groups - 1) / (16 * groups)),
                   unsigned((p.dh + DO - 1) / DO));
-  flash_bwd_dq_kernel<T, D, KW, STAGED><<<grid, 32 * KW * groups,
-                                          smem_bytes<T, D, KW, STAGED>(
-                                              16 * groups),
-                                          stream>>>(p);
+  flash_bwd_dq_kernel<T, D, KW><<<grid, 32 * KW * groups,
+                                  smem_bytes<T, D, KW>(16 * groups),
+                                  stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -315,13 +276,13 @@ cudaError_t launch_split(const BwdParams& p, int bh, int groups,
 // max_warps<D>()) as keep 128 CTAs; where even one group per CTA gives no
 // more CTAs than that (short sequences), max_warps<D>() warps split each
 // key tile of the one group.
-template <typename T, int D, bool STAGED = false>
+template <typename T, int D>
 cudaError_t launch(const BwdParams& p, int batch, cudaStream_t stream) {
   constexpr int kMost = fmma::max_warps<D>();
   const int bh = batch * p.heads;
   const int groups = fmma::pick_warps(bh, p.lq, kMost);
-  if (groups == 1) return launch_split<T, D, kMost, STAGED>(p, bh, 1, stream);
-  return launch_split<T, D, 1, STAGED>(p, bh, groups, stream);
+  if (groups == 1) return launch_split<T, D, kMost>(p, bh, 1, stream);
+  return launch_split<T, D, 1>(p, bh, groups, stream);
 }
 
 template <typename T>
@@ -332,7 +293,7 @@ cudaError_t launch_width(const BwdParams& p, int batch, cudaStream_t s) {
     case 64: return launch<T, 64>(p, batch, s);
     case 128: return launch<T, 128>(p, batch, s);
     case 256: return launch<T, 256>(p, batch, s);
-    default: return launch<T, 256, true>(p, batch, s);
+    default: return cudaErrorInvalidValue;  // the wide kernel's
   }
 }
 

@@ -25,7 +25,8 @@
 // 1), its columns of Q and dO and the tile's lse and D arriving by
 // cp.async into a two-stage ring. Per tile each warp hashes the tile's
 // dropout bits, forms its partial S^T over its columns of Dh and its
-// partial dP^T over its columns of Dv, and after one cluster barrier sums
+// partial dP^T over its columns of Dv in one walk (fwide::abt2, both
+// products' chains in flight), and after one cluster barrier sums
 // the C x G partials of both from the cluster's shared memory, the same
 // sums in every CTA; P^T and dS^T form in registers and their C fragments
 // are the A fragments of its own columns of dv and dk. So S^T and dP^T are
@@ -38,9 +39,9 @@
 // TB/s; the grid is 32 clusters of 4, 128 CTAs of 4 warps (110 KB of
 // shared memory in f32, two CTAs an SM), each warp running four query
 // tiles of 3xTF32 mma.sync, four exchanges and the exp and hash of its
-// 16 x 64 weights, latency-bound with one warp a scheduler (53.6 us in f32,
-// 28.3 in bf16, against SDPA's whole backward 114 and 124; an H100 at
-// 700 W; PERF.md).
+// 16 x 64 weights, latency-bound with one warp a scheduler (about half
+// SDPA's whole backward in f32 and a quarter in bf16 on an H100 at 700 W;
+// PERF.md has the times).
 
 #include <cfloat>
 #include <cstdint>
@@ -211,12 +212,8 @@ __global__ void __launch_bounds__(fwide::kThreads, 2)
 #pragma unroll
       for (int c = 0; c < 4; ++c) st[j][c] = dpt[j][c] = 0.f;
     }
-    if (depth > 0) {
-      fwide::abt<NB, SW>(st, sk + group * 16 * S + pc, qt, depth);
-    }
-    if (width > 0) {
-      fwide::abt<NB, SW>(dpt, sv + group * 16 * S + pc, dot, width);
-    }
+    fwide::abt2<NB, SW>(st, sk + group * 16 * S + pc, qt, dpt,
+                        sv + group * 16 * S + pc, dot, max(depth, width));
     if (it > 0) hop::cluster_wait();  // the last tile's partials are read
     fwide::put<NB>(spart + warp * kSlot, st);
     fwide::put<NB>(spart_dp + warp * kSlot, dpt);

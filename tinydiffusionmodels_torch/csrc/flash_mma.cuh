@@ -43,11 +43,7 @@ constexpr int kMinCtas = 128;  // the grid the host aims for (132 SMs)
 // each CTA owns at most kMaxOutCols output columns: a D 256 instance runs a
 // second CTA for columns 128-255, which recomputes the scores. Its tiles
 // are twice as wide, so it also takes at most half the warps (shared
-// memory). Past 256 the forward and the dk/dv kernel are the wide kernels
-// of flash_wide.cuh; the dq kernel's D 256 instance is staged: its
-// contractions walk the head width 256 columns at a time (mma_abt_staged),
-// and grid z takes the output columns 128 at a time, however many there
-// are.
+// memory). Past 256 all three are the wide kernels of flash_wide.cuh.
 constexpr int kMaxOutCols = 128;
 
 template <int D>
@@ -520,44 +516,6 @@ __device__ __forceinline__ void mma_ab(float (&acc)[NB][4],
       mma_bf16(acc[j], fa, fb[0], fb[1]);
       mma_bf16(acc[j + 1], fa, fb[2], fb[3]);
     }
-  }
-}
-
-// ---- head widths above 256 (the dq kernel) --------------------------------
-
-// Rows [r0, r0 + rows) of a row-major operand with row stride `ld`; rows at
-// or past `limit` read as zeros.
-template <typename T>
-struct Rows {
-  const T* base;
-  int64_t ld;
-  int r0, rows, limit;
-};
-
-// acc[j] += A B^T (as mma_abt) over `depth` columns of any width: A and B
-// are staged from device memory through the D-wide shared tiles sa and sb,
-// D columns at a time, and every chunk's products sum into the same
-// fragments. The warp's 16 rows of A are at row a_off of sa, its B rows at
-// b_off of sb. Every thread of the CTA calls it, since it copies and waits
-// at barriers; a warp with `active` false only copies. Copies issued before
-// the call join its first chunk's group, so they have landed on return.
-template <int NB, int D, typename T>
-__device__ __forceinline__ void mma_abt_staged(float (&acc)[NB][4], T* sa,
-                                               const Rows<T>& a, int a_off,
-                                               T* sb, const Rows<T>& b,
-                                               int b_off, int depth, int vec,
-                                               bool active) {
-  constexpr int S = stride<T, D>();
-  for (int c0 = 0; c0 < depth; c0 += D) {
-    __syncthreads();  // the previous chunk is consumed
-    load_tile<T, D>(sa, a.base + c0, a.ld, a.r0, a.rows, a.limit, depth - c0,
-                    vec);
-    load_tile<T, D>(sb, b.base + c0, b.ld, b.r0, b.rows, b.limit, depth - c0,
-                    vec);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (active) mma_abt<NB, D>(acc, sa + a_off * S, sb + b_off * S, depth - c0);
   }
 }
 

@@ -1,27 +1,30 @@
 // What the wide flash kernels share: the forward
-// (flash_attention_wide_fwd.cu) and the dk/dv kernel
+// (flash_attention_wide_fwd.cu), the dq kernel
+// (flash_attention_wide_bwd_dq.cu) and the dk/dv kernel
 // (flash_attention_wide_bwd_dkv.cu) at head widths whose max(Dh, Dv) is
 // above 256, where a warp's 16 rows of scores no longer come with all
 // their output columns in registers.
 //
 // The split. A (batch, head, row block) is one thread-block cluster of C
-// CTAs (3 to 8), and CTA r of it owns the columns [r W, r W + W) of the
+// CTAs (at most 8), and CTA r of it owns the columns [r W, r W + W) of the
 // head width, of Dh and of Dv alike (W = max(Dh, Dv) / C rounded up to 16).
-// It keeps its columns of the resident operand (Q in the forward, K and V
-// in dk/dv) in shared memory for the whole walk, and takes only its columns
-// of each streamed tile (K and V; Q and dO) through a two-stage cp.async
-// ring, so every operand byte is read once per row block. Per tile each
-// CTA forms the partial scores over its own columns, S_r = Q_r K_r^T (and
-// dP^T in dk/dv), puts them in its shared memory, and after one cluster
-// barrier every CTA sums all C partials through distributed shared memory
-// (ld.shared::cluster), in the same order, so every CTA holds the same S
-// and the same softmax. Then each CTA multiplies by its own columns of the
-// other operand (P V, or P^T dO and dS^T Q) and writes only those. S is
-// formed once per row block, not once per output slice.
+// It keeps its columns of the resident operand (Q in the forward, Q and
+// dO in dq, K and V in dk/dv) in shared memory for the whole walk, and
+// takes only its columns of each streamed tile (K and V; Q and dO) through
+// a two-stage cp.async ring, so every operand byte is read once per row
+// block. Per tile each CTA forms the partial scores over its own columns,
+// S_r = Q_r K_r^T (and dP in dq, dP^T in dk/dv), puts them in its shared
+// memory, and after one cluster barrier every CTA sums all C partials
+// through distributed shared memory (ld.shared::cluster), in the same
+// order, so every CTA holds the same S and the same softmax. Then each CTA
+// multiplies by its own columns of the other operand (P V, dS K, or P^T dO
+// and dS^T Q) and writes only those. S is formed once per row block, not
+// once per output slice.
 //
 // A CTA is four warps. Its W columns are G parts of at most 128 (G = 1, 2
 // or 4: one part while C of 8 cover the width, 1024 columns; two up to
-// 2048; four up to 4096, the widest a launch takes): warp w takes part
+// 2048; four up to 4096, the widest a launch takes; the dq kernel takes
+// at least two, its header says why): warp w takes part
 // w / (4 / G) of the columns for rows 16 (w % (4 / G)) .. + 16, so the
 // CTA's rows are 64 / G. Whatever G, a warp contracts over at most 128
 // columns and owns at most 128 output columns: 64 registers a thread an
@@ -59,12 +62,14 @@ struct Plan {
   int parts, cluster, slice;
 };
 
-// The plan for max(dh, dv) in [kMinWidth, kMaxWidth]; false outside.
-inline bool plan_for(int dh, int dv, Plan& plan) {
+// The plan for max(dh, dv) in [kMinWidth, kMaxWidth], with at least
+// `min_parts` (1, 2 or 4) parts a CTA; false outside.
+inline bool plan_for(int dh, int dv, Plan& plan, int min_parts = 1) {
   const int d = dh > dv ? dh : dv;
   if (d < kMinWidth || d > kMaxWidth) return false;
   const int n = (d + kPartCols - 1) / kPartCols;  // 128-column parts in all
-  const int g = n <= kMaxCluster ? 1 : n <= 2 * kMaxCluster ? 2 : 4;
+  int g = n <= kMaxCluster ? 1 : n <= 2 * kMaxCluster ? 2 : 4;
+  if (g < min_parts) g = min_parts;
   const int c = (d + g * kPartCols - 1) / (g * kPartCols);
   plan = {g, c, ((d + c - 1) / c + 15) / 16 * 16};
   return true;
@@ -185,6 +190,92 @@ __device__ __forceinline__ void abt(float (&acc)[NB][4],
                                     const __nv_bfloat16* a,
                                     const __nv_bfloat16* b, int depth) {
   fmma::mma_abt<NB, kPartCols, SW>(acc, a, b, depth);
+}
+
+// x[j] += XA XB^T and y[j] += YA YB^T, as abt, in one walk over the first
+// `depth` columns (the larger of the two products' depths: the tiles are
+// zero past each one's own), so that both products' chains are in flight
+// together; each sums in abt's order.
+template <int NB, int SW>
+__device__ __forceinline__ void abt2(float (&x)[NB][4], const float* xa,
+                                     const float* xb, float (&y)[NB][4],
+                                     const float* ya, const float* yb,
+                                     int depth) {
+  constexpr int S = fmma::stride<float, SW>();
+  float x_odd[NB][4] = {}, y_odd[NB][4] = {};
+#pragma unroll
+  for (int k0 = 0; k0 < kPartCols; k0 += 16) {
+    if (k0 >= depth) break;
+    const fmma::Split<4> xa0 = fmma::tf32_a<S>(xa, k0);
+    const fmma::Split<4> xa1 = fmma::tf32_a<S>(xa, k0 + 8);
+    const fmma::Split<4> ya0 = fmma::tf32_a<S>(ya, k0);
+    const fmma::Split<4> ya1 = fmma::tf32_a<S>(ya, k0 + 8);
+    fmma::Split<2> xb0[NB], xb1[NB], yb0[NB], yb1[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      xb0[j] = fmma::tf32_b_t<S>(xb, 8 * j, k0);
+      xb1[j] = fmma::tf32_b_t<S>(xb, 8 * j, k0 + 8);
+      yb0[j] = fmma::tf32_b_t<S>(yb, 8 * j, k0);
+      yb1[j] = fmma::tf32_b_t<S>(yb, 8 * j, k0 + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      fmma::mma_tf32(x[j], xa0.small, xb0[j].big);
+      fmma::mma_tf32(x_odd[j], xa1.small, xb1[j].big);
+      fmma::mma_tf32(y[j], ya0.small, yb0[j].big);
+      fmma::mma_tf32(y_odd[j], ya1.small, yb1[j].big);
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      fmma::mma_tf32(x[j], xa0.big, xb0[j].small);
+      fmma::mma_tf32(x_odd[j], xa1.big, xb1[j].small);
+      fmma::mma_tf32(y[j], ya0.big, yb0[j].small);
+      fmma::mma_tf32(y_odd[j], ya1.big, yb1[j].small);
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      fmma::mma_tf32(x[j], xa0.big, xb0[j].big);
+      fmma::mma_tf32(x_odd[j], xa1.big, xb1[j].big);
+      fmma::mma_tf32(y[j], ya0.big, yb0[j].big);
+      fmma::mma_tf32(y_odd[j], ya1.big, yb1[j].big);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      x[j][c] += x_odd[j][c];
+      y[j][c] += y_odd[j][c];
+    }
+  }
+}
+
+template <int NB, int SW>
+__device__ __forceinline__ void abt2(float (&x)[NB][4],
+                                     const __nv_bfloat16* xa,
+                                     const __nv_bfloat16* xb,
+                                     float (&y)[NB][4],
+                                     const __nv_bfloat16* ya,
+                                     const __nv_bfloat16* yb, int depth) {
+  constexpr int S = fmma::stride<__nv_bfloat16, SW>();
+  static_assert(NB % 2 == 0, "bf16 B fragments come in pairs of blocks");
+#pragma unroll
+  for (int k0 = 0; k0 < kPartCols; k0 += 16) {
+    if (k0 >= depth) break;
+    uint32_t fx[4], fy[4];
+    fmma::bf16_a<S>(fx, xa, k0);
+    fmma::bf16_a<S>(fy, ya, k0);
+#pragma unroll
+    for (int j = 0; j < NB; j += 2) {
+      uint32_t bx[4], by[4];
+      fmma::bf16_b_t<S>(bx, xb, 8 * j, k0);
+      fmma::bf16_b_t<S>(by, yb, 8 * j, k0);
+      fmma::mma_bf16(x[j], fx, bx[0], bx[1]);
+      fmma::mma_bf16(y[j], fy, by[0], by[1]);
+      fmma::mma_bf16(x[j + 1], fx, bx[2], bx[3]);
+      fmma::mma_bf16(y[j + 1], fy, by[2], by[3]);
+    }
+  }
 }
 
 // ---- epilogue -------------------------------------------------------------

@@ -12,8 +12,8 @@ own wrappers (``ops.flash_attention.forward``, ``backward_dq`` and
 hash takes, so no tree's ctypes signature is written here) on the same
 operands: the training shape (B 8, L 64, 4 heads on strided views of one
 QKV projection, dropout 0.1) at head widths 64 (the model's), 256 (the
-widest of the narrow instances) and 512 (the --embed_dim 2048 path's,
-where the trees' kernels may differ), f32 and bf16. It saves its
+widest of the narrow instances) and 512 (the --embed_dim 2048 path's:
+the wide forward, dq and dk/dv kernels), f32 and bf16. It saves its
 outputs and takes ``--readings`` ``perf.device_ms`` readings of each
 kernel (200 launches behind a sleep kernel). Every turn's outputs must be
 bit-equal to the first turn of its tree; between the trees the largest

@@ -68,6 +68,7 @@ COUNTERS = (
     (rng, "launches"),
     (flash_attention, "wide_launches"),
     (flash_attention, "wide_dkv_launches"),
+    (flash_attention, "wide_dq_launches"),
 )
 
 

@@ -9,7 +9,8 @@ pallas_kernels.py`` to hand-written CUDA C++ for Hopper, built from
   ``NARROW_WIDTH`` (256) and ``csrc/flash_attention_wide_fwd.cu`` above
   it (with ``flash_attention_fwd.cuh``, the parameters both share);
 - ``_flash_dq_kernel`` (recompute backward, dq) ->
-  ``csrc/flash_attention_bwd_dq.cu`` at every width (with
+  ``csrc/flash_attention_bwd_dq.cu`` up to 256 and
+  ``csrc/flash_attention_wide_bwd_dq.cu`` above (with
   ``flash_attention_bwd.cuh``, the parameters the backward kernels share);
 - ``_flash_dkv_kernel`` (recompute backward, dk and dv) ->
   ``csrc/flash_attention_bwd_dkv.cu`` up to 256 and
@@ -19,11 +20,11 @@ pallas_kernels.py`` to hand-written CUDA C++ for Hopper, built from
 
 All of them run their products on the tensor cores (``csrc/flash_mma.cuh``)
 and take every head width Dh and Dv from 1 up to ``WIDE_MAX_WIDTH`` (4096).
-Above 256 the dq kernel's D 256 instance walks the width in chunks, and
-the wide forward and dk/dv kernels split it over a thread-block cluster
-that forms the scores once (``csrc/flash_wide.cuh``). The routing is by
-width alone: ``forward`` and ``backward_dkv`` launch the wide kernel where
-max(Dh, Dv) > 256, each kernel with its own launch counter. The host
+Above 256 the wide forward, dq and dk/dv kernels split the width over a
+thread-block cluster that forms the scores once (``csrc/flash_wide.cuh``).
+The routing is by width alone: ``forward``, ``backward_dq`` and
+``backward_dkv`` launch the wide kernel where max(Dh, Dv) > 256, each
+kernel with its own launch counter. The host
 passes the widest copy the operands' addresses and strides allow
 (``vector_bytes``).
 The sources' headers say what bounds each kernel on the card and what its
@@ -61,13 +62,15 @@ from tinydiffusionmodels_torch.ops import _build, reference
 # incremented once per launch of its kernel and nowhere else; callers reset
 # them to 0 to count a run.
 launches = 0           # forward, max(Dh, Dv) <= NARROW_WIDTH
-dq_launches = 0        # backward, dq
+dq_launches = 0        # backward, dq, max(Dh, Dv) <= NARROW_WIDTH
 dkv_launches = 0       # backward, dk and dv, max(Dh, Dv) <= NARROW_WIDTH
 wide_launches = 0      # forward, max(Dh, Dv) > NARROW_WIDTH
+wide_dq_launches = 0   # backward, dq, max(Dh, Dv) > NARROW_WIDTH
 wide_dkv_launches = 0  # backward, dk and dv, max(Dh, Dv) > NARROW_WIDTH
 
-# The widest head the kernels of flash_attention_fwd.cu and
-# flash_attention_bwd_dkv.cu take; wider ones go to the wide kernels, up to
+# The widest head the kernels of flash_attention_fwd.cu,
+# flash_attention_bwd_dq.cu and flash_attention_bwd_dkv.cu take; wider ones
+# go to the wide kernels, up to
 # WIDE_MAX_WIDTH (eight CTAs of a cluster, four 128-column parts each).
 NARROW_WIDTH = 256
 WIDE_MAX_WIDTH = 4096
@@ -269,11 +272,12 @@ def forward(q, k, v, *, causal, layout, q_offset, k_offset, dropout_rate,
 
 
 def wide_attrs(kernel: str, dtype: torch.dtype, dh: int, dv: int) -> dict:
-    """The wide ``kernel``'s ('fwd' or 'dkv') instance for heads of these
-    widths, from the card: a thread's registers and spill bytes, the
+    """The wide ``kernel``'s ('fwd', 'dq' or 'dkv') instance for heads of
+    these widths, from the card: a thread's registers and spill bytes, the
     clusters the card holds at once, and the plan (parts a CTA, CTAs a
     cluster, columns a CTA)."""
     name = {"fwd": "tdm_flash_attention_wide_fwd_attrs",
+            "dq": "tdm_flash_attention_wide_bwd_dq_attrs",
             "dkv": "tdm_flash_attention_wide_bwd_dkv_attrs"}[kernel]
     out = (ctypes.c_int * 6)()
     err = _build.function(name, [_INT, _INT, _INT, ctypes.POINTER(_INT)])(
@@ -316,11 +320,17 @@ def _backward_call(name: str, q, k, v, g_out, lse, delta, grads, *, causal,
 
 
 def backward_dq(q, k, v, g_out, lse, delta, dq, **kw) -> None:
-    """One launch of the dq kernel: writes dq (the layout of q)."""
-    global dq_launches
-    _backward_call("tdm_flash_attention_bwd_dq", q, k, v, g_out, lse, delta,
-                   (dq, dq, dq), **kw)
-    dq_launches += 1
+    """One launch of the dq kernel: writes dq (the layout of q); the wide
+    kernel where ``is_wide``."""
+    global dq_launches, wide_dq_launches
+    if is_wide(q.shape[-1], v.shape[-1]):
+        _backward_call("tdm_flash_attention_wide_bwd_dq", q, k, v, g_out,
+                       lse, delta, (dq, dq, dq), **kw)
+        wide_dq_launches += 1
+    else:
+        _backward_call("tdm_flash_attention_bwd_dq", q, k, v, g_out, lse,
+                       delta, (dq, dq, dq), **kw)
+        dq_launches += 1
 
 
 def backward_dkv(q, k, v, g_out, lse, delta, dk, dv, **kw) -> None:

@@ -57,6 +57,7 @@ _KERNEL_RULES = (
     ("flash_bwd_dq_kernel", "flash dq"),
     ("flash_bwd_dkv_kernel", "flash dkv"),
     ("flash_wide_fwd_kernel", "flash fwd"),
+    ("flash_wide_dq_kernel", "flash dq"),
     ("flash_wide_dkv_kernel", "flash dkv"),
     ("single_block_", "single-block attention"),
     ("fused_resblock_kernel", "resblock"),
