@@ -36,6 +36,12 @@ launches that did not happen. ``Step`` takes them back and adds the
 capture's counts again on every replay, so the counters keep counting
 launches on the card.
 
+Spans (``runtime.span``, recorded only while a profiler runs): each
+replay is a ``tdm.graph.replay`` around its ``cudaGraphLaunch``, whose
+correlation id the replay's kernels carry in the trace; a capture (the
+prime, the capture, the instantiate) is ``tdm.graph.capture`` and an
+eager or warm-up call ``tdm.graph.eager``.
+
 Inspection: with ``Step.keep_graph`` set (the per-op table tool,
 ``xprof_ops``, sets it in its own process) a capture keeps its
 ``cudaGraph_t`` and ``kernel_nodes()`` counts the kernels it holds.
@@ -55,6 +61,7 @@ from tinydiffusionmodels_torch.ops import (
     rng,
     single_block,
 )
+from tinydiffusionmodels_torch.runtime import span
 
 # Every kernel launch counter of the port: (module, attribute).
 COUNTERS = (
@@ -117,14 +124,18 @@ class Step:
     def __call__(self) -> None:
         self.calls += 1
         if self.eager:
-            self.fn()
+            with span("tdm.graph.eager"):
+                self.fn()
         elif self.graph is None and self.calls <= self.warmup:
-            self._on_side_stream(self.fn)
+            with span("tdm.graph.eager"):
+                self._on_side_stream(self.fn)
         else:
             if self.graph is None:
-                self._capture()
-            self.graph.replay()
-            _add_counts(self.delta)
+                with span("tdm.graph.capture"):
+                    self._capture()
+            with span("tdm.graph.replay"):
+                self.graph.replay()
+                _add_counts(self.delta)
 
     def _on_side_stream(self, fn) -> None:
         if self.stream is None:

@@ -75,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--profile_dir", type=str, default=None,
-        help="capture a jax.profiler trace of the run to this directory",
+        help="capture a torch.profiler trace of the run to this directory",
     )
     parser.add_argument(
         "--metrics_path", type=str, default=None,

@@ -13,6 +13,10 @@ import contextlib
 import os
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# What ``span`` returns with no profiler running: one context, shared.
+_NO_SPAN = contextlib.nullcontext()
 
 
 def device() -> torch.device:
@@ -47,9 +51,9 @@ def profile_trace(logdir: str | None):
 
     Records CPU activity, and CUDA activity where torch sees a card (a
     graph's replay shows as its kernels). At the end it writes into
-    ``logdir`` the Chrome trace ``trace.json`` (chrome://tracing, Perfetto)
-    and ``ops.txt``, the per-op table sorted by device time (by CPU time
-    without a card)."""
+    ``logdir`` the Chrome trace ``trace.json`` (chrome://tracing, Perfetto),
+    which also holds the port's ``tdm.*`` spans (``span``), and ``ops.txt``,
+    the per-op table sorted by device time (by CPU time without a card)."""
     if not logdir:
         yield
         return
@@ -69,3 +73,16 @@ def profile_trace(logdir: str | None):
         f.write(prof.key_averages().table(sort_by=sort, row_limit=-1,
                                           max_name_column_width=120))
     print(f"[profile] wrote trace.json and ops.txt to {logdir}")
+
+
+def span(name: str):
+    """A named span of the port's timed path, on the profiler's clock:
+    ``torch.profiler.record_function(name)`` while a profiler runs
+    (``profile_trace``, or any ``torch.profiler.profile``), else a shared
+    context that does nothing. The check is one read of the flag torch's
+    profiler sets while it runs, since ``record_function`` costs
+    microseconds a span even with no profiler. ``name`` is a fixed
+    ``tdm.*`` string, so a trace can group the spans by it."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

@@ -34,6 +34,7 @@ from tinydiffusionmodels_torch import graphs, ops
 from tinydiffusionmodels_torch.core import rng
 from tinydiffusionmodels_torch.core.diffusion import ddim_step, p_sample
 from tinydiffusionmodels_torch.core.schedule import DiffusionSchedule
+from tinydiffusionmodels_torch.runtime import span
 
 DenoiseFn = Callable[..., torch.Tensor]
 NoiseFn = Callable[[int], torch.Tensor]
@@ -124,6 +125,10 @@ class Sampler:
                  noise_fn: NoiseFn | None = None) -> torch.Tensor:
         """Samples from ``x_T`` (default: ``normal(split(key)[0])``), each
         step's noise from ``noise_fn`` (eager only) or the key."""
+        with span("tdm.sample.batch"):
+            return self._sample(key, x_T, noise_fn)
+
+    def _sample(self, key, x_T, noise_fn) -> torch.Tensor:
         key = self.key if key is None else key
         if key is None and (
                 x_T is None or (self.draws_noise and noise_fn is None)):
@@ -137,17 +142,18 @@ class Sampler:
                 "call; pass eager=True to run the steps eagerly on the card"
             )
         with torch.inference_mode():
-            self.noise_fn = noise_fn
-            if key is not None:
-                init_key, loop_key = rng.split(rng.resolve(key))
-                self.loop_key.copy_(loop_key)
-            self.x.copy_(
-                ops.rng.normal(init_key.to(self.device), self.shape)
-                if x_T is None
-                else x_T.to(device=self.device, dtype=torch.float32))
-            if self.sc is not None:
-                self.sc.zero_()
-            self.i.zero_()
+            with span("tdm.sample.init"):
+                self.noise_fn = noise_fn
+                if key is not None:
+                    init_key, loop_key = rng.split(rng.resolve(key))
+                    self.loop_key.copy_(loop_key)
+                self.x.copy_(
+                    ops.rng.normal(init_key.to(self.device), self.shape)
+                    if x_T is None
+                    else x_T.to(device=self.device, dtype=torch.float32))
+                if self.sc is not None:
+                    self.sc.zero_()
+                self.i.zero_()
             for k, run in enumerate(self.schedule):
                 run(k)
             return self.x.clone()

@@ -28,6 +28,7 @@ from tinydiffusionmodels_torch.sample.guided import (
     GuidedDecoder,
     guided_generate_scan,
 )
+from tinydiffusionmodels_torch.runtime import span
 
 
 def make_denoiser(
@@ -133,13 +134,14 @@ def decode_embeddings(
     use_learned_rounding: bool,
 ) -> torch.Tensor:
     """Embeddings -> token ids by learned rounding or cosine similarity."""
-    return torch.argmax(
-        diffusion_position_logits(
-            x, rounding=rounding, embed_matrix=embed_matrix,
-            use_learned_rounding=use_learned_rounding,
-        ),
-        dim=-1,
-    )
+    with span("tdm.sample.decode"):
+        return torch.argmax(
+            diffusion_position_logits(
+                x, rounding=rounding, embed_matrix=embed_matrix,
+                use_learned_rounding=use_learned_rounding,
+            ),
+            dim=-1,
+        )
 
 
 def diffusion_position_logits(

@@ -18,6 +18,10 @@ losses the step writes. Each kind of step is
 a ``graphs.Step``: on the card it is captured once and replayed, so a
 chunk is K graph launches and one read; on the CPU it runs eagerly, with
 the learning rate set on the host as ``LambdaLR`` sets it.
+
+Spans (``runtime.span``, while a profiler runs): ``tdm.train.chunk``
+around a chunk, its ``tdm.train.read`` inside, and ``tdm.train.epoch``
+around an epoch's uploads (``start``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from tinydiffusionmodels_torch import graphs
+from tinydiffusionmodels_torch.runtime import span
 
 # Eager steps of each kind on a side stream before its capture.
 WARMUP = 2
@@ -92,18 +97,19 @@ class EpochSteps:
     def start(self, order: np.ndarray, first_step: int = 0) -> None:
         """A new epoch: its (steps, batch) batch order and, with ``lr_at``,
         the learning rates of its global steps from ``first_step``."""
-        n = len(order)
-        self.order[:n].copy_(torch.as_tensor(np.asarray(order)))
-        self.counters.copy_(torch.tensor([0, first_step]))
-        self.first_step = first_step
-        self.done = 0
-        if self.lr_at is not None:
-            # Python floats, as LambdaLR computes them.
-            self.lr_values = [self.lr_at(first_step + i)
-                              for i in range(self.order.shape[0])]
-            if self.device_lr:
-                self.lrs.copy_(torch.tensor(self.lr_values,
-                                            dtype=torch.float32))
+        with span("tdm.train.epoch"):
+            n = len(order)
+            self.order[:n].copy_(torch.as_tensor(np.asarray(order)))
+            self.counters.copy_(torch.tensor([0, first_step]))
+            self.first_step = first_step
+            self.done = 0
+            if self.lr_at is not None:
+                # Python floats, as LambdaLR computes them.
+                self.lr_values = [self.lr_at(first_step + i)
+                                  for i in range(self.order.shape[0])]
+                if self.device_lr:
+                    self.lrs.copy_(torch.tensor(self.lr_values,
+                                                dtype=torch.float32))
 
     # --- inside a step -----------------------------------------------------
 
@@ -134,10 +140,12 @@ class EpochSteps:
         if first + len(variants) > self.order.shape[0]:
             raise ValueError(f"{len(variants)} more steps run past the "
                              f"epoch's {self.order.shape[0]} (at {first})")
-        for i, variant in enumerate(variants):
-            if self.lr_at is not None and not self.device_lr:
-                for group in self.optimizer.param_groups:
-                    group["lr"] = self.lr_values[first + i]
-            self.kinds[variant]()
-        self.done = first + len(variants)
-        return self.losses[first:self.done].cpu().numpy()
+        with span("tdm.train.chunk"):
+            for i, variant in enumerate(variants):
+                if self.lr_at is not None and not self.device_lr:
+                    for group in self.optimizer.param_groups:
+                        group["lr"] = self.lr_values[first + i]
+                self.kinds[variant]()
+            self.done = first + len(variants)
+            with span("tdm.train.read"):
+                return self.losses[first:self.done].cpu().numpy()
